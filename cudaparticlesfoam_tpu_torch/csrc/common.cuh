@@ -1,0 +1,81 @@
+// Shared device helpers of the particle stepper kernels (stream.cu, rare.cu).
+//
+// Layout (ops/fused.py): the mega state is row-major [n, 32] (128 B per lane
+// in float32): 0:3 pos | 3:6 vel | 6 tet (exact float integer) | 7 active |
+// 8:28 cached tet row | 28:32 pad.  A tet row [20] is A 0:3 | Tinv 3:12
+// (row-major) | u 12:15 | neighbour codes 15:19 | escape mask 19.
+//
+// Every expression keeps the association order of the plain PyTorch
+// version in ops/fused.py (which copies cudaparticlesfoam_tpu/ops/fused.py);
+// the library is built with --fmad=false, so no multiply-add is contracted
+// and a kernel agrees with its plain version op for op.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cpf {
+
+constexpr int P0 = 0, V0 = 3, TET = 6, ACT = 7, ROW = 8, WIDTH = 32;
+constexpr int ROW_W = 20, VEL = 12, NBR = 15, ESC = 19;
+constexpr int MAX_HOPS_DEFAULT = 50;  // RTQuery.cu:42 (the re-walk bound)
+constexpr int THREADS = 256;
+
+template <typename T>
+__device__ __forceinline__ void load_row(const T* __restrict__ src, T* row) {
+#pragma unroll
+  for (int k = 0; k < ROW_W; ++k) row[k] = src[k];
+}
+
+// Barycentric weights of (px,py,pz) in a cached row (fused._bary4_rows).
+template <typename T>
+__device__ __forceinline__ void bary(const T* r, T px, T py, T pz, T w[4]) {
+  const T rx = px - r[0];
+  const T ry = py - r[1];
+  const T rz = pz - r[2];
+  const T wb = r[3] * rx + r[4] * ry + r[5] * rz;
+  const T wc = r[6] * rx + r[7] * ry + r[8] * rz;
+  const T wd = r[9] * rx + r[10] * ry + r[11] * rz;
+  w[0] = T(1) - wb - wc - wd;
+  w[1] = wb;
+  w[2] = wc;
+  w[3] = wd;
+}
+
+// First-minimum argmin with a strict '<' (fused._argmin4).
+template <typename T>
+__device__ __forceinline__ int argmin4(const T w[4], T* best) {
+  int slot = 0;
+  T b = w[0];
+#pragma unroll
+  for (int i = 1; i < 4; ++i) {
+    if (w[i] < b) {
+      b = w[i];
+      slot = i;
+    }
+  }
+  *best = b;
+  return slot;
+}
+
+template <typename T>
+__device__ __forceinline__ int code_of(const T* row, int slot) {
+  return static_cast<int>(row[NBR + slot]);
+}
+
+// Gradient of barycentric component `slot` (fused._grad_rows): row
+// (slot-1) of Tinv, or -(sum of the three rows) for slot 0.
+template <typename T>
+__device__ __forceinline__ void grad(const T* r, int slot, T* gx, T* gy, T* gz) {
+  T g[3];
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {
+    g[o] = slot == 0 ? -(r[3 + o] + r[6 + o] + r[9 + o])
+                     : r[3 * slot + o];
+  }
+  *gx = g[0];
+  *gy = g[1];
+  *gz = g[2];
+}
+
+}  // namespace cpf

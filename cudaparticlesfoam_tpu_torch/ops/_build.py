@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/*.cu`` is compiled at first use by ``nvcc`` into one shared library
+with a plain C interface, which is loaded with ``ctypes``:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -std=c++17
+         -shared -Xcompiler -fPIC -o <lib> csrc/*.cu
+
+``--fmad=false`` (and no ``--use_fast_math``) keeps every kernel op for op
+equal to its plain PyTorch version: no multiply-add contraction.  The
+library lands in ``<repo>/build/torch_kernels/`` under a name that carries
+a hash of the sources and flags, so an edited source or flag rebuilds.
+There is no fallback: a missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+DEFAULT_CUDA_HOME = "/usr/local/cuda"
+FLAGS = (ARCH, "-O3", "--fmad=false", "-std=c++17", "-shared",
+         "-Xcompiler", "-fPIC", "-lineinfo")
+
+_LIB: dict = {}          # loaded library (one per process) + build seconds
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: $PATH, then $CUDA_HOME/bin, then /usr/local/cuda/bin."""
+    cands = [shutil.which("nvcc")]
+    for home in (os.environ.get("CUDA_HOME"), DEFAULT_CUDA_HOME):
+        if home:
+            cands.append(os.path.join(home, "bin", "nvcc"))
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (searched $PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+        "the port's CUDA kernels are built from csrc/*.cu at first use and "
+        "need the CUDA toolkit"
+    )
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + fh.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels if the hashed library is missing; returns its
+    path.  Writes to a temporary name first, so a cut build leaves
+    nothing that looks finished."""
+    lib = os.path.join(BUILD_DIR, f"libcpf_kernels_{_digest()}.so")
+    if os.path.exists(lib):
+        return lib
+    nvcc = find_nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [nvcc, *FLAGS, "-I", CSRC, "-o", tmp, *sources()]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
+        )
+    os.replace(tmp, lib)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call) with every entry
+    point's argtypes/restype declared."""
+    if "lib" in _LIB:
+        return _LIB["lib"]
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(build())
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for suffix, fl in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        fn = getattr(lib, f"cpf_stream_{suffix}")
+        fn.argtypes = [vp, vp, vp, vp, ll, fl, fl, i, i, i, i, i, vp]
+        fn.restype = i
+        fn = getattr(lib, f"cpf_rare_{suffix}")
+        fn.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, vp]
+        fn.restype = i
+    lib.cpf_error_string.argtypes = [i]
+    lib.cpf_error_string.restype = ctypes.c_char_p
+    _LIB["lib"] = lib
+    _LIB["seconds"] = time.perf_counter() - t0
+    return lib
+
+
+def build_seconds() -> float:
+    """Seconds the first :func:`library` call took (build + load)."""
+    library()
+    return _LIB["seconds"]
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry returned a non-zero ``cudaError_t``."""
+    if err:
+        msg = lib.cpf_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: cuda error {err} ({msg})")

@@ -1,0 +1,386 @@
+"""Row-cached fused sub-step (port of ``cudaparticlesfoam_tpu/ops/fused.py``,
+TetVelocity layout).
+
+All per-particle data lives in ONE row-major ``[n, 32]`` mega array
+(128 B per lane): 0:3 pos | 3:6 vel | 6 tet (exact float integer) |
+7 active | 8:28 the lane's cached tet row (``mesh.tet_row``) | 28:32 pad.
+
+One cycle is two kernels (``ops/fused_cuda.py``):
+
+1. **stream** (K1 + K2): advect, Brownian kick, tentative move, hop-0
+   barycentric test on the cached row, up to ``inline_hops`` face hops
+   (each mover loads its neighbour's row), then the inline single bounce
+   or an absorb through the row's escape mask.  Lanes still unresolved
+   (deeper walkers, multi-bounce wall hits) get a pending flag.
+2. **rare** (K7): each pending lane runs the bounded walk and the
+   multi-bounce specular reflection (``baryTetSearch`` + ``RTreflection``,
+   ``RTQuery.cu:35-186``).  The JAX package compacts pending lanes into
+   blocks first; that only affects speed (each pending lane is resolved
+   exactly once), so the port runs the kernel over all lanes and returns
+   early where the flag is 0.
+
+:func:`stream_plain` and :func:`rare_plain` are the plain PyTorch versions
+of the two kernels.  They copy ``fused._mega_cycle_aligned``
+(``fused.py:616-790``) and ``_make_run_lanes`` / ``_walk_mega`` /
+``_reflect_mega`` expression for expression (same association order,
+first-minimum argmin with strict '<', the masked reciprocal of the inline
+bounce), so on the CPU they are what the tests compare with the JAX
+package, and on the card what the kernels are compared with.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..dtypes import numpy_float
+from ..mesh import TetMesh
+from .locate import MAX_HOPS
+
+# mega-row column offsets
+P0, V0, TET, ACT, ROW = 0, 3, 6, 7, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Row-table geometry for one interpolation mode."""
+
+    row_w: int    # table row width
+    width: int    # mega-row width
+    vel: int      # row-offset of the velocity payload
+    nbr: int      # row-offset of the 4 neighbour codes
+
+
+LAYOUT_TET = Layout(row_w=20, width=32, vel=12, nbr=15)
+ESC = 19   # row column of the 4-bit escape mask
+
+
+def pack_state(mesh: TetMesh, pos, vel, tet_id, active) -> torch.Tensor:
+    """Build the [n, 32] mega array (one row-table gather for the cache)."""
+    n = pos.shape[0]
+    m = torch.zeros((n, LAYOUT_TET.width), dtype=pos.dtype, device=pos.device)
+    m[:, P0 : P0 + 3] = pos
+    m[:, V0 : V0 + 3] = vel
+    m[:, TET] = tet_id.to(pos.dtype)
+    m[:, ACT] = active.to(pos.dtype)
+    m[:, ROW : ROW + LAYOUT_TET.row_w] = mesh.tet_row[tet_id.long().clamp(min=0)]
+    return m
+
+
+def unpack_state(m: torch.Tensor):
+    """(pos, vel, tet_id int32, active bool) views/copies of the mega."""
+    return m[:, P0 : P0 + 3], m[:, V0 : V0 + 3], m[:, TET].to(torch.int32), m[:, ACT] > 0.5
+
+
+def _brownian_noise(seed: int, step: int, n: int, dtype, device) -> torch.Tensor:
+    """Per-cycle standard-normal noise [n, 3] from a ``torch.Generator`` on
+    ``device`` seeded from (seed, step): one stream per sub-step, like the
+    JAX package's ``fold_in(key, step)`` counter.  The bits differ from
+    JAX's threefry stream (and between CPU and CUDA generators); parity
+    tests inject their noise instead."""
+    g = torch.Generator(device=device)
+    g.manual_seed(((int(seed) << 32) + int(step)) % (1 << 63))
+    return torch.randn((n, 3), generator=g, dtype=dtype, device=device)
+
+
+def scalars(cfg, dt, dtype) -> tuple[float, float]:
+    """(dt, sigma) rounded to the state dtype as the JAX package forms
+    them: dt cast first, sigma = sqrt(T(2 D) * T(dt)) in T."""
+    nt = numpy_float(dtype)
+    dt_t = np.asarray(dt, nt)
+    sigma = np.sqrt(np.asarray(2.0 * cfg.diffusion_coeff, nt) * dt_t)
+    return float(dt_t), float(sigma)
+
+
+# ---------------------------------------------------------------------------
+# column helpers (same expressions as fused.py)
+# ---------------------------------------------------------------------------
+
+
+def _bary(rows, px, py, pz):
+    """Barycentric components against [n, 20] rows (A 0:3, Tinv 3:12)."""
+    rx = px - rows[:, 0]
+    ry = py - rows[:, 1]
+    rz = pz - rows[:, 2]
+    wb = rows[:, 3] * rx + rows[:, 4] * ry + rows[:, 5] * rz
+    wc = rows[:, 6] * rx + rows[:, 7] * ry + rows[:, 8] * rz
+    wd = rows[:, 9] * rx + rows[:, 10] * ry + rows[:, 11] * rz
+    wa = 1.0 - wb - wc - wd
+    return wa, wb, wc, wd
+
+
+def _argmin4(wa, wb, wc, wd):
+    """First-minimum argmin (owl arg_min scan semantics: strict '<')."""
+    best = wa
+    slot = torch.zeros(wa.shape, dtype=torch.int64, device=wa.device)
+    for i, w in ((1, wb), (2, wc), (3, wd)):
+        upd = w < best
+        best = torch.where(upd, w, best)
+        slot = torch.where(upd, torch.full_like(slot, i), slot)
+    return slot, best
+
+
+def _pick(cols, slot):
+    """cols[:, slot] per lane (cols [n, 4])."""
+    return cols.gather(1, slot[:, None])[:, 0]
+
+
+def _pick4(w4, slot):
+    return _pick(torch.stack(w4, dim=1), slot)
+
+
+def _codes(rows, slot):
+    """Neighbour code of ``slot`` as int64 (exact float integers)."""
+    nb = LAYOUT_TET.nbr
+    return _pick(rows[:, nb : nb + 4], slot).to(torch.int64)
+
+
+def _grad(rows, slot):
+    """Gradient of barycentric component ``slot``: row (slot-1) of Tinv,
+    or -(sum of rows) for slot 0."""
+    def comp(o):
+        g0 = -(rows[:, 3 + o] + rows[:, 6 + o] + rows[:, 9 + o])
+        return _pick(torch.stack([g0, rows[:, 3 + o], rows[:, 6 + o],
+                                  rows[:, 9 + o]], dim=1), slot)
+
+    return comp(0), comp(1), comp(2)
+
+
+# ---------------------------------------------------------------------------
+# K1 + K2: the stream (plain version of csrc/stream.cu)
+# ---------------------------------------------------------------------------
+
+
+def stream_plain(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
+                 bounce_on, esc_on, n_hops):
+    """Plain version of ``stream_kernel``: updates ``m`` [n, 32] in place
+    and writes ``pending`` [n] uint8.  ``dt``/``sigma`` are already rounded
+    to m's dtype (:func:`scalars`); ``xi`` [n, 3] is read iff use_brown."""
+    T, dev = m.dtype, m.device
+    dt = torch.tensor(dt, dtype=T, device=dev)
+    sigma = torch.tensor(sigma, dtype=T, device=dev)
+    rw = LAYOUT_TET.row_w
+    RV = ROW + LAYOUT_TET.vel
+
+    tet = m[:, TET].to(torch.int64)
+    act = m[:, ACT] > 0.5
+    alive = (act & (tet >= 0)) if use_adv else act
+    alf = alive.to(T)
+    ux, uy, uz = m[:, RV], m[:, RV + 1], m[:, RV + 2]
+    if use_adv:
+        dx, dy, dz = alf * ux * dt, alf * uy * dt, alf * uz * dt
+        # advected velocity into vel columns (particles.cu:361)
+        vx = torch.where(alive, ux, m[:, V0])
+        vy = torch.where(alive, uy, m[:, V0 + 1])
+        vz = torch.where(alive, uz, m[:, V0 + 2])
+    else:
+        dx = dy = dz = torch.zeros_like(ux)
+        vx, vy, vz = m[:, V0], m[:, V0 + 1], m[:, V0 + 2]
+    if use_brown:
+        dx = dx + alf * sigma * xi[:, 0]
+        dy = dy + alf * sigma * xi[:, 1]
+        dz = dz + alf * sigma * xi[:, 2]
+    # advect kill (particles.cu:333-338)
+    actf = alf if use_adv else m[:, ACT]
+
+    px = m[:, P0] + dx
+    py = m[:, P0 + 1] + dy
+    pz = m[:, P0 + 2] + dz
+
+    cur_rows = m[:, ROW : ROW + rw]
+    bw = _bary(cur_rows, px, py, pz)
+    s_cur, wmin = _argmin4(*bw)
+    unresolved = (wmin < 0.0) & (tet >= 0)
+    cur_tet = tet
+    wall = torch.zeros_like(unresolved)
+    wall_slot = torch.zeros_like(s_cur)
+
+    # inline hops: each mover takes its neighbour's row
+    for _ in range(n_hops):
+        code = _codes(cur_rows, s_cur)
+        mv = unresolved & (code >= 0)
+        new_wall = unresolved & (code < 0)
+        wall_slot = torch.where(new_wall, s_cur, wall_slot)
+        wall = wall | new_wall
+        idx = torch.where(mv, code, cur_tet.clamp(min=0))
+        cur_rows = torch.where(mv[:, None], tab[idx], cur_rows)
+        cur_tet = torch.where(mv, code, cur_tet)
+        bw = _bary(cur_rows, px, py, pz)
+        s_cur, wmin_h = _argmin4(*bw)
+        unresolved = mv & (wmin_h < 0.0)
+
+    # inline single bounce (RTreflection bounce 1, RTQuery.cu:92-186) on
+    # the last hop's barycentric weights, or absorb through the mask
+    if n_hops and bounce_on:
+        refl = wall
+        esc = torch.zeros_like(wall)
+        if esc_on:
+            code_w = _codes(cur_rows, wall_slot)
+            escm = cur_rows[:, ESC].to(torch.int64)
+            esc = wall & (code_w < 0) & (((escm >> wall_slot) & 1) > 0)
+            refl = wall & ~esc
+        rf = refl.to(T)
+        gx, gy, gz = _grad(cur_rows, wall_slot)
+        wv = _pick4(bw, wall_slot)
+        gg = gx * gx + gy * gy + gz * gz
+        # rf-masked reciprocal: a bare 1/gg would poison dead lanes with NaN
+        inv_g2 = rf / (gg + (1.0 - rf))
+        f = 2.0 * wv * inv_g2
+        px = px - f * gx
+        py = py - f * gy
+        pz = pz - f * gz
+        fu = 2.0 * (vx * gx + vy * gy + vz * gz) * inv_g2
+        vx = vx - fu * gx
+        vy = vy - fu * gy
+        vz = vz - fu * gz
+        wa2, wb2, wc2, wd2 = _bary(cur_rows, px, py, pz)
+        wmin2 = torch.minimum(torch.minimum(wa2, wb2), torch.minimum(wc2, wd2))
+        wall = refl & ~(refl & (wmin2 >= 0.0))
+        tet1 = torch.where(esc, -(cur_tet + 1), cur_tet)
+        actf = torch.where(esc, torch.zeros_like(actf), actf)
+    else:
+        tet1 = cur_tet
+
+    pad = torch.zeros((m.shape[0], LAYOUT_TET.width - ROW - rw), dtype=T, device=dev)
+    head = torch.stack([px, py, pz, vx, vy, vz, tet1.to(T), actf], dim=1)
+    m.copy_(torch.cat([head, cur_rows, pad], dim=1))
+    pending.copy_(unresolved | wall)
+
+
+# ---------------------------------------------------------------------------
+# K7: the rare stage (plain version of csrc/rare.cu)
+# ---------------------------------------------------------------------------
+
+
+def _walk(tab, rows, tet0, px, py, pz, act, max_hops):
+    """``_walk_mega``: baryTetSearch from the cached rows toward (px,py,pz).
+    Runs max(2, max_hops) hops at most (the JAX package unrolls two hops
+    before its bounded loop).  Returns (rows of the last non-negative tet,
+    code = hosting tet or -(lastTet+1) or the last tet when out of hops,
+    slot = last crossed face)."""
+    tet = tet0.clone()
+    done = (tet0 < 0) | ~act
+    slot = torch.zeros_like(tet0)
+    for _ in range(max(2, max_hops)):
+        if bool(done.all()):
+            break
+        s, wmin = _argmin4(*_bary(rows, px, py, pz))
+        inside = wmin >= 0.0
+        stepping = ~done & ~inside
+        code = _codes(rows, s)
+        out = stepping & (code < 0)
+        tet = torch.where(stepping, torch.where(out, -(tet + 1), code), tet)
+        slot = torch.where(stepping, s, slot)
+        moved = stepping & (code >= 0)
+        rows = torch.where(moved[:, None], tab[torch.where(moved, code, 0)], rows)
+        done = done | inside | out
+    return rows, tet, slot
+
+
+def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces):
+    """``_reflect_mega``: mirror across the exit face of the cached exit-tet
+    row, re-walk (default MAX_HOPS, not cfg.max_hops), repeat up to
+    ``max_bounces``; absorbing faces (``bd_escape``) deactivate the lane
+    with tet = -(tet+1).  A lane out of bounces keeps its non-negative
+    exit tet."""
+    vx, vy, vz = vel[:, 0], vel[:, 1], vel[:, 2]
+    hit = code < 0
+    tet = torch.where(hit, -(code + 1), code)
+    settled = ~hit
+    s = slot
+    nbd = bd_escape.shape[0]
+    for _ in range(max_bounces):
+        if bool(settled.all()):
+            break
+        refl = ~settled
+        code_nbr = _codes(rows, s)
+        if nbd:
+            bd = (-code_nbr - 1).clamp(0, nbd - 1)
+            esc = refl & (code_nbr < 0) & bd_escape[bd]
+        else:
+            esc = torch.zeros_like(refl)
+        tet = torch.where(esc, -(tet + 1), tet)
+        settled = settled | esc
+        refl = refl & ~esc
+        gx, gy, gz = _grad(rows, s)
+        wv = _pick4(_bary(rows, px, py, pz), s)
+        inv_g2 = 1.0 / (gx * gx + gy * gy + gz * gz)
+        f = 2.0 * wv * inv_g2
+        px = torch.where(refl, px - f * gx, px)
+        py = torch.where(refl, py - f * gy, py)
+        pz = torch.where(refl, pz - f * gz, pz)
+        ug = vx * gx + vy * gy + vz * gz
+        fu = 2.0 * ug * inv_g2
+        vx = torch.where(refl, vx - fu * gx, vx)
+        vy = torch.where(refl, vy - fu * gy, vy)
+        vz = torch.where(refl, vz - fu * gz, vz)
+        rows_w, wtet, wslot = _walk(tab, rows, tet.clamp(min=0), px, py, pz,
+                                    refl, MAX_HOPS)
+        in_dom = wtet >= 0
+        newly = refl & in_dom
+        tet = torch.where(newly, wtet, torch.where(refl, -(wtet + 1), tet))
+        s = torch.where(refl & ~in_dom, wslot, s)
+        rows = torch.where(refl[:, None], rows_w, rows)
+        settled = settled | newly
+    return rows, torch.stack([vx, vy, vz], dim=1), px, py, pz, tet
+
+
+def rare_plain(tab, m, pending, bd_escape, *, max_hops, max_bounces,
+               reflect_wall):
+    """Plain version of ``rare_kernel``: resolve every lane whose
+    ``pending`` flag is set (walk, then reflect), updating ``m`` in place:
+    pos, vel, tet and the row cache; the active column is left as is (a
+    lane that left the domain is killed by the next cycle's advect)."""
+    idx = pending.nonzero()[:, 0]
+    if idx.numel() == 0:
+        return
+    mc = m[idx]
+    rw = LAYOUT_TET.row_w
+    qx, qy, qz = mc[:, P0], mc[:, P0 + 1], mc[:, P0 + 2]
+    act = torch.ones(idx.shape[0], dtype=torch.bool, device=m.device)
+    rows, code, slot = _walk(tab, mc[:, ROW : ROW + rw], mc[:, TET].to(torch.int64),
+                             qx, qy, qz, act, max_hops)
+    vel = mc[:, V0 : V0 + 3]
+    if reflect_wall:
+        rows, vel, qx, qy, qz, code = _reflect(
+            tab, rows, vel, qx, qy, qz, code, slot, bd_escape, max_bounces)
+    out = torch.cat([torch.stack([qx, qy, qz], dim=1), vel,
+                     code.to(m.dtype)[:, None], mc[:, ACT : ACT + 1], rows,
+                     mc[:, ROW + rw :]], dim=1)
+    m[idx] = out
+
+
+# ---------------------------------------------------------------------------
+# one cycle
+# ---------------------------------------------------------------------------
+
+
+def mega_cycle(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
+               pending=None) -> torch.Tensor:
+    """One sub-step over the mega state, in place: stream kernel, then the
+    rare kernel over the pending lanes.  ``noise`` [n, 3] replaces the
+    per-step generator draw (parity replays); ``pending`` is optional
+    [n] uint8 scratch."""
+    from . import fused_cuda
+
+    n = m.shape[0]
+    if pending is None:
+        pending = torch.empty(n, dtype=torch.uint8, device=m.device)
+    xi = None
+    if cfg.use_brownian:
+        xi = noise if noise is not None else _brownian_noise(
+            seed, step, n, m.dtype, m.device)
+    dt_t, sigma = scalars(cfg, dt, m.dtype)
+    fused_cuda.stream_cycle(
+        mesh.tet_row, m, xi, pending, dt=dt_t, sigma=sigma,
+        use_adv=cfg.use_advection, use_brown=cfg.use_brownian,
+        bounce_on=cfg.reflect_wall and cfg.inline_bounce,
+        esc_on=cfg.escape_faces, n_hops=cfg.inline_hops,
+    )
+    fused_cuda.rare_resolve(
+        mesh.tet_row, m, pending, mesh.bd_escape, max_hops=cfg.max_hops,
+        max_bounces=cfg.max_bounces, reflect_wall=cfg.reflect_wall,
+    )
+    return m

@@ -1,0 +1,203 @@
+"""The fused particle stepper (port of ``cudaparticlesfoam_tpu/stepper.py``,
+cached engine).
+
+``run_cycles`` packs the state into the [n, 32] mega array once, runs
+``n_cycles`` sub-steps of :func:`ops.fused.mega_cycle` (two kernels each
+on CUDA: stream + rare), and unpacks.  PyTorch runs eagerly, so the loop is
+a Python loop of asynchronous launches with no host sync inside.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from .mesh import TetMesh
+from .ops import advect as advect_ops
+from .ops import fused
+from .ops import locate as locate_ops
+from .state import ParticleState
+
+
+@dataclasses.dataclass(frozen=True)
+class StepConfig:
+    """Per-run knobs, every field of the JAX package's ``StepConfig`` with
+    the same defaults and validation.  Settings whose kernels are not
+    ported yet raise ``NotImplementedError`` at :func:`run_cycles` (see
+    :func:`check_ported`)."""
+
+    dt: float = 1e-4
+    diffusion_coeff: float = 5.7e-6
+    use_advection: bool = True            # usingAdvection
+    use_brownian: bool = True             # usingBrownianMotion
+    reflect_wall: bool = True             # reflectWall
+    velocity_interp: str = advect_ops.TET_VELOCITY
+    max_hops: int = locate_ops.MAX_HOPS   # RTQuery.cu:42
+    max_bounces: int = 10                 # RTQuery.cu:131
+    engine: str = "auto"
+    # rare-stage round buffer and arena fractions: the kernels need no
+    # compaction, so these have no effect in the port (accepted so that a
+    # JAX configuration carries over unchanged)
+    walk_capacity_frac: float = 0.125
+    arena_lane_frac: float = 0.25
+    locate_mode: str = "bary"
+    integrator: str = "euler"
+    # noise drawn outside the kernel, one stream per (seed, step); the port
+    # keeps the JAX name of that mode
+    brownian_rng: str = "threefry"
+    inline_hops: int = 1
+    inline_bounce: bool = True
+    cycle_chunks: int = 1
+    hop_compact: int = 0
+    hop_compact_frac: float = 0.5
+    macro_cycles: int = 1
+    escape_faces: bool = False
+    engine_impl: str = "auto"
+    convex_bary_fix: bool = True
+
+    def __post_init__(self):
+        if self.hop_compact not in (0, 4):
+            raise ValueError(
+                f"hop_compact must be 0 (off) or 4 (4-lane groups), got "
+                f"{self.hop_compact!r} — other group widths are not "
+                f"implemented (the packed carry holds 4 lanes per row)"
+            )
+        if not 1 <= self.macro_cycles <= 8:
+            raise ValueError(
+                f"macro_cycles must be in 1..8 (phases ride f32 head rows"
+                f" and trips are unrolled), got {self.macro_cycles!r}"
+            )
+
+
+def check_ported(cfg: StepConfig) -> None:
+    """Raise ``NotImplementedError`` for a setting whose kernels the port
+    does not have yet (naming its ROADMAP item), and ``ValueError`` for
+    values the kernels cannot take."""
+    todo = []
+    if cfg.engine == "simple":
+        todo.append("engine='simple' (the simple engine; ROADMAP queue 1 item 3)")
+    elif cfg.engine not in ("auto", "cached"):
+        raise ValueError(f"unknown engine {cfg.engine!r}")
+    if cfg.locate_mode == "convex":
+        todo.append("locate_mode='convex' (K5, ROADMAP queue 1 item 8)")
+    if cfg.integrator == "rk4":
+        todo.append("integrator='rk4' (_stage_velocity, ROADMAP queue 1 item 7)")
+    if cfg.velocity_interp != advect_ops.TET_VELOCITY:
+        todo.append(f"velocity_interp={cfg.velocity_interp!r} "
+                    "(LAYOUT_PK, ROADMAP queue 1 item 7)")
+    if cfg.hop_compact == 4:
+        todo.append("hop_compact=4 (K3, ROADMAP queue 1 item 9)")
+    if cfg.macro_cycles > 1:
+        todo.append("macro_cycles>1 (K4, ROADMAP queue 1 item 9)")
+    if cfg.brownian_rng != "threefry":
+        todo.append(f"brownian_rng={cfg.brownian_rng!r} "
+                    "(in-kernel noise, K6, ROADMAP queue 1 item 9)")
+    if cfg.cycle_chunks > 1:
+        todo.append("cycle_chunks>1 (ROADMAP queue 1 item 9)")
+    if cfg.engine_impl != "auto":
+        todo.append(f"engine_impl={cfg.engine_impl!r} (the port picks the "
+                    "kernel from the tensors' device; ROADMAP queue 1 item 9)")
+    if todo:
+        raise NotImplementedError(
+            "not ported to PyTorch/CUDA yet: " + "; ".join(todo))
+    if not 0 <= cfg.inline_hops <= 8:
+        raise ValueError(f"inline_hops must be in 0..8, got {cfg.inline_hops}")
+
+
+def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
+               n_cycles: int, dt=None, noise=None) -> ParticleState:
+    """``n_cycles`` sub-steps of the cached engine.
+
+    ``dt`` defaults to cfg.dt (``advect.H:36-37``: pass the Eulerian
+    ``cycleDt`` for sub-cycled runs).  ``noise`` [n_cycles, n, 3], when
+    given, replaces the per-step generator draw (replays of a recorded
+    Brownian stream).  On CUDA tensors every cycle runs the stream and
+    rare kernels; on CPU tensors their plain versions."""
+    check_ported(cfg)
+    dt = cfg.dt if dt is None else dt
+    n = state.n_particles
+    if noise is not None and tuple(noise.shape) != (n_cycles, n, 3):
+        raise ValueError(f"noise must be [{n_cycles}, {n}, 3], got {tuple(noise.shape)}")
+    m = fused.pack_state(mesh, state.pos, state.vel, state.tet_id, state.active)
+    pending = torch.empty(n, dtype=torch.uint8, device=m.device)
+    for i in range(n_cycles):
+        fused.mega_cycle(mesh, m, state.seed, state.step + i, cfg, dt,
+                         noise=None if noise is None else noise[i],
+                         pending=pending)
+    pos, vel, tet, act = fused.unpack_state(m)
+    return dataclasses.replace(
+        state, pos=pos.clone(), vel=vel.clone(),
+        disp=torch.zeros_like(state.disp), tet_id=tet, active=act,
+        step=state.step + n_cycles,
+    )
+
+
+def suggest_tuning(mesh: TetMesh, cfg: StepConfig, dt=None,
+                   n_particles: int | None = None) -> StepConfig:
+    """Static tuning of ``inline_hops``, ``walk_capacity_frac`` and
+    ``inline_bounce`` from the expected tet-face crossings per particle per
+    sub-step (per-tet speed, tet size and the Brownian RMS kick), as the
+    JAX package estimates them.  Its chunk, hop-compaction and arena
+    thresholds were measured on a TPU and are not carried over.
+    ``n_particles`` is accepted for signature parity and unused."""
+    dt = float(cfg.dt if dt is None else dt)
+    host = mesh.host
+    pts = host["points"].astype(np.float64)
+    tets = host["tets"]
+    u = host["tet_vel"].astype(np.float64)
+    if cfg.velocity_interp == advect_ops.VERTEX_VELOCITY or not np.any(u):
+        vv = host["vert_vel"].astype(np.float64)
+        if np.any(vv):
+            u = vv[tets].mean(axis=1)
+    a = pts[tets[:, 0]]
+    vol = np.abs(
+        np.einsum(
+            "ij,ij->i",
+            pts[tets[:, 1]] - a,
+            np.cross(pts[tets[:, 2]] - a, pts[tets[:, 3]] - a),
+        )
+        / 6.0
+    )
+    h = np.cbrt(np.maximum(vol * 6.0, 1e-300))   # tet characteristic length
+    speed = np.sqrt((u * u).sum(axis=1))
+    if cfg.use_brownian:
+        speed = speed + np.sqrt(2.0 * cfg.diffusion_coeff / max(dt, 1e-300)) * 1.7
+    # mean tets crossed per sub-step (1.5: the Kuhn split's internal
+    # diagonal faces are crossed more often than cell faces)
+    crossings = float(np.mean(np.minimum(speed * dt / np.maximum(h, 1e-300), 50.0)) * 1.5)
+    if crossings < 0.4:
+        hops, frac = 1, 1 / 16
+    elif crossings < 0.8:
+        hops, frac = 2, 1 / 8
+    elif crossings < 1.5:
+        hops, frac = 4, 1 / 4
+    else:
+        hops, frac = min(4 + int(crossings + 1.0), 8), 1 / 4
+    # inline bounce when wall contact is frequent: boundary-adjacent tet
+    # fraction x crossing rate
+    bd_frac = float(np.mean(np.any(host["tet_nbr"] < 0, axis=1)))
+    wall_rate = bd_frac * min(crossings, 1.0) * 0.5
+    inline_bounce = cfg.reflect_wall and wall_rate > 0.01
+    return dataclasses.replace(
+        cfg, inline_hops=hops, walk_capacity_frac=frac,
+        inline_bounce=inline_bounce,
+    )
+
+
+def n_cycles_for(delta_t_euler: float, dt_lagrange: float) -> tuple[int, float]:
+    """Sub-cycling split (``advect.H:36-37``)."""
+    n = max(int(math.ceil(delta_t_euler / dt_lagrange)), 1)
+    return n, delta_t_euler / n
+
+
+def diagnostics(state: ParticleState) -> dict:
+    """Out-of-domain count, system KE and active count (the reference
+    prints these at ``particles.cu:770`` and ``utils.cpp:258``)."""
+    return {
+        "out_of_domain": advect_ops.count_out_of_domain(state.tet_id),
+        "kinetic_energy": advect_ops.kinetic_energy(state.vel),
+        "active": state.active.sum(dtype=torch.int32),
+    }

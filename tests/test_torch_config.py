@@ -1,0 +1,133 @@
+"""PyTorch port: the StepConfig surface, the settings that are not ported
+yet, suggest_tuning against the JAX package, and the kernel build's error
+when there is no CUDA toolkit."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import cudaparticlesfoam_tpu as jcpf
+import cudaparticlesfoam_tpu.mesh as jmesh
+import cudaparticlesfoam_tpu.stepper as jstepper
+import cudaparticlesfoam_tpu_torch as cpt
+from cudaparticlesfoam_tpu_torch import convert
+from cudaparticlesfoam_tpu_torch import mesh as tmesh
+from cudaparticlesfoam_tpu_torch.ops import _build, fused_cuda
+
+
+def test_step_config_fields_and_defaults_match_jax():
+    got = {f.name: f.default for f in dataclasses.fields(cpt.StepConfig)}
+    want = {f.name: f.default for f in dataclasses.fields(jcpf.StepConfig)}
+    assert got == want
+
+
+@pytest.mark.parametrize("kw", [
+    dict(hop_compact=2), dict(hop_compact=8), dict(macro_cycles=0), dict(macro_cycles=9),
+])
+def test_validation_mirrors_jax(kw):
+    with pytest.raises(ValueError) as want:
+        jcpf.StepConfig(**kw)
+    with pytest.raises(ValueError) as got:
+        cpt.StepConfig(**kw)
+    assert str(got.value) == str(want.value)
+
+
+UNPORTED = [
+    dict(engine="simple"),
+    dict(locate_mode="convex"),
+    dict(integrator="rk4"),
+    dict(velocity_interp="VertexVelocity"),
+    dict(velocity_interp="ConstantVelocity"),
+    dict(hop_compact=4),
+    dict(macro_cycles=2),
+    dict(brownian_rng="rbg"),
+    dict(brownian_rng="rbg_kernel"),
+    dict(cycle_chunks=2),
+    dict(engine_impl="jnp"),
+]
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    mesh = cpt.box_mesh(2, 2, 2)
+    st = convert.to_state(np.full((8, 3), 1.0), np.zeros(8, np.int32))
+    st = dataclasses.replace(st, tet_id=cpt.locate_seeds(
+        mesh, cpt.build_grid_locator(mesh), st.pos))
+    return mesh, st
+
+
+@pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_unported_settings_raise(tiny, kw):
+    mesh, st = tiny
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cpt.run_cycles(mesh, st, cpt.StepConfig(**kw), 1)
+
+
+def test_ported_settings_run(tiny):
+    mesh, st = tiny
+    for kw in (dict(), dict(engine="cached"), dict(inline_hops=8, escape_faces=True),
+               dict(walk_capacity_frac=0.5, arena_lane_frac=0.1, inline_bounce=False)):
+        out = cpt.run_cycles(mesh, st, cpt.StepConfig(dt=0.01, **kw), 2)
+        assert int(out.active.sum()) == 8
+    with pytest.raises(ValueError):
+        cpt.run_cycles(mesh, st, cpt.StepConfig(inline_hops=9), 1)
+
+
+def _box_payload(nside, speed):
+    pts, tets, vv = tmesh.box_points_tets(nside, nside, nside)
+    return tmesh.from_arrays_host(pts, tets, tet_vel=speed * vv[tets].mean(axis=1),
+                                  vert_vel=vv, dtype=np.float64)
+
+
+@pytest.mark.parametrize("nside,speed,dt,kw", [
+    (4, 1.0, 0.05, dict(diffusion_coeff=1e-3)),
+    (6, 1.0, 0.8, dict(use_brownian=False)),
+    (8, 3.0, 1.0, dict(diffusion_coeff=1e-2, reflect_wall=False)),
+])
+def test_suggest_tuning_matches_jax(nside, speed, dt, kw):
+    payload = _box_payload(nside, speed)
+    cfg_j = jstepper.suggest_tuning(jmesh.host_to_device(dict(payload)),
+                                    jcpf.StepConfig(dt=dt, **kw), dt)
+    cfg_t = cpt.suggest_tuning(convert.to_mesh(payload), cpt.StepConfig(dt=dt, **kw), dt)
+    for k in ("inline_hops", "walk_capacity_frac", "inline_bounce"):
+        assert getattr(cfg_t, k) == getattr(cfg_j, k), k
+    # TPU-measured knobs are not carried over
+    assert cfg_t.cycle_chunks == 1 and cfg_t.hop_compact == 0
+
+
+def test_suggest_tuning_covers_the_hop_regimes():
+    hops = {cpt.suggest_tuning(convert.to_mesh(_box_payload(4, 1.0)),
+                               cpt.StepConfig(dt=dt, use_brownian=False)).inline_hops
+            for dt in (0.05, 0.3, 0.6, 3.0)}
+    assert hops == {1, 2, 4, 8}
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path / "none"))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def test_kernel_sources_are_found():
+    names = sorted(p.rsplit("/", 1)[-1] for p in _build.sources())
+    assert names == ["rare.cu", "stream.cu"]
+    assert "--fmad=false" in _build.FLAGS and "code=sm_90a" in _build.ARCH
+
+
+def test_wrappers_refuse_other_devices():
+    m = torch.empty((8, 32), device="meta")
+    tab = torch.empty((4, 20), device="meta")
+    pend = torch.empty(8, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_cuda.stream_cycle(tab, m, None, pend, dt=0.1, sigma=0.0, use_adv=True,
+                                use_brown=False, bounce_on=True, esc_on=False, n_hops=1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_cuda.rare_resolve(tab, m, pend, torch.empty(0, dtype=torch.bool, device="meta"),
+                                max_hops=50, max_bounces=10, reflect_wall=True)

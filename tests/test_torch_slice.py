@@ -1,0 +1,124 @@
+"""PyTorch port, end to end on the CPU: ``run_cycles`` against the committed
+f64 golden anchors (tests/golden/particles_f64.npz) and against the JAX
+package's cached engine; plus the replay fixture the card uses to replay
+the anchors without jax (tests/golden/torch_port_box_inputs.npz)."""
+
+import importlib.util
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import cudaparticlesfoam_tpu as jcpf
+import cudaparticlesfoam_tpu.mesh as jmesh
+import cudaparticlesfoam_tpu_torch as cpt
+from cudaparticlesfoam_tpu_torch import convert
+from cudaparticlesfoam_tpu_torch import mesh as tmesh
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(HERE, "golden", "particles_f64.npz")
+INPUTS = os.path.join(HERE, "golden", "torch_port_box_inputs.npz")
+GENERATOR = os.path.join(HERE, "..", "tools", "make_torch_port_inputs.py")
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return np.load(GOLDEN)
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    return dict(np.load(INPUTS))
+
+
+@pytest.fixture(scope="module")
+def box(inputs):
+    """test_golden.box_setup on the port: box 6^3 in f64, the outward
+    field, and the recorded threefry seeds with their tets."""
+    mesh = cpt.replace_velocity(cpt.box_mesh(6, 6, 6, dtype=np.float64),
+                                tet_vel=inputs["tet_vel"])
+    st = convert.to_state(inputs["seed_pos"], inputs["seed_tet"], dtype=np.float64)
+    return mesh, st
+
+
+def _assert_anchor(fin, golden, name):
+    np.testing.assert_allclose(fin.pos.numpy(), golden[f"box_{name}_pos"], atol=1e-12,
+                               rtol=0)
+    np.testing.assert_array_equal(fin.tet_id.numpy(), golden[f"box_{name}_tet"])
+    np.testing.assert_array_equal(fin.active.numpy(), golden[f"box_{name}_active"])
+
+
+def test_golden_box_bary_adv(golden, box):
+    mesh, st = box
+    fin = cpt.run_cycles(mesh, st, cpt.StepConfig(dt=0.08, use_brownian=False), 60)
+    _assert_anchor(fin, golden, "bary_adv")
+    assert fin.step == 60
+
+
+def test_golden_box_bary_brownian(golden, box):
+    """Noise drawn here exactly as the JAX cached engine draws it
+    (threefry, fold_in(PRNGKey(0), step)) and injected per cycle."""
+    mesh, st = box
+    key = jax.random.PRNGKey(0)
+    noise = torch.stack([
+        torch.from_numpy(np.array(jax.random.normal(
+            jax.random.fold_in(key, step), (256, 3), dtype=np.float64)))
+        for step in range(60)
+    ])
+    cfg = cpt.StepConfig(dt=0.08, diffusion_coeff=1e-3)
+    fin = cpt.run_cycles(mesh, st, cfg, 60, noise=noise)
+    _assert_anchor(fin, golden, "bary_brownian")
+
+
+def test_multihop_run_matches_jax_cached_engine():
+    """6^3 box, inline_hops=4, no noise, 20 cycles at about a cell per
+    sub-step, f64: tet/active exact, pos within 1e-12."""
+    pts, tets, vv = tmesh.box_points_tets(6, 6, 6)
+    rng = np.random.default_rng(4)
+    tet_vel = rng.normal(size=(len(tets), 3))
+    payload = tmesh.from_arrays_host(pts, tets, tet_vel=tet_vel, vert_vel=vv,
+                                     dtype=np.float64)
+    pos = rng.uniform(0.1, 5.9, (1000, 3))
+    jm = jmesh.host_to_device(dict(payload))
+    tet = np.asarray(jcpf.locate_seeds(jm, jcpf.build_grid_locator(jm), pos))
+    kw = dict(dt=0.7, use_brownian=False, inline_hops=4)
+    jst = jcpf.make_state(pos, tet_id=tet, dtype=np.float64)
+    want = jcpf.run_cycles(jm, jst, jcpf.StepConfig(engine="cached", **kw), 20)
+    got = cpt.run_cycles(convert.to_mesh(payload),
+                         convert.to_state(pos, tet, dtype=np.float64),
+                         cpt.StepConfig(**kw), 20)
+    np.testing.assert_array_equal(got.tet_id.numpy(), np.asarray(want.tet_id))
+    np.testing.assert_array_equal(got.active.numpy(), np.asarray(want.active))
+    np.testing.assert_allclose(got.pos.numpy(), np.asarray(want.pos), atol=1e-12, rtol=0)
+    np.testing.assert_allclose(got.vel.numpy(), np.asarray(want.vel), atol=1e-12, rtol=0)
+    assert (got.tet_id.numpy() != tet).mean() > 0.5
+
+
+def test_port_locates_the_recorded_seeds(box, inputs):
+    mesh, _ = box
+    tet = cpt.locate_seeds(mesh, cpt.build_grid_locator(mesh),
+                           torch.from_numpy(inputs["seed_pos"]))
+    np.testing.assert_array_equal(tet.numpy(), inputs["seed_tet"])
+
+
+def test_replay_fixture_matches_its_generator(inputs):
+    spec = importlib.util.spec_from_file_location("make_torch_port_inputs", GENERATOR)
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    fresh = gen.make_inputs()
+    assert set(fresh) == set(inputs)
+    for k, v in fresh.items():
+        assert v.dtype == inputs[k].dtype, k
+        np.testing.assert_array_equal(v, inputs[k], err_msg=k)
+
+
+def test_diagnostics_and_sub_cycling(box):
+    mesh, st = box
+    fin = cpt.run_cycles(mesh, st, cpt.StepConfig(dt=0.08, use_brownian=False), 5)
+    d = cpt.diagnostics(fin)
+    assert int(d["active"]) == 256 and int(d["out_of_domain"]) == 0
+    np.testing.assert_allclose(float(d["kinetic_energy"]),
+                               0.5 * float((fin.vel ** 2).sum()))
+    assert cpt.n_cycles_for(0.1, 0.03) == jcpf.n_cycles_for(0.1, 0.03)

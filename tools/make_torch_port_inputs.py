@@ -1,0 +1,67 @@
+"""Generate tests/golden/torch_port_box_inputs.npz: the inputs of the
+golden box anchors (tests/test_golden.py's ``box_setup``) in plain numpy,
+so the PyTorch port can replay ``box_bary_adv`` and ``box_bary_brownian``
+on a machine without jax:
+
+* ``seed_pos`` [256, 3] f64 and ``seed_tet`` [256] int32 — the threefry
+  seeds of ``seed_in_box(256, 0.5, 5.5)`` and their located tets;
+* ``tet_vel`` [1296, 3] f64 — the outward field ``1.5 * unit(centroid - 3)``;
+* ``noise`` [60, 256, 3] f64 — the per-step Brownian normals
+  ``jax.random.normal(fold_in(PRNGKey(0), step), (256, 3))``, steps 0..59.
+
+Run it with JAX on the CPU, then review the diff:
+
+    JAX_PLATFORMS=cpu python tools/make_torch_port_inputs.py
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import numpy as np  # noqa: E402
+
+OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests",
+                   "golden", "torch_port_box_inputs.npz")
+N_CYCLES = 60
+
+
+def make_inputs() -> dict:
+    """The fixture's arrays (needs jax with x64 enabled on the CPU)."""
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    from cudaparticlesfoam_tpu import (
+        box_mesh, build_grid_locator, locate_seeds, seed_in_box,
+    )
+
+    mesh = box_mesh(6, 6, 6, dtype=np.float64)
+    loc = build_grid_locator(mesh)
+    pts = np.asarray(mesh.points, dtype=np.float64)
+    cen = pts[np.asarray(mesh.tets)].mean(axis=1)
+    outward = cen - 3.0
+    outward /= np.linalg.norm(outward, axis=1, keepdims=True) + 1e-12
+    st = seed_in_box(256, (0.5,) * 3, (5.5,) * 3, method="threefry")
+    tet = locate_seeds(mesh, loc, st.pos)
+    noise = np.stack([
+        np.asarray(jax.random.normal(
+            jax.random.fold_in(st.rng_key, step), (256, 3), dtype=np.float64))
+        for step in range(N_CYCLES)
+    ])
+    return {
+        "seed_pos": np.asarray(st.pos, dtype=np.float64),
+        "seed_tet": np.asarray(tet, dtype=np.int32),
+        "tet_vel": outward * 1.5,
+        "noise": noise,
+    }
+
+
+def main():
+    data = make_inputs()
+    np.savez_compressed(OUT, **data)
+    print(f"wrote {os.path.normpath(OUT)} ({os.path.getsize(OUT)} bytes)")
+
+
+if __name__ == "__main__":
+    main()
