@@ -7,22 +7,40 @@
 Phases, one line of numbers each, any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile csrc/*.cu with nvcc for sm_90a (seconds);
+2. build: compile csrc/*.cu with nvcc for sm_90a, one nvcc per source in
+   parallel (seconds, and ptxas's registers/stack per kernel);
 3. kernel vs plain, float32: box 16^3 (24,576 tets), 65,536 lanes, one
    cycle, for hops {1, 4} x escape faces {off, on} x reflect_wall {on, off}:
    stream_kernel against stream_plain, then rare_kernel against rare_plain
    on the same (m, pending); tet/active/pending identical, pos/vel within
    1e-5;
-4. golden replay, float64, through the kernels: box_bary_adv and
-   box_bary_brownian of tests/golden/particles_f64.npz from the recorded
-   inputs in tests/golden/torch_port_box_inputs.npz; tet/active exact, pos
-   within 1e-9;
+3b. convex kernel vs plain, float32: the same box and lanes, one cycle, for
+   inline_hops {0, 1} x escape faces {off, on} x (reflect_wall with
+   convex_bary_fix | no reflection): convex_stream_kernel against
+   convex_stream_plain, then convex_rare_kernel against convex_rare_plain
+   on the same (m, disp, pending); same tolerances;
+3c. in-kernel Philox noise (brownian_rng "rbg_kernel"): one bary and one
+   convex cycle through the kernels against the plain cycle fed
+   philox_normals (tet/active identical, pos within 1e-5), then the kicks
+   of 1,000,000 lanes without advection, divided by sigma: |mean| < 0.01,
+   |variance - 1| < 0.003, through both stream kernels;
+4. golden replay, float64, through the kernels: box_bary_adv,
+   box_bary_brownian and box_convex_adv of tests/golden/particles_f64.npz
+   from the recorded inputs in tests/golden/torch_port_box_inputs.npz;
+   tet/active exact, pos within 1e-9;
 5. the slice at the bench's north-star size: box 55^3 (998,250 tets) with
    the confined vortex, 1,000,000 owl-LCG seeds in [2.75, 52.25]^3,
    suggest_tuning(dt=0.05, D=1e-3); run_cycles 10 warm-up + 3 x 200 timed
    cycles (CUDA events), launch counts, domain checks, one extra cycle
    through kernel and plain, and each kernel's time against its plain
-   version at this shape.
+   version at this shape (stream_kernel with xi and with its Philox
+   noise); then one 200-cycle run under "rbg_kernel";
+5b. the convex slice (the bench's convex-default): the same mesh and
+   seeds with locate_mode "convex" and brownian_rng "rbg_kernel", timed
+   the same way, with the pending share, the domain checks, one extra
+   cycle through kernel and plain, each convex kernel's time against its
+   plain version (the stream kernel with xi and with Philox), and one
+   200-cycle run under "threefry".
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -126,13 +144,17 @@ def vortex(nside):
     return fn
 
 
-def phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs):
-    """Phase 3: each kernel against its plain version on the same inputs."""
-    def field(cen):   # outward plus a swirl: hops, walls and corner hits
+def swirl(nside):
+    """Outward plus a swirl: hops, walls and corner hits."""
+    def fn(cen):
         c = cen - nside / 2.0
         return c / nside * 2.0 + np.stack([-c[:, 1], c[:, 0], 0 * c[:, 2]], 1) / nside
+    return fn
 
-    payload = box_payload(tmesh, nside, np.float32, field)
+
+def phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs):
+    """Phase 3: each kernel against its plain version on the same inputs."""
+    payload = box_payload(tmesh, nside, np.float32, swirl(nside))
     base = convert.to_mesh(payload, dev)
     rng = np.random.default_rng(3)
     pos = torch.as_tensor(rng.uniform(0.05, nside - 0.05, (n, 3)), dtype=torch.float32,
@@ -175,6 +197,150 @@ def phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, e
                 errs["rare"] = max(errs["rare"], err_r)
 
 
+def parity_lanes(torch, cpt, mesh, dev, nside, n, seed):
+    rng = np.random.default_rng(seed)
+    pos = torch.as_tensor(rng.uniform(0.05, nside - 0.05, (n, 3)), dtype=torch.float32,
+                          device=dev)
+    tet = cpt.locate_seeds(mesh, cpt.build_grid_locator(mesh), pos)
+    vel = torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=dev)
+    act = torch.as_tensor(rng.uniform(size=n) > 0.02, device=dev)
+    xi = torch.as_tensor(rng.standard_normal((n, 3)), dtype=torch.float32, device=dev)
+    return pos, vel, tet, act, xi
+
+
+def convex_stream_args(cfg, dt, dtype, fused):
+    dt_t, sigma = fused.scalars(cfg, dt, dtype)
+    return dict(dt=dt_t, sigma=sigma, use_adv=cfg.use_advection, use_brown=cfg.use_brownian,
+                n_hops=cfg.inline_hops)
+
+
+def convex_rare_args(cfg):
+    return dict(max_hops=cfg.max_hops, reflect_wall=cfg.reflect_wall,
+                bary_fix=cfg.convex_bary_fix, max_bounces=cfg.max_bounces)
+
+
+def convex_cycle_pair(torch, fused_convex, fused_cuda, mesh, tab, m0, xi, key, xi_plain,
+                      cfg, dt, fused):
+    """One convex cycle through the kernels and through the plain versions
+    on the same inputs: (stream identical, stream err, cycle identical,
+    cycle err, pending count, kernel mega, plain mega, plain disp, plain
+    pending)."""
+    n, dev, T = m0.shape[0], m0.device, m0.dtype
+    sa = convex_stream_args(cfg, dt, T, fused)
+    mk, mp = m0.clone(), m0.clone()
+    pk = torch.empty(n, dtype=torch.uint8, device=dev)
+    pp = torch.empty_like(pk)
+    dk = torch.empty((n, 3), dtype=T, device=dev)
+    dp = torch.empty_like(dk)
+    fused_cuda.convex_stream_cycle(tab, mk, xi, pk, dk, noise_key=key, **sa)
+    fused_convex.convex_stream_plain(tab, mp, xi_plain, pp, dp, **sa)
+    same_s, err_s = compare(torch, mk, mp, pk, pp)
+    err_s = max(err_s, float((dk - dp).abs().max()) if n else 0.0)
+    m1, d1, p1 = mp.clone(), dp.clone(), pp.clone()
+    fused_cuda.convex_rare_resolve(mesh, tab, mk, dk, pk, **convex_rare_args(cfg))
+    fused_convex.convex_rare_plain(mesh, tab, mp, dp, pp, **convex_rare_args(cfg))
+    same_r, err_r = compare(torch, mk, mp)
+    return same_s, err_s, same_r, err_r, int(p1.sum()), m1, d1, p1
+
+
+def phase_convex_parity(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev,
+                        nside, n, errs):
+    """Phase 3b: each convex kernel against its plain version."""
+    payload = box_payload(tmesh, nside, np.float32, swirl(nside))
+    base = convert.to_mesh(payload, dev)
+    pos, vel, tet, act, xi = parity_lanes(torch, cpt, base, dev, nside, n, seed=4)
+    for hops in (0, 1):
+        for esc in (False, True):
+            mesh = cpt.with_convex_rows(tmesh.set_boundary_escape(base, [1] if esc else []))
+            tab = fused_convex.cx_table(mesh)
+            m0 = fused_convex.pack_state(mesh, tab, pos, vel, tet, act)
+            for refl in (True, False):
+                cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3, inline_hops=hops,
+                                     escape_faces=esc, reflect_wall=refl, convex_bary_fix=refl,
+                                     locate_mode="convex")
+                same_s, err_s, same_r, err_r, npend, *_ = convex_cycle_pair(
+                    torch, fused_convex, fused_cuda, mesh, tab, m0, xi, None, xi, cfg,
+                    cfg.dt, fused)
+                log(f"[convex-parity] hops={hops} escape={int(esc)} reflect={int(refl)} "
+                    f"bary_fix={int(refl)} pending={npend} stream_identical={int(same_s)} "
+                    f"stream_max_abs_err={err_s:.3e} rare_identical={int(same_r)} "
+                    f"rare_max_abs_err={err_r:.3e}")
+                need(npend > 0, "convex parity case has no pending lanes")
+                need(same_s and err_s <= POS_TOL_F32,
+                     f"convex_stream_kernel != plain (hops={hops} esc={esc} refl={refl})")
+                need(same_r and err_r <= POS_TOL_F32,
+                     f"convex_rare_kernel != plain (hops={hops} esc={esc} refl={refl})")
+                errs["convex_stream"] = max(errs["convex_stream"], err_s)
+                errs["convex_rare"] = max(errs["convex_rare"], err_r)
+
+
+def kick_stats(torch, z):
+    z = z.double().reshape(-1)
+    return float(z.mean().abs()), float(z.var() - 1.0)
+
+
+def phase_noise(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev, nside, n,
+                n_stats, errs):
+    """Phase 3c: the in-kernel Philox stream against the plain one."""
+    payload = box_payload(tmesh, nside, np.float32, swirl(nside))
+    mesh = cpt.with_convex_rows(convert.to_mesh(payload, dev))
+    pos, vel, tet, act, _ = parity_lanes(torch, cpt, mesh, dev, nside, n, seed=5)
+    seed, step = 2024, 17
+    key = fused.philox_key(seed, step)
+    xi = fused.philox_normals(key, n, torch.float32, dev)
+    cfg = cpt.StepConfig(dt=0.2, diffusion_coeff=5e-3, brownian_rng="rbg_kernel")
+    # bary: the kernel cycle (mega_cycle draws in the kernel) vs plain
+    m0 = fused.pack_state(mesh, pos, vel, tet, act)
+    mk = fused.mega_cycle(mesh, m0.clone(), seed, step, cfg, cfg.dt)
+    mp, pp = m0.clone(), torch.empty(n, dtype=torch.uint8, device=dev)
+    fused.stream_plain(mesh.tet_row, mp, xi, pp, **stream_args(cfg, cfg.dt, mp.dtype, fused))
+    fused.rare_plain(mesh.tet_row, mp, pp, mesh.bd_escape, **rare_args(cfg))
+    same_b, err_b = compare(torch, mk, mp)
+    # convex, the same way
+    ccfg = dataclasses.replace(cfg, locate_mode="convex")
+    tab = fused_convex.cx_table(mesh)
+    c0 = fused_convex.pack_state(mesh, tab, pos, vel, tet, act)
+    ck = fused_convex.mega_cycle(mesh, tab, c0.clone(), seed, step, ccfg, ccfg.dt)
+    cp = c0.clone()
+    dp = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    fused_convex.convex_stream_plain(tab, cp, xi, pp, dp,
+                                     **convex_stream_args(ccfg, ccfg.dt, cp.dtype, fused))
+    fused_convex.convex_rare_plain(mesh, tab, cp, dp, pp, **convex_rare_args(ccfg))
+    same_c, err_c = compare(torch, ck, cp)
+    log(f"[noise] rbg_kernel cycle vs plain+philox_normals, {n} lanes: "
+        f"bary_identical={int(same_b)} bary_max_abs_err={err_b:.3e} "
+        f"convex_identical={int(same_c)} convex_max_abs_err={err_c:.3e}")
+    need(same_b and err_b <= POS_TOL_F32, "bary rbg_kernel cycle != plain")
+    need(same_c and err_c <= POS_TOL_F32, "convex rbg_kernel cycle != plain")
+    errs["stream"] = max(errs["stream"], err_b)
+    errs["convex_stream"] = max(errs["convex_stream"], err_c)
+
+    # statistics of the kicks, no advection: convex disp / sigma, and the
+    # bary kernel's move / sigma (no hops, no bounce, nothing pending)
+    rng = np.random.default_rng(6)
+    p = torch.as_tensor(rng.uniform(1.0, nside - 1.0, (n_stats, 3)), dtype=torch.float32,
+                        device=dev)
+    t = torch.zeros(n_stats, dtype=torch.int32, device=dev)
+    on = torch.ones(n_stats, dtype=torch.bool, device=dev)
+    scfg = cpt.StepConfig(dt=0.05, diffusion_coeff=1e-3, use_advection=False)
+    dt_t, sigma = fused.scalars(scfg, scfg.dt, torch.float32)
+    cm = fused_convex.pack_state(mesh, tab, p, torch.zeros_like(p), t, on)
+    pend = torch.empty(n_stats, dtype=torch.uint8, device=dev)
+    disp = torch.empty((n_stats, 3), dtype=torch.float32, device=dev)
+    fused_cuda.convex_stream_cycle(tab, cm, None, pend, disp, dt=dt_t, sigma=sigma,
+                                   use_adv=False, use_brown=True, n_hops=0,
+                                   noise_key=fused.philox_key(7, 3))
+    bm = fused.pack_state(mesh, p, torch.zeros_like(p), t, on)
+    fused_cuda.stream_cycle(mesh.tet_row, bm, None, pend, dt=dt_t, sigma=sigma,
+                            use_adv=False, use_brown=True, bounce_on=False, esc_on=False,
+                            n_hops=0, noise_key=fused.philox_key(7, 4))
+    for name, z in (("convex", disp / sigma), ("bary", (bm[:, :3] - p) / sigma)):
+        mean_abs, var_dev = kick_stats(torch, z)
+        log(f"[noise] {name} kick/sigma over {n_stats} lanes x 3: |mean|={mean_abs:.3e} "
+            f"variance-1={var_dev:+.3e}")
+        need(mean_abs < 0.01 and abs(var_dev) < 0.003, f"{name} in-kernel noise statistics")
+
+
 def phase_golden(torch, cpt, convert, fused_cuda, dev):
     """Phase 4: replay the f64 golden box anchors through the kernels."""
     g = np.load(GOLDEN)
@@ -182,18 +348,22 @@ def phase_golden(torch, cpt, convert, fused_cuda, dev):
     mesh = cpt.replace_velocity(cpt.box_mesh(6, 6, 6, dtype=np.float64, device=dev),
                                 tet_vel=fx["tet_vel"])
     st = convert.to_state(fx["seed_pos"], fx["seed_tet"], dtype=np.float64, device=dev)
+    mesh_cx = cpt.with_convex_rows(mesh)
     for name, kw, noise in (
         ("bary_adv", dict(use_brownian=False), None),
         ("bary_brownian", dict(diffusion_coeff=1e-3),
          torch.as_tensor(fx["noise"], device=dev)),
+        ("convex_adv", dict(use_brownian=False, locate_mode="convex"), None),
     ):
-        before = (fused_cuda.stream_cycle.launches, fused_cuda.rare_resolve.launches)
-        fin = cpt.run_cycles(mesh, st, cpt.StepConfig(dt=0.08, **kw), 60, noise=noise)
+        counters = ((fused_cuda.convex_stream_cycle, fused_cuda.convex_rare_resolve)
+                    if "locate_mode" in kw else
+                    (fused_cuda.stream_cycle, fused_cuda.rare_resolve))
+        before = tuple(c.launches for c in counters)
+        fin = cpt.run_cycles(mesh_cx, st, cpt.StepConfig(dt=0.08, **kw), 60, noise=noise)
         err = float(np.abs(fin.pos.cpu().numpy() - g[f"box_{name}_pos"]).max())
         tet_ok = bool((fin.tet_id.cpu().numpy() == g[f"box_{name}_tet"]).all())
         act_ok = bool((fin.active.cpu().numpy() == g[f"box_{name}_active"]).all())
-        launched = (fused_cuda.stream_cycle.launches - before[0],
-                    fused_cuda.rare_resolve.launches - before[1])
+        launched = tuple(c.launches - b for c, b in zip(counters, before))
         log(f"[golden] {name} f64 max_abs_err={err:.3e} tet_exact={int(tet_ok)} "
             f"active_exact={int(act_ok)} launches={launched}")
         need(tet_ok and act_ok and err <= POS_TOL_GOLDEN, f"golden replay {name} failed")
@@ -232,6 +402,7 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
         f"inline_hops={cfg.inline_hops} inline_bounce={int(cfg.inline_bounce)} "
         f"mesh_build_s={t_mesh:.2f} setup_s={t_setup:.2f}")
 
+    st0 = st
     st = cpt.run_cycles(mesh, st, cfg, 10)            # warm-up
     timer = Timer(torch, dev)
     if dev.type == "cuda":
@@ -297,10 +468,16 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
         work.copy_(m1)
         pend.copy_(p1)
 
+    nkey = fused.philox_key(st.seed, st.step)
     times = {}
     for key, fn, plain, restore in (
         ("stream", lambda: fused_cuda.stream_cycle(mesh.tet_row, work, xi, pend, **sa),
          lambda: fused.stream_plain(mesh.tet_row, work, xi, pend, **sa), restore_stream),
+        ("stream_philox",
+         lambda: fused_cuda.stream_cycle(mesh.tet_row, work, None, pend, noise_key=nkey, **sa),
+         lambda: fused.stream_plain(mesh.tet_row, work,
+                                    fused.philox_normals(nkey, n_particles, work.dtype, dev),
+                                    pend, **sa), restore_stream),
         ("rare", lambda: fused_cuda.rare_resolve(mesh.tet_row, work, pend, mesh.bd_escape,
                                                  **rare_args(cfg)),
          lambda: fused.rare_plain(mesh.tet_row, work, pend, mesh.bd_escape,
@@ -316,7 +493,159 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
         log(f"[slice] {gpu_line} | {key}_kernel_ms={times[key][0]:.4f} "
             f"({k_a:.4f}, {k_b:.4f}) {key}_plain_ms={times[key][1]:.4f} "
             f"({p_a:.4f}, {p_b:.4f}) lanes={n_particles}")
+
+    # the same slice with the noise drawn inside the stream kernel
+    rcfg = dataclasses.replace(cfg, brownian_rng="rbg_kernel")
+    st_r = cpt.run_cycles(mesh, st, rcfg, 10)         # warm-up
+    timer.start()
+    st_r = cpt.run_cycles(mesh, st_r, rcfg, n_cycles)
+    ms_r = timer.stop() / n_cycles
+    bad_r = int((st_r.active & (st_r.tet_id < 0)).sum())
+    log(f"[slice] {gpu_line} | brownian_rng=rbg_kernel ms_per_cycle={ms_r:.4f} "
+        f"particle_steps_per_s={n_particles / (ms_r * 1e-3):.4e} (threefry median "
+        f"{med:.4f}) active_with_negative_tet={bad_r}")
+    need(bad_r == 0 and bool(torch.isfinite(st_r.pos).all()), "rbg_kernel slice left the domain")
+    return launches, times, med, (mesh, st0, n_in, cfg)
+
+
+def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup,
+                       n_cycles, errs, gpu_line):
+    """Phase 5b: the convex slice (the bench's convex-default) through
+    run_cycles, on phase 5's mesh and seeds."""
+    mesh, st, n_in, bcfg = slice_setup
+    t0 = time.perf_counter()
+    mesh = cpt.with_convex_rows(mesh)
+    t_rows = time.perf_counter() - t0
+    n_particles = st.n_particles
+    cfg = dataclasses.replace(bcfg, locate_mode="convex", brownian_rng="rbg_kernel")
+    log(f"[convex-slice] tets={mesh.n_tets} particles={n_particles} inline_hops="
+        f"{cfg.inline_hops} brownian_rng={cfg.brownian_rng} with_convex_rows_s={t_rows:.2f} "
+        f"cx_tables_bytes={2 * mesh.tet_row_cx.numel() * mesh.tet_row_cx.element_size()}")
+    st = cpt.run_cycles(mesh, st, cfg, 10)            # warm-up
+    timer = Timer(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    fused_cuda.convex_stream_cycle.launches = 0
+    fused_cuda.convex_rare_resolve.launches = 0
+    runs = []
+    for _ in range(3):
+        timer.start()
+        st = cpt.run_cycles(mesh, st, cfg, n_cycles)
+        runs.append(timer.stop())
+    launches = {"convex_stream": fused_cuda.convex_stream_cycle.launches,
+                "convex_rare": fused_cuda.convex_rare_resolve.launches}
+    ms_cycle = [r / n_cycles for r in runs]
+    med = float(np.median(ms_cycle))
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    log(f"[convex-slice] {gpu_line} | ms_per_cycle={['%.4f' % x for x in ms_cycle]} "
+        f"median={med:.4f} particle_steps_per_s={n_particles / (med * 1e-3):.4e} "
+        f"max_memory_allocated={peak} launches={launches}")
+    if dev.type == "cuda":
+        need(launches == {"convex_stream": 3 * n_cycles, "convex_rare": 3 * n_cycles},
+             f"convex launch counts {launches} != {3 * n_cycles} per kernel")
+
+    d = cpt.diagnostics(st)
+    active = int(d["active"])
+    bad = int((st.active & (st.tet_id < 0)).sum())
+    blo, bhi = mesh.bounds_lo.to(st.dtype), mesh.bounds_hi.to(st.dtype)
+    outside = int(((st.pos < blo - 1e-3) | (st.pos > bhi + 1e-3)).any(dim=1).sum())
+    log(f"[convex-slice] active={active} seeds_in_domain={n_in} active_with_negative_tet={bad} "
+        f"outside_bounds={outside} kinetic_energy={float(d['kinetic_energy']):.6e}")
+    need(active == n_in and bad == 0 and outside == 0, "convex slice left the domain")
+    need(bool(torch.isfinite(st.pos).all()), "non-finite positions (convex slice)")
+
+    # one extra cycle through kernels and plain versions (Philox in the
+    # kernel against philox_normals), and each kernel's time at this shape
+    tab = fused_convex.cx_table(mesh)
+    m0 = fused_convex.pack_state(mesh, tab, st.pos, st.vel, st.tet_id, st.active)
+    key = fused.philox_key(st.seed, st.step)
+    same_s, err_s, same_r, err_r, npend, m1, d1, p1 = convex_cycle_pair(
+        torch, fused_convex, fused_cuda, mesh, tab, m0, None, key,
+        fused.philox_normals(key, n_particles, m0.dtype, dev), cfg, cfg.dt, fused)
+    log(f"[convex-slice] extra cycle kernel vs plain: pending={npend} "
+        f"pending_share={npend / n_particles:.4%} stream_identical={int(same_s)} "
+        f"stream_max_abs_err={err_s:.3e} cycle_identical={int(same_r)} "
+        f"cycle_max_abs_err={err_r:.3e}")
+    need(same_s and same_r and max(err_s, err_r) <= POS_TOL_F32,
+         "convex extra cycle kernel != plain")
+    errs["convex_stream"] = max(errs["convex_stream"], err_s)
+    errs["convex_rare"] = max(errs["convex_rare"], err_r)
+
+    sa = convex_stream_args(cfg, cfg.dt, m0.dtype, fused)
+    ra = convex_rare_args(cfg)
+    work, pend, disp = m0.clone(), p1.clone(), d1.clone()
+
+    def restore_stream():
+        work.copy_(m0)
+
+    def restore_rare():
+        work.copy_(m1)
+        pend.copy_(p1)
+        disp.copy_(d1)
+
+    xi = fused._brownian_noise(st.seed, st.step, n_particles, m0.dtype, dev)
+    times = {}
+    for name, fn, plain, restore in (
+        ("convex_stream_xi",
+         lambda: fused_cuda.convex_stream_cycle(tab, work, xi, pend, disp, **sa),
+         lambda: fused_convex.convex_stream_plain(tab, work, xi, pend, disp, **sa),
+         restore_stream),
+        ("convex_stream",
+         lambda: fused_cuda.convex_stream_cycle(tab, work, None, pend, disp, noise_key=key, **sa),
+         lambda: fused_convex.convex_stream_plain(
+             tab, work, fused.philox_normals(key, n_particles, work.dtype, dev), pend, disp,
+             **sa),
+         restore_stream),
+        ("convex_rare",
+         lambda: fused_cuda.convex_rare_resolve(mesh, tab, work, disp, pend, **ra),
+         lambda: fused_convex.convex_rare_plain(mesh, tab, work, disp, pend, **ra),
+         restore_rare),
+    ):
+        restore(), fn(), restore(), plain()    # warm-up
+        p_a = time_calls(timer, plain, restore, 3)
+        k_a = time_calls(timer, fn, restore, 20)
+        k_b = time_calls(timer, fn, restore, 20)
+        p_b = time_calls(timer, plain, restore, 3)
+        times[name] = ((k_a + k_b) / 2, (p_a + p_b) / 2)
+        log(f"[convex-slice] {gpu_line} | {name}_kernel_ms={times[name][0]:.4f} "
+            f"({k_a:.4f}, {k_b:.4f}) {name}_plain_ms={times[name][1]:.4f} "
+            f"({p_a:.4f}, {p_b:.4f}) lanes={n_particles}")
+
+    # the same slice with the noise drawn by torch.randn outside the kernel
+    tcfg = dataclasses.replace(cfg, brownian_rng="threefry")
+    st_t = cpt.run_cycles(mesh, st, tcfg, 10)         # warm-up
+    timer.start()
+    st_t = cpt.run_cycles(mesh, st_t, tcfg, n_cycles)
+    ms_t = timer.stop() / n_cycles
+    bad_t = int((st_t.active & (st_t.tet_id < 0)).sum())
+    log(f"[convex-slice] {gpu_line} | brownian_rng=threefry ms_per_cycle={ms_t:.4f} "
+        f"particle_steps_per_s={n_particles / (ms_t * 1e-3):.4e} (rbg_kernel median "
+        f"{med:.4f}) active_with_negative_tet={bad_t}")
+    need(bad_t == 0 and bool(torch.isfinite(st_t.pos).all()),
+         "convex threefry slice left the domain")
     return launches, times, med
+
+
+def ptxas_lines(report):
+    """One 'kernel<type>: registers, stack' entry per compiled kernel."""
+    out, name = [], None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            # _ZN3cpf<len><kernel>I<d|f>[Lb<0|1>E]E...: the type and, for the
+            # stream kernels, whether the Philox noise is compiled in
+            base, targs = line.split("'")[1].split("cpf", 1)[1].lstrip("0123456789").split("I", 1)
+            kind = {"d": "double", "f": "float"}[targs[0]]
+            philox = ", philox" if targs[1:].startswith("Lb1E") else ""
+            name = f"{base}<{kind}{philox}>"
+        elif name and "bytes stack frame" in line:
+            stack = line.split("bytes stack frame")[0].split()[-1]
+            spill = line.split("bytes spill stores")[0].split()[-1]
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            out.append(f"{name}: {regs} regs, {stack} B stack, {spill} B spill")
+            name = None
+    return out
 
 
 def main():
@@ -332,14 +661,14 @@ def main():
     import cudaparticlesfoam_tpu_torch as cpt
     from cudaparticlesfoam_tpu_torch import convert
     from cudaparticlesfoam_tpu_torch import mesh as tmesh
-    from cudaparticlesfoam_tpu_torch.ops import _build, fused, fused_cuda
+    from cudaparticlesfoam_tpu_torch.ops import _build, fused, fused_convex, fused_cuda
 
     need("jax" not in sys.modules, "the port imported jax")
     need(os.path.exists(GOLDEN) and os.path.exists(INPUTS), "golden fixtures missing")
 
     if args.rehearse:
         dev = torch.device("cpu")
-        sizes = dict(parity=(6, 4096), slice=(12, 20_000, 5))
+        sizes = dict(parity=(6, 4096), stats=20_000, slice=(12, 20_000, 5))
         gpu_line = "cpu rehearsal"
         kind = "cpu"
     else:
@@ -347,7 +676,7 @@ def main():
             print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
             return 1
         dev = torch.device("cuda", 0)
-        sizes = dict(parity=(16, 65_536), slice=(55, 1_000_000, 200))
+        sizes = dict(parity=(16, 65_536), stats=1_000_000, slice=(55, 1_000_000, 200))
         kind = torch.cuda.get_device_name(0)
         gpu_line = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -358,14 +687,26 @@ def main():
         t0 = time.perf_counter()
         secs = _build.build_seconds()
         log(f"[build] nvcc sm_90a --fmad=false build+load_s={secs:.2f} "
-            f"(phase {time.perf_counter() - t0:.2f} s)")
+            f"(phase {time.perf_counter() - t0:.2f} s, {len(_build.sources())} sources in "
+            f"parallel)")
+        for line in ptxas_lines(_build.ptxas_report()):
+            log(f"[build] {line}")
 
-    errs = {"stream": 0.0, "rare": 0.0}
+    errs = {"stream": 0.0, "rare": 0.0, "convex_stream": 0.0, "convex_rare": 0.0}
     nside, n = sizes["parity"]
     phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
+    phase_convex_parity(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev,
+                        nside, n, errs)
+    phase_noise(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev, nside, n,
+                sizes["stats"], errs)
     phase_golden(torch, cpt, convert, fused_cuda, dev)
-    launches, times, _ = phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev,
-                                     *sizes["slice"], errs, gpu_line)
+    launches, times, _, slice_setup = phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev,
+                                                  *sizes["slice"], errs, gpu_line)
+    c_launches, c_times, _ = phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda,
+                                                dev, slice_setup, sizes["slice"][2], errs,
+                                                gpu_line)
+    launches.update(c_launches)
+    times.update(c_times)
 
     table = {"kernels": [
         {"name": "stream_kernel", "route": "cuda",
@@ -378,6 +719,16 @@ def main():
          "replaces": "cudaparticlesfoam_tpu/ops/fused.py:921",
          "launches": launches["rare"], "max_abs_err": errs["rare"],
          "ms": times["rare"][0], "plain_ms": times["rare"][1]},
+        {"name": "convex_stream_kernel", "route": "cuda",
+         "source": "cudaparticlesfoam_tpu_torch/csrc/convex_stream.cu",
+         "replaces": "cudaparticlesfoam_tpu/ops/fused_pallas.py:1910",
+         "launches": launches["convex_stream"], "max_abs_err": errs["convex_stream"],
+         "ms": times["convex_stream"][0], "plain_ms": times["convex_stream"][1]},
+        {"name": "convex_rare_kernel", "route": "cuda",
+         "source": "cudaparticlesfoam_tpu_torch/csrc/convex_rare.cu",
+         "replaces": "cudaparticlesfoam_tpu/ops/fused_convex.py:327",
+         "launches": launches["convex_rare"], "max_abs_err": errs["convex_rare"],
+         "ms": times["convex_rare"][0], "plain_ms": times["convex_rare"][1]},
     ]}
     log(gpu_line)
     log(json.dumps(table))

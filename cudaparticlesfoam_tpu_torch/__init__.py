@@ -4,11 +4,19 @@ Lagrangian passive-particle tracking on a tetrahedral mesh (Euler
 advection through a frozen TetVelocity field, Brownian kicks, barycentric
 tet walk, specular wall reflection), with the per-cycle hot loop in two
 hand-written CUDA kernels for the H100 (``ops/fused_cuda.py``,
-``csrc/``).  On CPU tensors the same calls run the kernels' plain PyTorch
+``csrc/``), for the barycentric locator and for the ConvexPoly one
+(``locate_mode="convex"`` on a mesh with ``with_convex_rows``).  On CPU tensors the same calls run the kernels' plain PyTorch
 versions.  This package imports torch and never jax.
 """
 
-from .mesh import TetMesh, box_mesh, from_arrays, replace_velocity, set_boundary_escape
+from .mesh import (
+    TetMesh,
+    box_mesh,
+    from_arrays,
+    replace_velocity,
+    set_boundary_escape,
+    with_convex_rows,
+)
 from .state import ParticleState, make_state, seed_from_file, seed_in_box
 from .stepper import StepConfig, diagnostics, n_cycles_for, run_cycles, suggest_tuning
 from .ops.locate import (
@@ -16,8 +24,10 @@ from .ops.locate import (
     build_grid_locator,
     first_locate,
     locate_seeds,
+    reflect_walls,
     walk,
 )
+from .ops.convex import convex_reflect, trace_segment
 
 __version__ = "0.1.0"
 
@@ -27,6 +37,7 @@ __all__ = [
     "from_arrays",
     "replace_velocity",
     "set_boundary_escape",
+    "with_convex_rows",
     "ParticleState",
     "make_state",
     "seed_in_box",
@@ -41,4 +52,7 @@ __all__ = [
     "first_locate",
     "locate_seeds",
     "walk",
+    "reflect_walls",
+    "trace_segment",
+    "convex_reflect",
 ]

@@ -1,4 +1,4 @@
-// stream_kernel<T>: the stream section of one particle sub-step (K1 + K2).
+// stream_kernel<T, kPhilox>: the stream section of one particle sub-step (K1 + K2).
 //
 // Replaces the TPU stream kernels of cudaparticlesfoam_tpu/ops/fused_pallas.py:
 // kernel A (_kernel_a / _kernel_a_packed: advect, kick, move, hop-0 test,
@@ -7,7 +7,10 @@
 // and the multi-hop chain (_kernel_a_mh / _kernel_a_mh_packed, _kernel_h,
 // _kernel_b2 / _kernel_b2_packed).  Semantics are those of the jnp engine,
 // cudaparticlesfoam_tpu/ops/fused.py:616-790; the plain version is
-// ops/fused.py:stream_plain.
+// ops/fused.py:stream_plain.  The kPhilox instantiation draws its Brownian
+// normals itself (philox.cuh, noise_mode 1 at the C entry): the
+// in-kernel-noise twins _kernel_a_k / _kernel_a_packed_k / _kernel_a_mh_k /
+// _kernel_a_mh_packed_k.
 //
 // One thread per lane.  Mosaic could not gather, so the TPU split the cycle
 // at every hop and staged rows through the packed/transposed layouts and a
@@ -23,15 +26,16 @@
 // comes second.  Later work: vector or shared-memory-staged mega access,
 // __ldg / L2 persistence for the table, and fusing the rare stage in.
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace cpf {
 
-template <typename T>
+template <typename T, bool kPhilox>
 __global__ void __launch_bounds__(THREADS)
 stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
               const T* __restrict__ xi, uint8_t* __restrict__ pend,
               long long n, T dt, T sigma, int use_adv, int use_brown,
-              int bounce_on, int esc_on, int n_hops) {
+              int bounce_on, int esc_on, int n_hops, PhiloxKey key) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   T* me = m + i * WIDTH;
@@ -57,9 +61,17 @@ stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
     vz = me[V0 + 2];
   }
   if (use_brown) {
-    dx = dx + alf * sigma * xi[3 * i];
-    dy = dy + alf * sigma * xi[3 * i + 1];
-    dz = dz + alf * sigma * xi[3 * i + 2];
+    T z[3];
+    if (kPhilox) {
+      philox_normals3(key, i, z);
+    } else {
+      z[0] = xi[3 * i];
+      z[1] = xi[3 * i + 1];
+      z[2] = xi[3 * i + 2];
+    }
+    dx = dx + alf * sigma * z[0];
+    dy = dy + alf * sigma * z[1];
+    dz = dz + alf * sigma * z[2];
   }
   // advect kill (particles.cu:333-338)
   T actf = use_adv ? alf : me[ACT];
@@ -152,14 +164,17 @@ stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
 template <typename T>
 int launch_stream(const void* tab, void* m, const void* xi, void* pend,
                   long long n, T dt, T sigma, int use_adv, int use_brown,
-                  int bounce_on, int esc_on, int n_hops, void* stream) {
+                  int bounce_on, int esc_on, int n_hops, int noise_mode,
+                  PhiloxKey key, void* stream) {
   if (n <= 0) return 0;
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  stream_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(tab), static_cast<T*>(m),
-      static_cast<const T*>(xi), static_cast<uint8_t*>(pend), n, dt, sigma,
-      use_adv, use_brown, bounce_on, esc_on, n_hops);
+  const unsigned blocks = static_cast<unsigned>((n + THREADS - 1) / THREADS);
+  // the noise source is a template argument, so the xi instantiation is the
+  // kernel without any Philox code
+  auto kernel = noise_mode == 1 ? stream_kernel<T, true> : stream_kernel<T, false>;
+  kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(tab), static_cast<T*>(m), static_cast<const T*>(xi),
+      static_cast<uint8_t*>(pend), n, dt, sigma, use_adv, use_brown, bounce_on,
+      esc_on, n_hops, key);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -168,17 +183,21 @@ int launch_stream(const void* tab, void* m, const void* xi, void* pend,
 extern "C" int cpf_stream_f32(const void* tab, void* m, const void* xi,
                               void* pend, long long n, float dt, float sigma,
                               int use_adv, int use_brown, int bounce_on,
-                              int esc_on, int n_hops, void* stream) {
+                              int esc_on, int n_hops, int noise_mode, uint32_t k0,
+                              uint32_t k1, uint32_t k2, uint32_t k3, void* stream) {
   return cpf::launch_stream<float>(tab, m, xi, pend, n, dt, sigma, use_adv,
-                                   use_brown, bounce_on, esc_on, n_hops, stream);
+                                   use_brown, bounce_on, esc_on, n_hops, noise_mode,
+                                   cpf::PhiloxKey{k0, k1, k2, k3}, stream);
 }
 
 extern "C" int cpf_stream_f64(const void* tab, void* m, const void* xi,
                               void* pend, long long n, double dt, double sigma,
                               int use_adv, int use_brown, int bounce_on,
-                              int esc_on, int n_hops, void* stream) {
+                              int esc_on, int n_hops, int noise_mode, uint32_t k0,
+                              uint32_t k1, uint32_t k2, uint32_t k3, void* stream) {
   return cpf::launch_stream<double>(tab, m, xi, pend, n, dt, sigma, use_adv,
-                                    use_brown, bounce_on, esc_on, n_hops, stream);
+                                    use_brown, bounce_on, esc_on, n_hops, noise_mode,
+                                    cpf::PhiloxKey{k0, k1, k2, k3}, stream);
 }
 
 extern "C" const char* cpf_error_string(int err) {

@@ -15,6 +15,12 @@ Row table ``tet_row`` [nt, 20]: cols 0:3 = A, 3:12 = Tinv row-major,
 12:15 = tet velocity, 15:19 = neighbour codes as exact float integers
 (negative = -(boundary face + 1); meshes must stay under 2^24 tets in
 float32), 19 = 4-bit escape mask (bit s = slot s's boundary face absorbs).
+
+ConvexPoly tables (:func:`with_convex_rows`, optional): ``tet_row_cx``
+[nt, 24] = outward face normals 0:12 | plane offsets 12:16 | neighbour
+codes 16:20 | global face ids 20:24 (exact float integers), and
+``tet_row_cxe`` [nt, 24], the convex engine's row cache (``cx_table``):
+cols 0:20 of ``tet_row_cx`` | tet velocity 20:23 | 0.
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ ARRAY_FIELDS = (
     "bounds_lo", "bounds_hi",
 )
 META_FIELDS = ("n_points", "n_tets", "n_faces", "n_bd_faces")
+# optional array entries: present once with_convex_rows has run
+CONVEX_FIELDS = ("tet_row_cx", "tet_row_cxe")
+CX_ROW_W = 24
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -70,6 +79,8 @@ class TetMesh:
     n_tets: int
     n_faces: int
     n_bd_faces: int
+    tet_row_cx: torch.Tensor | None = None    # [nt, 24] (module docstring)
+    tet_row_cxe: torch.Tensor | None = None   # [nt, 24] convex row cache
 
     @property
     def dtype(self) -> torch.dtype:
@@ -294,20 +305,30 @@ def from_arrays_host(
     )
 
 
+def _check_f32_codes(n_tets: int, dtype) -> None:
+    if n_tets >= (1 << 24) and np.dtype(dtype) == np.float32:
+        raise ValueError("float32 row tables need < 2^24 tets (exact codes)")
+
+
 def host_to_device(payload: dict, device=None) -> TetMesh:
     """Upload a :func:`from_arrays_host` payload to ``device`` (one copy
     per field; dtypes already final).  ``payload`` values may be any
     array-likes (e.g. the fields of a JAX ``TetMesh``); they are kept as
-    numpy in ``mesh.host``."""
+    numpy in ``mesh.host``.  The convex tables ride along where the
+    payload has them (not None)."""
     dev = canonical_device(device)
-    host = {k: np.array(payload[k]) for k in ARRAY_FIELDS}
+    fields = ARRAY_FIELDS + tuple(k for k in CONVEX_FIELDS
+                                  if payload.get(k) is not None)
+    host = {k: np.array(payload[k]) for k in fields}
     for k in META_FIELDS:
         host[k] = int(payload[k])
     if host["tet_row"].shape[1] != 20:
         raise ValueError(f"tet_row must be [nt, 20], got {host['tet_row'].shape}")
-    if host["n_tets"] >= (1 << 24) and host["tet_row"].dtype == np.float32:
-        raise ValueError("float32 row tables need < 2^24 tets (exact codes)")
-    tensors = {k: torch.from_numpy(host[k]).to(dev) for k in ARRAY_FIELDS}
+    for k in fields[len(ARRAY_FIELDS):]:
+        if host[k].shape != (host["n_tets"], CX_ROW_W):
+            raise ValueError(f"{k} must be [nt, {CX_ROW_W}], got {host[k].shape}")
+    _check_f32_codes(host["n_tets"], host["tet_row"].dtype)
+    tensors = {k: torch.from_numpy(host[k]).to(dev) for k in fields}
     return TetMesh(host=host, **tensors, **{k: host[k] for k in META_FIELDS})
 
 
@@ -383,7 +404,8 @@ def _with_host(mesh: TetMesh, updates: dict) -> TetMesh:
 def replace_velocity(mesh: TetMesh, tet_vel=None, vert_vel=None) -> TetMesh:
     """Velocity refresh (``cudaUpdateVelocity``, ``particles.cu:733-749``):
     a mesh with new velocity arrays; ``tet_vel`` also lands in tet_row
-    cols 12:15."""
+    cols 12:15 and, once :func:`with_convex_rows` has run, in tet_row_cxe
+    cols 20:23."""
     fdt = mesh.host["points"].dtype
 
     def as_np(x):
@@ -397,6 +419,10 @@ def replace_velocity(mesh: TetMesh, tet_vel=None, vert_vel=None) -> TetMesh:
         row[:, 12:15] = tv
         updates["tet_vel"] = tv
         updates["tet_row"] = row
+        if "tet_row_cxe" in mesh.host:
+            cxe = mesh.host["tet_row_cxe"].copy()
+            cxe[:, 20:23] = tv
+            updates["tet_row_cxe"] = cxe
     if vert_vel is not None:
         updates["vert_vel"] = as_np(vert_vel)
     return _with_host(mesh, updates)
@@ -419,3 +445,24 @@ def set_boundary_escape(mesh: TetMesh, escape_patch_ids) -> TetMesh:
     row = mesh.host["tet_row"].copy()
     row[:, 19] = maskv
     return _with_host(mesh, {"bd_escape": esc, "tet_row": row})
+
+
+def with_convex_rows(mesh: TetMesh) -> TetMesh:
+    """Attach the ConvexPoly row tables ``tet_row_cx`` and ``tet_row_cxe``
+    (module docstring; JAX ``mesh.with_convex_rows``), built on the host
+    from the mesh's own numpy payload.  A mesh that has them is returned
+    as is."""
+    if mesh.tet_row_cx is not None:
+        return mesh
+    h = mesh.host
+    nt, fdt = mesh.n_tets, h["points"].dtype
+    _check_f32_codes(nt, fdt)
+    row = np.concatenate([
+        h["tet_face_n"].reshape(nt, 12),
+        h["tet_face_d"],
+        h["tet_nbr"].astype(fdt),
+        h["tet_faces"].astype(fdt),
+    ], axis=1)
+    cxe = np.concatenate([row[:, 0:20], h["tet_vel"].astype(fdt),
+                          np.zeros((nt, 1), fdt)], axis=1)
+    return _with_host(mesh, {"tet_row_cx": row, "tet_row_cxe": cxe})

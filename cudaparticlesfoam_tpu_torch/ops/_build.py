@@ -1,16 +1,20 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled at first use by ``nvcc`` into one shared library
+Each ``csrc/*.cu`` is compiled at first use by its own ``nvcc`` process
+(all started together), and the objects are linked into one shared library
 with a plain C interface, which is loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false -std=c++17
-         -shared -Xcompiler -fPIC -o <lib> csrc/*.cu
+         -Xcompiler -fPIC -lineinfo -Xptxas=-v -c -o <obj> csrc/<file>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> <objs>
 
 ``--fmad=false`` (and no ``--use_fast_math``) keeps every kernel op for op
 equal to its plain PyTorch version: no multiply-add contraction.  The
 library lands in ``<repo>/build/torch_kernels/`` under a name that carries
 a hash of the sources and flags, so an edited source or flag rebuilds.
-There is no fallback: a missing ``nvcc`` or a failed build raises.
+ptxas's register and spill report of the last build is kept in
+:func:`ptxas_report`.  There is no fallback: a missing ``nvcc`` or a
+failed build raises.
 """
 
 from __future__ import annotations
@@ -28,8 +32,8 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "torch_kernels")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
-FLAGS = (ARCH, "-O3", "--fmad=false", "-std=c++17", "-shared",
-         "-Xcompiler", "-fPIC", "-lineinfo")
+FLAGS = (ARCH, "-O3", "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
+         "-lineinfo", "-Xptxas=-v")
 
 _LIB: dict = {}          # loaded library (one per process) + build seconds
 
@@ -64,22 +68,43 @@ def _digest() -> str:
 
 def build() -> str:
     """Compile the kernels if the hashed library is missing; returns its
-    path.  Writes to a temporary name first, so a cut build leaves
-    nothing that looks finished."""
+    path.  One nvcc per source, run in parallel, then one link; every
+    output goes to a temporary name first, so a cut build leaves nothing
+    that looks finished."""
     lib = os.path.join(BUILD_DIR, f"libcpf_kernels_{_digest()}.so")
     if os.path.exists(lib):
         return lib
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{_digest()}.{os.getpid()}"
+    jobs = []
+    for src in sources():
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    report = []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        report.append(out + err)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [nvcc, *FLAGS, "-I", CSRC, "-o", tmp, *sources()]
+    cmd = [nvcc, ARCH, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
+        raise RuntimeError(f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+    for _, obj, _ in jobs:
+        os.remove(obj)
     os.replace(tmp, lib)
+    _LIB["ptxas"] = "".join(report)
     return lib
+
+
+def ptxas_report() -> str:
+    """ptxas's ``-v`` lines (registers, stack, spills per kernel) of the
+    build this process ran; empty when the library was already built."""
+    return _LIB.get("ptxas", "")
 
 
 def library() -> ctypes.CDLL:
@@ -89,14 +114,18 @@ def library() -> ctypes.CDLL:
         return _LIB["lib"]
     t0 = time.perf_counter()
     lib = ctypes.CDLL(build())
-    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    vp, ll, i, u = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint32
+    key = [i, u, u, u, u]     # noise mode + 4 Philox key words
     for suffix, fl in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
-        fn = getattr(lib, f"cpf_stream_{suffix}")
-        fn.argtypes = [vp, vp, vp, vp, ll, fl, fl, i, i, i, i, i, vp]
-        fn.restype = i
-        fn = getattr(lib, f"cpf_rare_{suffix}")
-        fn.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, vp]
-        fn.restype = i
+        for name, args in (
+            ("stream", [vp, vp, vp, vp, ll, fl, fl, i, i, i, i, i, *key, vp]),
+            ("rare", [vp, vp, vp, vp, ll, i, i, i, i, vp]),
+            ("convex_stream", [vp, vp, vp, vp, vp, ll, fl, fl, i, i, i, *key, vp]),
+            ("convex_rare", [vp] * 11 + [ll, i, i, i, i, i, vp]),
+        ):
+            fn = getattr(lib, f"cpf_{name}_{suffix}")
+            fn.argtypes = args
+            fn.restype = i
     lib.cpf_error_string.argtypes = [i]
     lib.cpf_error_string.restype = ctypes.c_char_p
     _LIB["lib"] = lib

@@ -74,12 +74,83 @@ def unpack_state(m: torch.Tensor):
     return m[:, P0 : P0 + 3], m[:, V0 : V0 + 3], m[:, TET].to(torch.int32), m[:, ACT] > 0.5
 
 
-def _brownian_noise(seed: int, step: int, n: int, dtype, device) -> torch.Tensor:
-    """Per-cycle standard-normal noise [n, 3] from a ``torch.Generator`` on
-    ``device`` seeded from (seed, step): one stream per sub-step, like the
-    JAX package's ``fold_in(key, step)`` counter.  The bits differ from
-    JAX's threefry stream (and between CPU and CUDA generators); parity
-    tests inject their noise instead."""
+RBG_MODES = ("rbg", "rbg_kernel")
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def philox_key(seed: int, step: int, lane_offset: int = 0) -> tuple:
+    """The 4 uint32 words of the JAX "rbg" stream's key for one sub-step
+    (``fused._brownian_noise``): ``[key0, key1, 0x9E3779B9 ^ lane_offset,
+    step]`` with (key0, key1) = ``jax.random.PRNGKey(seed)`` =
+    (seed >> 32, seed & 0xffffffff)."""
+    seed = int(seed)
+    return ((seed >> 32) & _MASK32, seed & _MASK32,
+            (0x9E3779B9 ^ int(lane_offset)) & _MASK32, int(step) & _MASK32)
+
+
+def _mulhilo(m: int, x):
+    """(hi, lo) 32-bit halves of m * x for x in [0, 2^32) as int64, with no
+    int64 overflow (x split into 16-bit halves)."""
+    a = m * (x & 0xFFFF)
+    b = m * (x >> 16)
+    s = a + ((b & 0xFFFF) << 16)
+    return (s >> 32) + (b >> 16), s & _MASK32
+
+
+def philox_bits(key4, n: int, device=None) -> torch.Tensor:
+    """uint32 words [n, 4] (held in int64) equal to XLA's Philox4x32-10
+    ``lax.rng_bit_generator(key4, (n, 4), uint32)``, the off-TPU JAX "rbg"
+    stream: Philox key (key4[0], key4[1]); row l is the block of the
+    128-bit counter ``(key4[1], key4[0], key4[3], key4[2]) + l`` (most
+    significant word first), and its 4 output words in order."""
+    k0, k1, k2, k3 = (int(k) & _MASK32 for k in key4)
+    lane = torch.arange(n, dtype=torch.int64, device=device)
+    c = []
+    carry = lane
+    for w in (k2, k3, k0, k1):          # counter words, least significant first
+        s = carry + w
+        c.append(s & _MASK32)
+        carry = s >> 32
+    key = [torch.full_like(lane, k0), torch.full_like(lane, k1)]
+    for r in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+        c = [hi1 ^ c[1] ^ key[0], lo1, hi0 ^ c[3] ^ key[1], lo0]
+        key = [(key[0] + _PHILOX_W[0]) & _MASK32, (key[1] + _PHILOX_W[1]) & _MASK32]
+    return torch.stack(c, dim=1)
+
+
+def philox_normals(key4, n: int, dtype, device=None) -> torch.Tensor:
+    """Standard normals [n, 3] of the JAX "rbg" stream: u = bits * 2^-32 +
+    2^-33 in ``dtype``, then full-pair Box-Muller, 3 normals from 4
+    uniforms (``fused.py:187-201``)."""
+    bits = philox_bits(key4, n, device)
+    u = bits.to(dtype) * (1.0 / 4294967296.0) + (0.5 / 4294967296.0)
+    two_pi = torch.tensor(2.0 * np.pi, dtype=dtype, device=device)
+    r = torch.sqrt(-2.0 * torch.log(u[:, :2]))
+    a = two_pi * u[:, 2:4]
+    return torch.stack([r[:, 0] * torch.cos(a[:, 0]), r[:, 0] * torch.sin(a[:, 0]),
+                        r[:, 1] * torch.cos(a[:, 1])], dim=1)
+
+
+def _brownian_noise(seed: int, step: int, n: int, dtype, device,
+                    mode: str = "threefry") -> torch.Tensor:
+    """Per-cycle standard-normal noise [n, 3].
+
+    * ``"threefry"``: a ``torch.Generator`` on ``device`` seeded from
+      (seed, step), one stream per sub-step like the JAX package's
+      ``fold_in(key, step)``; the bits differ from JAX's threefry stream,
+      so parity tests inject their noise instead.
+    * ``"rbg"`` / ``"rbg_kernel"``: :func:`philox_normals` of
+      :func:`philox_key` (seed, step), the same bits as the JAX "rbg"
+      stream off a TPU; the CUDA stream kernels draw the same stream in
+      the kernel (``csrc/philox.cuh``)."""
+    if mode in RBG_MODES:
+        return philox_normals(philox_key(seed, step), n, dtype, device)
+    if mode != "threefry":
+        raise ValueError(f"unknown brownian_rng {mode!r}")
     g = torch.Generator(device=device)
     g.manual_seed(((int(seed) << 32) + int(step)) % (1 << 63))
     return torch.randn((n, 3), generator=g, dtype=dtype, device=device)
@@ -361,23 +432,28 @@ def mega_cycle(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
                pending=None) -> torch.Tensor:
     """One sub-step over the mega state, in place: stream kernel, then the
     rare kernel over the pending lanes.  ``noise`` [n, 3] replaces the
-    per-step generator draw (parity replays); ``pending`` is optional
-    [n] uint8 scratch."""
+    noise draw (parity replays); under ``brownian_rng`` "rbg"/"rbg_kernel"
+    a CUDA mega draws the Philox stream inside the stream kernel.
+    ``pending`` is optional [n] uint8 scratch."""
     from . import fused_cuda
 
     n = m.shape[0]
     if pending is None:
         pending = torch.empty(n, dtype=torch.uint8, device=m.device)
-    xi = None
+    xi, key = None, None
     if cfg.use_brownian:
-        xi = noise if noise is not None else _brownian_noise(
-            seed, step, n, m.dtype, m.device)
+        if noise is not None:
+            xi = noise
+        elif cfg.brownian_rng in RBG_MODES:
+            key = philox_key(seed, step)
+        else:
+            xi = _brownian_noise(seed, step, n, m.dtype, m.device, cfg.brownian_rng)
     dt_t, sigma = scalars(cfg, dt, m.dtype)
     fused_cuda.stream_cycle(
         mesh.tet_row, m, xi, pending, dt=dt_t, sigma=sigma,
         use_adv=cfg.use_advection, use_brown=cfg.use_brownian,
         bounce_on=cfg.reflect_wall and cfg.inline_bounce,
-        esc_on=cfg.escape_faces, n_hops=cfg.inline_hops,
+        esc_on=cfg.escape_faces, n_hops=cfg.inline_hops, noise_key=key,
     )
     fused_cuda.rare_resolve(
         mesh.tet_row, m, pending, mesh.bd_escape, max_hops=cfg.max_hops,

@@ -8,6 +8,19 @@
 * :func:`rare_resolve` -> ``rare_kernel`` (``csrc/rare.cu``): the XLA rare
   stage (``fused._rare_stage(_packed)`` with ``_walk_mega`` and
   ``_reflect_mega``).
+* :func:`convex_stream_cycle` -> ``convex_stream_kernel``
+  (``csrc/convex_stream.cu``): the convex stream kernels CA / CB
+  (``_kernel_ca_packed``, ``_kernel_ca_packed_k``, ``_kernel_cb_packed``)
+  with the cx-row gather between them.
+* :func:`convex_rare_resolve` -> ``convex_rare_kernel``
+  (``csrc/convex_rare.cu``): the XLA convex rare stage
+  (``fused_convex._rare_stage(_packed)`` with ``_make_run_lanes``).
+
+Brownian noise: with ``noise_key`` (the 4 words of ``fused.philox_key``)
+a stream kernel on CUDA draws the JAX "rbg" Philox stream itself
+(``csrc/philox.cuh``, the TPU's in-kernel noise ``_kernel_*_k``); on the
+CPU the wrapper draws the same stream with ``fused.philox_normals``.
+Without it the kernel reads ``xi`` [n, 3].
 
 A wrapper given CPU tensors runs the plain version from ``ops/fused.py``;
 given CUDA tensors it launches the kernel on the current stream, or
@@ -21,7 +34,8 @@ import ctypes
 import torch
 
 from . import _build
-from .fused import LAYOUT_TET, rare_plain, stream_plain
+from . import fused_convex
+from .fused import LAYOUT_TET, philox_normals, rare_plain, stream_plain
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -39,19 +53,37 @@ def _check(name, t, *, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_tab_m(tab, m):
+def _check_tab_m(tab, m, width=LAYOUT_TET.width, row_w=LAYOUT_TET.row_w):
     if m.dtype not in _SUFFIX:
         raise TypeError(f"m must be float32 or float64, got {m.dtype}")
     if m.dim() != 2:
-        raise ValueError(f"m must be [n, {LAYOUT_TET.width}], got {tuple(m.shape)}")
+        raise ValueError(f"m must be [n, {width}], got {tuple(m.shape)}")
     n, dev = m.shape[0], m.device
-    _check("m", m, dtype=m.dtype, shape=(n, LAYOUT_TET.width), device=dev)
+    _check("m", m, dtype=m.dtype, shape=(n, width), device=dev)
     if tab.dim() != 2:
-        raise ValueError(f"tab must be [nt, {LAYOUT_TET.row_w}], got {tuple(tab.shape)}")
-    _check("tab", tab, dtype=m.dtype, shape=(tab.shape[0], LAYOUT_TET.row_w), device=dev)
+        raise ValueError(f"tab must be [nt, {row_w}], got {tuple(tab.shape)}")
+    _check("tab", tab, dtype=m.dtype, shape=(tab.shape[0], row_w), device=dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return n, dev
+
+
+def _noise_args(xi, n, m, use_brown, noise_key):
+    """(xi for the plain version, xi pointer, mode, 4 key words) of a
+    stream call; mode 1 = in-kernel Philox."""
+    if not use_brown:
+        return None, None, 0, (0, 0, 0, 0)
+    if noise_key is None:
+        _check("xi", xi, dtype=m.dtype, shape=(n, 3), device=m.device)
+        return xi, xi.data_ptr(), 0, (0, 0, 0, 0)
+    if xi is not None:
+        raise ValueError("pass xi or noise_key, not both")
+    key = tuple(int(k) for k in noise_key)
+    if len(key) != 4 or not all(0 <= k < (1 << 32) for k in key):
+        raise ValueError(f"noise_key must be 4 uint32 words, got {noise_key!r}")
+    if m.device.type == "cpu":
+        return philox_normals(key, n, m.dtype, m.device), None, 1, key
+    return None, None, 1, key
 
 
 def _stream_ptr(dev) -> ctypes.c_void_p:
@@ -59,14 +91,14 @@ def _stream_ptr(dev) -> ctypes.c_void_p:
 
 
 def stream_cycle(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
-                 bounce_on, esc_on, n_hops):
+                 bounce_on, esc_on, n_hops, noise_key=None):
     """Stream section of one cycle (K1 + K2), in place on ``m`` [n, 32];
-    writes the rare-stage flags into ``pending`` [n] uint8.  ``xi`` [n, 3]
-    (same dtype) is required iff ``use_brown``."""
+    writes the rare-stage flags into ``pending`` [n] uint8.  With
+    ``use_brown``, either ``xi`` [n, 3] (same dtype) or ``noise_key``
+    (Philox, module docstring) gives the noise."""
     n, dev = _check_tab_m(tab, m)
     _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
-    if use_brown:
-        _check("xi", xi, dtype=m.dtype, shape=(n, 3), device=dev)
+    xi, xi_ptr, mode, key = _noise_args(xi, n, m, use_brown, noise_key)
     if not 0 <= int(n_hops) <= 8:
         raise ValueError(f"n_hops must be in 0..8, got {n_hops}")
     kw = dict(dt=dt, sigma=sigma, use_adv=bool(use_adv), use_brown=bool(use_brown),
@@ -78,10 +110,9 @@ def stream_cycle(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
         return
     lib = _build.library()
     fn = getattr(lib, f"cpf_stream_{_SUFFIX[m.dtype]}")
-    err = fn(tab.data_ptr(), m.data_ptr(), xi.data_ptr() if use_brown else None,
-             pending.data_ptr(), n, dt, sigma, int(kw["use_adv"]),
-             int(kw["use_brown"]), int(kw["bounce_on"]), int(kw["esc_on"]),
-             kw["n_hops"], _stream_ptr(dev))
+    err = fn(tab.data_ptr(), m.data_ptr(), xi_ptr, pending.data_ptr(), n, dt, sigma,
+             int(kw["use_adv"]), int(kw["use_brown"]), int(kw["bounce_on"]),
+             int(kw["esc_on"]), kw["n_hops"], mode, *key, _stream_ptr(dev))
     _build.check(lib, err, "stream_kernel")
     stream_cycle.launches += 1
 
@@ -118,3 +149,83 @@ def rare_resolve(tab, m, pending, bd_escape, *, max_hops, max_bounces,
 
 
 rare_resolve.launches = 0
+
+
+def convex_stream_cycle(tab, m, xi, pending, disp, *, dt, sigma, use_adv, use_brown,
+                        n_hops, noise_key=None):
+    """Convex stream section of one cycle (K5), in place on the convex mega
+    ``m`` [n, 32] with ``tab`` = ``cx_table`` [nt, 24]; writes ``pending``
+    [n] uint8 and the displacement ``disp`` [n, 3].  Noise as in
+    :func:`stream_cycle`; ``n_hops`` >= 1 runs the one inline hop."""
+    n, dev = _check_tab_m(tab, m, fused_convex.WIDTH, fused_convex.ROW_W)
+    _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
+    _check("disp", disp, dtype=m.dtype, shape=(n, 3), device=dev)
+    xi, xi_ptr, mode, key = _noise_args(xi, n, m, use_brown, noise_key)
+    if not 0 <= int(n_hops) <= 8:
+        raise ValueError(f"n_hops must be in 0..8, got {n_hops}")
+    kw = dict(dt=dt, sigma=sigma, use_adv=bool(use_adv), use_brown=bool(use_brown),
+              n_hops=int(n_hops))
+    if dev.type == "cpu":
+        fused_convex.convex_stream_plain(tab, m, xi, pending, disp, **kw)
+        return
+    if n == 0:
+        return
+    lib = _build.library()
+    fn = getattr(lib, f"cpf_convex_stream_{_SUFFIX[m.dtype]}")
+    err = fn(tab.data_ptr(), m.data_ptr(), xi_ptr, pending.data_ptr(), disp.data_ptr(),
+             n, dt, sigma, int(kw["use_adv"]), int(kw["use_brown"]), kw["n_hops"],
+             mode, *key, _stream_ptr(dev))
+    _build.check(lib, err, "convex_stream_kernel")
+    convex_stream_cycle.launches += 1
+
+
+convex_stream_cycle.launches = 0
+
+
+def convex_rare_resolve(mesh, tab, m, disp, pending, *, max_hops, reflect_wall,
+                        bary_fix, max_bounces):
+    """Convex rare stage, in place on ``m``: every lane with ``pending``
+    set traces its segment from the pos columns by ``disp`` (``max_hops``
+    tets), and with ``reflect_wall`` reflects (at most 5 bounces, each
+    re-trace 50 tets) and, with ``bary_fix``, runs the barycentric walk +
+    ``reflect_walls`` (``max_bounces``) on the landed point.  Reads the
+    mesh's ``tet_row_cx``, ``tet_a``, ``tet_tinv``, ``tet_nbr``,
+    ``tet_face_n``, ``tet_face_d`` and ``bd_escape``.  The kernel covers
+    all n lanes and returns at once where the flag is 0."""
+    n, dev = _check_tab_m(tab, m, fused_convex.WIDTH, fused_convex.ROW_W)
+    _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
+    _check("disp", disp, dtype=m.dtype, shape=(n, 3), device=dev)
+    if mesh.tet_row_cx is None:
+        raise ValueError("the convex rare stage needs mesh.with_convex_rows(mesh)")
+    nt, nbd = mesh.n_tets, mesh.n_bd_faces
+    _check("tab", tab, dtype=m.dtype, shape=(nt, fused_convex.ROW_W), device=dev)
+    for name, t, dtype, shape in (
+        ("tet_row_cx", mesh.tet_row_cx, m.dtype, (nt, fused_convex.ROW_W)),
+        ("tet_a", mesh.tet_a, m.dtype, (nt, 3)),
+        ("tet_tinv", mesh.tet_tinv, m.dtype, (nt, 3, 3)),
+        ("tet_nbr", mesh.tet_nbr, torch.int32, (nt, 4)),
+        ("tet_face_n", mesh.tet_face_n, m.dtype, (nt, 4, 3)),
+        ("tet_face_d", mesh.tet_face_d, m.dtype, (nt, 4)),
+        ("bd_escape", mesh.bd_escape, torch.bool, (nbd,)),
+    ):
+        _check(name, t, dtype=dtype, shape=shape, device=dev)
+    kw = dict(max_hops=int(max_hops), reflect_wall=bool(reflect_wall),
+              bary_fix=bool(bary_fix), max_bounces=int(max_bounces))
+    if dev.type == "cpu":
+        fused_convex.convex_rare_plain(mesh, tab, m, disp, pending, **kw)
+        return
+    if n == 0:
+        return
+    lib = _build.library()
+    fn = getattr(lib, f"cpf_convex_rare_{_SUFFIX[m.dtype]}")
+    err = fn(tab.data_ptr(), mesh.tet_row_cx.data_ptr(), mesh.tet_a.data_ptr(),
+             mesh.tet_tinv.data_ptr(), mesh.tet_nbr.data_ptr(), mesh.tet_face_n.data_ptr(),
+             mesh.tet_face_d.data_ptr(), mesh.bd_escape.data_ptr(), m.data_ptr(),
+             disp.data_ptr(), pending.data_ptr(), n, nbd, kw["max_hops"],
+             int(kw["reflect_wall"]), int(kw["bary_fix"]), kw["max_bounces"],
+             _stream_ptr(dev))
+    _build.check(lib, err, "convex_rare_kernel")
+    convex_rare_resolve.launches += 1
+
+
+convex_rare_resolve.launches = 0

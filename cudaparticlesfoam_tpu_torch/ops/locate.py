@@ -8,6 +8,10 @@
 * :class:`GridLocator` — a uniform grid of candidate start tets over the
   mesh bounds (the OptiX BVH broad phase's replacement), plus a host
   brute-force sweep for the few points the walk cannot reach.
+* :func:`reflect_walls` — ``RTreflection`` across the outward face plane,
+  the ConvexPoly rare stage's barycentric safety net
+  (``StepConfig.convex_bary_fix``); its kernel form is in
+  ``csrc/convex_rare.cu``.
 """
 
 from __future__ import annotations
@@ -67,6 +71,58 @@ def walk(mesh: TetMesh, p, tet0, active=None, max_hops: int = MAX_HOPS):
         slot = torch.where(stepping, exit_slot, slot)
         done = done | inside | out
     return tet.to(torch.int32), slot.to(torch.int32)
+
+
+def reflect_walls(mesh: TetMesh, pos, disp, vel, tet_id, max_bounces: int = 10):
+    """Vectorized ``RTreflection`` (``RTQuery.cu:109-186``; JAX
+    ``locate.reflect_walls``): for lanes with a wall-hit code (tet_id < 0)
+    mirror the end point and velocity across the OUTWARD face plane
+    (``tet_face_n``/``tet_face_d``) of the walk's exit face, re-walk,
+    repeat up to ``max_bounces``; absorbing faces (``bd_escape``) settle
+    the lane with tet = -(exitTet+1).  Returns (disp, vel, tet_id); lanes
+    with tet_id >= 0 pass through."""
+    tet_id = tet_id.to(torch.int64)
+    hit = tet_id < 0
+    tet_bd = torch.where(hit, -(tet_id + 1), tet_id)
+    p_ref = pos + disp
+    u_ref = vel
+    settled = ~hit
+    nbd = mesh.n_bd_faces
+    for _ in range(max_bounces):
+        if bool(settled.all()):
+            break
+        wtet, wslot = walk(mesh, p_ref, tet_bd, active=~settled)
+        wtet, wslot = wtet.to(torch.int64), wslot.to(torch.int64)
+        in_domain = wtet >= 0
+        newly = ~settled & in_domain
+        tet_bd = torch.where(newly, wtet, tet_bd)
+        refl = ~settled & ~in_domain
+        zero = torch.zeros_like(wtet)
+        ex_tet = torch.where(refl, -(wtet + 1), zero)
+        ex_slot = torch.where(refl, wslot.clamp(min=0), zero)
+        code_nbr = mesh.tet_nbr[ex_tet, ex_slot].to(torch.int64)
+        if nbd:
+            bd = (-code_nbr - 1).clamp(0, nbd - 1)
+            esc = refl & (code_nbr < 0) & mesh.bd_escape[bd]
+        else:
+            esc = torch.zeros_like(refl)
+        tet_bd = torch.where(esc, -(ex_tet + 1), tet_bd)
+        settled = settled | esc
+        refl = refl & ~esc
+        n = mesh.tet_face_n[ex_tet, ex_slot]
+        d = mesh.tet_face_d[ex_tet, ex_slot]
+        pn = (p_ref[:, 0] * n[:, 0] + p_ref[:, 1] * n[:, 1]) + p_ref[:, 2] * n[:, 2]
+        un = (u_ref[:, 0] * n[:, 0] + u_ref[:, 1] * n[:, 1]) + u_ref[:, 2] * n[:, 2]
+        p_new = p_ref - 2.0 * (pn - d)[:, None] * n
+        u_new = u_ref - 2.0 * un[:, None] * n
+        p_ref = torch.where(refl[:, None], p_new, p_ref)
+        u_ref = torch.where(refl[:, None], u_new, u_ref)
+        tet_bd = torch.where(refl, ex_tet, tet_bd)
+        settled = settled | newly
+    new_disp = torch.where(hit[:, None], p_ref - pos, disp)
+    new_vel = torch.where(hit[:, None], u_ref, vel)
+    new_tet = torch.where(hit, tet_bd, tet_id)
+    return new_disp, new_vel, new_tet.to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

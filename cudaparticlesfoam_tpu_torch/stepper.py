@@ -2,9 +2,11 @@
 cached engine).
 
 ``run_cycles`` packs the state into the [n, 32] mega array once, runs
-``n_cycles`` sub-steps of :func:`ops.fused.mega_cycle` (two kernels each
-on CUDA: stream + rare), and unpacks.  PyTorch runs eagerly, so the loop is
-a Python loop of asynchronous launches with no host sync inside.
+``n_cycles`` sub-steps of :func:`ops.fused.mega_cycle` (or, with
+``locate_mode="convex"``, :func:`ops.fused_convex.mega_cycle`; two
+kernels each on CUDA: stream + rare), and unpacks.  PyTorch runs
+eagerly, so the loop is a Python loop of asynchronous launches with no
+host sync inside.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from .mesh import TetMesh
 from .ops import advect as advect_ops
-from .ops import fused
+from .ops import fused, fused_convex
 from .ops import locate as locate_ops
 from .state import ParticleState
 
@@ -45,8 +47,9 @@ class StepConfig:
     arena_lane_frac: float = 0.25
     locate_mode: str = "bary"
     integrator: str = "euler"
-    # noise drawn outside the kernel, one stream per (seed, step); the port
-    # keeps the JAX name of that mode
+    # "threefry": torch.randn outside the kernel, one stream per (seed,
+    # step); "rbg" / "rbg_kernel": the JAX "rbg" Philox stream, drawn
+    # inside the stream kernels on CUDA (ops/fused.py:_brownian_noise)
     brownian_rng: str = "threefry"
     inline_hops: int = 1
     inline_bounce: bool = True
@@ -74,32 +77,31 @@ class StepConfig:
 
 def check_ported(cfg: StepConfig) -> None:
     """Raise ``NotImplementedError`` for a setting whose kernels the port
-    does not have yet (naming its ROADMAP item), and ``ValueError`` for
-    values the kernels cannot take."""
+    does not have yet (naming the setting and its ROADMAP queue 1 item),
+    and ``ValueError`` for values the kernels cannot take."""
     todo = []
     if cfg.engine == "simple":
         todo.append("engine='simple' (the simple engine; ROADMAP queue 1 item 3)")
     elif cfg.engine not in ("auto", "cached"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
-    if cfg.locate_mode == "convex":
-        todo.append("locate_mode='convex' (K5, ROADMAP queue 1 item 8)")
+    if cfg.locate_mode not in ("bary", "convex"):
+        raise ValueError(f"unknown locate_mode {cfg.locate_mode!r}")
     if cfg.integrator == "rk4":
-        todo.append("integrator='rk4' (_stage_velocity, ROADMAP queue 1 item 7)")
+        todo.append("integrator='rk4' (_stage_velocity, ROADMAP queue 1 item 8)")
     if cfg.velocity_interp != advect_ops.TET_VELOCITY:
         todo.append(f"velocity_interp={cfg.velocity_interp!r} "
-                    "(LAYOUT_PK, ROADMAP queue 1 item 7)")
+                    "(LAYOUT_PK, ROADMAP queue 1 item 8)")
     if cfg.hop_compact == 4:
-        todo.append("hop_compact=4 (K3, ROADMAP queue 1 item 9)")
+        todo.append("hop_compact=4 (K3, ROADMAP queue 1 items 7 and 10)")
     if cfg.macro_cycles > 1:
-        todo.append("macro_cycles>1 (K4, ROADMAP queue 1 item 9)")
-    if cfg.brownian_rng != "threefry":
-        todo.append(f"brownian_rng={cfg.brownian_rng!r} "
-                    "(in-kernel noise, K6, ROADMAP queue 1 item 9)")
+        todo.append("macro_cycles>1 (K4, ROADMAP queue 1 items 7 and 10)")
+    if cfg.brownian_rng not in ("threefry",) + fused.RBG_MODES:
+        raise ValueError(f"unknown brownian_rng {cfg.brownian_rng!r}")
     if cfg.cycle_chunks > 1:
-        todo.append("cycle_chunks>1 (ROADMAP queue 1 item 9)")
+        todo.append("cycle_chunks>1 (ROADMAP queue 1 item 10)")
     if cfg.engine_impl != "auto":
         todo.append(f"engine_impl={cfg.engine_impl!r} (the port picks the "
-                    "kernel from the tensors' device; ROADMAP queue 1 item 9)")
+                    "kernel from the tensors' device; ROADMAP queue 1 item 10)")
     if todo:
         raise NotImplementedError(
             "not ported to PyTorch/CUDA yet: " + "; ".join(todo))
@@ -109,11 +111,12 @@ def check_ported(cfg: StepConfig) -> None:
 
 def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
                n_cycles: int, dt=None, noise=None) -> ParticleState:
-    """``n_cycles`` sub-steps of the cached engine.
+    """``n_cycles`` sub-steps of the cached engine (bary, or ConvexPoly
+    with ``locate_mode="convex"`` on a mesh with ``with_convex_rows``).
 
     ``dt`` defaults to cfg.dt (``advect.H:36-37``: pass the Eulerian
     ``cycleDt`` for sub-cycled runs).  ``noise`` [n_cycles, n, 3], when
-    given, replaces the per-step generator draw (replays of a recorded
+    given, replaces the per-step noise draw (replays of a recorded
     Brownian stream).  On CUDA tensors every cycle runs the stream and
     rare kernels; on CPU tensors their plain versions."""
     check_ported(cfg)
@@ -121,13 +124,31 @@ def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
     n = state.n_particles
     if noise is not None and tuple(noise.shape) != (n_cycles, n, 3):
         raise ValueError(f"noise must be [{n_cycles}, {n}, 3], got {tuple(noise.shape)}")
-    m = fused.pack_state(mesh, state.pos, state.vel, state.tet_id, state.active)
-    pending = torch.empty(n, dtype=torch.uint8, device=m.device)
-    for i in range(n_cycles):
-        fused.mega_cycle(mesh, m, state.seed, state.step + i, cfg, dt,
-                         noise=None if noise is None else noise[i],
-                         pending=pending)
-    pos, vel, tet, act = fused.unpack_state(m)
+    pending = torch.empty(n, dtype=torch.uint8, device=state.device)
+    if cfg.locate_mode == "convex":
+        if mesh.tet_row_cx is None:
+            # the JAX package runs its simple engine here
+            raise NotImplementedError(
+                "locate_mode='convex' needs the cached engine's tables: call "
+                "mesh.with_convex_rows(mesh) first (without them the JAX package "
+                "falls back to the simple engine, not ported yet; ROADMAP queue 1 "
+                "item 3)")
+        tab = fused_convex.cx_table(mesh)
+        m = fused_convex.pack_state(mesh, tab, state.pos, state.vel, state.tet_id,
+                                    state.active)
+        disp = torch.empty((n, 3), dtype=m.dtype, device=m.device)
+        for i in range(n_cycles):
+            fused_convex.mega_cycle(mesh, tab, m, state.seed, state.step + i, cfg, dt,
+                                    noise=None if noise is None else noise[i],
+                                    pending=pending, disp=disp)
+        pos, vel, tet, act = fused_convex.unpack_state(m)
+    else:
+        m = fused.pack_state(mesh, state.pos, state.vel, state.tet_id, state.active)
+        for i in range(n_cycles):
+            fused.mega_cycle(mesh, m, state.seed, state.step + i, cfg, dt,
+                             noise=None if noise is None else noise[i],
+                             pending=pending)
+        pos, vel, tet, act = fused.unpack_state(m)
     return dataclasses.replace(
         state, pos=pos.clone(), vel=vel.clone(),
         disp=torch.zeros_like(state.disp), tet_id=tet, active=act,

@@ -1,6 +1,7 @@
 """PyTorch port: the StepConfig surface, the settings that are not ported
-yet, suggest_tuning against the JAX package, and the kernel build's error
-when there is no CUDA toolkit."""
+yet (each message names its setting and ROADMAP item), suggest_tuning
+against the JAX package, and the kernel build's error when there is no
+CUDA toolkit."""
 
 import dataclasses
 
@@ -34,18 +35,21 @@ def test_validation_mirrors_jax(kw):
     assert str(got.value) == str(want.value)
 
 
+# (setting, the text its message must carry: the setting and its ROADMAP
+# queue 1 item); convex without with_convex_rows needs the simple engine
 UNPORTED = [
-    dict(engine="simple"),
-    dict(locate_mode="convex"),
-    dict(integrator="rk4"),
-    dict(velocity_interp="VertexVelocity"),
-    dict(velocity_interp="ConstantVelocity"),
-    dict(hop_compact=4),
-    dict(macro_cycles=2),
-    dict(brownian_rng="rbg"),
-    dict(brownian_rng="rbg_kernel"),
-    dict(cycle_chunks=2),
-    dict(engine_impl="jnp"),
+    (dict(engine="simple"), "engine='simple' (the simple engine; ROADMAP queue 1 item 3)"),
+    (dict(locate_mode="convex"), "with_convex_rows"),
+    (dict(integrator="rk4"), "integrator='rk4' (_stage_velocity, ROADMAP queue 1 item 8)"),
+    (dict(velocity_interp="VertexVelocity"), "velocity_interp='VertexVelocity' "
+     "(LAYOUT_PK, ROADMAP queue 1 item 8)"),
+    (dict(velocity_interp="ConstantVelocity"), "velocity_interp='ConstantVelocity' "
+     "(LAYOUT_PK, ROADMAP queue 1 item 8)"),
+    (dict(hop_compact=4), "hop_compact=4 (K3, ROADMAP queue 1 items 7 and 10)"),
+    (dict(macro_cycles=2), "macro_cycles>1 (K4, ROADMAP queue 1 items 7 and 10)"),
+    (dict(cycle_chunks=2), "cycle_chunks>1 (ROADMAP queue 1 item 10)"),
+    (dict(engine_impl="jnp"), "engine_impl='jnp' (the port picks the kernel from the "
+     "tensors' device; ROADMAP queue 1 item 10)"),
 ]
 
 
@@ -58,21 +62,36 @@ def tiny():
     return mesh, st
 
 
-@pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
-def test_unported_settings_raise(tiny, kw):
+@pytest.mark.parametrize("kw,msg", UNPORTED,
+                         ids=["-".join(f"{k}={v}" for k, v in kw.items()) for kw, _ in UNPORTED])
+def test_unported_settings_raise(tiny, kw, msg):
     mesh, st = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
         cpt.run_cycles(mesh, st, cpt.StepConfig(**kw), 1)
+    assert msg in str(exc.value)
+    # still refused on a mesh with the convex rows, and under locate_mode
+    # convex, unless it is the convex setting itself
+    if kw != dict(locate_mode="convex"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cpt.run_cycles(cpt.with_convex_rows(mesh), st,
+                           cpt.StepConfig(locate_mode="convex", **kw), 1)
 
 
 def test_ported_settings_run(tiny):
     mesh, st = tiny
+    mesh_cx = cpt.with_convex_rows(mesh)
     for kw in (dict(), dict(engine="cached"), dict(inline_hops=8, escape_faces=True),
-               dict(walk_capacity_frac=0.5, arena_lane_frac=0.1, inline_bounce=False)):
-        out = cpt.run_cycles(mesh, st, cpt.StepConfig(dt=0.01, **kw), 2)
-        assert int(out.active.sum()) == 8
-    with pytest.raises(ValueError):
-        cpt.run_cycles(mesh, st, cpt.StepConfig(inline_hops=9), 1)
+               dict(walk_capacity_frac=0.5, arena_lane_frac=0.1, inline_bounce=False),
+               dict(brownian_rng="rbg"), dict(brownian_rng="rbg_kernel"),
+               dict(locate_mode="convex"), dict(locate_mode="convex", engine="cached",
+                                                brownian_rng="rbg_kernel", inline_hops=0),
+               dict(locate_mode="convex", escape_faces=True, convex_bary_fix=False)):
+        out = cpt.run_cycles(mesh_cx, st, cpt.StepConfig(dt=0.01, **kw), 2)
+        assert int(out.active.sum()) == 8 and out.step == 2
+    for kw in (dict(inline_hops=9), dict(locate_mode="convex", inline_hops=9),
+               dict(locate_mode="walk"), dict(brownian_rng="philox")):
+        with pytest.raises(ValueError):
+            cpt.run_cycles(mesh_cx, st, cpt.StepConfig(**kw), 1)
 
 
 def _box_payload(nside, speed):
@@ -117,7 +136,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_found():
     names = sorted(p.rsplit("/", 1)[-1] for p in _build.sources())
-    assert names == ["rare.cu", "stream.cu"]
+    assert names == ["convex_rare.cu", "convex_stream.cu", "rare.cu", "stream.cu"]
     assert "--fmad=false" in _build.FLAGS and "code=sm_90a" in _build.ARCH
 
 
@@ -131,3 +150,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_cuda.rare_resolve(tab, m, pend, torch.empty(0, dtype=torch.bool, device="meta"),
                                 max_hops=50, max_bounces=10, reflect_wall=True)
+    cx = torch.empty((4, 24), device="meta")
+    disp = torch.empty((8, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_cuda.convex_stream_cycle(cx, m, None, pend, disp, dt=0.1, sigma=0.0,
+                                       use_adv=True, use_brown=False, n_hops=1)

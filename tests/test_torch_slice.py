@@ -1,6 +1,6 @@
 """PyTorch port, end to end on the CPU: ``run_cycles`` against the committed
-f64 golden anchors (tests/golden/particles_f64.npz) and against the JAX
-package's cached engine; plus the replay fixture the card uses to replay
+f64 golden anchors (tests/golden/particles_f64.npz: bary and convex) and
+against the JAX package's cached engine; plus the replay fixture the card uses to replay
 the anchors without jax (tests/golden/torch_port_box_inputs.npz)."""
 
 import importlib.util
@@ -70,6 +70,16 @@ def test_golden_box_bary_brownian(golden, box):
     cfg = cpt.StepConfig(dt=0.08, diffusion_coeff=1e-3)
     fin = cpt.run_cycles(mesh, st, cfg, 60, noise=noise)
     _assert_anchor(fin, golden, "bary_brownian")
+
+
+def test_golden_box_convex_adv(golden, box):
+    """The ConvexPoly cached engine (convex stream + convex rare stage with
+    the barycentric safety net) on the same box and seeds."""
+    mesh, st = box
+    fin = cpt.run_cycles(cpt.with_convex_rows(mesh), st,
+                         cpt.StepConfig(dt=0.08, use_brownian=False, locate_mode="convex"), 60)
+    _assert_anchor(fin, golden, "convex_adv")
+    assert fin.step == 60
 
 
 def test_multihop_run_matches_jax_cached_engine():

@@ -1,7 +1,8 @@
 """Generate tests/golden/torch_port_box_inputs.npz: the inputs of the
 golden box anchors (tests/test_golden.py's ``box_setup``) in plain numpy,
-so the PyTorch port can replay ``box_bary_adv`` and ``box_bary_brownian``
-on a machine without jax:
+so the PyTorch port can replay ``box_bary_adv``, ``box_bary_brownian`` and
+``box_convex_adv`` (the same seeds and field, no noise) on a machine
+without jax:
 
 * ``seed_pos`` [256, 3] f64 and ``seed_tet`` [256] int32 — the threefry
   seeds of ``seed_in_box(256, 0.5, 5.5)`` and their located tets;
