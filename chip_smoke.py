@@ -24,6 +24,17 @@ Phases, one line of numbers each, any failure exits non-zero:
    philox_normals (tet/active identical, pos within 1e-5), then the kicks
    of 1,000,000 lanes without advection, divided by sigma: |mean| < 0.01,
    |variance - 1| < 0.003, through both stream kernels;
+3d. the compacted hop gather (hop_compact=4), float32: the same box and
+   lanes, one cycle, bary and convex x frac {1.0, 0.02} x escape faces
+   {off, on}: the crossing-flag pass of each stream kernel against its
+   plain version, hop_admit_kernel against hop_admit_plain, the apply pass
+   against the plain apply (pending identical), and the state after the
+   rare kernel against the uncompacted cycle's (identical);
+3e. macro cycles (macro_cycles = k), float32: the same box and lanes, one
+   macro cycle for k {2, 4} x noise {xi, Philox} x escape faces {off, on}:
+   the kernels (macro_stream_kernel, hop_admit_kernel, rare_kernel) against
+   the plain versions of the same trips, and against k per-cycle kernel
+   cycles (identical, bit for bit);
 4. golden replay, float64, through the kernels: box_bary_adv,
    box_bary_brownian and box_convex_adv of tests/golden/particles_f64.npz
    from the recorded inputs in tests/golden/torch_port_box_inputs.npz;
@@ -40,7 +51,16 @@ Phases, one line of numbers each, any failure exits non-zero:
    the same way, with the pending share, the domain checks, one extra
    cycle through kernel and plain, each convex kernel's time against its
    plain version (the stream kernel with xi and with Philox), and one
-   200-cycle run under "threefry".
+   200-cycle run under "threefry";
+5c. the slice with macro_cycles=4: phase 5's mesh, seeds and tuning, 3 x
+   200 cycles under threefry and one 200-cycle run under "rbg_kernel",
+   launch counts, domain checks and peak memory, one macro cycle through
+   kernels and plain versions, and the times of macro_stream_kernel and
+   hop_admit_kernel against their plain versions; then one 200-cycle run
+   each of the bary slice and the convex-default with hop_compact=4, with
+   the pending and overflow shares of one more cycle, the same checks, and
+   the compacted stream's time (flag pass + hop_admit + apply pass)
+   against its plain version.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -50,6 +70,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -627,17 +648,417 @@ def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_s
     return launches, times, med
 
 
+def flag_err(torch, a, b):
+    """Largest |a - b| of two [n] uint8 flag arrays, as a float."""
+    return float((a.to(torch.int16) - b.to(torch.int16)).abs().max()) if a.numel() else 0.0
+
+
+def compact_stages(fused, fused_convex, fused_cuda, convex, tab, xi, kw, bounce_on, esc_on):
+    """(flag pass, plain flags, apply pass, plain apply) of the compacted
+    hop gather for one locator; ``kw`` is fused.stream_kwargs; the apply
+    calls take (m, pending, disp, admit) and ignore disp in the bary mode."""
+    if convex:
+        return (lambda m, c: fused_cuda.convex_stream_crossers(tab, m, xi, c, **kw),
+                lambda m, c: fused_convex.convex_stream_plain(tab, m, xi, None, None, n_hops=1,
+                                                              crossers=c, **kw),
+                lambda m, p, d, a: fused_cuda.convex_stream_cycle(tab, m, xi, p, d, n_hops=1,
+                                                                  admit=a, **kw),
+                lambda m, p, d, a: fused_convex.convex_stream_plain(tab, m, xi, p, d, n_hops=1,
+                                                                    admit=a, **kw))
+    bk = dict(kw, bounce_on=bounce_on, esc_on=esc_on, n_hops=1)
+    return (lambda m, c: fused_cuda.stream_crossers(tab, m, xi, c, **kw),
+            lambda m, c: fused.stream_plain(tab, m, xi, None, bounce_on=False, esc_on=False,
+                                            n_hops=1, crossers=c, **kw),
+            lambda m, p, d, a: fused_cuda.stream_cycle(tab, m, xi, p, admit=a, **bk),
+            lambda m, p, d, a: fused.stream_plain(tab, m, xi, p, admit=a, **bk))
+
+
+def phase_compact(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev, nside, n,
+                  errs):
+    """Phase 3d: the compacted hop gather against its plain versions and
+    against the uncompacted cycle."""
+    payload = box_payload(tmesh, nside, np.float32, swirl(nside))
+    base = convert.to_mesh(payload, dev)
+    pos, vel, tet, act, xi = parity_lanes(torch, cpt, base, dev, nside, n, seed=8)
+    u8 = dict(dtype=torch.uint8, device=dev)
+    for convex in (False, True):
+        for esc in (False, True):
+            mesh = tmesh.set_boundary_escape(base, [1] if esc else [])
+            if convex:
+                mesh = cpt.with_convex_rows(mesh)
+                tab = fused_convex.cx_table(mesh)
+                m0 = fused_convex.pack_state(mesh, tab, pos, vel, tet, act)
+                cycle = fused_convex.mega_cycle
+                args = (mesh, tab)
+            else:
+                tab = mesh.tet_row
+                m0 = fused.pack_state(mesh, pos, vel, tet, act)
+                cycle = fused.mega_cycle
+                args = (mesh,)
+            for frac in (1.0, 0.02):
+                cfg = cpt.StepConfig(dt=0.3 if convex else 0.2, diffusion_coeff=5e-3,
+                                     escape_faces=esc, hop_compact=4, hop_compact_frac=frac,
+                                     locate_mode="convex" if convex else "bary")
+                kw = fused.stream_kwargs(cfg, cfg.dt, torch.float32)
+                flags_k, flags_p, apply_k, apply_p = compact_stages(
+                    fused, fused_convex, fused_cuda, convex, tab, xi, kw, True, esc)
+                ck, cp, ak, ap = (torch.empty(n, **u8) for _ in range(4))
+                flags_k(m0, ck)
+                flags_p(m0, cp)
+                capb = fused.hop_capacity(n, frac)
+                fused_cuda.hop_admit(ck, ak, capb=capb)
+                fused.hop_admit_plain(ck, ap, capb=capb)
+                mk, mp = m0.clone(), m0.clone()
+                pk, pp = torch.empty(n, **u8), torch.empty(n, **u8)
+                dk = torch.empty((n, 3), dtype=torch.float32, device=dev)
+                dp = torch.empty_like(dk)
+                apply_k(mk, pk, dk, ak)
+                apply_p(mp, pp, dp, ak)
+                same_s, err_s = compare(torch, mk, mp, pk, pp)
+                if convex:
+                    err_s = max(err_s, float((dk - dp).abs().max()))
+                # whole cycles through the kernels: compacted against uncompacted
+                mc = cycle(*args, m0.clone(), 0, 0, cfg, cfg.dt, noise=xi)
+                mu = cycle(*args, m0.clone(), 0, 0, dataclasses.replace(cfg, hop_compact=0),
+                           cfg.dt, noise=xi)
+                same_c = bool(torch.equal(mc[:, :8], mu[:, :8]))
+                groups = ck.view(-1, 4).sum(dim=1)
+                n_cross, n_adm = int(ck.sum()), int(ak.sum())
+                log(f"[compact] {'convex' if convex else 'bary'} escape={int(esc)} frac={frac} "
+                    f"capb={capb} crossers={n_cross} pending_groups={int((groups > 0).sum())} "
+                    f"admitted={n_adm} overflow={n_cross - n_adm} pending={int(pp.sum())} "
+                    f"flags_identical={int(torch.equal(ck, cp))} "
+                    f"admit_identical={int(torch.equal(ak, ap))} apply_identical={int(same_s)} "
+                    f"apply_max_abs_err={err_s:.3e} cycle_equals_uncompacted={int(same_c)}")
+                need(n_cross > n_adm, "compact case has no overflow")
+                need(torch.equal(ck, cp), f"crossing flags != plain ({convex=} {esc=} {frac=})")
+                need(torch.equal(ak, ap), f"hop_admit_kernel != plain ({convex=} {esc=} {frac=})")
+                errs["hop_admit"] = max(errs["hop_admit"], flag_err(torch, ak, ap))
+                need(same_s and err_s <= POS_TOL_F32,
+                     f"compacted stream kernel != plain ({convex=} {esc=} {frac=})")
+                need(same_c, f"compacted cycle != uncompacted cycle ({convex=} {esc=} {frac=})")
+                key = "convex_stream" if convex else "stream"
+                errs[key] = max(errs[key], err_s)
+
+
+def macro_plain(torch, fused, mesh, m, xi, cfg, dt):
+    """One macro cycle through the plain versions (fused.mega_macro's trips)
+    on m's device; xi [k, n, 3] or None."""
+    k, n, dev = cfg.macro_cycles, m.shape[0], m.device
+    kw = dict(fused.stream_kwargs(cfg, dt, m.dtype), k=k)
+    phase = torch.zeros(n, dtype=torch.uint8, device=dev)
+    pend, crossers, admit = (torch.empty_like(phase) for _ in range(3))
+    for trip in range(k):
+        if trip:
+            fused.macro_stream_plain(mesh.tet_row, m, xi, phase, None, bounce_on=False,
+                                     esc_on=False, crossers=crossers, **kw)
+            fused.hop_admit_plain(crossers, admit,
+                                  capb=fused.hop_capacity(n, fused.trip_fraction(cfg, trip)))
+        fused.macro_stream_plain(mesh.tet_row, m, xi, phase, pend,
+                                 bounce_on=cfg.reflect_wall and cfg.inline_bounce,
+                                 esc_on=cfg.escape_faces, admit=admit if trip else None, **kw)
+        fused.rare_plain(mesh.tet_row, m, pend, mesh.bd_escape, **rare_args(cfg))
+    return m
+
+
+def macro_noise(torch, fused, cfg, seed, step, n, dev):
+    """(noise for mega_macro, the same noise for the plain versions) of one
+    macro cycle: threefry [k, n, 3] injected, or the Philox stream drawn in
+    the kernel and by philox_normals."""
+    k = cfg.macro_cycles
+    if cfg.brownian_rng == "threefry":
+        xi = torch.stack([fused._brownian_noise(seed, step + j, n, torch.float32, dev)
+                          for j in range(k)])
+        return xi, xi
+    return None, torch.stack([fused.philox_normals(fused.philox_key(seed, step + j), n,
+                                                   torch.float32, dev) for j in range(k)])
+
+
+def phase_macro(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs):
+    """Phase 3e: macro cycles through the kernels against the plain versions
+    and against k per-cycle kernel cycles."""
+    payload = box_payload(tmesh, nside, np.float32, swirl(nside))
+    base = convert.to_mesh(payload, dev)
+    pos, vel, tet, act, _ = parity_lanes(torch, cpt, base, dev, nside, n, seed=9)
+    seed, step = 77, 40
+    before = fused_cuda.macro_stream.launches
+    for k in (2, 4):
+        for rng_mode in ("threefry", "rbg_kernel"):
+            for esc in (False, True):
+                mesh = tmesh.set_boundary_escape(base, [1] if esc else [])
+                m0 = fused.pack_state(mesh, pos, vel, tet, act)
+                cfg = cpt.StepConfig(dt=0.2, diffusion_coeff=5e-3, escape_faces=esc,
+                                     macro_cycles=k, brownian_rng=rng_mode)
+                xi, xi_plain = macro_noise(torch, fused, cfg, seed, step, n, dev)
+                mk = fused.mega_macro(mesh, m0.clone(), seed, step, cfg, cfg.dt, noise=xi)
+                mp = macro_plain(torch, fused, mesh, m0.clone(), xi_plain, cfg, cfg.dt)
+                same_p, err_p = compare(torch, mk, mp)
+                mc = m0.clone()
+                for j in range(k):
+                    fused.mega_cycle(mesh, mc, seed, step + j, cfg, cfg.dt,
+                                     noise=None if xi is None else xi[j])
+                same_c = bool(torch.equal(mk[:, :8], mc[:, :8]))
+                moved = float((mk[:, 6] != m0[:, 6]).float().mean())
+                log(f"[macro] k={k} rng={rng_mode} escape={int(esc)} moved_share={moved:.4f} "
+                    f"plain_identical={int(same_p)} plain_max_abs_err={err_p:.3e} "
+                    f"equals_{k}_cycles={int(same_c)}")
+                need(same_p and err_p <= POS_TOL_F32,
+                     f"macro kernels != plain (k={k} {rng_mode} esc={esc})")
+                need(same_c, f"macro cycle != {k} per-cycle kernel cycles ({rng_mode} esc={esc})")
+                errs["macro"] = max(errs["macro"], err_p)
+    if dev.type == "cuda":
+        need(fused_cuda.macro_stream.launches - before == 2 * 2 * (2 + 4),
+             "phase 3e did not run macro_stream_kernel")
+
+
+COUNTED = ("stream_cycle", "stream_crossers", "rare_resolve", "convex_stream_cycle",
+           "convex_stream_crossers", "convex_rare_resolve", "hop_admit", "macro_stream",
+           "macro_crossers")
+
+
+def counted_run(torch, cpt, fused_cuda, timer, mesh, st, cfg, n_cycles):
+    """(state, ms, launches by wrapper) of one run_cycles call, every launch
+    count set to 0 just before it."""
+    for name in COUNTED:
+        getattr(fused_cuda, name).launches = 0
+    timer.start()
+    st = cpt.run_cycles(mesh, st, cfg, n_cycles)
+    ms = timer.stop()
+    return st, ms, {name: getattr(fused_cuda, name).launches for name in COUNTED}
+
+
+def domain_check(torch, cpt, mesh, st, n_in, tag):
+    d = cpt.diagnostics(st)
+    active = int(d["active"])
+    bad = int((st.active & (st.tet_id < 0)).sum())
+    blo, bhi = mesh.bounds_lo.to(st.dtype), mesh.bounds_hi.to(st.dtype)
+    outside = int(((st.pos < blo - 1e-3) | (st.pos > bhi + 1e-3)).any(dim=1).sum())
+    log(f"[{tag}] active={active} seeds_in_domain={n_in} active_with_negative_tet={bad} "
+        f"outside_bounds={outside} kinetic_energy={float(d['kinetic_energy']):.6e}")
+    need(active == n_in and bad == 0 and outside == 0, f"{tag} left the domain")
+    need(bool(torch.isfinite(st.pos).all()), f"non-finite positions ({tag})")
+
+
+def need_launches(dev, got, want, tag):
+    if dev.type == "cuda":
+        nonzero = {k: v for k, v in got.items() if v}
+        need(nonzero == want, f"{tag} launch counts {nonzero} != {want}")
+
+
+def kernel_vs_plain_ms(timer, fn, plain, restore, reps=20, plain_reps=3):
+    """(kernel ms, plain ms, the four means) in turns plain, kernel, kernel,
+    plain, each call after restore()."""
+    restore(), fn(), restore(), plain()    # warm-up
+    p_a = time_calls(timer, plain, restore, plain_reps)
+    k_a = time_calls(timer, fn, restore, reps)
+    k_b = time_calls(timer, fn, restore, reps)
+    p_b = time_calls(timer, plain, restore, plain_reps)
+    return (k_a + k_b) / 2, (p_a + p_b) / 2, (p_a, k_a, k_b, p_b)
+
+
+def phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup, n_cycles,
+                      ms_per_cycle, errs, gpu_line):
+    """Phase 5c, first part: the slice with macro_cycles=4."""
+    mesh, st0, n_in, bcfg = slice_setup
+    n = st0.n_particles
+    timer = Timer(torch, dev)
+    k = 4
+    cfg = dataclasses.replace(bcfg, macro_cycles=k)
+    st = cpt.run_cycles(mesh, st0, cfg, 2 * k)         # warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    runs, launches = [], None
+    for _ in range(3):
+        st, ms, got = counted_run(torch, cpt, fused_cuda, timer, mesh, st, cfg, n_cycles)
+        runs.append(ms / n_cycles)
+        launches = got if launches is None else {a: launches[a] + got[a] for a in got}
+    med = float(np.median(runs))
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    log(f"[macro-slice] {gpu_line} | macro_cycles={k} ms_per_cycle={['%.4f' % x for x in runs]} "
+        f"median={med:.4f} particle_steps_per_s={n / (med * 1e-3):.4e} (per-cycle threefry "
+        f"median {ms_per_cycle:.4f}) max_memory_allocated={peak} launches="
+        f"{ {a: v for a, v in launches.items() if v} }")
+    macs = 3 * (n_cycles // k)
+    need_launches(dev, launches, {"macro_stream": k * macs, "macro_crossers": (k - 1) * macs,
+                                  "hop_admit": (k - 1) * macs, "rare_resolve": k * macs},
+                  "macro slice")
+    domain_check(torch, cpt, mesh, st, n_in, "macro-slice")
+    rcfg = dataclasses.replace(cfg, brownian_rng="rbg_kernel")
+    st_r = cpt.run_cycles(mesh, st, rcfg, 2 * k)       # warm-up
+    st_r, ms_r, _ = counted_run(torch, cpt, fused_cuda, timer, mesh, st_r, rcfg, n_cycles)
+    log(f"[macro-slice] {gpu_line} | macro_cycles={k} brownian_rng=rbg_kernel "
+        f"ms_per_cycle={ms_r / n_cycles:.4f} "
+        f"particle_steps_per_s={n / (ms_r / n_cycles * 1e-3):.4e}")
+    domain_check(torch, cpt, mesh, st_r, n_in, "macro-slice rbg_kernel")
+
+    # one macro cycle through kernels and plain versions on the same inputs
+    m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active)
+    xi, _ = macro_noise(torch, fused, cfg, st.seed, st.step, n, dev)
+    mk = fused.mega_macro(mesh, m0.clone(), st.seed, st.step, cfg, cfg.dt, noise=xi)
+    mp = macro_plain(torch, fused, mesh, m0.clone(), xi, cfg, cfg.dt)
+    same, err = compare(torch, mk, mp)
+    log(f"[macro-slice] one macro cycle kernel vs plain: identical={int(same)} "
+        f"max_abs_err={err:.3e}")
+    need(same and err <= POS_TOL_F32, "macro slice: kernels != plain")
+    errs["macro"] = max(errs["macro"], err)
+
+    # times at this shape: trip 0 of macro_stream_kernel (xi and Philox), and
+    # hop_admit_kernel on trip 1's crossing flags
+    skw = dict(fused.stream_kwargs(cfg, cfg.dt, m0.dtype), k=k,
+               bounce_on=cfg.reflect_wall and cfg.inline_bounce, esc_on=cfg.escape_faces)
+    work = m0.clone()
+    phase = torch.zeros(n, dtype=torch.uint8, device=dev)
+    pend, crossers, admit = (torch.empty_like(phase) for _ in range(3))
+    nkey = fused.philox_key(st.seed, st.step)
+
+    def philox_k():
+        return torch.stack([fused.philox_normals(fused.philox_key(st.seed, st.step + j), n,
+                                                 m0.dtype, dev) for j in range(k)])
+
+    def restore():
+        work.copy_(m0)
+        phase.zero_()
+
+    times = {}
+    for name, fn, plain in (
+        ("macro", lambda: fused_cuda.macro_stream(mesh.tet_row, work, xi, phase, pend, **skw),
+         lambda: fused.macro_stream_plain(mesh.tet_row, work, xi, phase, pend, **skw)),
+        ("macro_philox",
+         lambda: fused_cuda.macro_stream(mesh.tet_row, work, None, phase, pend, noise_key=nkey,
+                                         **skw),
+         lambda: fused.macro_stream_plain(mesh.tet_row, work, philox_k(), phase, pend, **skw)),
+    ):
+        times[name] = kernel_vs_plain_ms(timer, fn, plain, restore)
+    restore()
+    fused_cuda.macro_stream(mesh.tet_row, work, xi, phase, pend, **skw)
+    fused_cuda.rare_resolve(mesh.tet_row, work, pend, mesh.bd_escape, **rare_args(cfg))
+    fused_cuda.macro_crossers(mesh.tet_row, work, xi, phase, crossers,
+                              **{a: skw[a] for a in ("k", "dt", "sigma", "use_adv", "use_brown")})
+    capb = fused.hop_capacity(n, fused.trip_fraction(cfg, 1))
+    times["hop_admit"] = kernel_vs_plain_ms(
+        timer, lambda: fused_cuda.hop_admit(crossers, admit, capb=capb),
+        lambda: fused.hop_admit_plain(crossers, admit, capb=capb), lambda: None)
+    ak = admit.clone()
+    fused.hop_admit_plain(crossers, admit, capb=capb)
+    need(torch.equal(ak, admit), "macro slice: hop_admit_kernel != plain")
+    errs["hop_admit"] = max(errs["hop_admit"], flag_err(torch, ak, admit))
+    stopped = int((phase < k).sum())
+    log(f"[macro-slice] trip 0: stopped_share={stopped / n:.4%} pending_share="
+        f"{int(pend.sum()) / n:.4%}; trip 1: crossers={int(crossers.sum())} admitted="
+        f"{int(ak.sum())} capb={capb}")
+    for name, (t_k, t_p, parts) in times.items():
+        log(f"[macro-slice] {gpu_line} | {name}_kernel_ms={t_k:.4f} ({parts[1]:.4f}, "
+            f"{parts[2]:.4f}) {name}_plain_ms={t_p:.4f} ({parts[0]:.4f}, {parts[3]:.4f}) "
+            f"lanes={n}")
+
+    return launches, times
+
+
+def phase_compact_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup, n_cycles,
+                        convex, errs, gpu_line):
+    """Phase 5c, second part: one 200-cycle run of the slice (bary) or of
+    the convex-default with hop_compact=4, and the compacted stream's time
+    against its plain version."""
+    mesh, st0, n_in, bcfg = slice_setup
+    n = st0.n_particles
+    timer = Timer(torch, dev)
+    tag = "convex-compact-slice" if convex else "compact-slice"
+    ccfg = dataclasses.replace(bcfg, hop_compact=4)
+    cmesh = mesh
+    if convex:
+        cmesh = cpt.with_convex_rows(mesh)
+        ccfg = dataclasses.replace(ccfg, locate_mode="convex", brownian_rng="rbg_kernel")
+    st_c = cpt.run_cycles(cmesh, st0, ccfg, 10)    # warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    st_c, ms_c, got = counted_run(torch, cpt, fused_cuda, timer, cmesh, st_c, ccfg, n_cycles)
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    ms_c /= n_cycles
+    log(f"[{tag}] {gpu_line} | hop_compact=4 frac={ccfg.hop_compact_frac} "
+        f"brownian_rng={ccfg.brownian_rng} ms_per_cycle={ms_c:.4f} "
+        f"particle_steps_per_s={n / (ms_c * 1e-3):.4e} max_memory_allocated={peak} "
+        f"launches={ {a: v for a, v in got.items() if v} }")
+    pre = "convex_" if convex else ""
+    need_launches(dev, got, {f"{pre}stream_crossers": n_cycles, "hop_admit": n_cycles,
+                             f"{pre}stream_cycle": n_cycles,
+                             f"{pre}rare_resolve": n_cycles}, tag)
+    domain_check(torch, cpt, cmesh, st_c, n_in, tag)
+
+    # one more cycle's stages, and the compacted stream's time against plain
+    if convex:
+        tab = fused_convex.cx_table(cmesh)
+        m0 = fused_convex.pack_state(cmesh, tab, st_c.pos, st_c.vel, st_c.tet_id,
+                                     st_c.active)
+    else:
+        tab = cmesh.tet_row
+        m0 = fused.pack_state(cmesh, st_c.pos, st_c.vel, st_c.tet_id, st_c.active)
+    xi = fused._brownian_noise(st_c.seed, st_c.step, n, m0.dtype, dev)
+    flags_k, flags_p, apply_k, apply_p = compact_stages(
+        fused, fused_convex, fused_cuda, convex, tab, xi,
+        fused.stream_kwargs(ccfg, ccfg.dt, m0.dtype),
+        ccfg.reflect_wall and ccfg.inline_bounce, ccfg.escape_faces)
+    work = m0.clone()
+    cr, ad, pk = (torch.empty(n, dtype=torch.uint8, device=dev) for _ in range(3))
+    disp = torch.empty((n, 3), dtype=m0.dtype, device=dev)
+    capb = fused.hop_capacity(n, ccfg.hop_compact_frac)
+
+    def restore_c():
+        work.copy_(m0)
+
+    def compacted(flags, admit_fn, apply):
+        def run():
+            flags(work, cr)
+            admit_fn(cr, ad, capb=capb)
+            apply(work, pk, disp, ad)
+        return run
+
+    run_k = compacted(flags_k, fused_cuda.hop_admit, apply_k)
+    run_p = compacted(flags_p, fused.hop_admit_plain, apply_p)
+    restore_c()
+    run_p()
+    mp, pp, crp = work.clone(), pk.clone(), cr.clone()
+    restore_c()
+    run_k()
+    same, err = compare(torch, work, mp, pk, pp)
+    need(same and torch.equal(cr, crp) and err <= POS_TOL_F32,
+         f"{tag}: compacted stream kernels != plain")
+    groups = cr.view(-1, 4).sum(dim=1)
+    n_cross, n_adm = int(cr.sum()), int(ad.sum())
+    log(f"[{tag}] one more cycle: crossers={n_cross} ({n_cross / n:.4%}) pending_groups="
+        f"{int((groups > 0).sum())} capb={capb} admitted={n_adm} overflow={n_cross - n_adm} "
+        f"({(n_cross - n_adm) / n:.4%}) pending={int(pk.sum())} ({int(pk.sum()) / n:.4%}) "
+        f"kernel_vs_plain identical={int(same)} max_abs_err={err:.3e}")
+    key = f"{pre}stream"
+    errs[key] = max(errs[key], err)
+    t = kernel_vs_plain_ms(timer, run_k, run_p, restore_c)
+    log(f"[{tag}] {gpu_line} | {pre}compacted_stream_ms={t[0]:.4f} ({t[2][1]:.4f}, "
+        f"{t[2][2]:.4f}) plain_ms={t[1]:.4f} ({t[2][0]:.4f}, {t[2][3]:.4f}) lanes={n} "
+        f"(flag pass + hop_admit + apply pass)")
+
+
 def ptxas_lines(report):
     """One 'kernel<type>: registers, stack' entry per compiled kernel."""
     out, name = [], None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            # _ZN3cpf<len><kernel>I<d|f>[Lb<0|1>E]E...: the type and, for the
-            # stream kernels, whether the Philox noise is compiled in
-            base, targs = line.split("'")[1].split("cpf", 1)[1].lstrip("0123456789").split("I", 1)
-            kind = {"d": "double", "f": "float"}[targs[0]]
-            philox = ", philox" if targs[1:].startswith("Lb1E") else ""
-            name = f"{base}<{kind}{philox}>"
+            # _ZN3cpf<len><kernel>[I<d|f>[Lb<0|1>E][Li<pass>E]E]...: the type
+            # and, for the stream kernels, whether the Philox noise is
+            # compiled in and the pass (stream.cuh)
+            rest = line.split("'")[1].split("cpf", 1)[1]
+            digits = rest[: len(rest) - len(rest.lstrip("0123456789"))]
+            base = rest[len(digits): len(digits) + int(digits)]
+            targs = rest[len(digits) + int(digits):]
+            name = base
+            if targs.startswith("I"):
+                args = [{"d": "double", "f": "float"}[targs[1]]]
+                flags = re.findall(r"L[bi](\d+)E", targs.split("EE", 1)[0] + "E")
+                if flags and flags[0] == "1":
+                    args.append("philox")
+                if len(flags) > 1 and flags[1] != "0":
+                    args.append(("", "crossers", "admitted")[int(flags[1])])
+                name = f"{base}<{', '.join(args)}>"
         elif name and "bytes stack frame" in line:
             stack = line.split("bytes stack frame")[0].split()[-1]
             spill = line.split("bytes spill stores")[0].split()[-1]
@@ -692,21 +1113,31 @@ def main():
         for line in ptxas_lines(_build.ptxas_report()):
             log(f"[build] {line}")
 
-    errs = {"stream": 0.0, "rare": 0.0, "convex_stream": 0.0, "convex_rare": 0.0}
+    errs = {"stream": 0.0, "rare": 0.0, "convex_stream": 0.0, "convex_rare": 0.0, "macro": 0.0,
+            "hop_admit": 0.0}
     nside, n = sizes["parity"]
     phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
     phase_convex_parity(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev,
                         nside, n, errs)
     phase_noise(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev, nside, n,
                 sizes["stats"], errs)
+    phase_compact(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev, nside, n,
+                  errs)
+    phase_macro(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
     phase_golden(torch, cpt, convert, fused_cuda, dev)
-    launches, times, _, slice_setup = phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev,
-                                                  *sizes["slice"], errs, gpu_line)
+    launches, times, med, slice_setup = phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev,
+                                                    *sizes["slice"], errs, gpu_line)
     c_launches, c_times, _ = phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda,
                                                 dev, slice_setup, sizes["slice"][2], errs,
                                                 gpu_line)
     launches.update(c_launches)
     times.update(c_times)
+    m_launches, m_times = phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev,
+                                            slice_setup, sizes["slice"][2], med, errs, gpu_line)
+    times.update(m_times)
+    for convex in (False, True):
+        phase_compact_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup,
+                            sizes["slice"][2], convex, errs, gpu_line)
 
     table = {"kernels": [
         {"name": "stream_kernel", "route": "cuda",
@@ -729,6 +1160,16 @@ def main():
          "replaces": "cudaparticlesfoam_tpu/ops/fused_convex.py:327",
          "launches": launches["convex_rare"], "max_abs_err": errs["convex_rare"],
          "ms": times["convex_rare"][0], "plain_ms": times["convex_rare"][1]},
+        {"name": "hop_admit_kernel", "route": "cuda",
+         "source": "cudaparticlesfoam_tpu_torch/csrc/hop_admit.cu",
+         "replaces": "cudaparticlesfoam_tpu/ops/fused_pallas.py:539",
+         "launches": m_launches["hop_admit"], "max_abs_err": errs["hop_admit"],
+         "ms": times["hop_admit"][0], "plain_ms": times["hop_admit"][1]},
+        {"name": "macro_stream_kernel", "route": "cuda",
+         "source": "cudaparticlesfoam_tpu_torch/csrc/macro.cu",
+         "replaces": "cudaparticlesfoam_tpu/ops/fused_pallas.py:1536",
+         "launches": m_launches["macro_stream"], "max_abs_err": errs["macro"],
+         "ms": times["macro"][0], "plain_ms": times["macro"][1]},
     ]}
     log(gpu_line)
     log(json.dumps(table))

@@ -1,4 +1,5 @@
-// convex_stream_kernel<T, kPhilox>: the stream section of one ConvexPoly sub-step (K5).
+// convex_stream_kernel<T, kPhilox, kPass>: the stream section of one ConvexPoly
+// sub-step (K5, and the compacted stage of K3).
 //
 // Replaces the TPU convex stream of cudaparticlesfoam_tpu/ops/fused_pallas.py:
 // kernel CA (_ca_compute via _kernel_ca_packed, and _kernel_ca_packed_k with
@@ -17,22 +18,28 @@
 // Pending lanes keep their segment start in the pos columns and leave the
 // displacement in disp [n, 3] for convex_rare_kernel.
 //
+// The kCrossers / kAdmitted passes (stream.cuh) are the compacted hop gather
+// of hop_compact=4, _kernel_cb_packed_c: the flag pass writes each lane's
+// interior-crossing flag (CINT), hop_admit_kernel admits groups and ranks,
+// and the apply pass recomputes the sub-step; an interior crosser that was
+// not admitted stays pending with its start point, pre-hop tet and row.
+//
 // What bounds it on the H100: as for stream_kernel, the 128-byte lane
 // stride of the mega (32 scalar loads and stores per lane, each warp access
 // touching 32 sectors) plus the 12 B disp store; the neighbour row is loaded
 // only by the few interior crossers.  Later work: vector or shared-memory
 // staged mega access.
 #include "convex.cuh"
-#include "philox.cuh"
+#include "stream.cuh"
 
 namespace cpf {
 
-template <typename T, bool kPhilox>
+template <typename T, bool kPhilox, int kPass>
 __global__ void __launch_bounds__(THREADS)
 convex_stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
                      const T* __restrict__ xi, uint8_t* __restrict__ pend,
-                     T* __restrict__ disp, long long n, T dt, T sigma, int use_adv,
-                     int use_brown, int n_hops, PhiloxKey key) {
+                     uint8_t* __restrict__ adm, T* __restrict__ disp, long long n, T dt,
+                     T sigma, int use_adv, int use_brown, int n_hops, PhiloxKey key) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   T* me = m + i * WIDTH;
@@ -58,13 +65,7 @@ convex_stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
   }
   if (use_brown) {
     T z[3];
-    if (kPhilox) {
-      philox_normals3(key, i, z);
-    } else {
-      z[0] = xi[3 * i];
-      z[1] = xi[3 * i + 1];
-      z[2] = xi[3 * i + 2];
-    }
+    lane_normals<T, kPhilox>(key, xi, i, z);
     dx = dx + alf * sigma * z[0];
     dy = dy + alf * sigma * z[1];
     dz = dz + alf * sigma * z[2];
@@ -98,11 +99,16 @@ convex_stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
   const bool outside0 = alive && !fd_nan && fd_max > T(CX_TOL);
   const bool crossing = alive && (slot0 >= 0 || outside0);
 
+  if constexpr (kPass == kCrossers) {
+    adm[i] = (crossing && slot0 >= 0 && static_cast<int>(row[CX_NBR + slot0]) >= 0) ? 1 : 0;
+    return;
+  }
   int tet_new = tet;
   bool res2 = false;
   if (n_hops >= 1 && crossing && slot0 >= 0) {
     const int nxt0 = static_cast<int>(row[CX_NBR + slot0]);
-    if (nxt0 >= 0) {  // interior crosser: one inline hop into the neighbour
+    // interior crosser: one inline hop into the neighbour, if admitted
+    if (nxt0 >= 0 && (kPass != kAdmitted || adm[i] != 0)) {
       T nrow[CX_W];
       const T* src = tab + static_cast<long long>(nxt0) * CX_W;
 #pragma unroll
@@ -146,41 +152,56 @@ convex_stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
   pend[i] = pending ? 1 : 0;
 }
 
+template <typename T, bool kPhilox>
+using ConvexStreamFn = decltype(&convex_stream_kernel<T, kPhilox, kWhole>);
+
+template <typename T, bool kPhilox>
+ConvexStreamFn<T, kPhilox> convex_stream_instance(int pass) {
+  switch (pass) {
+    case kWhole: return convex_stream_kernel<T, kPhilox, kWhole>;
+    case kCrossers: return convex_stream_kernel<T, kPhilox, kCrossers>;
+    case kAdmitted: return convex_stream_kernel<T, kPhilox, kAdmitted>;
+    default: return nullptr;
+  }
+}
+
 template <typename T>
-int launch_convex_stream(const void* tab, void* m, const void* xi, void* pend,
+int launch_convex_stream(const void* tab, void* m, const void* xi, void* pend, void* adm,
                          void* disp, long long n, T dt, T sigma, int use_adv,
-                         int use_brown, int n_hops, int noise_mode, PhiloxKey key,
+                         int use_brown, int n_hops, int noise_mode, int pass, PhiloxKey key,
                          void* stream) {
   if (n <= 0) return 0;
   const unsigned blocks = static_cast<unsigned>((n + THREADS - 1) / THREADS);
-  auto kernel = noise_mode == 1 ? convex_stream_kernel<T, true> : convex_stream_kernel<T, false>;
+  auto kernel = noise_mode == 1 ? convex_stream_instance<T, true>(pass)
+                                : convex_stream_instance<T, false>(pass);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(tab), static_cast<T*>(m), static_cast<const T*>(xi),
-      static_cast<uint8_t*>(pend), static_cast<T*>(disp), n, dt, sigma, use_adv,
-      use_brown, n_hops, key);
+      static_cast<uint8_t*>(pend), static_cast<uint8_t*>(adm), static_cast<T*>(disp), n, dt,
+      sigma, use_adv, use_brown, n_hops, key);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cpf
 
 extern "C" int cpf_convex_stream_f32(const void* tab, void* m, const void* xi,
-                                     void* pend, void* disp, long long n, float dt,
+                                     void* pend, void* adm, void* disp, long long n, float dt,
                                      float sigma, int use_adv, int use_brown,
-                                     int n_hops, int noise_mode, uint32_t k0,
+                                     int n_hops, int noise_mode, int pass, uint32_t k0,
                                      uint32_t k1, uint32_t k2, uint32_t k3,
                                      void* stream) {
-  return cpf::launch_convex_stream<float>(tab, m, xi, pend, disp, n, dt, sigma,
-                                          use_adv, use_brown, n_hops, noise_mode,
+  return cpf::launch_convex_stream<float>(tab, m, xi, pend, adm, disp, n, dt, sigma,
+                                          use_adv, use_brown, n_hops, noise_mode, pass,
                                           cpf::PhiloxKey{k0, k1, k2, k3}, stream);
 }
 
 extern "C" int cpf_convex_stream_f64(const void* tab, void* m, const void* xi,
-                                     void* pend, void* disp, long long n, double dt,
+                                     void* pend, void* adm, void* disp, long long n, double dt,
                                      double sigma, int use_adv, int use_brown,
-                                     int n_hops, int noise_mode, uint32_t k0,
+                                     int n_hops, int noise_mode, int pass, uint32_t k0,
                                      uint32_t k1, uint32_t k2, uint32_t k3,
                                      void* stream) {
-  return cpf::launch_convex_stream<double>(tab, m, xi, pend, disp, n, dt, sigma,
-                                           use_adv, use_brown, n_hops, noise_mode,
+  return cpf::launch_convex_stream<double>(tab, m, xi, pend, adm, disp, n, dt, sigma,
+                                           use_adv, use_brown, n_hops, noise_mode, pass,
                                            cpf::PhiloxKey{k0, k1, k2, k3}, stream);
 }

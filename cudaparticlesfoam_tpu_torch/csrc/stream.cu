@@ -1,4 +1,5 @@
-// stream_kernel<T, kPhilox>: the stream section of one particle sub-step (K1 + K2).
+// stream_kernel<T, kPhilox, kPass>: the stream section of one particle sub-step
+// (K1 + K2, and the compacted stage of K3).
 //
 // Replaces the TPU stream kernels of cudaparticlesfoam_tpu/ops/fused_pallas.py:
 // kernel A (_kernel_a / _kernel_a_packed: advect, kick, move, hop-0 test,
@@ -11,6 +12,15 @@
 // normals itself (philox.cuh, noise_mode 1 at the C entry): the
 // in-kernel-noise twins _kernel_a_k / _kernel_a_packed_k / _kernel_a_mh_k /
 // _kernel_a_mh_packed_k.
+//
+// The kCrossers / kAdmitted passes (stream.cuh) are the block-compacted hop
+// gather of hop_compact=4: _kernel_b_packed_c (_b_compute_c) with its staging
+// (_compact_hop_rows, _kernel_src_c).  The TPU staged two neighbour rows per
+// admitted 4-lane group because its gather cost per index; here each lane
+// loads its own row, so what is kept is the semantics, the admission: the
+// flag pass writes each lane's hop-0 crossing flag, hop_admit_kernel
+// (hop_admit.cu) admits groups and ranks, and the apply pass recomputes the
+// sub-step (bit for bit, --fmad=false) and lets only admitted crossers hop.
 //
 // One thread per lane.  Mosaic could not gather, so the TPU split the cycle
 // at every hop and staged rows through the packed/transposed layouts and a
@@ -25,17 +35,16 @@
 // load per mover per hop (row table 80 MB at 1M tets, above the 50 MB L2)
 // comes second.  Later work: vector or shared-memory-staged mega access,
 // __ldg / L2 persistence for the table, and fusing the rare stage in.
-#include "common.cuh"
-#include "philox.cuh"
+#include "stream.cuh"
 
 namespace cpf {
 
-template <typename T, bool kPhilox>
+template <typename T, bool kPhilox, int kPass>
 __global__ void __launch_bounds__(THREADS)
 stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
               const T* __restrict__ xi, uint8_t* __restrict__ pend,
-              long long n, T dt, T sigma, int use_adv, int use_brown,
-              int bounce_on, int esc_on, int n_hops, PhiloxKey key) {
+              uint8_t* __restrict__ adm, long long n, T dt, T sigma, int use_adv,
+              int use_brown, int bounce_on, int esc_on, int n_hops, PhiloxKey key) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   T* me = m + i * WIDTH;
@@ -62,141 +71,85 @@ stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
   }
   if (use_brown) {
     T z[3];
-    if (kPhilox) {
-      philox_normals3(key, i, z);
-    } else {
-      z[0] = xi[3 * i];
-      z[1] = xi[3 * i + 1];
-      z[2] = xi[3 * i + 2];
-    }
+    lane_normals<T, kPhilox>(key, xi, i, z);
     dx = dx + alf * sigma * z[0];
     dy = dy + alf * sigma * z[1];
     dz = dz + alf * sigma * z[2];
   }
   // advect kill (particles.cu:333-338)
-  T actf = use_adv ? alf : me[ACT];
+  const T actf = use_adv ? alf : me[ACT];
 
-  T px = me[P0] + dx;
-  T py = me[P0 + 1] + dy;
-  T pz = me[P0 + 2] + dz;
+  const T px = me[P0] + dx;
+  const T py = me[P0 + 1] + dy;
+  const T pz = me[P0 + 2] + dz;
 
   T row[ROW_W];
   load_row(me + ROW, row);
   T w[4], wmin;
   bary(row, px, py, pz, w);
-  int s_cur = argmin4(w, &wmin);
-  bool unresolved = (wmin < T(0)) && (tet >= 0);
-  int cur_tet = tet;
-  bool wall = false;
-  int wall_slot = 0;
-
-  // inline hops; a lane that is resolved would only recompute the same
-  // weights, so it leaves the loop
-  for (int h = 0; h < n_hops && unresolved; ++h) {
-    const int code = code_of(row, s_cur);
-    if (code < 0) {
-      wall = true;
-      wall_slot = s_cur;
-      unresolved = false;
-      break;
-    }
-    load_row(tab + static_cast<long long>(code) * ROW_W, row);
-    cur_tet = code;
-    bary(row, px, py, pz, w);
-    s_cur = argmin4(w, &wmin);
-    unresolved = wmin < T(0);
+  const int s_cur = argmin4(w, &wmin);
+  const bool unresolved = (wmin < T(0)) && (tet >= 0);
+  if constexpr (kPass == kCrossers) {
+    adm[i] = (unresolved && code_of(row, s_cur) >= 0) ? 1 : 0;
+    return;
   }
+  const bool admitted = kPass != kAdmitted || adm[i] != 0;
+  pend[i] = resolve_store(tab, me, row, w, s_cur, unresolved, tet, admitted, px, py, pz,
+                          vx, vy, vz, actf, n_hops, bounce_on, esc_on) ? 1 : 0;
+}
 
-  // inline single bounce on the last hop's weights, or absorb through the
-  // row's escape mask (fused.py:729-762)
-  int tet1 = cur_tet;
-  if (n_hops > 0 && bounce_on) {
-    bool refl = wall;
-    bool esc = false;
-    if (esc_on) {
-      const int code_w = code_of(row, wall_slot);
-      const int escm = static_cast<int>(row[ESC]);
-      esc = wall && code_w < 0 && ((escm >> wall_slot) & 1);
-      refl = wall && !esc;
-    }
-    const T rf = refl ? T(1) : T(0);
-    T gx, gy, gz;
-    grad(row, wall_slot, &gx, &gy, &gz);
-    const T wv = w[wall_slot];
-    const T gg = gx * gx + gy * gy + gz * gz;
-    // rf-masked reciprocal: a bare 1/gg would poison dead lanes with NaN
-    const T inv_g2 = rf / (gg + (T(1) - rf));
-    const T f = T(2) * wv * inv_g2;
-    px = px - f * gx;
-    py = py - f * gy;
-    pz = pz - f * gz;
-    const T fu = T(2) * (vx * gx + vy * gy + vz * gz) * inv_g2;
-    vx = vx - fu * gx;
-    vy = vy - fu * gy;
-    vz = vz - fu * gz;
-    T w2[4];
-    bary(row, px, py, pz, w2);
-    // min(...) >= 0 with NaN propagation, as torch.minimum / jnp.minimum
-    const bool landed = refl && w2[0] >= T(0) && w2[1] >= T(0) &&
-                        w2[2] >= T(0) && w2[3] >= T(0);
-    wall = refl && !landed;
-    if (esc) {
-      tet1 = -(cur_tet + 1);
-      actf = T(0);
-    }
+template <typename T, bool kPhilox>
+using StreamFn = decltype(&stream_kernel<T, kPhilox, kWhole>);
+
+// The instantiation of a (noise, pass) pair; nullptr for an unknown pass.
+template <typename T, bool kPhilox>
+StreamFn<T, kPhilox> stream_instance(int pass) {
+  switch (pass) {
+    case kWhole: return stream_kernel<T, kPhilox, kWhole>;
+    case kCrossers: return stream_kernel<T, kPhilox, kCrossers>;
+    case kAdmitted: return stream_kernel<T, kPhilox, kAdmitted>;
+    default: return nullptr;
   }
-
-  me[P0] = px;
-  me[P0 + 1] = py;
-  me[P0 + 2] = pz;
-  me[V0] = vx;
-  me[V0 + 1] = vy;
-  me[V0 + 2] = vz;
-  me[TET] = static_cast<T>(tet1);
-  me[ACT] = actf;
-#pragma unroll
-  for (int k = 0; k < ROW_W; ++k) me[ROW + k] = row[k];
-#pragma unroll
-  for (int k = ROW + ROW_W; k < WIDTH; ++k) me[k] = T(0);
-  pend[i] = (unresolved || wall) ? 1 : 0;
 }
 
 template <typename T>
-int launch_stream(const void* tab, void* m, const void* xi, void* pend,
+int launch_stream(const void* tab, void* m, const void* xi, void* pend, void* adm,
                   long long n, T dt, T sigma, int use_adv, int use_brown,
-                  int bounce_on, int esc_on, int n_hops, int noise_mode,
+                  int bounce_on, int esc_on, int n_hops, int noise_mode, int pass,
                   PhiloxKey key, void* stream) {
   if (n <= 0) return 0;
   const unsigned blocks = static_cast<unsigned>((n + THREADS - 1) / THREADS);
-  // the noise source is a template argument, so the xi instantiation is the
-  // kernel without any Philox code
-  auto kernel = noise_mode == 1 ? stream_kernel<T, true> : stream_kernel<T, false>;
+  // the noise source and the pass are template arguments, so the xi
+  // instantiation of the whole cycle is the kernel without any Philox or
+  // compaction code
+  auto kernel = noise_mode == 1 ? stream_instance<T, true>(pass) : stream_instance<T, false>(pass);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(tab), static_cast<T*>(m), static_cast<const T*>(xi),
-      static_cast<uint8_t*>(pend), n, dt, sigma, use_adv, use_brown, bounce_on,
-      esc_on, n_hops, key);
+      static_cast<uint8_t*>(pend), static_cast<uint8_t*>(adm), n, dt, sigma, use_adv,
+      use_brown, bounce_on, esc_on, n_hops, key);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace cpf
 
 extern "C" int cpf_stream_f32(const void* tab, void* m, const void* xi,
-                              void* pend, long long n, float dt, float sigma,
+                              void* pend, void* adm, long long n, float dt, float sigma,
                               int use_adv, int use_brown, int bounce_on,
-                              int esc_on, int n_hops, int noise_mode, uint32_t k0,
+                              int esc_on, int n_hops, int noise_mode, int pass, uint32_t k0,
                               uint32_t k1, uint32_t k2, uint32_t k3, void* stream) {
-  return cpf::launch_stream<float>(tab, m, xi, pend, n, dt, sigma, use_adv,
-                                   use_brown, bounce_on, esc_on, n_hops, noise_mode,
+  return cpf::launch_stream<float>(tab, m, xi, pend, adm, n, dt, sigma, use_adv,
+                                   use_brown, bounce_on, esc_on, n_hops, noise_mode, pass,
                                    cpf::PhiloxKey{k0, k1, k2, k3}, stream);
 }
 
 extern "C" int cpf_stream_f64(const void* tab, void* m, const void* xi,
-                              void* pend, long long n, double dt, double sigma,
+                              void* pend, void* adm, long long n, double dt, double sigma,
                               int use_adv, int use_brown, int bounce_on,
-                              int esc_on, int n_hops, int noise_mode, uint32_t k0,
+                              int esc_on, int n_hops, int noise_mode, int pass, uint32_t k0,
                               uint32_t k1, uint32_t k2, uint32_t k3, void* stream) {
-  return cpf::launch_stream<double>(tab, m, xi, pend, n, dt, sigma, use_adv,
-                                    use_brown, bounce_on, esc_on, n_hops, noise_mode,
+  return cpf::launch_stream<double>(tab, m, xi, pend, adm, n, dt, sigma, use_adv,
+                                    use_brown, bounce_on, esc_on, n_hops, noise_mode, pass,
                                     cpf::PhiloxKey{k0, k1, k2, k3}, stream);
 }
 

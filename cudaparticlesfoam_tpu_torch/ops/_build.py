@@ -115,17 +115,20 @@ def library() -> ctypes.CDLL:
     t0 = time.perf_counter()
     lib = ctypes.CDLL(build())
     vp, ll, i, u = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_uint32
-    key = [i, u, u, u, u]     # noise mode + 4 Philox key words
+    key = [i, u, u, u, u]     # pass + 4 Philox key words
     for suffix, fl in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
         for name, args in (
-            ("stream", [vp, vp, vp, vp, ll, fl, fl, i, i, i, i, i, *key, vp]),
+            ("stream", [vp] * 5 + [ll, fl, fl, i, i, i, i, i, i, *key, vp]),
             ("rare", [vp, vp, vp, vp, ll, i, i, i, i, vp]),
-            ("convex_stream", [vp, vp, vp, vp, vp, ll, fl, fl, i, i, i, *key, vp]),
+            ("convex_stream", [vp] * 6 + [ll, fl, fl, i, i, i, i, *key, vp]),
             ("convex_rare", [vp] * 11 + [ll, i, i, i, i, i, vp]),
+            ("macro_stream", [vp] * 6 + [ll, i, fl, fl, i, i, i, i, i, *key, vp]),
         ):
             fn = getattr(lib, f"cpf_{name}_{suffix}")
             fn.argtypes = args
             fn.restype = i
+    lib.cpf_hop_admit.argtypes = [vp, vp, vp, ll, ll, vp]
+    lib.cpf_hop_admit.restype = i
     lib.cpf_error_string.argtypes = [i]
     lib.cpf_error_string.restype = ctypes.c_char_p
     _LIB["lib"] = lib

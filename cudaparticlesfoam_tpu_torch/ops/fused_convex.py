@@ -34,7 +34,8 @@ import torch
 from ..mesh import CX_ROW_W, TetMesh
 from . import convex as convex_ops
 from . import locate as locate_ops
-from .fused import ACT, P0, RBG_MODES, ROW, TET, V0, _brownian_noise, philox_key, scalars
+from .fused import (ACT, HOP_GROUP, P0, ROW, TET, V0, stream_kwargs, cycle_noise,
+                    hop_capacity)
 
 WIDTH = 32
 ROW_W = CX_ROW_W            # 8 + 24 = WIDTH: no pad column
@@ -80,12 +81,18 @@ def _row_tables(rows):
 
 
 def convex_stream_plain(tab, m, xi, pending, disp, *, dt, sigma, use_adv, use_brown,
-                        n_hops):
+                        n_hops, admit=None, crossers=None):
     """Plain version of ``convex_stream_kernel``: updates ``m`` [n, 32] in
     place, writes ``pending`` [n] uint8 and ``disp`` [n, 3] (the cycle's
     displacement, read by the rare stage for pending lanes).  ``dt`` and
     ``sigma`` are rounded to m's dtype (``fused.scalars``); ``xi`` [n, 3]
-    is read iff ``use_brown``."""
+    is read iff ``use_brown``.
+
+    The two stages of the compacted hop gather (``_kernel_cb_packed_c``):
+    with ``crossers`` [n] uint8 the call only writes each lane's
+    interior-crossing flag (m, pending and disp are left alone); with
+    ``admit`` [n] uint8 an interior crosser whose flag is 0 does not hop
+    and stays pending with its start point, pre-hop tet and row."""
     T, dev = m.dtype, m.device
     dt = torch.tensor(dt, dtype=T, device=dev)
     sigma = torch.tensor(sigma, dtype=T, device=dev)
@@ -124,15 +131,20 @@ def convex_stream_plain(tab, m, xi, pending, disp, *, dt, sigma, use_adv, use_br
     tol = torch.tensor(convex_ops.TOL, dtype=T, device=dev)
     outside0 = alive & (fd0.max(dim=1).values > tol)
     crossing = alive & ((slot0 >= 0) | outside0)
+    nxt0 = torch.where(slot0 >= 0, convex_ops._pick(nbr0, slot0.clamp(min=0)),
+                       torch.zeros_like(slot0))
+    interior = crossing & (nxt0 >= 0) & (slot0 >= 0)
+    if crossers is not None:
+        crossers.copy_(interior)
+        return
 
     tet_new, row_new = tet, rows0
     res2 = torch.zeros_like(crossing)
     if n_hops >= 1:
         # one inline hop: the segment crosses one interior face and ends
         # in that neighbour (inlet face suppressed by its came-from code)
-        nxt0 = torch.where(slot0 >= 0, convex_ops._pick(nbr0, slot0.clamp(min=0)),
-                           torch.zeros_like(slot0))
-        interior = crossing & (nxt0 >= 0) & (slot0 >= 0)
+        if admit is not None:
+            interior = interior & (admit > 0)
         rows_g = tab[torch.where(interior, nxt0, tet.clamp(min=0))]
         p1 = p0 + dt0[:, None] * seg
         nrm1, dpl1, nbr1 = _row_tables(rows_g)
@@ -200,26 +212,30 @@ def mega_cycle(mesh: TetMesh, tab, m, seed, step, cfg, dt, noise=None, pending=N
     [n, 3] replaces the noise draw (replays); under ``brownian_rng``
     "rbg"/"rbg_kernel" a CUDA mega draws the Philox stream inside the
     stream kernel.  ``pending`` [n] uint8 and ``disp`` [n, 3] are optional
-    scratch."""
+    scratch.
+
+    With ``hop_compact=4`` and ``inline_hops >= 1`` the stream runs as the
+    compacted hop gather (crossing flags, ``hop_admit``, then the stream
+    kernel with the admission flags), whatever the lane count: the JAX
+    package engages it on its TPU packed path only.  The state after the
+    rare stage is the same either way."""
     from . import fused_cuda
 
-    n = m.shape[0]
+    n, dev = m.shape[0], m.device
     if pending is None:
-        pending = torch.empty(n, dtype=torch.uint8, device=m.device)
+        pending = torch.empty(n, dtype=torch.uint8, device=dev)
     if disp is None:
-        disp = torch.empty((n, 3), dtype=m.dtype, device=m.device)
-    xi, key = None, None
-    if cfg.use_brownian:
-        if noise is not None:
-            xi = noise
-        elif cfg.brownian_rng in RBG_MODES:
-            key = philox_key(seed, step)
-        else:
-            xi = _brownian_noise(seed, step, n, m.dtype, m.device, cfg.brownian_rng)
-    dt_t, sigma = scalars(cfg, dt, m.dtype)
-    fused_cuda.convex_stream_cycle(
-        tab, m, xi, pending, disp, dt=dt_t, sigma=sigma, use_adv=cfg.use_advection,
-        use_brown=cfg.use_brownian, n_hops=cfg.inline_hops, noise_key=key)
+        disp = torch.empty((n, 3), dtype=m.dtype, device=dev)
+    xi, key = cycle_noise(cfg, seed, step, n, m.dtype, dev, noise)
+    kw = stream_kwargs(cfg, dt, m.dtype)
+    admit = None
+    if cfg.hop_compact == HOP_GROUP and cfg.inline_hops >= 1:
+        crossers = torch.empty(n, dtype=torch.uint8, device=dev)
+        admit = torch.empty_like(crossers)
+        fused_cuda.convex_stream_crossers(tab, m, xi, crossers, noise_key=key, **kw)
+        fused_cuda.hop_admit(crossers, admit, capb=hop_capacity(n, cfg.hop_compact_frac))
+    fused_cuda.convex_stream_cycle(tab, m, xi, pending, disp, n_hops=cfg.inline_hops,
+                                   noise_key=key, admit=admit, **kw)
     fused_cuda.convex_rare_resolve(
         mesh, tab, m, disp, pending, max_hops=cfg.max_hops,
         reflect_wall=cfg.reflect_wall, bary_fix=cfg.convex_bary_fix,

@@ -15,12 +15,23 @@
 * :func:`convex_rare_resolve` -> ``convex_rare_kernel``
   (``csrc/convex_rare.cu``): the XLA convex rare stage
   (``fused_convex._rare_stage(_packed)`` with ``_make_run_lanes``).
+* :func:`hop_admit` -> ``hop_admit_kernel`` (``csrc/hop_admit.cu``): the
+  admission of the block-compacted hop gather (``hop_compact=4``;
+  ``_compact_hop_rows`` and ``_kernel_src_c``).  It sits between the flag
+  stage (:func:`stream_crossers`, :func:`convex_stream_crossers`,
+  :func:`macro_crossers`: the stream kernels' crossing flags) and the
+  apply stage (the stream wrappers with ``admit``, ``_kernel_b_packed_c``
+  and ``_kernel_cb_packed_c``).
+* :func:`macro_stream` -> ``macro_stream_kernel`` (``csrc/macro.cu``): one
+  trip of a macro cycle (``macro_cycles`` = k), the TPU's macro kernels
+  ``_kernel_ak_packed(_k)``, ``_kernel_bk_packed`` and
+  ``_kernel_bk_packed_c``.
 
 Brownian noise: with ``noise_key`` (the 4 words of ``fused.philox_key``)
 a stream kernel on CUDA draws the JAX "rbg" Philox stream itself
 (``csrc/philox.cuh``, the TPU's in-kernel noise ``_kernel_*_k``); on the
 CPU the wrapper draws the same stream with ``fused.philox_normals``.
-Without it the kernel reads ``xi`` [n, 3].
+Without it the kernel reads ``xi`` [n, 3] ([k, n, 3] for a macro trip).
 
 A wrapper given CPU tensors runs the plain version from ``ops/fused.py``;
 given CUDA tensors it launches the kernel on the current stream, or
@@ -35,7 +46,8 @@ import torch
 
 from . import _build
 from . import fused_convex
-from .fused import LAYOUT_TET, philox_normals, rare_plain, stream_plain
+from .fused import (LAYOUT_TET, hop_admit_plain, macro_stream_plain, philox_normals,
+                    rare_plain, stream_plain)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -68,56 +80,208 @@ def _check_tab_m(tab, m, width=LAYOUT_TET.width, row_w=LAYOUT_TET.row_w):
     return n, dev
 
 
-def _noise_args(xi, n, m, use_brown, noise_key):
+def _noise_args(xi, n, m, use_brown, noise_key, k=None):
     """(xi for the plain version, xi pointer, mode, 4 key words) of a
-    stream call; mode 1 = in-kernel Philox."""
+    stream call (with ``k``, of a macro trip: xi [k, n, 3], and sub-step j
+    draws with the key's last word + j); mode 1 = in-kernel Philox."""
     if not use_brown:
         return None, None, 0, (0, 0, 0, 0)
     if noise_key is None:
-        _check("xi", xi, dtype=m.dtype, shape=(n, 3), device=m.device)
+        shape = (n, 3) if k is None else (k, n, 3)
+        _check("xi", xi, dtype=m.dtype, shape=shape, device=m.device)
         return xi, xi.data_ptr(), 0, (0, 0, 0, 0)
     if xi is not None:
         raise ValueError("pass xi or noise_key, not both")
-    key = tuple(int(k) for k in noise_key)
-    if len(key) != 4 or not all(0 <= k < (1 << 32) for k in key):
+    key = tuple(int(w) for w in noise_key)
+    if len(key) != 4 or not all(0 <= w < (1 << 32) for w in key):
         raise ValueError(f"noise_key must be 4 uint32 words, got {noise_key!r}")
     if m.device.type == "cpu":
-        return philox_normals(key, n, m.dtype, m.device), None, 1, key
+        if k is None:
+            return philox_normals(key, n, m.dtype, m.device), None, 1, key
+        return torch.stack([philox_normals(key[:3] + ((key[3] + j) & 0xFFFFFFFF,), n, m.dtype,
+                                           m.device) for j in range(k)]), None, 1, key
     return None, None, 1, key
+
+
+def _flags(name, t, n, dev):
+    """Check an optional [n] uint8 flag array; its pointer (None if absent)."""
+    if t is None:
+        return None
+    _check(name, t, dtype=torch.uint8, shape=(n,), device=dev)
+    return t.data_ptr()
+
+
+def _check_hops(n_hops):
+    if not 0 <= int(n_hops) <= 8:
+        raise ValueError(f"n_hops must be in 0..8, got {n_hops}")
+
+
+# the pass of a stream kernel (csrc/stream.cuh: StreamPass)
+PASS_WHOLE, PASS_CROSSERS, PASS_ADMITTED = 0, 1, 2
+_ADMIT_GROUPS = 256     # groups per block of hop_admit_kernel (ADMIT_THREADS)
 
 
 def _stream_ptr(dev) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
+def _launch_stream(tab, m, xi_ptr, pend_ptr, adm_ptr, kw, mode, pass_, key, dev):
+    lib = _build.library()
+    fn = getattr(lib, f"cpf_stream_{_SUFFIX[m.dtype]}")
+    err = fn(tab.data_ptr(), m.data_ptr(), xi_ptr, pend_ptr, adm_ptr, m.shape[0], kw["dt"],
+             kw["sigma"], int(kw["use_adv"]), int(kw["use_brown"]),
+             int(kw.get("bounce_on", False)), int(kw.get("esc_on", False)),
+             kw.get("n_hops", 1), mode, pass_, *key, _stream_ptr(dev))
+    _build.check(lib, err, "stream_kernel")
+
+
 def stream_cycle(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
-                 bounce_on, esc_on, n_hops, noise_key=None):
+                 bounce_on, esc_on, n_hops, noise_key=None, admit=None):
     """Stream section of one cycle (K1 + K2), in place on ``m`` [n, 32];
     writes the rare-stage flags into ``pending`` [n] uint8.  With
     ``use_brown``, either ``xi`` [n, 3] (same dtype) or ``noise_key``
-    (Philox, module docstring) gives the noise."""
+    (Philox, module docstring) gives the noise.  ``admit`` [n] uint8 (from
+    :func:`hop_admit`) makes it the apply stage of the compacted hop
+    gather: a crosser whose flag is 0 skips its hop and goes pending."""
     n, dev = _check_tab_m(tab, m)
     _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
+    adm_ptr = _flags("admit", admit, n, dev)
     xi, xi_ptr, mode, key = _noise_args(xi, n, m, use_brown, noise_key)
-    if not 0 <= int(n_hops) <= 8:
-        raise ValueError(f"n_hops must be in 0..8, got {n_hops}")
+    _check_hops(n_hops)
     kw = dict(dt=dt, sigma=sigma, use_adv=bool(use_adv), use_brown=bool(use_brown),
               bounce_on=bool(bounce_on), esc_on=bool(esc_on), n_hops=int(n_hops))
     if dev.type == "cpu":
-        stream_plain(tab, m, xi, pending, **kw)
+        stream_plain(tab, m, xi, pending, admit=admit, **kw)
         return
     if n == 0:
         return
-    lib = _build.library()
-    fn = getattr(lib, f"cpf_stream_{_SUFFIX[m.dtype]}")
-    err = fn(tab.data_ptr(), m.data_ptr(), xi_ptr, pending.data_ptr(), n, dt, sigma,
-             int(kw["use_adv"]), int(kw["use_brown"]), int(kw["bounce_on"]),
-             int(kw["esc_on"]), kw["n_hops"], mode, *key, _stream_ptr(dev))
-    _build.check(lib, err, "stream_kernel")
+    _launch_stream(tab, m, xi_ptr, pending.data_ptr(), adm_ptr, kw, mode,
+                   PASS_WHOLE if admit is None else PASS_ADMITTED, key, dev)
     stream_cycle.launches += 1
 
 
 stream_cycle.launches = 0
+
+
+def stream_crossers(tab, m, xi, crossers, *, dt, sigma, use_adv, use_brown, noise_key=None):
+    """Flag stage of the compacted hop gather: ``stream_kernel``'s sub-step
+    up to the hop-0 test, writing each lane's crossing flag (``HMV``) into
+    ``crossers`` [n] uint8; ``m`` is left alone.  Noise as in
+    :func:`stream_cycle`, and the same as the apply stage's."""
+    n, dev = _check_tab_m(tab, m)
+    _check("crossers", crossers, dtype=torch.uint8, shape=(n,), device=dev)
+    adm_ptr = crossers.data_ptr()
+    xi, xi_ptr, mode, key = _noise_args(xi, n, m, use_brown, noise_key)
+    kw = dict(dt=dt, sigma=sigma, use_adv=bool(use_adv), use_brown=bool(use_brown))
+    if dev.type == "cpu":
+        stream_plain(tab, m, xi, None, bounce_on=False, esc_on=False, n_hops=1,
+                     crossers=crossers, **kw)
+        return
+    if n == 0:
+        return
+    _launch_stream(tab, m, xi_ptr, None, adm_ptr, kw, mode, PASS_CROSSERS, key, dev)
+    stream_crossers.launches += 1
+
+
+stream_crossers.launches = 0
+
+
+def hop_admit(crossers, admit, *, capb):
+    """Admission of the compacted hop gather (K3): ``crossers`` [n] uint8
+    -> ``admit`` [n] uint8, 1 for each crosser of an admitted 4-lane group
+    (fewer than ``capb`` pending groups before it; ``fused.hop_capacity``)
+    with fewer than 2 crossers before it in the group
+    (``fused.hop_admit_plain``)."""
+    if not torch.is_tensor(crossers) or crossers.dim() != 1:
+        raise ValueError("crossers must be a 1-d tensor")
+    n, dev = crossers.shape[0], crossers.device
+    for name, t in (("crossers", crossers), ("admit", admit)):
+        _check(name, t, dtype=torch.uint8, shape=(n,), device=dev)
+    if int(capb) < 0:
+        raise ValueError(f"capb must be >= 0, got {capb}")
+    if dev.type == "cpu":
+        hop_admit_plain(crossers, admit, capb=int(capb))
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if n == 0:
+        return
+    groups = -(-n // 4)
+    # int32 scratch: the pending-group count of each block of the kernel
+    counts = torch.empty(-(-groups // _ADMIT_GROUPS), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    err = lib.cpf_hop_admit(crossers.data_ptr(), admit.data_ptr(), counts.data_ptr(), n,
+                            int(capb), _stream_ptr(dev))
+    _build.check(lib, err, "hop_admit_kernel")
+    hop_admit.launches += 1
+
+
+hop_admit.launches = 0
+
+
+def _launch_macro(tab, m, xi_ptr, phase, pend_ptr, adm_ptr, kw, mode, pass_, key, dev):
+    lib = _build.library()
+    fn = getattr(lib, f"cpf_macro_stream_{_SUFFIX[m.dtype]}")
+    err = fn(tab.data_ptr(), m.data_ptr(), xi_ptr, phase.data_ptr(), pend_ptr, adm_ptr,
+             m.shape[0], kw["k"], kw["dt"], kw["sigma"], int(kw["use_adv"]),
+             int(kw["use_brown"]), int(kw.get("bounce_on", False)),
+             int(kw.get("esc_on", False)), mode, pass_, *key, _stream_ptr(dev))
+    _build.check(lib, err, "macro_stream_kernel")
+
+
+def _macro_checks(tab, m, xi, phase, k, use_brown, noise_key):
+    n, dev = _check_tab_m(tab, m)
+    _check("phase", phase, dtype=torch.uint8, shape=(n,), device=dev)
+    if not 1 <= int(k) <= 8:
+        raise ValueError(f"k must be in 1..8, got {k}")
+    return (n, dev) + _noise_args(xi, n, m, use_brown, noise_key, k=int(k))
+
+
+def macro_stream(tab, m, xi, phase, pending, *, k, dt, sigma, use_adv, use_brown,
+                 bounce_on, esc_on, noise_key=None, admit=None):
+    """One trip of a k-sub-step macro cycle (K4), in place on ``m`` [n, 32]
+    and ``phase`` [n] uint8 (sub-steps done; 0 before trip 0); writes
+    ``pending`` [n] uint8 for the rare stage.  Noise: ``xi`` [k, n, 3] or
+    ``noise_key`` (the key of sub-step 0).  ``admit`` as in
+    :func:`stream_cycle` (the compacted trips)."""
+    n, dev, xi, xi_ptr, mode, key = _macro_checks(tab, m, xi, phase, k, use_brown, noise_key)
+    _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
+    adm_ptr = _flags("admit", admit, n, dev)
+    kw = dict(k=int(k), dt=dt, sigma=sigma, use_adv=bool(use_adv), use_brown=bool(use_brown),
+              bounce_on=bool(bounce_on), esc_on=bool(esc_on))
+    if dev.type == "cpu":
+        macro_stream_plain(tab, m, xi, phase, pending, admit=admit, **kw)
+        return
+    if n == 0:
+        return
+    _launch_macro(tab, m, xi_ptr, phase, pending.data_ptr(), adm_ptr, kw, mode,
+                  PASS_WHOLE if admit is None else PASS_ADMITTED, key, dev)
+    macro_stream.launches += 1
+
+
+macro_stream.launches = 0
+
+
+def macro_crossers(tab, m, xi, phase, crossers, *, k, dt, sigma, use_adv, use_brown,
+                   noise_key=None):
+    """Flag stage of a compacted macro trip: ``macro_stream_kernel`` up to
+    the stopping sub-step, writing each lane's crossing flag into
+    ``crossers`` [n] uint8; ``m`` and ``phase`` are left alone."""
+    n, dev, xi, xi_ptr, mode, key = _macro_checks(tab, m, xi, phase, k, use_brown, noise_key)
+    _check("crossers", crossers, dtype=torch.uint8, shape=(n,), device=dev)
+    adm_ptr = crossers.data_ptr()
+    kw = dict(k=int(k), dt=dt, sigma=sigma, use_adv=bool(use_adv), use_brown=bool(use_brown))
+    if dev.type == "cpu":
+        macro_stream_plain(tab, m, xi, phase, None, bounce_on=False, esc_on=False,
+                           crossers=crossers, **kw)
+        return
+    if n == 0:
+        return
+    _launch_macro(tab, m, xi_ptr, phase, None, adm_ptr, kw, mode, PASS_CROSSERS, key, dev)
+    macro_crossers.launches += 1
+
+
+macro_crossers.launches = 0
 
 
 def rare_resolve(tab, m, pending, bd_escape, *, max_hops, max_bounces,
@@ -151,35 +315,67 @@ def rare_resolve(tab, m, pending, bd_escape, *, max_hops, max_bounces,
 rare_resolve.launches = 0
 
 
+def _launch_convex_stream(tab, m, xi_ptr, pend_ptr, adm_ptr, disp_ptr, kw, mode, pass_, key,
+                          dev):
+    lib = _build.library()
+    fn = getattr(lib, f"cpf_convex_stream_{_SUFFIX[m.dtype]}")
+    err = fn(tab.data_ptr(), m.data_ptr(), xi_ptr, pend_ptr, adm_ptr, disp_ptr, m.shape[0],
+             kw["dt"], kw["sigma"], int(kw["use_adv"]), int(kw["use_brown"]),
+             kw.get("n_hops", 1), mode, pass_, *key, _stream_ptr(dev))
+    _build.check(lib, err, "convex_stream_kernel")
+
+
 def convex_stream_cycle(tab, m, xi, pending, disp, *, dt, sigma, use_adv, use_brown,
-                        n_hops, noise_key=None):
+                        n_hops, noise_key=None, admit=None):
     """Convex stream section of one cycle (K5), in place on the convex mega
     ``m`` [n, 32] with ``tab`` = ``cx_table`` [nt, 24]; writes ``pending``
     [n] uint8 and the displacement ``disp`` [n, 3].  Noise as in
-    :func:`stream_cycle`; ``n_hops`` >= 1 runs the one inline hop."""
+    :func:`stream_cycle`; ``n_hops`` >= 1 runs the one inline hop.
+    ``admit`` [n] uint8: the apply stage of the compacted hop gather (an
+    interior crosser whose flag is 0 does not hop and stays pending)."""
     n, dev = _check_tab_m(tab, m, fused_convex.WIDTH, fused_convex.ROW_W)
     _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
     _check("disp", disp, dtype=m.dtype, shape=(n, 3), device=dev)
+    adm_ptr = _flags("admit", admit, n, dev)
     xi, xi_ptr, mode, key = _noise_args(xi, n, m, use_brown, noise_key)
-    if not 0 <= int(n_hops) <= 8:
-        raise ValueError(f"n_hops must be in 0..8, got {n_hops}")
+    _check_hops(n_hops)
     kw = dict(dt=dt, sigma=sigma, use_adv=bool(use_adv), use_brown=bool(use_brown),
               n_hops=int(n_hops))
     if dev.type == "cpu":
-        fused_convex.convex_stream_plain(tab, m, xi, pending, disp, **kw)
+        fused_convex.convex_stream_plain(tab, m, xi, pending, disp, admit=admit, **kw)
         return
     if n == 0:
         return
-    lib = _build.library()
-    fn = getattr(lib, f"cpf_convex_stream_{_SUFFIX[m.dtype]}")
-    err = fn(tab.data_ptr(), m.data_ptr(), xi_ptr, pending.data_ptr(), disp.data_ptr(),
-             n, dt, sigma, int(kw["use_adv"]), int(kw["use_brown"]), kw["n_hops"],
-             mode, *key, _stream_ptr(dev))
-    _build.check(lib, err, "convex_stream_kernel")
+    _launch_convex_stream(tab, m, xi_ptr, pending.data_ptr(), adm_ptr, disp.data_ptr(), kw,
+                          mode, PASS_WHOLE if admit is None else PASS_ADMITTED, key, dev)
     convex_stream_cycle.launches += 1
 
 
 convex_stream_cycle.launches = 0
+
+
+def convex_stream_crossers(tab, m, xi, crossers, *, dt, sigma, use_adv, use_brown,
+                           noise_key=None):
+    """Flag stage of the compacted convex hop gather: ``convex_stream_kernel``
+    up to the hop-0 exit test, writing each lane's interior-crossing flag
+    (``CINT``) into ``crossers`` [n] uint8; ``m`` is left alone."""
+    n, dev = _check_tab_m(tab, m, fused_convex.WIDTH, fused_convex.ROW_W)
+    _check("crossers", crossers, dtype=torch.uint8, shape=(n,), device=dev)
+    adm_ptr = crossers.data_ptr()
+    xi, xi_ptr, mode, key = _noise_args(xi, n, m, use_brown, noise_key)
+    kw = dict(dt=dt, sigma=sigma, use_adv=bool(use_adv), use_brown=bool(use_brown))
+    if dev.type == "cpu":
+        fused_convex.convex_stream_plain(tab, m, xi, None, None, n_hops=1, crossers=crossers,
+                                         **kw)
+        return
+    if n == 0:
+        return
+    _launch_convex_stream(tab, m, xi_ptr, None, adm_ptr, None, kw, mode, PASS_CROSSERS, key,
+                          dev)
+    convex_stream_crossers.launches += 1
+
+
+convex_stream_crossers.launches = 0
 
 
 def convex_rare_resolve(mesh, tab, m, disp, pending, *, max_hops, reflect_wall,

@@ -4,9 +4,13 @@ cached engine).
 ``run_cycles`` packs the state into the [n, 32] mega array once, runs
 ``n_cycles`` sub-steps of :func:`ops.fused.mega_cycle` (or, with
 ``locate_mode="convex"``, :func:`ops.fused_convex.mega_cycle`; two
-kernels each on CUDA: stream + rare), and unpacks.  PyTorch runs
-eagerly, so the loop is a Python loop of asynchronous launches with no
-host sync inside.
+kernels each on CUDA: stream + rare, with ``hop_compact=4`` four: the
+crossing flags, ``hop_admit``, stream, rare), and unpacks.  With
+``macro_cycles`` = k > 1 the bary engine runs k sub-steps at a time as
+one macro cycle (:func:`ops.fused.mega_macro`: k trips of the macro
+stream and rare kernels) and the remaining ``n_cycles % k`` one at a
+time.  PyTorch runs eagerly, so the loop is a Python loop of
+asynchronous launches with no host sync inside.
 """
 
 from __future__ import annotations
@@ -91,10 +95,6 @@ def check_ported(cfg: StepConfig) -> None:
     if cfg.velocity_interp != advect_ops.TET_VELOCITY:
         todo.append(f"velocity_interp={cfg.velocity_interp!r} "
                     "(LAYOUT_PK, ROADMAP queue 1 item 8)")
-    if cfg.hop_compact == 4:
-        todo.append("hop_compact=4 (K3, ROADMAP queue 1 items 7 and 10)")
-    if cfg.macro_cycles > 1:
-        todo.append("macro_cycles>1 (K4, ROADMAP queue 1 items 7 and 10)")
     if cfg.brownian_rng not in ("threefry",) + fused.RBG_MODES:
         raise ValueError(f"unknown brownian_rng {cfg.brownian_rng!r}")
     if cfg.cycle_chunks > 1:
@@ -118,7 +118,9 @@ def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
     ``cycleDt`` for sub-cycled runs).  ``noise`` [n_cycles, n, 3], when
     given, replaces the per-step noise draw (replays of a recorded
     Brownian stream).  On CUDA tensors every cycle runs the stream and
-    rare kernels; on CPU tensors their plain versions."""
+    rare kernels; on CPU tensors their plain versions.  ``macro_cycles``
+    applies to the bary engine only (the convex engine never reads it, as
+    in JAX); a macro cycle takes ``noise`` k steps at a time."""
     check_ported(cfg)
     dt = cfg.dt if dt is None else dt
     n = state.n_particles
@@ -144,7 +146,13 @@ def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
         pos, vel, tet, act = fused_convex.unpack_state(m)
     else:
         m = fused.pack_state(mesh, state.pos, state.vel, state.tet_id, state.active)
-        for i in range(n_cycles):
+        k = cfg.macro_cycles
+        n_mac = n_cycles // k if k > 1 else 0
+        for i in range(0, n_mac * k, k):
+            fused.mega_macro(mesh, m, state.seed, state.step + i, cfg, dt,
+                             noise=None if noise is None else noise[i : i + k],
+                             pending=pending)
+        for i in range(n_mac * k, n_cycles):
             fused.mega_cycle(mesh, m, state.seed, state.step + i, cfg, dt,
                              noise=None if noise is None else noise[i],
                              pending=pending)
@@ -162,7 +170,8 @@ def suggest_tuning(mesh: TetMesh, cfg: StepConfig, dt=None,
     ``inline_bounce`` from the expected tet-face crossings per particle per
     sub-step (per-tet speed, tet size and the Brownian RMS kick), as the
     JAX package estimates them.  Its chunk, hop-compaction and arena
-    thresholds were measured on a TPU and are not carried over.
+    thresholds were measured on a TPU and are not carried over
+    (``hop_compact`` and ``macro_cycles`` are left as ``cfg`` has them).
     ``n_particles`` is accepted for signature parity and unused."""
     dt = float(cfg.dt if dt is None else dt)
     host = mesh.host

@@ -45,8 +45,6 @@ UNPORTED = [
      "(LAYOUT_PK, ROADMAP queue 1 item 8)"),
     (dict(velocity_interp="ConstantVelocity"), "velocity_interp='ConstantVelocity' "
      "(LAYOUT_PK, ROADMAP queue 1 item 8)"),
-    (dict(hop_compact=4), "hop_compact=4 (K3, ROADMAP queue 1 items 7 and 10)"),
-    (dict(macro_cycles=2), "macro_cycles>1 (K4, ROADMAP queue 1 items 7 and 10)"),
     (dict(cycle_chunks=2), "cycle_chunks>1 (ROADMAP queue 1 item 10)"),
     (dict(engine_impl="jnp"), "engine_impl='jnp' (the port picks the kernel from the "
      "tensors' device; ROADMAP queue 1 item 10)"),
@@ -94,6 +92,36 @@ def test_ported_settings_run(tiny):
             cpt.run_cycles(mesh_cx, st, cpt.StepConfig(**kw), 1)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(hop_compact=4), dict(macro_cycles=2), dict(macro_cycles=8, hop_compact=4),
+    dict(hop_compact=4, hop_compact_frac=0.02, escape_faces=True, brownian_rng="rbg_kernel"),
+    dict(macro_cycles=3, inline_hops=4, brownian_rng="rbg"),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_compaction_and_macro_settings_run(tiny, kw):
+    """hop_compact=4 (K3) and macro_cycles 2..8 (K4) run, and their final
+    state equals the plain per-cycle run's on this tiny case."""
+    mesh, st = tiny
+    cfg = cpt.StepConfig(dt=0.05, diffusion_coeff=1e-3, **kw)
+    base = dataclasses.replace(cfg, hop_compact=0, macro_cycles=1)
+    out, want = cpt.run_cycles(mesh, st, cfg, 9), cpt.run_cycles(mesh, st, base, 9)
+    assert out.step == 9 and int(out.active.sum()) == 8
+    for f in ("pos", "vel", "tet_id", "active"):
+        assert torch.equal(getattr(out, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("k", [2, 8])
+def test_convex_ignores_macro_cycles(tiny, k):
+    """The convex engine never reads macro_cycles (nor does JAX's convex
+    branch): the run equals macro_cycles=1 cycle for cycle."""
+    mesh, st = tiny
+    mesh = cpt.with_convex_rows(mesh)
+    cfg = cpt.StepConfig(dt=0.05, diffusion_coeff=1e-3, locate_mode="convex")
+    out = cpt.run_cycles(mesh, st, dataclasses.replace(cfg, macro_cycles=k), 5)
+    want = cpt.run_cycles(mesh, st, cfg, 5)
+    for f in ("pos", "vel", "tet_id", "active"):
+        assert torch.equal(getattr(out, f), getattr(want, f)), f
+
+
 def _box_payload(nside, speed):
     pts, tets, vv = tmesh.box_points_tets(nside, nside, nside)
     return tmesh.from_arrays_host(pts, tets, tet_vel=speed * vv[tets].mean(axis=1),
@@ -136,7 +164,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_found():
     names = sorted(p.rsplit("/", 1)[-1] for p in _build.sources())
-    assert names == ["convex_rare.cu", "convex_stream.cu", "rare.cu", "stream.cu"]
+    assert names == ["convex_rare.cu", "convex_stream.cu", "hop_admit.cu", "macro.cu", "rare.cu",
+                     "stream.cu"]
     assert "--fmad=false" in _build.FLAGS and "code=sm_90a" in _build.ARCH
 
 
@@ -155,3 +184,12 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_cuda.convex_stream_cycle(cx, m, None, pend, disp, dt=0.1, sigma=0.0,
                                        use_adv=True, use_brown=False, n_hops=1)
+    kw = dict(dt=0.1, sigma=0.0, use_adv=True, use_brown=False)
+    for call in (lambda: fused_cuda.stream_crossers(tab, m, None, pend, **kw),
+                 lambda: fused_cuda.convex_stream_crossers(cx, m, None, pend, **kw),
+                 lambda: fused_cuda.macro_crossers(tab, m, None, pend, pend, k=2, **kw),
+                 lambda: fused_cuda.macro_stream(tab, m, None, pend, pend, k=2, bounce_on=True,
+                                                 esc_on=False, **kw),
+                 lambda: fused_cuda.hop_admit(pend, pend, capb=1024)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
