@@ -9,12 +9,13 @@ Phases, one line of numbers each, any failure exits non-zero:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile csrc/*.cu with nvcc for sm_90a, one nvcc per source in
    parallel (seconds, and ptxas's registers/stack per kernel);
-3. kernel vs plain, float32: box 16^3 (24,576 tets), 65,536 lanes, one
-   cycle, for hops {1, 4} x escape faces {off, on} x reflect_wall {on, off}:
-   stream_kernel against stream_plain, then rare_kernel against rare_plain
-   on the same (m, pending); tet/active/pending identical, pos/vel within
-   1e-5;
-3b. convex kernel vs plain, float32: the same box and lanes, one cycle, for
+3. kernel vs plain, float32: box 16^3 (24,576 tets), 65,536 lanes and a
+   ragged 65,499 (the last block of the staged stream kernels part full),
+   one cycle, for hops {1, 4} x escape faces {off, on} x reflect_wall {on,
+   off}: stream_kernel against stream_plain, then rare_kernel against
+   rare_plain on the same (m, pending); tet/active/pending identical,
+   pos/vel within 1e-5;
+3b. convex kernel vs plain, float32: the same box and both lane counts, one cycle, for
    inline_hops {0, 1} x escape faces {off, on} x (reflect_wall with
    convex_bary_fix | no reflection): convex_stream_kernel against
    convex_stream_plain, then convex_rare_kernel against convex_rare_plain
@@ -61,6 +62,12 @@ Phases, one line of numbers each, any failure exits non-zero:
    the pending and overflow shares of one more cycle, the same checks, and
    the compacted stream's time (flag pass + hop_admit + apply pass)
    against its plain version.
+6. bounds: for each kernel at the slice's shape, the bytes its timed call
+   must move (ops/traffic.py, from this run's counts of lanes that hop,
+   cross or stay pending), its bound at 3.35 TB/s, the share bound / time,
+   its launches per sub-step on its path, and the time of a device copy_
+   that moves as many bytes (half read, half written) as a yardstick of
+   the bandwidth a plain stream achieves; the port never calls it.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -68,6 +75,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -82,6 +90,7 @@ GOLDEN = os.path.join(HERE, "tests", "golden", "particles_f64.npz")
 INPUTS = os.path.join(HERE, "tests", "golden", "torch_port_box_inputs.npz")
 POS_TOL_F32 = 1e-5       # kernel vs plain, float32 (both IEEE op for op)
 POS_TOL_GOLDEN = 1e-9    # float64 replay against the CPU-made anchors
+RAGGED = 37              # phases 3/3b also run n - RAGGED lanes (a part-full last block)
 
 
 class Failure(Exception):
@@ -184,38 +193,35 @@ def phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, e
     vel = torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=dev)
     act = torch.as_tensor(rng.uniform(size=n) > 0.02, device=dev)
     xi = torch.as_tensor(rng.standard_normal((n, 3)), dtype=torch.float32, device=dev)
-    for hops in (1, 4):
+    for hops, esc, refl, nn in itertools.product((1, 4), (False, True), (True, False),
+                                                 (n, n - RAGGED)):
         dt = 0.2 if hops == 1 else 0.9
-        for esc in (False, True):
-            mesh = tmesh.set_boundary_escape(base, [1] if esc else [])
-            m0 = fused.pack_state(mesh, pos, vel, tet, act)
-            for refl in (True, False):
-                cfg = cpt.StepConfig(dt=dt, diffusion_coeff=5e-3, inline_hops=hops,
-                                     escape_faces=esc, reflect_wall=refl)
-                sa = stream_args(cfg, dt, torch.float32, fused)
-                mk, mp = m0.clone(), m0.clone()
-                pk = torch.empty(n, dtype=torch.uint8, device=dev)
-                pp = torch.empty_like(pk)
-                fused_cuda.stream_cycle(mesh.tet_row, mk, xi, pk, **sa)
-                fused.stream_plain(mesh.tet_row, mp, xi, pp, **sa)
-                same_s, err_s = compare(torch, mk, mp, pk, pp)
-                rk, rp = mp.clone(), mp.clone()
-                fused_cuda.rare_resolve(mesh.tet_row, rk, pp, mesh.bd_escape,
-                                        **rare_args(cfg))
-                fused.rare_plain(mesh.tet_row, rp, pp, mesh.bd_escape, **rare_args(cfg))
-                same_r, err_r = compare(torch, rk, rp)
-                npend = int(pp.sum())
-                log(f"[parity] hops={hops} escape={int(esc)} reflect={int(refl)} "
-                    f"pending={npend} stream_identical={int(same_s)} "
-                    f"stream_max_abs_err={err_s:.3e} rare_identical={int(same_r)} "
-                    f"rare_max_abs_err={err_r:.3e}")
-                need(npend > 0, "parity case has no pending lanes")
-                need(same_s and err_s <= POS_TOL_F32,
-                     f"stream_kernel != stream_plain (hops={hops} esc={esc} refl={refl})")
-                need(same_r and err_r <= POS_TOL_F32,
-                     f"rare_kernel != rare_plain (hops={hops} esc={esc} refl={refl})")
-                errs["stream"] = max(errs["stream"], err_s)
-                errs["rare"] = max(errs["rare"], err_r)
+        mesh = tmesh.set_boundary_escape(base, [1] if esc else [])
+        m0 = fused.pack_state(mesh, pos[:nn], vel[:nn], tet[:nn], act[:nn])
+        cfg = cpt.StepConfig(dt=dt, diffusion_coeff=5e-3, inline_hops=hops,
+                             escape_faces=esc, reflect_wall=refl)
+        sa = stream_args(cfg, dt, torch.float32, fused)
+        mk, mp = m0.clone(), m0.clone()
+        pk = torch.empty(nn, dtype=torch.uint8, device=dev)
+        pp = torch.empty_like(pk)
+        fused_cuda.stream_cycle(mesh.tet_row, mk, xi[:nn], pk, **sa)
+        fused.stream_plain(mesh.tet_row, mp, xi[:nn], pp, **sa)
+        same_s, err_s = compare(torch, mk, mp, pk, pp)
+        rk, rp = mp.clone(), mp.clone()
+        fused_cuda.rare_resolve(mesh.tet_row, rk, pp, mesh.bd_escape, **rare_args(cfg))
+        fused.rare_plain(mesh.tet_row, rp, pp, mesh.bd_escape, **rare_args(cfg))
+        same_r, err_r = compare(torch, rk, rp)
+        npend = int(pp.sum())
+        log(f"[parity] lanes={nn} hops={hops} escape={int(esc)} reflect={int(refl)} "
+            f"pending={npend} stream_identical={int(same_s)} "
+            f"stream_max_abs_err={err_s:.3e} rare_identical={int(same_r)} "
+            f"rare_max_abs_err={err_r:.3e}")
+        case = f"lanes={nn} hops={hops} esc={esc} refl={refl}"
+        need(npend > 0, f"parity case has no pending lanes ({case})")
+        need(same_s and err_s <= POS_TOL_F32, f"stream_kernel != stream_plain ({case})")
+        need(same_r and err_r <= POS_TOL_F32, f"rare_kernel != rare_plain ({case})")
+        errs["stream"] = max(errs["stream"], err_s)
+        errs["rare"] = max(errs["rare"], err_r)
 
 
 def parity_lanes(torch, cpt, mesh, dev, nside, n, seed):
@@ -270,29 +276,27 @@ def phase_convex_parity(torch, cpt, fused, fused_convex, fused_cuda, tmesh, conv
     payload = box_payload(tmesh, nside, np.float32, swirl(nside))
     base = convert.to_mesh(payload, dev)
     pos, vel, tet, act, xi = parity_lanes(torch, cpt, base, dev, nside, n, seed=4)
-    for hops in (0, 1):
-        for esc in (False, True):
-            mesh = cpt.with_convex_rows(tmesh.set_boundary_escape(base, [1] if esc else []))
-            tab = fused_convex.cx_table(mesh)
-            m0 = fused_convex.pack_state(mesh, tab, pos, vel, tet, act)
-            for refl in (True, False):
-                cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3, inline_hops=hops,
-                                     escape_faces=esc, reflect_wall=refl, convex_bary_fix=refl,
-                                     locate_mode="convex")
-                same_s, err_s, same_r, err_r, npend, *_ = convex_cycle_pair(
-                    torch, fused_convex, fused_cuda, mesh, tab, m0, xi, None, xi, cfg,
-                    cfg.dt, fused)
-                log(f"[convex-parity] hops={hops} escape={int(esc)} reflect={int(refl)} "
-                    f"bary_fix={int(refl)} pending={npend} stream_identical={int(same_s)} "
-                    f"stream_max_abs_err={err_s:.3e} rare_identical={int(same_r)} "
-                    f"rare_max_abs_err={err_r:.3e}")
-                need(npend > 0, "convex parity case has no pending lanes")
-                need(same_s and err_s <= POS_TOL_F32,
-                     f"convex_stream_kernel != plain (hops={hops} esc={esc} refl={refl})")
-                need(same_r and err_r <= POS_TOL_F32,
-                     f"convex_rare_kernel != plain (hops={hops} esc={esc} refl={refl})")
-                errs["convex_stream"] = max(errs["convex_stream"], err_s)
-                errs["convex_rare"] = max(errs["convex_rare"], err_r)
+    for hops, esc in itertools.product((0, 1), (False, True)):
+        mesh = cpt.with_convex_rows(tmesh.set_boundary_escape(base, [1] if esc else []))
+        tab = fused_convex.cx_table(mesh)
+        m0 = fused_convex.pack_state(mesh, tab, pos, vel, tet, act)
+        for refl, nn in itertools.product((True, False), (n, n - RAGGED)):
+            cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3, inline_hops=hops,
+                                 escape_faces=esc, reflect_wall=refl, convex_bary_fix=refl,
+                                 locate_mode="convex")
+            same_s, err_s, same_r, err_r, npend, *_ = convex_cycle_pair(
+                torch, fused_convex, fused_cuda, mesh, tab, m0[:nn], xi[:nn], None, xi[:nn],
+                cfg, cfg.dt, fused)
+            log(f"[convex-parity] lanes={nn} hops={hops} escape={int(esc)} reflect={int(refl)} "
+                f"bary_fix={int(refl)} pending={npend} stream_identical={int(same_s)} "
+                f"stream_max_abs_err={err_s:.3e} rare_identical={int(same_r)} "
+                f"rare_max_abs_err={err_r:.3e}")
+            case = f"lanes={nn} hops={hops} esc={esc} refl={refl}"
+            need(npend > 0, f"convex parity case has no pending lanes ({case})")
+            need(same_s and err_s <= POS_TOL_F32, f"convex_stream_kernel != plain ({case})")
+            need(same_r and err_r <= POS_TOL_F32, f"convex_rare_kernel != plain ({case})")
+            errs["convex_stream"] = max(errs["convex_stream"], err_s)
+            errs["convex_rare"] = max(errs["convex_rare"], err_r)
 
 
 def kick_stats(torch, z):
@@ -403,8 +407,22 @@ def time_calls(timer, fn, restore, reps):
     return total / reps
 
 
+def moved(torch, before, after):
+    """Lanes whose tet changed from mega ``before`` to ``after`` and is a
+    tet (not an exit code): each loaded that tet's row once."""
+    t0, t1 = before[:, 6], after[:, 6]
+    return int(((t0 != t1) & (t1 >= 0)).sum())
+
+
+def rows_changed(torch, before, after, width):
+    """Lanes whose cached row (mega columns 8 : 8 + width) changed from
+    ``before`` to ``after``: each loaded a new row and wrote it back (a
+    lane that hopped twice counts once, so as row loads this is a floor)."""
+    return int((before[:, 8:8 + width] != after[:, 8:8 + width]).any(dim=1).sum())
+
+
 def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
-                n_cycles, errs, gpu_line):
+                n_cycles, errs, counts, gpu_line):
     """Phase 5: the north-star slice through run_cycles."""
     t0 = time.perf_counter()
     pts, tets, _ = tmesh.box_points_tets(nside, nside, nside)
@@ -470,7 +488,20 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
     fused.stream_plain(mesh.tet_row, mp, xi, pp, **sa)
     same_s, err_s = compare(torch, mk, mp, pk, pp)
     m1, p1 = mp.clone(), pp.clone()
+    n_el = m0.element_size()
+    # one inline hop at this slice, so row loads = lanes whose row changed
+    hk = rows_changed(torch, m0, mk, 20)
+    counts["stream"] = ("stream", dict(n=n_particles, elem=n_el, noise="xi", hops=hk,
+                                       hopped=hk))
+    nkey = fused.philox_key(st.seed, st.step)
+    mph, pph = m0.clone(), torch.empty_like(pk)
+    fused_cuda.stream_cycle(mesh.tet_row, mph, None, pph, noise_key=nkey, **sa)
+    hph = rows_changed(torch, m0, mph, 20)
+    counts["stream_philox"] = ("stream", dict(n=n_particles, elem=n_el, noise="philox",
+                                              hops=hph, hopped=hph))
     fused_cuda.rare_resolve(mesh.tet_row, mk, pk, mesh.bd_escape, **rare_args(cfg))
+    counts["rare"] = ("rare", dict(n=n_particles, elem=n_el, pending=int(p1.sum()),
+                                   moved=moved(torch, m1, mk)))
     fused.rare_plain(mesh.tet_row, mp, pp, mesh.bd_escape, **rare_args(cfg))
     same, err = compare(torch, mk, mp)
     log(f"[slice] extra cycle kernel vs plain: pending={int(p1.sum())} "
@@ -489,7 +520,6 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
         work.copy_(m1)
         pend.copy_(p1)
 
-    nkey = fused.philox_key(st.seed, st.step)
     times = {}
     for key, fn, plain, restore in (
         ("stream", lambda: fused_cuda.stream_cycle(mesh.tet_row, work, xi, pend, **sa),
@@ -530,7 +560,7 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
 
 
 def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup,
-                       n_cycles, errs, gpu_line):
+                       n_cycles, errs, counts, gpu_line):
     """Phase 5b: the convex slice (the bench's convex-default) through
     run_cycles, on phase 5's mesh and seeds."""
     mesh, st, n_in, bcfg = slice_setup
@@ -606,6 +636,22 @@ def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_s
         disp.copy_(d1)
 
     xi = fused._brownian_noise(st.seed, st.step, n_particles, m0.dtype, dev)
+    # this run's row loads (interior crossers) and hops, for the bound
+    cross = torch.empty_like(p1)
+    ca = {a: sa[a] for a in ("dt", "sigma", "use_adv", "use_brown")}
+    for name, noise, nk, m_after in (("convex_stream", "philox", key, m1),
+                                     ("convex_stream_xi", "xi", None, None)):
+        if m_after is None:
+            m_after = m0.clone()
+            fused_cuda.convex_stream_cycle(tab, m_after, xi, torch.empty_like(p1),
+                                           torch.empty_like(d1), **sa)
+        fused_cuda.convex_stream_crossers(tab, m0, None if nk else xi, cross, noise_key=nk,
+                                          **ca)
+        counts[name] = ("convex_stream", dict(n=n_particles, elem=m0.element_size(),
+                                              noise=noise, row_loads=int(cross.sum()),
+                                              hopped=moved(torch, m0, m_after)))
+    counts["convex_rare"] = ("convex_rare", dict(n=n_particles, elem=m0.element_size(),
+                                                 pending=int(p1.sum())))
     times = {}
     for name, fn, plain, restore in (
         ("convex_stream_xi",
@@ -857,7 +903,7 @@ def kernel_vs_plain_ms(timer, fn, plain, restore, reps=20, plain_reps=3):
 
 
 def phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup, n_cycles,
-                      ms_per_cycle, errs, gpu_line):
+                      ms_per_cycle, errs, counts, gpu_line):
     """Phase 5c, first part: the slice with macro_cycles=4."""
     mesh, st0, n_in, bcfg = slice_setup
     n = st0.n_particles
@@ -930,8 +976,17 @@ def phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_se
          lambda: fused.macro_stream_plain(mesh.tet_row, work, philox_k(), phase, pend, **skw)),
     ):
         times[name] = kernel_vs_plain_ms(timer, fn, plain, restore)
-    restore()
-    fused_cuda.macro_stream(mesh.tet_row, work, xi, phase, pend, **skw)
+    # trip 0's sub-steps drawn (a lane stopped at sub-step j has phase j + 1)
+    # and hops, for the bound
+    for name, noise, xk in (("macro_philox", "philox", None), ("macro", "xi", xi)):
+        restore()
+        fused_cuda.macro_stream(mesh.tet_row, work, xk, phase, pend,
+                                noise_key=None if xk is not None else nkey, **skw)
+        hw = rows_changed(torch, m0, work, 20)
+        counts[name] = ("macro_stream", dict(n=n, elem=m0.element_size(), noise=noise,
+                                             working=n, substeps=int(phase.sum()),
+                                             hops=hw, hopped=hw))
+    counts["hop_admit"] = ("hop_admit", dict(n=n))
     fused_cuda.rare_resolve(mesh.tet_row, work, pend, mesh.bd_escape, **rare_args(cfg))
     fused_cuda.macro_crossers(mesh.tet_row, work, xi, phase, crossers,
                               **{a: skw[a] for a in ("k", "dt", "sigma", "use_adv", "use_brown")})
@@ -1038,6 +1093,35 @@ def phase_compact_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_
         f"(flag pass + hop_admit + apply pass)")
 
 
+def copy_ms(torch, dev, timer, nbytes, reps=20):
+    """Mean ms of a device copy_ that moves ``nbytes`` (half read, half
+    written): the bandwidth yardstick beside a kernel's bound."""
+    src = torch.zeros(max(nbytes // 2, 1), dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    dst.copy_(src)
+    return time_calls(timer, lambda: dst.copy_(src), lambda: None, reps)
+
+
+def phase_bounds(torch, traffic, dev, counts, times, per_cycle, gpu_line):
+    """Phase 6: each timed kernel's bytes at this run's counts, its bound,
+    the share bound / time, its launches per sub-step on its path, and the
+    copy yardstick; returns them by timing key."""
+    timer = Timer(torch, dev)
+    out = {}
+    for name, (fn, kw) in counts.items():
+        t = getattr(traffic, fn)(**kw)
+        ms = times[name][0]
+        cp = copy_ms(torch, dev, timer, t.bytes)
+        out[name] = dict(bytes=t.bytes, bound_ms=t.bound_ms, bound_by=t.bound_by,
+                         share=t.bound_ms / ms, copy_ms=cp, launches_per_cycle=per_cycle[name])
+        extra = " ".join(f"{k}={v}" for k, v in kw.items() if k not in ("n", "elem"))
+        log(f"[bound] {gpu_line} | {name} lanes={kw['n']} {extra} bytes={t.bytes} "
+            f"(read {t.read}, written {t.written}) ops={t.ops} bound_ms={t.bound_ms:.4f} "
+            f"({t.bound_by}) kernel_ms={ms:.4f} share={t.bound_ms / ms:.3f} "
+            f"copy_ms={cp:.4f} launches_per_cycle={per_cycle[name]:.3f}")
+    return out
+
+
 def ptxas_lines(report):
     """One 'kernel<type>: registers, stack' entry per compiled kernel."""
     out, name = [], None
@@ -1082,7 +1166,7 @@ def main():
     import cudaparticlesfoam_tpu_torch as cpt
     from cudaparticlesfoam_tpu_torch import convert
     from cudaparticlesfoam_tpu_torch import mesh as tmesh
-    from cudaparticlesfoam_tpu_torch.ops import _build, fused, fused_convex, fused_cuda
+    from cudaparticlesfoam_tpu_torch.ops import _build, fused, fused_convex, fused_cuda, traffic
 
     need("jax" not in sys.modules, "the port imported jax")
     need(os.path.exists(GOLDEN) and os.path.exists(INPUTS), "golden fixtures missing")
@@ -1115,6 +1199,7 @@ def main():
 
     errs = {"stream": 0.0, "rare": 0.0, "convex_stream": 0.0, "convex_rare": 0.0, "macro": 0.0,
             "hop_admit": 0.0}
+    counts = {}
     nside, n = sizes["parity"]
     phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
     phase_convex_parity(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev,
@@ -1126,50 +1211,53 @@ def main():
     phase_macro(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
     phase_golden(torch, cpt, convert, fused_cuda, dev)
     launches, times, med, slice_setup = phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev,
-                                                    *sizes["slice"], errs, gpu_line)
+                                                    *sizes["slice"], errs, counts, gpu_line)
     c_launches, c_times, _ = phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda,
                                                 dev, slice_setup, sizes["slice"][2], errs,
-                                                gpu_line)
+                                                counts, gpu_line)
     launches.update(c_launches)
     times.update(c_times)
     m_launches, m_times = phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev,
-                                            slice_setup, sizes["slice"][2], med, errs, gpu_line)
+                                            slice_setup, sizes["slice"][2], med, errs, counts,
+                                            gpu_line)
     times.update(m_times)
     for convex in (False, True):
         phase_compact_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup,
                             sizes["slice"][2], convex, errs, gpu_line)
 
+    # launches per sub-step of each kernel on its own path (3 timed runs)
+    steps = 3 * sizes["slice"][2]
+    per_cycle = {
+        "stream": launches["stream"] / steps, "rare": launches["rare"] / steps,
+        "convex_stream": launches["convex_stream"] / steps,
+        "convex_rare": launches["convex_rare"] / steps,
+        "macro": (m_launches["macro_stream"] + m_launches["macro_crossers"]) / steps,
+        "hop_admit": m_launches["hop_admit"] / steps}
+    for a, b in (("stream_philox", "stream"), ("convex_stream_xi", "convex_stream"),
+                 ("macro_philox", "macro")):
+        per_cycle[a] = per_cycle[b]
+    bounds = phase_bounds(torch, traffic, dev, counts, times, per_cycle, gpu_line)
+
+    def entry(name, key, source, replaces, n_launches, err, **extra):
+        return {"name": name, "route": "cuda",
+                "source": f"cudaparticlesfoam_tpu_torch/csrc/{source}",
+                "replaces": f"cudaparticlesfoam_tpu/ops/{replaces}",
+                "launches": n_launches, "max_abs_err": err, "ms": times[key][0],
+                "plain_ms": times[key][1], "library_ms": None, **bounds[key], **extra}
+
     table = {"kernels": [
-        {"name": "stream_kernel", "route": "cuda",
-         "source": "cudaparticlesfoam_tpu_torch/csrc/stream.cu",
-         "replaces": "cudaparticlesfoam_tpu/ops/fused_pallas.py:334",
-         "launches": launches["stream"], "max_abs_err": errs["stream"],
-         "ms": times["stream"][0], "plain_ms": times["stream"][1]},
-        {"name": "rare_kernel", "route": "cuda",
-         "source": "cudaparticlesfoam_tpu_torch/csrc/rare.cu",
-         "replaces": "cudaparticlesfoam_tpu/ops/fused.py:921",
-         "launches": launches["rare"], "max_abs_err": errs["rare"],
-         "ms": times["rare"][0], "plain_ms": times["rare"][1]},
-        {"name": "convex_stream_kernel", "route": "cuda",
-         "source": "cudaparticlesfoam_tpu_torch/csrc/convex_stream.cu",
-         "replaces": "cudaparticlesfoam_tpu/ops/fused_pallas.py:1910",
-         "launches": launches["convex_stream"], "max_abs_err": errs["convex_stream"],
-         "ms": times["convex_stream"][0], "plain_ms": times["convex_stream"][1]},
-        {"name": "convex_rare_kernel", "route": "cuda",
-         "source": "cudaparticlesfoam_tpu_torch/csrc/convex_rare.cu",
-         "replaces": "cudaparticlesfoam_tpu/ops/fused_convex.py:327",
-         "launches": launches["convex_rare"], "max_abs_err": errs["convex_rare"],
-         "ms": times["convex_rare"][0], "plain_ms": times["convex_rare"][1]},
-        {"name": "hop_admit_kernel", "route": "cuda",
-         "source": "cudaparticlesfoam_tpu_torch/csrc/hop_admit.cu",
-         "replaces": "cudaparticlesfoam_tpu/ops/fused_pallas.py:539",
-         "launches": m_launches["hop_admit"], "max_abs_err": errs["hop_admit"],
-         "ms": times["hop_admit"][0], "plain_ms": times["hop_admit"][1]},
-        {"name": "macro_stream_kernel", "route": "cuda",
-         "source": "cudaparticlesfoam_tpu_torch/csrc/macro.cu",
-         "replaces": "cudaparticlesfoam_tpu/ops/fused_pallas.py:1536",
-         "launches": m_launches["macro_stream"], "max_abs_err": errs["macro"],
-         "ms": times["macro"][0], "plain_ms": times["macro"][1]},
+        entry("stream_kernel", "stream", "stream.cu", "fused_pallas.py:334", launches["stream"],
+              errs["stream"]),
+        entry("rare_kernel", "rare", "rare.cu", "fused.py:921", launches["rare"], errs["rare"]),
+        entry("convex_stream_kernel", "convex_stream", "convex_stream.cu",
+              "fused_pallas.py:1910", launches["convex_stream"], errs["convex_stream"]),
+        entry("convex_rare_kernel", "convex_rare", "convex_rare.cu", "fused_convex.py:327",
+              launches["convex_rare"], errs["convex_rare"]),
+        entry("hop_admit_kernel", "hop_admit", "hop_admit.cu", "fused_pallas.py:539",
+              m_launches["hop_admit"], errs["hop_admit"],
+              kernels=["hop_admit_count", "hop_admit_kernel"]),
+        entry("macro_stream_kernel", "macro", "macro.cu", "fused_pallas.py:1536",
+              m_launches["macro_stream"], errs["macro"]),
     ]}
     log(gpu_line)
     log(json.dumps(table))

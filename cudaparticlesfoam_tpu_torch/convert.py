@@ -31,14 +31,16 @@ def mesh_payload(mesh_like) -> dict:
 
 
 def to_mesh(payload: dict, device=None) -> TetMesh:
-    """The port's :class:`TetMesh` of a payload dict on ``device``."""
+    """The port's :class:`TetMesh` of a payload dict on ``device``
+    (default the card; ``"cpu"`` for the plain versions)."""
     return host_to_device(payload, device)
 
 
 def to_state(pos, tet_id, vel=None, active=None, seed: int = 0, step: int = 0,
              dtype=None, device=None) -> ParticleState:
     """The port's :class:`ParticleState` from array-likes (numpy, or JAX
-    arrays, copied through ``numpy.array``)."""
+    arrays, copied through ``numpy.array``) on ``device`` (default the
+    card, as :func:`state.make_state`)."""
     st = make_state(np.array(pos), tet_id=np.array(tet_id), rng_seed=seed,
                     dtype=dtype, device=device)
     kw = {"step": int(step)}

@@ -58,9 +58,16 @@ __device__ __forceinline__ int argmin4(const T w[4], T* best) {
   return slot;
 }
 
+// a[slot] for a slot in 0..3, by selects: a register array indexed at run
+// time would be placed in local memory
+template <typename T>
+__device__ __forceinline__ T pick4(const T* a, int slot) {
+  return slot == 0 ? a[0] : slot == 1 ? a[1] : slot == 2 ? a[2] : a[3];
+}
+
 template <typename T>
 __device__ __forceinline__ int code_of(const T* row, int slot) {
-  return static_cast<int>(row[NBR + slot]);
+  return static_cast<int>(pick4(row + NBR, slot));
 }
 
 // Gradient of barycentric component `slot` (fused._grad_rows): row
@@ -71,7 +78,7 @@ __device__ __forceinline__ void grad(const T* r, int slot, T* gx, T* gy, T* gz) 
 #pragma unroll
   for (int o = 0; o < 3; ++o) {
     g[o] = slot == 0 ? -(r[3 + o] + r[6 + o] + r[9 + o])
-                     : r[3 * slot + o];
+                     : slot == 1 ? r[3 + o] : slot == 2 ? r[6 + o] : r[9 + o];
   }
   *gx = g[0];
   *gy = g[1];

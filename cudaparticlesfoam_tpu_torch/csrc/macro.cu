@@ -25,10 +25,13 @@
 // hop_admit_kernel, then the kAdmitted pass, as the per-cycle compacted
 // gather does.
 //
-// What bounds it on the H100: in trip 0 the same strided 128 B lane access
-// as stream_kernel, plus the extra sub-steps' arithmetic and noise of lanes
-// that do not cross (no memory traffic); in later trips only the lanes that
-// stopped earlier do work, and the others read one byte of phase.
+// What bounds it on the H100: in trip 0 the strided 128 B lane access (each
+// lane's row as 32 scalar accesses, which stream_kernel no longer has: it
+// stages its rows through a shared tile, tile.cuh), plus the extra
+// sub-steps' arithmetic and noise of lanes that do not cross (no memory
+// traffic); in later trips only the lanes that stopped earlier do work,
+// and the others read one byte of phase.  Trip 0 takes 0.62 ms at 1M lanes,
+// 16% of its bytes bound (PERF.md); staging it is the next step.
 #include "stream.cuh"
 
 namespace cpf {
@@ -103,8 +106,10 @@ macro_stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
     return;
   }
   const bool admitted = kPass != kAdmitted || adm[i] != 0;
-  pend[i] = resolve_store(tab, me, row, w, s_cur, need, tet, admitted, px, py, pz, vx, vy,
-                          vz, actf, 1, bounce_on, esc_on) ? 1 : 0;
+  LaneHead<T> head;
+  pend[i] = resolve(tab, row, w, s_cur, need, tet, admitted, px, py, pz, vx, vy, vz, actf, 1,
+                    bounce_on, esc_on, &head) ? 1 : 0;
+  store_lane(me, head, row);
   phase[i] = static_cast<uint8_t>(need ? ph + 1 : k);
 }
 

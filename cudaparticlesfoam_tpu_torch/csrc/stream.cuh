@@ -7,6 +7,7 @@
 
 #include "common.cuh"
 #include "philox.cuh"
+#include "tile.cuh"
 
 namespace cpf {
 
@@ -34,21 +35,30 @@ __device__ __forceinline__ void lane_normals(const PhiloxKey& key, const T* __re
   }
 }
 
+// A lane's mega head after its sub-step: pos, vel, tet, active (columns 0:8;
+// its cached row is the `row` resolve() leaves, new if `hopped`).
+template <typename T>
+struct LaneHead {
+  T v[ROW];
+  bool hopped;
+};
+
 // Everything after the hop-0 test of the moved point (px, py, pz) against the
 // cached row: `w`/`s_cur` are its weights and exit slot, `unresolved` the
 // crossing test, `tet` the lane's tet.  Up to n_hops inline hops (each mover
-// loads its neighbour's row); a crosser that was not `admitted` skips its
-// first hop and stays pending with its cached row and pre-hop tet, keeping
-// the moved point (_b_compute_c with extra_pend, fused_pallas.py:371-396).
-// Then the inline single bounce on the last hop's weights, or an absorb
-// through the row's escape mask (fused.py:729-762); writes the lane's mega
-// row and returns its pending flag.
+// loads its neighbour's row as 16 B vectors); a crosser that was not
+// `admitted` skips its first hop and stays pending with its cached row and
+// pre-hop tet, keeping the moved point (_b_compute_c with extra_pend,
+// fused_pallas.py:371-396).  Then the inline single bounce on the last hop's
+// weights, or an absorb through the row's escape mask (fused.py:729-762).
+// Leaves the lane's new head in `out` and its cached row in `row`, and
+// returns its pending flag; the caller stores them (store_lane, or the
+// staged tile of stream_kernel).
 template <typename T>
-__device__ __forceinline__ bool resolve_store(const T* __restrict__ tab, T* me, T row[ROW_W],
-                                              T w[4], int s_cur, bool unresolved, int tet,
-                                              bool admitted, T px, T py, T pz, T vx, T vy,
-                                              T vz, T actf, int n_hops, int bounce_on,
-                                              int esc_on) {
+__device__ __forceinline__ bool resolve(const T* __restrict__ tab, T row[ROW_W], T w[4],
+                                        int s_cur, bool unresolved, int tet, bool admitted,
+                                        T px, T py, T pz, T vx, T vy, T vz, T actf, int n_hops,
+                                        int bounce_on, int esc_on, LaneHead<T>* out) {
   T wmin;
   int cur_tet = tet;
   bool wall = false;
@@ -65,7 +75,7 @@ __device__ __forceinline__ bool resolve_store(const T* __restrict__ tab, T* me, 
       break;
     }
     if (!admitted) break;
-    load_row(tab + static_cast<long long>(code) * ROW_W, row);
+    load_row_vec<T, ROW_W>(tab + static_cast<long long>(code) * ROW_W, row);
     cur_tet = code;
     bary(row, px, py, pz, w);
     s_cur = argmin4(w, &wmin);
@@ -85,7 +95,7 @@ __device__ __forceinline__ bool resolve_store(const T* __restrict__ tab, T* me, 
     const T rf = refl ? T(1) : T(0);
     T gx, gy, gz;
     grad(row, wall_slot, &gx, &gy, &gz);
-    const T wv = w[wall_slot];
+    const T wv = pick4(w, wall_slot);
     const T gg = gx * gx + gy * gy + gz * gz;
     // rf-masked reciprocal: a bare 1/gg would poison dead lanes with NaN
     const T inv_g2 = rf / (gg + (T(1) - rf));
@@ -109,19 +119,28 @@ __device__ __forceinline__ bool resolve_store(const T* __restrict__ tab, T* me, 
     }
   }
 
-  me[P0] = px;
-  me[P0 + 1] = py;
-  me[P0 + 2] = pz;
-  me[V0] = vx;
-  me[V0 + 1] = vy;
-  me[V0 + 2] = vz;
-  me[TET] = static_cast<T>(tet1);
-  me[ACT] = actf;
+  out->v[P0] = px;
+  out->v[P0 + 1] = py;
+  out->v[P0 + 2] = pz;
+  out->v[V0] = vx;
+  out->v[V0 + 1] = vy;
+  out->v[V0 + 2] = vz;
+  out->v[TET] = static_cast<T>(tet1);
+  out->v[ACT] = actf;
+  out->hopped = cur_tet != tet;
+  return unresolved || wall;
+}
+
+// The lane's whole mega row at `me` (head, cached row, zero pad), one
+// element at a time: macro_stream_kernel's strided store.
+template <typename T>
+__device__ __forceinline__ void store_lane(T* me, const LaneHead<T>& head, const T row[ROW_W]) {
+#pragma unroll
+  for (int k = 0; k < ROW; ++k) me[k] = head.v[k];
 #pragma unroll
   for (int k = 0; k < ROW_W; ++k) me[ROW + k] = row[k];
 #pragma unroll
   for (int k = ROW + ROW_W; k < WIDTH; ++k) me[k] = T(0);
-  return unresolved || wall;
 }
 
 }  // namespace cpf

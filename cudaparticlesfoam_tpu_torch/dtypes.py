@@ -6,7 +6,10 @@
   f64 golden anchors.
 
 Unlike the JAX package there is no global x64 switch: every builder takes
-an explicit ``dtype`` and ``device``.
+an explicit ``dtype`` and ``device``.  The device defaults to the card
+(``"cuda"``): a builder called without one allocates there, and raises
+where torch has no usable CUDA; CPU runs (the tests, the rehearsal) pass
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -40,5 +43,6 @@ def numpy_float(dtype=None) -> np.dtype:
 
 
 def canonical_device(device=None) -> torch.device:
-    """None = CPU; anything else as given (``"cuda"``, ``torch.device``)."""
-    return torch.device("cpu" if device is None else device)
+    """None = the card (``"cuda"``, never a quiet fall back to the CPU);
+    anything else as given (``"cpu"``, ``"cuda:1"``, ``torch.device``)."""
+    return torch.device("cuda" if device is None else device)

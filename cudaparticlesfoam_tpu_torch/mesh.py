@@ -311,8 +311,9 @@ def _check_f32_codes(n_tets: int, dtype) -> None:
 
 
 def host_to_device(payload: dict, device=None) -> TetMesh:
-    """Upload a :func:`from_arrays_host` payload to ``device`` (one copy
-    per field; dtypes already final).  ``payload`` values may be any
+    """Upload a :func:`from_arrays_host` payload to ``device`` (default
+    the card, ``dtypes.canonical_device``; one copy per field; dtypes
+    already final).  ``payload`` values may be any
     array-likes (e.g. the fields of a JAX ``TetMesh``); they are kept as
     numpy in ``mesh.host``.  The convex tables ride along where the
     payload has them (not None)."""
@@ -334,7 +335,8 @@ def host_to_device(payload: dict, device=None) -> TetMesh:
 
 def from_arrays(points, tets, tet_vel=None, vert_vel=None, bd_patch=None,
                 dtype=None, device=None) -> TetMesh:
-    """Build a :class:`TetMesh` from raw numpy arrays."""
+    """Build a :class:`TetMesh` from raw numpy arrays on ``device``
+    (default the card)."""
     return host_to_device(
         from_arrays_host(points, tets, tet_vel=tet_vel, vert_vel=vert_vel,
                          bd_patch=bd_patch, dtype=dtype),
@@ -385,7 +387,8 @@ def box_points_tets(nx: int, ny: int, nz: int):
 def box_mesh(nx: int, ny: int, nz: int, dtype=None, device=None) -> TetMesh:
     """Synthetic box fixture (``HostTetMesh::createBoxMesh``): nx*ny*nz
     hexes, 6 tets each, radial vertex velocity, tet velocity = vertex
-    average."""
+    average; on ``device`` (default the card; ``device="cpu"`` for the
+    plain versions)."""
     points, tets, vert_vel = box_points_tets(nx, ny, nz)
     tet_vel = vert_vel[tets].mean(axis=1)
     return from_arrays(points, tets, tet_vel=tet_vel, vert_vel=vert_vel,

@@ -266,7 +266,7 @@ def _sub_step(rows, vel, alf, alive, xi, *, dt, sigma, use_adv, use_brown):
 
 def _resolve(tab, rows, bw, s_cur, unresolved, tet, admit, pos, vel, actf, *,
              n_hops, bounce_on, esc_on):
-    """Everything after the hop-0 test (``resolve_store`` in
+    """Everything after the hop-0 test (``resolve`` in
     csrc/stream.cuh): up to ``n_hops`` inline hops, a crosser whose
     ``admit`` flag is 0 skipping its first hop and staying pending with its
     cached row and pre-hop tet (``_b_compute_c`` with extra_pend), then the

@@ -77,6 +77,10 @@ def _check_tab_m(tab, m, width=LAYOUT_TET.width, row_w=LAYOUT_TET.row_w):
     _check("tab", tab, dtype=m.dtype, shape=(tab.shape[0], row_w), device=dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    # the kernels move mega and table rows as 16 B vectors
+    for name, t in (("m", m), ("tab", tab)):
+        if dev.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     return n, dev
 
 

@@ -1,0 +1,217 @@
+"""Bytes each CUDA kernel of the port must move per call, and its bound.
+
+A kernel's bound is the least time the card could take for the same work:
+the larger of its bytes over the memory rate and its operations over the
+peak rate (``bound_ms``).  Each input byte is counted once and each output
+byte once, whatever the kernel reads again; where the work depends on the
+data (lanes that hop, cross, stay pending or keep working), the caller
+passes the counts of the run at hand, so the bound is what those inputs
+need, not the most a lane could touch.  ``chip_smoke.py`` measures the
+counts on the slice and prints each kernel's bytes, bound and share.
+
+Rates are NVIDIA's data-sheet peaks of the H100 SXM at its 700 W limit:
+HBM3 at 3.35 TB/s, float32 outside the tensor cores at 67 TFLOP/s.  The
+operation counts are hand counts of each kernel's arithmetic per lane
+(``OPS``: float operations, the Philox rounds' integer operations counted
+alike); at these shapes they are two orders below the bytes, so every
+kernel here is bound by bytes.
+
+Kernels (``csrc/``) and what a call moves, per lane of n, with e the
+element size (4 for float32, 8 for float64); the mega row is 32 columns,
+a bary table row 20 and a cx table row 24:
+
+* ``stream_kernel``: reads the mega row, xi (3 columns, noise "xi" only),
+  the admission byte (pass "admitted") and one table row per hop; writes
+  the 8-column head, the cached row of each lane whose row changed (it
+  hopped) and the pending byte.  The other rows and the zero pad are left
+  as they were, so they are not counted.  Pass "crossers" reads the same
+  but hops nowhere, and writes only the flag byte.
+* ``convex_stream_kernel``: reads the mega row, xi, the admission byte and
+  one cx row per interior crosser that loads its neighbour; writes the
+  8-column head, the cx row of each lane that hopped, disp (3 columns) and
+  the pending byte.  Pass "crossers": the flag byte only.
+* ``macro_stream_kernel``: reads the phase byte, the admission byte
+  (pass "admitted"), the mega row of each working lane (phase < k), xi
+  for each sub-step drawn (noise "xi") and one table row per hop; writes
+  the head and phase byte of each working lane, the cached row of each
+  lane whose row changed, and every pending byte.  Pass "crossers": the
+  flag byte of every lane.
+* ``hop_admit_count`` and ``hop_admit_kernel`` (one launch of
+  ``fused_cuda.hop_admit``): the crossing flags once each, the int32
+  block totals (one per 256 groups of 4 lanes), the admission flags.
+* ``rare_kernel`` and ``convex_rare_kernel``: a floor only.  Both are
+  latency-bound (each pending lane walks a dependent chain of up to 50
+  row loads); counted are the pending flags, each pending lane's state
+  (read and written) and one new row per lane whose tet changed, not the
+  rows the walk passed through.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+MEGA_W, ROW_W, CX_W, HEAD_W = 32, 20, 24, 8
+NOISES = ("xi", "philox", "none")
+PASSES = ("whole", "crossers", "admitted")
+ADMIT_GROUPS = 256       # groups of 4 lanes per block of hop_admit_kernel
+
+# hand counts of arithmetic per lane (csrc/): the sub-step to the hop-0
+# test, the bounce block every lane runs, one hop's re-test; a Philox draw
+# (10 rounds, the uniforms, 2 log, 2 sqrt, sin, cos)
+OPS = {"stream": 110, "stream_hop": 25, "convex": 110, "convex_hop": 70, "philox": 240,
+       "macro_step": 45, "rare_lane": 60, "admit_group": 12}
+
+
+@dataclasses.dataclass(frozen=True)
+class Traffic:
+    """Bytes read and written, and operations, of one kernel call."""
+
+    read: int
+    written: int
+    ops: int
+
+    @property
+    def bytes(self) -> int:
+        return self.read + self.written
+
+    @property
+    def bytes_ms(self) -> float:
+        return self.bytes / HBM_BYTES_PER_S * 1e3
+
+    @property
+    def ops_ms(self) -> float:
+        return self.ops / PEAK_OPS_PER_S * 1e3
+
+    @property
+    def bound_ms(self) -> float:
+        return max(self.bytes_ms, self.ops_ms)
+
+    @property
+    def bound_by(self) -> str:
+        return "bytes" if self.bytes_ms >= self.ops_ms else "operations"
+
+    def __add__(self, other: "Traffic") -> "Traffic":
+        return Traffic(self.read + other.read, self.written + other.written,
+                       self.ops + other.ops)
+
+
+def _check(n, elem, noise, pass_, *counts):
+    if elem not in (4, 8):
+        raise ValueError(f"element size must be 4 or 8, got {elem}")
+    if noise not in NOISES:
+        raise ValueError(f"noise must be one of {NOISES}, got {noise!r}")
+    if pass_ not in PASSES:
+        raise ValueError(f"pass must be one of {PASSES}, got {pass_!r}")
+    if n < 0 or any(c < 0 or c > n for c in counts):
+        raise ValueError(f"counts {counts} must lie in [0, n={n}]")
+
+
+def _noise_ops(noise, draws):
+    return OPS["philox"] * draws if noise == "philox" else 0
+
+
+def stream(n: int, elem: int, noise: str, pass_: str = "whole", hops: int = 0,
+           hopped: int = 0) -> Traffic:
+    """``stream_kernel``: ``hops`` table rows loaded (summed over the inline
+    hops; 0 in the crossers pass), ``hopped`` lanes whose cached row
+    changed (written back)."""
+    _check(n, elem, noise, pass_, hopped)
+    if pass_ == "crossers" and hops:
+        raise ValueError("the crossers pass does not hop")
+    if hopped > hops:
+        raise ValueError("a lane's row changes only by a hop")
+    read = n * MEGA_W * elem + hops * ROW_W * elem
+    read += n * 3 * elem if noise == "xi" else 0
+    read += n if pass_ == "admitted" else 0
+    written = n if pass_ == "crossers" else n * HEAD_W * elem + hopped * ROW_W * elem + n
+    ops = n * OPS["stream"] + hops * OPS["stream_hop"] + _noise_ops(noise, n)
+    return Traffic(read, written, ops)
+
+
+def convex_stream(n: int, elem: int, noise: str, pass_: str = "whole", row_loads: int = 0,
+                  hopped: int = 0) -> Traffic:
+    """``convex_stream_kernel``: ``row_loads`` interior crossers that load
+    their neighbour's cx row, ``hopped`` of them resolved there (their row
+    is written back)."""
+    _check(n, elem, noise, pass_, row_loads, hopped)
+    if hopped > row_loads:
+        raise ValueError("a lane hops only after loading its neighbour's row")
+    if pass_ == "crossers" and (row_loads or hopped):
+        raise ValueError("the crossers pass does not hop")
+    read = n * MEGA_W * elem + row_loads * CX_W * elem
+    read += n * 3 * elem if noise == "xi" else 0
+    read += n if pass_ == "admitted" else 0
+    if pass_ == "crossers":
+        written = n
+    else:
+        written = n * HEAD_W * elem + hopped * CX_W * elem + n * 3 * elem + n
+    ops = n * OPS["convex"] + row_loads * OPS["convex_hop"] + _noise_ops(noise, n)
+    return Traffic(read, written, ops)
+
+
+def macro_stream(n: int, elem: int, noise: str, pass_: str = "whole", working: int = 0,
+                 substeps: int = 0, hops: int = 0, hopped: int = 0) -> Traffic:
+    """One trip of ``macro_stream_kernel``: ``working`` lanes with phase <
+    k, ``substeps`` sub-steps they ran in all (noise drawn once each),
+    ``hops`` table rows loaded, ``hopped`` lanes whose cached row changed."""
+    _check(n, elem, noise, pass_, working, hopped)
+    if pass_ == "crossers" and hops:
+        raise ValueError("the crossers pass does not hop")
+    if hopped > min(hops, working):
+        raise ValueError("a lane's row changes only by a hop of a working lane")
+    if substeps < 0 or substeps > 8 * working:
+        raise ValueError(f"substeps {substeps} must lie in [0, 8 * working]")
+    read = n + working * MEGA_W * elem + hops * ROW_W * elem
+    read += substeps * 3 * elem if noise == "xi" else 0
+    read += n if pass_ == "admitted" else 0
+    written = n
+    if pass_ != "crossers":
+        written += working * HEAD_W * elem + hopped * ROW_W * elem + working
+    ops = (substeps * OPS["macro_step"] + working * (OPS["stream"] - OPS["macro_step"])
+           + hops * OPS["stream_hop"] + _noise_ops(noise, substeps))
+    return Traffic(read, written, ops)
+
+
+def _admit_blocks(n: int) -> tuple[int, int]:
+    groups = -(-n // 4)
+    return groups, -(-groups // ADMIT_GROUPS)
+
+
+def hop_admit_count(n: int) -> Traffic:
+    """``hop_admit_count``: the crossing flags in, one int32 total per block out."""
+    groups, blocks = _admit_blocks(n)
+    return Traffic(n, 4 * blocks, groups * OPS["admit_group"])
+
+
+def hop_admit_kernel(n: int) -> Traffic:
+    """``hop_admit_kernel``: the crossing flags and block totals in, the
+    admission flags out."""
+    groups, blocks = _admit_blocks(n)
+    return Traffic(n + 4 * blocks, n, groups * OPS["admit_group"])
+
+
+def hop_admit(n: int) -> Traffic:
+    """Both kernels of one ``fused_cuda.hop_admit`` launch."""
+    return hop_admit_count(n) + hop_admit_kernel(n)
+
+
+def rare(n: int, elem: int, pending: int, moved: int) -> Traffic:
+    """``rare_kernel``, a floor: ``pending`` lanes read and write pos, vel,
+    tet and their row (27 columns); ``moved`` lanes whose tet changed load
+    at least their new row."""
+    _check(n, elem, "none", "whole", pending, moved)
+    lane = (6 + 1 + ROW_W) * elem
+    return Traffic(n + pending * lane + moved * ROW_W * elem, pending * lane,
+                   pending * OPS["rare_lane"])
+
+
+def convex_rare(n: int, elem: int, pending: int) -> Traffic:
+    """``convex_rare_kernel``, a floor: ``pending`` lanes read pos, vel,
+    tet and disp and their final cx row, and write pos, vel, tet and that
+    row."""
+    _check(n, elem, "none", "whole", pending)
+    state = (6 + 1) * elem
+    return Traffic(n + pending * (state + 3 * elem + CX_W * elem),
+                   pending * (state + CX_W * elem), pending * OPS["rare_lane"])

@@ -41,6 +41,9 @@ class ParticleState:
 
 def make_state(pos, tet_id=None, rng_seed: int = 0, dtype=None,
                device=None) -> ParticleState:
+    """A state of the given positions (tet -1 = not located yet, zero
+    velocity, all active) on ``device``: default the card
+    (``dtypes.canonical_device``), ``"cpu"`` for the plain versions."""
     fdt = canonical_float(dtype)
     dev = canonical_device(device)
     pos = torch.as_tensor(pos, dtype=fdt, device=dev)
@@ -99,7 +102,8 @@ def seed_in_box(n: int, box_lo, box_hi, rng_seed: int = 0,
     """Uniform seeding inside a box (``initParticlesKernel``,
     ``particles.cu:78-108``).  ``method="reference"`` gives the CUDA
     build's owl-LCG positions bit for bit; ``"threefry"`` is the JAX
-    package's jax.random stream, which cannot be reproduced without jax."""
+    package's jax.random stream, which cannot be reproduced without jax.
+    The state lands on ``device`` (default the card, as :func:`make_state`)."""
     if method == "threefry":
         raise NotImplementedError(
             "seed_in_box(method='threefry') draws jax.random bits and needs "
@@ -118,7 +122,8 @@ def seed_from_file(path: str, n: int | None = None, rng_seed: int = 0,
                    dtype=None, device=None) -> ParticleState:
     """File seeding (``particles.cu:127-160``): header ``<word> N``, a
     comment line, then ``x y z [tetID]`` rows; a 4th column is the start
-    tet, 3-column files get tet_id = -1 (caller locates)."""
+    tet, 3-column files get tet_id = -1 (caller locates).  On ``device``
+    (default the card, as :func:`make_state`)."""
     with open(path) as fh:
         header = fh.readline().split()
         n_file = int(float(header[-1]))

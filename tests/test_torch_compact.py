@@ -28,6 +28,8 @@ from cudaparticlesfoam_tpu_torch import convert
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch.ops import fused, fused_convex, fused_cuda
 
+CPU = torch.device("cpu")   # the port's builders default to the card
+
 N, NSIDE = fused_pallas.PACK_LANES, 8
 
 
@@ -58,7 +60,7 @@ def _payload(dtype, seed=0):
 
 def _meshes(payload, escape, convex=False):
     jm = jmesh.host_to_device(dict(payload))
-    tm = convert.to_mesh(payload)
+    tm = convert.to_mesh(payload, device=CPU)
     if escape:
         jm = jmesh.set_boundary_escape(jm, [1])
         tm = tmesh.set_boundary_escape(tm, [1])
@@ -290,7 +292,7 @@ def test_compacted_cycles_equal_uncompacted(dtype, case):
                     convex="locate_mode" in kw)
     pos, vel, tet, act, _ = _lanes(tm, seed=11)
     st = convert.to_state(pos.numpy(), tet.numpy(), vel=vel.numpy(), active=act.numpy(),
-                          dtype=dtype)
+                          dtype=dtype, device=CPU)
     cfg = cpt.StepConfig(**kw)
     want = cpt.run_cycles(tm, st, cfg, 5)
     for frac in (0.02, 1.0):

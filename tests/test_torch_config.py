@@ -17,6 +17,8 @@ from cudaparticlesfoam_tpu_torch import convert
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch.ops import _build, fused_cuda
 
+CPU = torch.device("cpu")   # the port's builders default to the card
+
 
 def test_step_config_fields_and_defaults_match_jax():
     got = {f.name: f.default for f in dataclasses.fields(cpt.StepConfig)}
@@ -53,8 +55,8 @@ UNPORTED = [
 
 @pytest.fixture(scope="module")
 def tiny():
-    mesh = cpt.box_mesh(2, 2, 2)
-    st = convert.to_state(np.full((8, 3), 1.0), np.zeros(8, np.int32))
+    mesh = cpt.box_mesh(2, 2, 2, device=CPU)
+    st = convert.to_state(np.full((8, 3), 1.0), np.zeros(8, np.int32), device=CPU)
     st = dataclasses.replace(st, tet_id=cpt.locate_seeds(
         mesh, cpt.build_grid_locator(mesh), st.pos))
     return mesh, st
@@ -137,7 +139,8 @@ def test_suggest_tuning_matches_jax(nside, speed, dt, kw):
     payload = _box_payload(nside, speed)
     cfg_j = jstepper.suggest_tuning(jmesh.host_to_device(dict(payload)),
                                     jcpf.StepConfig(dt=dt, **kw), dt)
-    cfg_t = cpt.suggest_tuning(convert.to_mesh(payload), cpt.StepConfig(dt=dt, **kw), dt)
+    cfg_t = cpt.suggest_tuning(convert.to_mesh(payload, device=CPU), cpt.StepConfig(dt=dt, **kw),
+                               dt)
     for k in ("inline_hops", "walk_capacity_frac", "inline_bounce"):
         assert getattr(cfg_t, k) == getattr(cfg_j, k), k
     # TPU-measured knobs are not carried over
@@ -145,7 +148,7 @@ def test_suggest_tuning_matches_jax(nside, speed, dt, kw):
 
 
 def test_suggest_tuning_covers_the_hop_regimes():
-    hops = {cpt.suggest_tuning(convert.to_mesh(_box_payload(4, 1.0)),
+    hops = {cpt.suggest_tuning(convert.to_mesh(_box_payload(4, 1.0), device=CPU),
                                cpt.StepConfig(dt=dt, use_brownian=False)).inline_hops
             for dt in (0.05, 0.3, 0.6, 3.0)}
     assert hops == {1, 2, 4, 8}
@@ -193,3 +196,4 @@ def test_wrappers_refuse_other_devices():
                  lambda: fused_cuda.hop_admit(pend, pend, capb=1024)):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+

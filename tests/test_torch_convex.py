@@ -32,6 +32,8 @@ from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch.ops import convex, fused, fused_convex, fused_cuda
 from cudaparticlesfoam_tpu_torch.ops import locate
 
+CPU = torch.device("cpu")   # the port's builders default to the card
+
 TOL64 = dict(atol=1e-12, rtol=0)
 
 
@@ -58,7 +60,7 @@ def _meshes(payload, escape=()):
     """(JAX mesh, port mesh), both with the convex rows and the same
     absorbing patches."""
     jm = jmesh.host_to_device(dict(payload))
-    tm = convert.to_mesh(payload)
+    tm = convert.to_mesh(payload, device=CPU)
     if escape:
         jm = jmesh.set_boundary_escape(jm, list(escape))
         tm = tmesh.set_boundary_escape(tm, list(escape))
@@ -66,7 +68,7 @@ def _meshes(payload, escape=()):
 
 
 def _located(tm, pos):
-    st = convert.to_state(pos, np.zeros(len(pos), np.int32), dtype=tm.dtype)
+    st = convert.to_state(pos, np.zeros(len(pos), np.int32), dtype=tm.dtype, device=CPU)
     return cpt.locate_seeds(tm, cpt.build_grid_locator(tm), st.pos)
 
 
@@ -96,7 +98,7 @@ def test_convex_rows_match_jax(dtype):
                                       err_msg=k)
         np.testing.assert_array_equal(tr.host[k], np.asarray(getattr(jr, k)), err_msg=k)
     # the payload carries the rows to JAX and back
-    back = convert.to_mesh(convert.mesh_payload(tr))
+    back = convert.to_mesh(convert.mesh_payload(tr), device=CPU)
     rt = jmesh.host_to_device(convert.mesh_payload(tr))
     for k in ("tet_row_cx", "tet_row_cxe"):
         np.testing.assert_array_equal(getattr(back, k).numpy(), tr.host[k])
@@ -104,7 +106,7 @@ def test_convex_rows_match_jax(dtype):
 
 
 def test_convex_rows_need_exact_float32_codes():
-    tm = convert.to_mesh(_payload(2, np.float32))
+    tm = convert.to_mesh(_payload(2, np.float32), device=CPU)
     big = dataclasses.replace(tm, n_tets=1 << 24)
     with pytest.raises(ValueError, match="2\\^24"):
         cpt.with_convex_rows(big)
@@ -384,7 +386,7 @@ def test_convex_run_matches_jax_run_cycles():
     jcfg = JStepConfig(**kw)
     noise = torch.stack([torch.from_numpy(np.array(jfused._brownian_noise(
         jax.random.PRNGKey(5), step, n, jnp.float64, jcfg))) for step in range(n_cycles)])
-    st = convert.to_state(pos, tet, seed=5, dtype=np.float64)
+    st = convert.to_state(pos, tet, seed=5, dtype=np.float64, device=CPU)
     runs = [cpt.run_cycles(tm, st, cpt.StepConfig(**kw), n_cycles, noise=noise)]
     for mode in ("rbg", "rbg_kernel"):
         runs.append(cpt.run_cycles(tm, st, cpt.StepConfig(**dict(kw, brownian_rng=mode)),
@@ -399,14 +401,15 @@ def test_convex_run_matches_jax_run_cycles():
 
 
 def test_convex_needs_the_row_tables():
-    tm = convert.to_mesh(_payload(2, np.float64))
-    st = convert.to_state(np.full((4, 3), 1.0), np.zeros(4, np.int32), dtype=np.float64)
+    tm = convert.to_mesh(_payload(2, np.float64), device=CPU)
+    st = convert.to_state(np.full((4, 3), 1.0), np.zeros(4, np.int32), dtype=np.float64,
+                          device=CPU)
     with pytest.raises(NotImplementedError, match="with_convex_rows"):
         cpt.run_cycles(tm, st, cpt.StepConfig(locate_mode="convex"), 1)
 
 
 def test_convex_wrappers_check_inputs():
-    tm = cpt.with_convex_rows(convert.to_mesh(_payload(2, np.float32)))
+    tm = cpt.with_convex_rows(convert.to_mesh(_payload(2, np.float32), device=CPU))
     tab = fused_convex.cx_table(tm)
     m = torch.zeros((8, 32))
     pend = torch.zeros(8, dtype=torch.uint8)
@@ -426,7 +429,8 @@ def test_convex_wrappers_check_inputs():
                                        **dict(kw, use_brown=True))
     rk = dict(max_hops=50, reflect_wall=True, bary_fix=True, max_bounces=10)
     with pytest.raises(ValueError):
-        fused_cuda.convex_rare_resolve(convert.to_mesh(_payload(2, np.float32)), tab, m,
+        fused_cuda.convex_rare_resolve(convert.to_mesh(_payload(2, np.float32), device=CPU), tab,
+                                       m,
                                        disp, pend, **rk)
     with pytest.raises(TypeError):
         fused_cuda.convex_rare_resolve(tm, tab, m, disp, pend.bool(), **rk)

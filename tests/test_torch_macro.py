@@ -31,13 +31,16 @@ from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch.ops import fused, fused_cuda
 from tests.test_torch_compact import N, NSIDE, _payload, _x32
 
+CPU = torch.device("cpu")   # the port's builders default to the card
+
 
 def _state(tm, n, seed):
     rng = np.random.default_rng(seed)
     pos = rng.uniform(0.05, NSIDE - 0.05, (n, 3))
     tet = cpt.locate_seeds(tm, cpt.build_grid_locator(tm), torch.as_tensor(pos, dtype=tm.dtype))
     return convert.to_state(pos, tet.numpy(), vel=rng.normal(size=(n, 3)),
-                            active=rng.uniform(size=n) > 0.05, seed=3, step=5, dtype=tm.dtype)
+                            active=rng.uniform(size=n) > 0.05, seed=3, step=5, dtype=tm.dtype,
+                            device=CPU)
 
 
 @pytest.mark.parametrize("k", [2, 4])
@@ -48,7 +51,7 @@ def test_macro_matches_pallas_macro_cycle_interpret(k):
     ``fused.mega_macro_packed`` builds it.  Trip 0 hops every crosser; the
     later trips run the compacted gather at frac 0.5, 0.25, 0.125 of the
     2048 groups (capacity 1024 each)."""
-    tm = convert.to_mesh(_payload(np.float32, seed=1))
+    tm = convert.to_mesh(_payload(np.float32, seed=1), device=CPU)
     jm = jmesh.host_to_device(_payload(np.float32, seed=1))
     st = _state(tm, N, seed=2 + k)
     m0 = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
@@ -100,7 +103,7 @@ def test_macro_equals_per_cycle_steps(dtype, case):
     kw = dict(SELF_CASES[case])
     k = kw.pop("k")
     kw = dict(dict(dt=0.3, diffusion_coeff=5e-3), **kw)
-    tm = convert.to_mesh(_payload(dtype, seed=case))
+    tm = convert.to_mesh(_payload(dtype, seed=case), device=CPU)
     tm = tmesh.set_boundary_escape(tm, [1] if kw.get("escape_faces") else [])
     st = _state(tm, 4096, seed=20 + case)
     cfg = cpt.StepConfig(macro_cycles=k, **kw)
@@ -122,7 +125,7 @@ def test_macro_trip_phases_and_launch_counts():
     has stopped at a crossing or finished (phase k), later trips move only
     the stopped ones, and after k trips every lane is at phase k with
     nothing pending.  The CPU runs the plain versions (no launches)."""
-    tm = convert.to_mesh(_payload(np.float32))
+    tm = convert.to_mesh(_payload(np.float32), device=CPU)
     st = _state(tm, 2048, seed=9)
     m = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
     k = 4
@@ -160,7 +163,7 @@ def test_run_cycles_macro_matches_jax_run_cycles():
     threefry noise injected: tet/active exact, pos/vel within 1e-12."""
     n, n_cycles = 1000, 20
     payload = _payload(np.float64, seed=7)
-    jm, tm = jmesh.host_to_device(dict(payload)), convert.to_mesh(payload)
+    jm, tm = jmesh.host_to_device(dict(payload)), convert.to_mesh(payload, device=CPU)
     rng = np.random.default_rng(4)
     pos = rng.uniform(0.1, NSIDE - 0.1, (n, 3))
     tet = cpt.locate_seeds(tm, cpt.build_grid_locator(tm), torch.as_tensor(pos)).numpy()
@@ -170,7 +173,7 @@ def test_run_cycles_macro_matches_jax_run_cycles():
     key = jax.random.PRNGKey(5)
     noise = torch.stack([torch.from_numpy(np.array(jax.random.normal(
         jax.random.fold_in(key, step), (n, 3), dtype=np.float64))) for step in range(n_cycles)])
-    st = convert.to_state(pos, tet, seed=5, dtype=np.float64)
+    st = convert.to_state(pos, tet, seed=5, dtype=np.float64, device=CPU)
     for extra in (dict(macro_cycles=4, hop_compact=4, hop_compact_frac=0.02),
                   dict(macro_cycles=3, hop_compact=4)):
         got = cpt.run_cycles(tm, st, cpt.StepConfig(**kw, **extra), n_cycles, noise=noise)
@@ -187,7 +190,7 @@ def test_run_cycles_macro_launches_and_convex_ignores_it():
     a time (the plain versions here; the counts are the CUDA launches, none
     on the CPU), and the convex engine ignores ``macro_cycles`` as JAX's
     convex branch never reads it: its result equals macro_cycles=1."""
-    tm = cpt.with_convex_rows(convert.to_mesh(_payload(np.float64, seed=3)))
+    tm = cpt.with_convex_rows(convert.to_mesh(_payload(np.float64, seed=3), device=CPU))
     st = _state(tm, 512, seed=1)
     cfg = cpt.StepConfig(dt=0.2, diffusion_coeff=1e-3, brownian_rng="rbg")
     one = cpt.run_cycles(tm, st, cfg, 7)

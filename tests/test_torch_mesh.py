@@ -16,6 +16,8 @@ from cudaparticlesfoam_tpu_torch import convert
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch import state as tstate
 
+CPU = torch.device("cpu")   # the port's builders default to the card
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -52,7 +54,7 @@ def test_box_points_tets_matches_jax():
 def test_upload_round_trip_and_jax_mesh_payload():
     jm = jmesh.box_mesh(3, 3, 3, dtype=np.float64)
     payload = convert.mesh_payload(jm)
-    m = convert.to_mesh(payload)
+    m = convert.to_mesh(payload, device=CPU)
     assert m.n_tets == jm.n_tets and m.dtype == torch.float64
     for k in tmesh.ARRAY_FIELDS:
         np.testing.assert_array_equal(getattr(m, k).numpy(), np.asarray(getattr(jm, k)),
@@ -73,7 +75,7 @@ def _tagged_payload(dtype):
 def test_set_boundary_escape_matches_jax(ids):
     payload = _tagged_payload(np.float64)
     jm = jmesh.set_boundary_escape(jmesh.host_to_device(dict(payload)), ids)
-    tm = tmesh.set_boundary_escape(convert.to_mesh(payload), ids)
+    tm = tmesh.set_boundary_escape(convert.to_mesh(payload, device=CPU), ids)
     np.testing.assert_array_equal(tm.tet_row.numpy(), np.asarray(jm.tet_row))
     np.testing.assert_array_equal(tm.bd_escape.numpy(), np.asarray(jm.bd_escape))
     np.testing.assert_array_equal(tm.host["tet_row"], np.asarray(jm.tet_row))
@@ -87,7 +89,7 @@ def test_replace_velocity_matches_jax(dtype):
     rng = np.random.default_rng(1)
     tv = rng.normal(size=(payload["n_tets"], 3))
     jm = jmesh.replace_velocity(jmesh.host_to_device(dict(payload)), tet_vel=tv)
-    tm = tmesh.replace_velocity(convert.to_mesh(payload), tet_vel=tv)
+    tm = tmesh.replace_velocity(convert.to_mesh(payload, device=CPU), tet_vel=tv)
     np.testing.assert_array_equal(tm.tet_row.numpy(), np.asarray(jm.tet_row))
     np.testing.assert_array_equal(tm.tet_vel.numpy(), np.asarray(jm.tet_vel))
     np.testing.assert_array_equal(tm.host["tet_row"], tm.tet_row.numpy())
@@ -101,11 +103,11 @@ def test_owl_lcg_bit_exact(n):
 
 
 def test_seed_in_box_reference_matches_jax():
-    a = cpt.seed_in_box(1000, (2.75,) * 3, (52.25,) * 3, dtype=np.float32)
+    a = cpt.seed_in_box(1000, (2.75,) * 3, (52.25,) * 3, dtype=np.float32, device=CPU)
     b = jstate.seed_in_box(1000, (2.75,) * 3, (52.25,) * 3, dtype=np.float32)
     assert a.pos.numpy().tobytes() == np.asarray(b.pos).tobytes()
     with pytest.raises(NotImplementedError, match="jax"):
-        cpt.seed_in_box(10, (0,) * 3, (1,) * 3, method="threefry")
+        cpt.seed_in_box(10, (0,) * 3, (1,) * 3, method="threefry", device=CPU)
 
 
 def test_locate_seeds_matches_jax():
@@ -113,7 +115,7 @@ def test_locate_seeds_matches_jax():
 
     payload = _tagged_payload(np.float64)
     jm = jmesh.host_to_device(dict(payload))
-    tm = convert.to_mesh(payload)
+    tm = convert.to_mesh(payload, device=CPU)
     pos = np.random.default_rng(2).uniform(-0.5, 4.5, (500, 3))
     want = np.asarray(jlocate.locate_seeds(jm, jlocate.build_grid_locator(jm), pos))
     got = cpt.locate_seeds(tm, cpt.build_grid_locator(tm),
@@ -141,7 +143,7 @@ def test_seed_from_file_matches_jax(tmp_path, cols):
         fh.write("NumParticles 20\nx y z tetID\n")
         for r in rows:
             fh.write(" ".join(f"{v:.17g}" for v in r) + "\n")
-    got = cpt.seed_from_file(str(path), n=15, dtype=np.float64)
+    got = cpt.seed_from_file(str(path), n=15, dtype=np.float64, device=CPU)
     want = jstate.seed_from_file(str(path), n=15, dtype=np.float64)
     np.testing.assert_array_equal(got.pos.numpy(), np.asarray(want.pos))
     np.testing.assert_array_equal(got.tet_id.numpy(), np.asarray(want.tet_id))

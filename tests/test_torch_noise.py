@@ -21,6 +21,8 @@ import cudaparticlesfoam_tpu_torch as cpt
 from cudaparticlesfoam_tpu_torch import convert
 from cudaparticlesfoam_tpu_torch.ops import fused, fused_cuda
 
+CPU = torch.device("cpu")   # the port's builders default to the card
+
 KEYS = [
     (0, 0, 0),                       # (seed, step, lane_offset)
     (1, 3, 0),
@@ -90,7 +92,8 @@ def test_unknown_noise_mode_raises():
     with pytest.raises(ValueError, match="brownian_rng"):
         fused._brownian_noise(0, 0, 4, torch.float32, torch.device("cpu"), "rbg2")
     with pytest.raises(ValueError, match="brownian_rng"):
-        cpt.run_cycles(cpt.box_mesh(1, 1, 1), convert.to_state(np.full((1, 3), 0.5), [0]),
+        cpt.run_cycles(cpt.box_mesh(1, 1, 1, device=CPU),
+                       convert.to_state(np.full((1, 3), 0.5), [0], device=CPU),
                        cpt.StepConfig(brownian_rng="philox"), 1)
 
 
@@ -99,11 +102,11 @@ def test_rbg_modes_run_the_same_stream(locate_mode):
     """On the CPU "rbg" and "rbg_kernel" are one stream, drawn per (seed,
     step), so the results are identical, and equal to injecting
     philox_normals; a different seed changes them."""
-    mesh = cpt.with_convex_rows(cpt.box_mesh(4, 4, 4, dtype=np.float64))
+    mesh = cpt.with_convex_rows(cpt.box_mesh(4, 4, 4, dtype=np.float64, device=CPU))
     rng = np.random.default_rng(0)
     pos = rng.uniform(0.2, 3.8, (512, 3))
     tet = cpt.locate_seeds(mesh, cpt.build_grid_locator(mesh), torch.as_tensor(pos))
-    st = convert.to_state(pos, tet.numpy(), seed=11, step=4, dtype=np.float64)
+    st = convert.to_state(pos, tet.numpy(), seed=11, step=4, dtype=np.float64, device=CPU)
     kw = dict(dt=0.2, diffusion_coeff=0.02, locate_mode=locate_mode)
     a = cpt.run_cycles(mesh, st, cpt.StepConfig(brownian_rng="rbg", **kw), 5)
     b = cpt.run_cycles(mesh, st, cpt.StepConfig(brownian_rng="rbg_kernel", **kw), 5)
@@ -114,7 +117,7 @@ def test_rbg_modes_run_the_same_stream(locate_mode):
         assert torch.equal(a.pos, x.pos) and torch.equal(a.tet_id, x.tet_id)
         assert torch.equal(a.vel, x.vel) and torch.equal(a.active, x.active)
     d = cpt.run_cycles(mesh, convert.to_state(pos, tet.numpy(), seed=12, step=4,
-                                              dtype=np.float64),
+                                              dtype=np.float64, device=CPU),
                        cpt.StepConfig(brownian_rng="rbg", **kw), 5)
     assert not torch.equal(a.pos, d.pos)
 
@@ -122,7 +125,7 @@ def test_rbg_modes_run_the_same_stream(locate_mode):
 def test_stream_wrapper_draws_philox_on_the_cpu():
     """stream_cycle with a noise key equals stream_plain fed
     philox_normals, and launches nothing on the CPU."""
-    mesh = cpt.box_mesh(3, 3, 3)
+    mesh = cpt.box_mesh(3, 3, 3, device=CPU)
     rng = np.random.default_rng(1)
     pos = torch.as_tensor(rng.uniform(0.1, 2.9, (300, 3)), dtype=torch.float32)
     tet = cpt.locate_seeds(mesh, cpt.build_grid_locator(mesh), pos)

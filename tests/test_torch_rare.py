@@ -15,6 +15,8 @@ from cudaparticlesfoam_tpu_torch import StepConfig, build_grid_locator, convert,
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch.ops import fused, fused_cuda
 
+CPU = torch.device("cpu")   # the port's builders default to the card
+
 NSIDE, N = 6, 2048
 
 
@@ -25,7 +27,7 @@ def _meshes(escape):
     ctr = payload["points"][payload["bd_tris"]].mean(axis=1)
     payload["bd_patch"] = ((ctr[:, 0] > NSIDE - 1e-6) | (ctr[:, 1] < 1e-6)).astype(np.int32)
     jm = jmesh.host_to_device(dict(payload))
-    tm = convert.to_mesh(payload)
+    tm = convert.to_mesh(payload, device=CPU)
     if escape:
         jm = jmesh.set_boundary_escape(jm, [1])
         tm = tmesh.set_boundary_escape(tm, [1])
@@ -38,7 +40,7 @@ def _rare_inputs(tm, kind, seed):
     'corner' = targets beyond the box corners (multi-bounce hits)."""
     rng = np.random.default_rng(seed)
     start = rng.uniform(0.2, NSIDE - 0.2, (N, 3))
-    st = convert.to_state(start, np.zeros(N, np.int32), dtype=torch.float64)
+    st = convert.to_state(start, np.zeros(N, np.int32), dtype=torch.float64, device=CPU)
     tet = locate_seeds(tm, build_grid_locator(tm), st.pos)
     if kind == "walk":
         target = start + rng.normal(scale=1.6, size=(N, 3))

@@ -17,6 +17,8 @@ import cudaparticlesfoam_tpu_torch as cpt
 from cudaparticlesfoam_tpu_torch import convert
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 
+CPU = torch.device("cpu")   # the port's builders default to the card
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "golden", "particles_f64.npz")
 INPUTS = os.path.join(HERE, "golden", "torch_port_box_inputs.npz")
@@ -37,9 +39,9 @@ def inputs():
 def box(inputs):
     """test_golden.box_setup on the port: box 6^3 in f64, the outward
     field, and the recorded threefry seeds with their tets."""
-    mesh = cpt.replace_velocity(cpt.box_mesh(6, 6, 6, dtype=np.float64),
+    mesh = cpt.replace_velocity(cpt.box_mesh(6, 6, 6, dtype=np.float64, device=CPU),
                                 tet_vel=inputs["tet_vel"])
-    st = convert.to_state(inputs["seed_pos"], inputs["seed_tet"], dtype=np.float64)
+    st = convert.to_state(inputs["seed_pos"], inputs["seed_tet"], dtype=np.float64, device=CPU)
     return mesh, st
 
 
@@ -96,8 +98,8 @@ def test_multihop_run_matches_jax_cached_engine():
     kw = dict(dt=0.7, use_brownian=False, inline_hops=4)
     jst = jcpf.make_state(pos, tet_id=tet, dtype=np.float64)
     want = jcpf.run_cycles(jm, jst, jcpf.StepConfig(engine="cached", **kw), 20)
-    got = cpt.run_cycles(convert.to_mesh(payload),
-                         convert.to_state(pos, tet, dtype=np.float64),
+    got = cpt.run_cycles(convert.to_mesh(payload, device=CPU),
+                         convert.to_state(pos, tet, dtype=np.float64, device=CPU),
                          cpt.StepConfig(**kw), 20)
     np.testing.assert_array_equal(got.tet_id.numpy(), np.asarray(want.tet_id))
     np.testing.assert_array_equal(got.active.numpy(), np.asarray(want.active))

@@ -18,6 +18,8 @@ from cudaparticlesfoam_tpu_torch import StepConfig, build_grid_locator, convert,
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch.ops import fused, fused_cuda
 
+CPU = torch.device("cpu")   # the port's builders default to the card
+
 
 def _payload(nside, dtype):
     """Box payload with the radial (outward) field and +x faces tagged as
@@ -32,7 +34,7 @@ def _payload(nside, dtype):
 
 def _meshes(payload, escape):
     jm = jmesh.host_to_device(dict(payload))
-    tm = convert.to_mesh(payload)
+    tm = convert.to_mesh(payload, device=CPU)
     if escape:
         jm = jmesh.set_boundary_escape(jm, [1])
         tm = tmesh.set_boundary_escape(tm, [1])
@@ -42,7 +44,7 @@ def _meshes(payload, escape):
 def _lanes(tm, n, nside, seed):
     rng = np.random.default_rng(seed)
     pos = rng.uniform(0.05, nside - 0.05, (n, 3))
-    st = convert.to_state(pos, np.zeros(n, np.int32), dtype=tm.dtype)
+    st = convert.to_state(pos, np.zeros(n, np.int32), dtype=tm.dtype, device=CPU)
     tet = locate_seeds(tm, build_grid_locator(tm), st.pos)
     vel = torch.as_tensor(rng.normal(size=(n, 3)), dtype=tm.dtype)
     act = torch.as_tensor(rng.uniform(size=n) > 0.05)
@@ -134,7 +136,7 @@ def test_cycle_plain_matches_jnp_engine_f64(case):
 
 
 def test_wrapper_checks_inputs():
-    tm = convert.to_mesh(_payload(2, np.float32))
+    tm = convert.to_mesh(_payload(2, np.float32), device=CPU)
     m = torch.zeros((8, 32))
     pend = torch.zeros(8, dtype=torch.uint8)
     kw = dict(dt=0.1, sigma=0.1, use_adv=True, use_brown=False, bounce_on=True,

@@ -1,0 +1,105 @@
+"""PyTorch port: ``ops/traffic.py``, the bytes each CUDA kernel must move
+per call, pinned against hand counts at 10 lanes (float32, e = 4 bytes,
+and float64, e = 8), and the bound derived from them."""
+
+import pytest
+
+from cudaparticlesfoam_tpu_torch.ops import traffic
+
+N = 10
+
+# (kernel, kwargs, bytes read, bytes written), each counted by hand:
+# mega row 32 columns, bary row 20, cx row 24, head 8, xi 3, disp 3
+CASES = [
+    # stream_kernel: mega + xi + hop rows | head + rows of lanes that hopped + pending byte
+    ("stream", dict(elem=4, noise="xi", pass_="whole", hops=3, hopped=2),
+     10 * 128 + 10 * 12 + 3 * 80, 10 * 32 + 2 * 80 + 10),
+    ("stream", dict(elem=4, noise="philox", pass_="whole", hops=3, hopped=3), 1280 + 240,
+     320 + 240 + 10),
+    ("stream", dict(elem=4, noise="none", pass_="whole"), 1280, 330),
+    ("stream", dict(elem=4, noise="xi", pass_="crossers"), 1280 + 120, 10),
+    ("stream", dict(elem=4, noise="philox", pass_="admitted", hops=2, hopped=1),
+     1280 + 160 + 10, 320 + 80 + 10),
+    ("stream", dict(elem=8, noise="xi", pass_="whole", hops=3, hopped=2), 2560 + 240 + 480,
+     640 + 320 + 10),
+    ("stream", dict(elem=8, noise="philox", pass_="crossers"), 2560, 10),
+    # convex_stream_kernel: mega + xi + cx rows loaded | head + hopped rows + disp + pending
+    ("convex_stream", dict(elem=4, noise="xi", pass_="whole", row_loads=4, hopped=3),
+     1280 + 120 + 4 * 96, 10 * 32 + 3 * 96 + 10 * 12 + 10),
+    ("convex_stream", dict(elem=4, noise="philox", pass_="crossers"), 1280, 10),
+    ("convex_stream", dict(elem=4, noise="none", pass_="admitted", row_loads=2, hopped=1),
+     1280 + 192 + 10, 320 + 96 + 120 + 10),
+    ("convex_stream", dict(elem=8, noise="philox", pass_="whole", row_loads=4, hopped=3),
+     2560 + 4 * 192, 10 * 64 + 3 * 192 + 10 * 24 + 10),
+    ("convex_stream", dict(elem=8, noise="xi", pass_="crossers"), 2560 + 240, 10),
+    # macro_stream_kernel: phase + working rows + xi per sub-step + hop rows
+    #                      | working heads + rows of lanes that hopped + their phase
+    #                        + every pending byte
+    ("macro_stream", dict(elem=4, noise="xi", pass_="whole", working=10, substeps=25, hops=3,
+                          hopped=2), 10 + 1280 + 25 * 12 + 240, 320 + 160 + 10 + 10),
+    ("macro_stream", dict(elem=4, noise="xi", pass_="crossers", working=4, substeps=6),
+     10 + 512 + 72, 10),
+    ("macro_stream", dict(elem=4, noise="philox", pass_="admitted", working=4, substeps=6,
+                          hops=1, hopped=1), 10 + 512 + 80 + 10, 128 + 80 + 4 + 10),
+    ("macro_stream", dict(elem=8, noise="philox", pass_="whole", working=10, substeps=25,
+                          hops=3, hopped=3), 10 + 2560 + 480, 640 + 480 + 10 + 10),
+    # hop_admit: 3 groups of 4 lanes, one block total (int32)
+    ("hop_admit_count", dict(), 10, 4),
+    ("hop_admit_kernel", dict(), 10 + 4, 10),
+    ("hop_admit", dict(), 24, 14),
+    # the rare kernels' floors
+    ("rare", dict(elem=4, pending=2, moved=1), 10 + 2 * 108 + 80, 2 * 108),
+    ("rare", dict(elem=8, pending=2, moved=1), 10 + 2 * 216 + 160, 2 * 216),
+    ("convex_rare", dict(elem=4, pending=2), 10 + 2 * (28 + 12 + 96), 2 * (28 + 96)),
+    ("convex_rare", dict(elem=8, pending=2), 10 + 2 * (56 + 24 + 192), 2 * (56 + 192)),
+]
+
+
+@pytest.mark.parametrize("kernel, kw, read, written", CASES,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(CASES)])
+def test_bytes_match_a_hand_count(kernel, kw, read, written):
+    t = getattr(traffic, kernel)(N, **kw)
+    assert (t.read, t.written) == (read, written)
+    assert t.bytes == read + written
+    assert t.bound_ms == pytest.approx((read + written) / 3.35e12 * 1e3, rel=1e-12)
+    assert t.bound_by == "bytes"
+
+
+def test_slice_shape_admission_blocks():
+    # 1M lanes: 250,000 groups of 4, 977 blocks of 256 groups
+    t = traffic.hop_admit(1_000_000)
+    assert (t.read, t.written) == (2 * 1_000_000 + 4 * 977, 1_000_000 + 4 * 977)
+
+
+def test_bound_is_the_larger_of_bytes_and_operations():
+    t = traffic.Traffic(read=1000, written=1000, ops=10**9)
+    assert t.bytes_ms == pytest.approx(2000 / 3.35e12 * 1e3)
+    assert t.ops_ms == pytest.approx(1e9 / 67e12 * 1e3)
+    assert t.bound_ms == t.ops_ms and t.bound_by == "operations"
+    both = traffic.stream(N, 4, "xi") + traffic.rare(N, 4, 1, 0)
+    assert both.read == traffic.stream(N, 4, "xi").read + traffic.rare(N, 4, 1, 0).read
+
+
+def test_operations_stay_far_below_bytes_at_the_slice():
+    for t in (traffic.stream(1_000_000, 4, "philox", hops=130_000, hopped=120_000),
+              traffic.convex_stream(1_000_000, 4, "philox", row_loads=130_000, hopped=120_000),
+              traffic.macro_stream(1_000_000, 4, "philox", working=1_000_000,
+                                   substeps=3_300_000, hops=410_000, hopped=380_000)):
+        assert t.ops_ms < 0.25 * t.bytes_ms and t.bound_by == "bytes"
+
+
+@pytest.mark.parametrize("call", [
+    lambda: traffic.stream(N, 2, "xi"),
+    lambda: traffic.stream(N, 4, "threefry"),
+    lambda: traffic.stream(N, 4, "xi", pass_="apply"),
+    lambda: traffic.stream(N, 4, "xi", pass_="crossers", hops=1),
+    lambda: traffic.stream(N, 4, "xi", hops=1, hopped=2),
+    lambda: traffic.convex_stream(N, 4, "xi", row_loads=2, hopped=3),
+    lambda: traffic.convex_stream(N, 4, "xi", row_loads=N + 1, hopped=0),
+    lambda: traffic.macro_stream(N, 4, "xi", working=2, substeps=17),
+    lambda: traffic.macro_stream(N, 4, "xi", working=2, substeps=2, hops=3, hopped=3),
+    lambda: traffic.rare(N, 4, pending=-1, moved=0),
+])
+def test_bad_arguments_raise(call):
+    with pytest.raises(ValueError):
+        call()
