@@ -25,17 +25,26 @@ Phases, one line of numbers each, any failure exits non-zero:
    philox_normals (tet/active identical, pos within 1e-5), then the kicks
    of 1,000,000 lanes without advection, divided by sigma: |mean| < 0.01,
    |variance - 1| < 0.003, through both stream kernels;
-3d. the compacted hop gather (hop_compact=4), float32: the same box and
-   lanes, one cycle, bary and convex x frac {1.0, 0.02} x escape faces
-   {off, on}: the crossing-flag pass of each stream kernel against its
-   plain version, hop_admit_kernel against hop_admit_plain, the apply pass
-   against the plain apply (pending identical), and the state after the
-   rare kernel against the uncompacted cycle's (identical);
-3e. macro cycles (macro_cycles = k), float32: the same box and lanes, one
-   macro cycle for k {2, 4} x noise {xi, Philox} x escape faces {off, on}:
-   the kernels (macro_stream_kernel, hop_admit_kernel, rare_kernel) against
-   the plain versions of the same trips, and against k per-cycle kernel
-   cycles (identical, bit for bit);
+3d. the compacted hop gather (hop_compact=4).  First, before anything is
+   timed, hop_admit_kernel against hop_admit_plain at 1, 3, 4, 15, 16, 17,
+   65,499, 65,536, 1,000,000 and 4,000,001 lanes (no flag, every flag,
+   random flags; capacity 0, a third of the groups, the groups, more), one
+   scratch buffer for all of them, which must come back zeroed.  Then,
+   float32, the same box and lanes, one cycle, bary and convex x frac {1.0,
+   0.02} x escape faces {off, on}: the crossing-flag pass of each stream
+   kernel against its plain version, hop_admit_kernel against
+   hop_admit_plain, the apply pass against the plain apply (pending
+   identical), and the state after the rare kernel against the uncompacted
+   cycle's (identical);
+3e. macro cycles (macro_cycles = k): the same box at 65,536 and 65,499
+   lanes, one macro cycle, float32 for k {2, 4} x noise {xi, Philox} x
+   escape faces {off, on} and float64 for k = 4 with escape faces: the
+   kernels (macro_stream_kernel, hop_admit_kernel, rare_kernel) against the
+   plain versions of the same trips (float64 within 1e-12), and against k
+   per-cycle kernel cycles (identical, bit for bit); and for k = 4 with
+   escape faces each pass of macro_stream_kernel (whole, crossers,
+   admitted) against macro_stream_plain on phase vectors with random
+   phases, with whole blocks finished, and with no lane working;
 4. golden replay, float64, through the kernels: box_bary_adv,
    box_bary_brownian and box_convex_adv of tests/golden/particles_f64.npz
    from the recorded inputs in tests/golden/torch_port_box_inputs.npz;
@@ -55,19 +64,29 @@ Phases, one line of numbers each, any failure exits non-zero:
    200-cycle run under "threefry";
 5c. the slice with macro_cycles=4: phase 5's mesh, seeds and tuning, 3 x
    200 cycles under threefry and one 200-cycle run under "rbg_kernel",
-   launch counts, domain checks and peak memory, one macro cycle through
-   kernels and plain versions, and the times of macro_stream_kernel and
-   hop_admit_kernel against their plain versions; then one 200-cycle run
-   each of the bary slice and the convex-default with hop_compact=4, with
-   the pending and overflow shares of one more cycle, the same checks, and
-   the compacted stream's time (flag pass + hop_admit + apply pass)
-   against its plain version.
-6. bounds: for each kernel at the slice's shape, the bytes its timed call
-   must move (ops/traffic.py, from this run's counts of lanes that hop,
-   cross or stay pending), its bound at 3.35 TB/s, the share bound / time,
-   its launches per sub-step on its path, and the time of a device copy_
-   that moves as many bytes (half read, half written) as a yardstick of
-   the bandwidth a plain stream achieves; the port never calls it.
+   launch counts, domain checks, peak memory and the host's time to enqueue
+   each run, one macro cycle through kernels and plain versions, the times
+   of macro_stream_kernel's trip 0 against its plain version, and for
+   trips 1, 2 and 3, each on the state it really sees, the flag pass and
+   the apply pass on their own with the trip's working lanes, sub-steps,
+   crossers, admitted lanes and hops; hop_admit_kernel one call at a time,
+   200 calls back to back, and 200 calls replayed from a CUDA graph (the
+   device's time without the host's launch gap; a measuring device, the
+   port launches no graph; the trips' passes are timed the same way).
+   Then one 200-cycle run each of the bary slice and the convex-default
+   with hop_compact=4, with the pending and overflow shares of one more
+   cycle, the same checks, the compacted stream's time (flag pass +
+   hop_admit + apply pass) against its plain version, and each pass alone.
+6. bounds: for each kernel and pass timed at the slice's shape, the bytes
+   its call must move (ops/traffic.py, from this run's counts of lanes that
+   work, hop, cross or stay pending), its bound at 3.35 TB/s, the share
+   bound / time, its launches per sub-step on its path, and the time of a
+   device copy_ that moves as many bytes (half read, half written) as a
+   yardstick of the bandwidth a plain stream achieves; the port never
+   calls it.  For the kernels of a few megabytes (hop_admit_kernel and the
+   two rare kernels) also the launch floor, the time of hop_admit_kernel on
+   4 lanes replayed from a graph, the host's time to enqueue that launch
+   through the wrapper, and the share of max(bound, floor).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -89,6 +108,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "particles_f64.npz")
 INPUTS = os.path.join(HERE, "tests", "golden", "torch_port_box_inputs.npz")
 POS_TOL_F32 = 1e-5       # kernel vs plain, float32 (both IEEE op for op)
+POS_TOL_F64 = 1e-12      # kernel vs plain, float64
 POS_TOL_GOLDEN = 1e-9    # float64 replay against the CPU-made anchors
 RAGGED = 37              # phases 3/3b also run n - RAGGED lanes (a part-full last block)
 
@@ -719,6 +739,33 @@ def compact_stages(fused, fused_convex, fused_cuda, convex, tab, xi, kw, bounce_
             lambda m, p, d, a: fused.stream_plain(tab, m, xi, p, admit=a, **bk))
 
 
+def phase_admit_sizes(torch, fused, fused_cuda, dev, lane_counts, errs):
+    """Phase 3d, first part, before anything is timed: hop_admit_kernel
+    against hop_admit_plain at tiny, ragged and large lane counts, with no
+    flag set, every flag set and random flags, at capacities 0, a third of
+    the groups, the groups and beyond; one scratch buffer serves every call
+    and must come back zeroed."""
+    rng = np.random.default_rng(12)
+    scratch = fused_cuda.hop_admit_scratch(max(lane_counts), dev)
+    for n in lane_counts:
+        groups = -(-n // 4)
+        cases = 0
+        for rate in (0.0, 1.0, 0.3):
+            c = torch.as_tensor((rng.uniform(size=n) < rate).astype(np.uint8), device=dev)
+            for capb in sorted({0, groups // 3, groups, groups + 5}):
+                ak = torch.full((n,), 7, dtype=torch.uint8, device=dev)
+                ap = torch.empty_like(ak)
+                fused_cuda.hop_admit(c, ak, capb=capb, scratch=scratch)
+                fused.hop_admit_plain(c, ap, capb=capb)
+                need(torch.equal(ak, ap),
+                     f"hop_admit_kernel != plain (lanes={n} rate={rate} capb={capb})")
+                errs["hop_admit"] = max(errs["hop_admit"], flag_err(torch, ak, ap))
+                cases += 1
+        clean = int(scratch.abs().sum()) == 0
+        log(f"[admit] lanes={n} cases={cases} admit_identical=1 scratch_left_zeroed={int(clean)}")
+        need(clean, f"hop_admit_kernel left its scratch dirty (lanes={n})")
+
+
 def phase_compact(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev, nside, n,
                   errs):
     """Phase 3d: the compacted hop gather against its plain versions and
@@ -807,53 +854,114 @@ def macro_plain(torch, fused, mesh, m, xi, cfg, dt):
     return m
 
 
-def macro_noise(torch, fused, cfg, seed, step, n, dev):
+def macro_noise(torch, fused, cfg, seed, step, n, dev, dtype=None):
     """(noise for mega_macro, the same noise for the plain versions) of one
     macro cycle: threefry [k, n, 3] injected, or the Philox stream drawn in
     the kernel and by philox_normals."""
     k = cfg.macro_cycles
+    dtype = torch.float32 if dtype is None else dtype
     if cfg.brownian_rng == "threefry":
-        xi = torch.stack([fused._brownian_noise(seed, step + j, n, torch.float32, dev)
+        xi = torch.stack([fused._brownian_noise(seed, step + j, n, dtype, dev)
                           for j in range(k)])
         return xi, xi
     return None, torch.stack([fused.philox_normals(fused.philox_key(seed, step + j), n,
-                                                   torch.float32, dev) for j in range(k)])
+                                                   dtype, dev) for j in range(k)])
+
+
+def macro_passes_check(torch, fused, fused_cuda, mesh, m0, xi, xi_plain, key, cfg, errs, tag):
+    """The three passes of macro_stream_kernel against macro_stream_plain,
+    one call each, on phase vectors a macro cycle would not give the small
+    case: random phases, runs of whole blocks finished (with one block
+    holding a single working lane, and the last lanes finished), and no
+    lane working.  Returns the macro_stream launches it made."""
+    n, dev, k = m0.shape[0], m0.device, cfg.macro_cycles
+    tol = POS_TOL_F32 if m0.dtype == torch.float32 else POS_TOL_F64
+    rng = np.random.default_rng(13)
+    mixed = torch.as_tensor(rng.integers(0, k + 1, n).astype(np.uint8), device=dev)
+    runs = mixed.clone()
+    if n >= 2048:
+        runs[256:1024] = k
+        runs[1280:1536] = k
+        runs[1280 + 7] = 1
+        runs[-300:] = k
+    kw = dict(fused.stream_kwargs(cfg, cfg.dt, m0.dtype), k=k)
+    bk = dict(kw, bounce_on=cfg.reflect_wall and cfg.inline_bounce, esc_on=cfg.escape_faces)
+    launched = 0
+    for name, ph in (("mixed", mixed), ("runs_finished", runs),
+                     ("none_working", torch.full_like(mixed, k))):
+        ck = torch.full_like(ph, 9)
+        cp = torch.empty_like(ph)
+        fused_cuda.macro_crossers(mesh.tet_row, m0, xi, ph, ck, noise_key=key, **kw)
+        fused.macro_stream_plain(mesh.tet_row, m0, xi_plain, ph, None, bounce_on=False,
+                                 esc_on=False, crossers=cp, **kw)
+        need(torch.equal(ck, cp), f"macro crossing flags != plain ({tag} {name})")
+        ad = torch.empty_like(ph)
+        fused.hop_admit_plain(cp, ad, capb=max(int(cp.view(-1).sum()) // 8, 1))
+        for adm in (None, ad):
+            mk, mp = m0.clone(), m0.clone()
+            phk, php = ph.clone(), ph.clone()
+            pk, pp = torch.full_like(ph, 9), torch.empty_like(ph)
+            fused_cuda.macro_stream(mesh.tet_row, mk, xi, phk, pk, noise_key=key, admit=adm, **bk)
+            fused.macro_stream_plain(mesh.tet_row, mp, xi_plain, php, pp, admit=adm, **bk)
+            launched += 1
+            same, err = compare(torch, mk, mp, pk, pp)
+            same = same and bool(torch.equal(phk, php))
+            err = max(err, float((mk[:, 8:28] - mp[:, 8:28]).abs().max()))
+            need(same and err <= tol, f"macro_stream_kernel != plain ({tag} {name} "
+                                      f"admit={adm is not None}: identical={same} err={err:.3e})")
+            errs["macro"] = max(errs["macro"], err)
+        log(f"[macro] passes {tag} phases={name} working={int((ph < k).sum())} "
+            f"crossers={int(cp.sum())} flags_identical=1 whole_identical=1 admitted_identical=1")
+    return launched
 
 
 def phase_macro(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs):
     """Phase 3e: macro cycles through the kernels against the plain versions
-    and against k per-cycle kernel cycles."""
-    payload = box_payload(tmesh, nside, np.float32, swirl(nside))
-    base = convert.to_mesh(payload, dev)
-    pos, vel, tet, act, _ = parity_lanes(torch, cpt, base, dev, nside, n, seed=9)
+    and against k per-cycle kernel cycles, at n and a ragged n - RAGGED
+    lanes; float64 for k = 4 with escape faces; and the kernel's passes on
+    phase vectors with whole blocks finished."""
     seed, step = 77, 40
     before = fused_cuda.macro_stream.launches
-    for k in (2, 4):
-        for rng_mode in ("threefry", "rbg_kernel"):
-            for esc in (False, True):
-                mesh = tmesh.set_boundary_escape(base, [1] if esc else [])
-                m0 = fused.pack_state(mesh, pos, vel, tet, act)
-                cfg = cpt.StepConfig(dt=0.2, diffusion_coeff=5e-3, escape_faces=esc,
-                                     macro_cycles=k, brownian_rng=rng_mode)
-                xi, xi_plain = macro_noise(torch, fused, cfg, seed, step, n, dev)
-                mk = fused.mega_macro(mesh, m0.clone(), seed, step, cfg, cfg.dt, noise=xi)
-                mp = macro_plain(torch, fused, mesh, m0.clone(), xi_plain, cfg, cfg.dt)
-                same_p, err_p = compare(torch, mk, mp)
-                mc = m0.clone()
-                for j in range(k):
-                    fused.mega_cycle(mesh, mc, seed, step + j, cfg, cfg.dt,
-                                     noise=None if xi is None else xi[j])
-                same_c = bool(torch.equal(mk[:, :8], mc[:, :8]))
-                moved = float((mk[:, 6] != m0[:, 6]).float().mean())
-                log(f"[macro] k={k} rng={rng_mode} escape={int(esc)} moved_share={moved:.4f} "
-                    f"plain_identical={int(same_p)} plain_max_abs_err={err_p:.3e} "
-                    f"equals_{k}_cycles={int(same_c)}")
-                need(same_p and err_p <= POS_TOL_F32,
-                     f"macro kernels != plain (k={k} {rng_mode} esc={esc})")
-                need(same_c, f"macro cycle != {k} per-cycle kernel cycles ({rng_mode} esc={esc})")
-                errs["macro"] = max(errs["macro"], err_p)
+    expected = 0
+    for np_dtype, dtype in ((np.float32, torch.float32), (np.float64, torch.float64)):
+        base = convert.to_mesh(box_payload(tmesh, nside, np_dtype, swirl(nside)), dev)
+        pos, vel, _, act, _ = parity_lanes(torch, cpt, base, dev, nside, n, seed=9)
+        pos, vel = pos.to(dtype), vel.to(dtype)
+        tet = cpt.locate_seeds(base, cpt.build_grid_locator(base), pos)
+        tol = POS_TOL_F32 if dtype == torch.float32 else POS_TOL_F64
+        for nn, k, rng_mode, esc in itertools.product((n, n - RAGGED), (2, 4),
+                                                      ("threefry", "rbg_kernel"), (False, True)):
+            if dtype == torch.float64 and not (k == 4 and esc):
+                continue
+            mesh = tmesh.set_boundary_escape(base, [1] if esc else [])
+            m0 = fused.pack_state(mesh, pos[:nn], vel[:nn], tet[:nn], act[:nn])
+            cfg = cpt.StepConfig(dt=0.2, diffusion_coeff=5e-3, escape_faces=esc,
+                                 macro_cycles=k, brownian_rng=rng_mode)
+            xi, xi_plain = macro_noise(torch, fused, cfg, seed, step, nn, dev, dtype)
+            mk = fused.mega_macro(mesh, m0.clone(), seed, step, cfg, cfg.dt, noise=xi)
+            expected += k
+            mp = macro_plain(torch, fused, mesh, m0.clone(), xi_plain, cfg, cfg.dt)
+            same_p, err_p = compare(torch, mk, mp)
+            mc = m0.clone()
+            for j in range(k):
+                fused.mega_cycle(mesh, mc, seed, step + j, cfg, cfg.dt,
+                                 noise=None if xi is None else xi[j])
+            same_c = bool(torch.equal(mk[:, :8], mc[:, :8]))
+            moved = float((mk[:, 6] != m0[:, 6]).float().mean())
+            tag = (f"{str(dtype).split('.')[1]} lanes={nn} k={k} rng={rng_mode} "
+                   f"escape={int(esc)}")
+            log(f"[macro] {tag} moved_share={moved:.4f} "
+                f"plain_identical={int(same_p)} plain_max_abs_err={err_p:.3e} "
+                f"equals_{k}_cycles={int(same_c)}")
+            need(same_p and err_p <= tol, f"macro kernels != plain ({tag})")
+            need(same_c, f"macro cycle != {k} per-cycle kernel cycles ({tag})")
+            errs["macro"] = max(errs["macro"], err_p)
+            if k == 4 and esc:
+                key = None if xi is not None else fused.philox_key(seed, step)
+                expected += macro_passes_check(torch, fused, fused_cuda, mesh, m0, xi, xi_plain,
+                                               key, cfg, errs, tag)
     if dev.type == "cuda":
-        need(fused_cuda.macro_stream.launches - before == 2 * 2 * (2 + 4),
+        need(fused_cuda.macro_stream.launches - before == expected,
              "phase 3e did not run macro_stream_kernel")
 
 
@@ -863,14 +971,18 @@ COUNTED = ("stream_cycle", "stream_crossers", "rare_resolve", "convex_stream_cyc
 
 
 def counted_run(torch, cpt, fused_cuda, timer, mesh, st, cfg, n_cycles):
-    """(state, ms, launches by wrapper) of one run_cycles call, every launch
-    count set to 0 just before it."""
+    """(state, ms, host ms, launches by wrapper) of one run_cycles call,
+    every launch count set to 0 just before it.  The host ms is the host's
+    time to enqueue the run (no synchronisation): where it equals ms, the
+    host's launch rate bounds the run, not the card."""
     for name in COUNTED:
         getattr(fused_cuda, name).launches = 0
     timer.start()
+    h0 = time.perf_counter()
     st = cpt.run_cycles(mesh, st, cfg, n_cycles)
+    host_ms = (time.perf_counter() - h0) * 1e3
     ms = timer.stop()
-    return st, ms, {name: getattr(fused_cuda, name).launches for name in COUNTED}
+    return st, ms, host_ms, {name: getattr(fused_cuda, name).launches for name in COUNTED}
 
 
 def domain_check(torch, cpt, mesh, st, n_in, tag):
@@ -902,6 +1014,63 @@ def kernel_vs_plain_ms(timer, fn, plain, restore, reps=20, plain_reps=3):
     return (k_a + k_b) / 2, (p_a + p_b) / 2, (p_a, k_a, k_b, p_b)
 
 
+BATCH = 200    # calls in one reading of a kernel of a few microseconds
+
+
+def batch_ms(timer, fn, reps=BATCH):
+    """Mean ms of fn() over reps calls back to back between one pair of
+    events.  The host needs about 0.02 ms to enqueue one launch through a
+    wrapper, so for a kernel shorter than that this reads the host."""
+    fn()
+    timer.start()
+    for _ in range(reps):
+        fn()
+    return timer.stop() / reps
+
+
+def device_ms(torch, timer, fn, restore=None, reps=BATCH):
+    """The device's ms per call of fn(), with the host out of the reading:
+    reps calls are captured into one CUDA graph and the graph is replayed
+    between a pair of events.  With ``restore`` (a device copy that resets
+    fn's inputs) the graph holds reps x (restore, fn), and a second graph
+    of reps x restore is subtracted.  A measuring device only: the port
+    launches no graph.  On the CPU (rehearsal) the same loops on the host
+    clock."""
+    def replay(body):
+        body()
+        if not timer.cuda:
+            return batch_ms(timer, body, reps)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                body()
+        graph.replay()
+        timer.start()
+        graph.replay()
+        return timer.stop() / reps
+
+    if restore is None:
+        return replay(fn)
+    return replay(lambda: (restore(), fn())) - replay(restore)
+
+
+def launch_floor_ms(torch, fused_cuda, timer, dev):
+    """(device ms, host ms) of a launch that does next to nothing, the
+    floor that binds a kernel of a few megabytes: hop_admit_kernel on 4
+    lanes (one block, one 16 B of work).  Device: BATCH launches replayed
+    from a graph (device_ms).  Host: BATCH launches through the wrapper
+    back to back, as every kernel here is launched."""
+    c = torch.zeros(4, dtype=torch.uint8, device=dev)
+    a = torch.empty_like(c)
+    scratch = fused_cuda.hop_admit_scratch(4, dev)
+
+    def fn():
+        fused_cuda.hop_admit(c, a, capb=1, scratch=scratch)
+
+    return device_ms(torch, timer, fn), batch_ms(timer, fn)
+
+
 def phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup, n_cycles,
                       ms_per_cycle, errs, counts, gpu_line):
     """Phase 5c, first part: the slice with macro_cycles=4."""
@@ -914,15 +1083,18 @@ def phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_se
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    runs, launches = [], None
+    runs, host, launches = [], [], None
     for _ in range(3):
-        st, ms, got = counted_run(torch, cpt, fused_cuda, timer, mesh, st, cfg, n_cycles)
+        st, ms, host_ms, got = counted_run(torch, cpt, fused_cuda, timer, mesh, st, cfg,
+                                           n_cycles)
         runs.append(ms / n_cycles)
+        host.append(host_ms / n_cycles)
         launches = got if launches is None else {a: launches[a] + got[a] for a in got}
     med = float(np.median(runs))
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
     log(f"[macro-slice] {gpu_line} | macro_cycles={k} ms_per_cycle={['%.4f' % x for x in runs]} "
-        f"median={med:.4f} particle_steps_per_s={n / (med * 1e-3):.4e} (per-cycle threefry "
+        f"median={med:.4f} host_enqueue_ms_per_cycle={['%.4f' % x for x in host]} "
+        f"particle_steps_per_s={n / (med * 1e-3):.4e} (per-cycle threefry "
         f"median {ms_per_cycle:.4f}) max_memory_allocated={peak} launches="
         f"{ {a: v for a, v in launches.items() if v} }")
     macs = 3 * (n_cycles // k)
@@ -932,9 +1104,11 @@ def phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_se
     domain_check(torch, cpt, mesh, st, n_in, "macro-slice")
     rcfg = dataclasses.replace(cfg, brownian_rng="rbg_kernel")
     st_r = cpt.run_cycles(mesh, st, rcfg, 2 * k)       # warm-up
-    st_r, ms_r, _ = counted_run(torch, cpt, fused_cuda, timer, mesh, st_r, rcfg, n_cycles)
+    st_r, ms_r, host_r, _ = counted_run(torch, cpt, fused_cuda, timer, mesh, st_r, rcfg,
+                                        n_cycles)
     log(f"[macro-slice] {gpu_line} | macro_cycles={k} brownian_rng=rbg_kernel "
         f"ms_per_cycle={ms_r / n_cycles:.4f} "
+        f"host_enqueue_ms_per_cycle={host_r / n_cycles:.4f} "
         f"particle_steps_per_s={n / (ms_r / n_cycles * 1e-3):.4e}")
     domain_check(torch, cpt, mesh, st_r, n_in, "macro-slice rbg_kernel")
 
@@ -987,21 +1161,87 @@ def phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_se
                                              working=n, substeps=int(phase.sum()),
                                              hops=hw, hopped=hw))
     counts["hop_admit"] = ("hop_admit", dict(n=n))
-    fused_cuda.rare_resolve(mesh.tet_row, work, pend, mesh.bd_escape, **rare_args(cfg))
-    fused_cuda.macro_crossers(mesh.tet_row, work, xi, phase, crossers,
-                              **{a: skw[a] for a in ("k", "dt", "sigma", "use_adv", "use_brown")})
-    capb = fused.hop_capacity(n, fused.trip_fraction(cfg, 1))
-    times["hop_admit"] = kernel_vs_plain_ms(
-        timer, lambda: fused_cuda.hop_admit(crossers, admit, capb=capb),
-        lambda: fused.hop_admit_plain(crossers, admit, capb=capb), lambda: None)
-    ak = admit.clone()
-    fused.hop_admit_plain(crossers, admit, capb=capb)
-    need(torch.equal(ak, admit), "macro slice: hop_admit_kernel != plain")
-    errs["hop_admit"] = max(errs["hop_admit"], flag_err(torch, ak, admit))
-    stopped = int((phase < k).sum())
-    log(f"[macro-slice] trip 0: stopped_share={stopped / n:.4%} pending_share="
-        f"{int(pend.sum()) / n:.4%}; trip 1: crossers={int(crossers.sum())} admitted="
-        f"{int(ak.sum())} capb={capb}")
+    stopped0, pend0 = int((phase < k).sum()), int(pend.sum())
+
+    # trips 1..k-1, each on the state it really sees (the trip before and its
+    # rare stage have run): the flag pass and the apply pass each on its own;
+    # the kernel's time is the device's (device_ms), the bracketed pair one
+    # call at a time, which for these short kernels reads the host
+    ckw = {a: skw[a] for a in ("k", "dt", "sigma", "use_adv", "use_brown")}
+    scratch = fused_cuda.hop_admit_scratch(n, dev)
+    for trip in range(1, k):
+        fused_cuda.rare_resolve(mesh.tet_row, work, pend, mesh.bd_escape, **rare_args(cfg))
+        m_t, ph_t = work.clone(), phase.clone()
+        capb = fused.hop_capacity(n, fused.trip_fraction(cfg, trip))
+
+        def restore_t():
+            work.copy_(m_t)
+            phase.copy_(ph_t)
+
+        def flags_k():
+            fused_cuda.macro_crossers(mesh.tet_row, work, xi, phase, crossers, **ckw)
+
+        def flags_p():
+            fused.macro_stream_plain(mesh.tet_row, work, xi, phase, None, bounce_on=False,
+                                     esc_on=False, crossers=crossers, **ckw)
+
+        one = kernel_vs_plain_ms(timer, flags_k, flags_p, lambda: None, reps=5)
+        cp = crossers.clone()          # the plain flags (timed last)
+        times[f"macro_crossers_t{trip}"] = (device_ms(torch, timer, flags_k), one[1], one[2])
+        need(torch.equal(crossers, cp), f"macro slice trip {trip}: crossing flags != plain")
+        if trip == 1:
+            # hop_admit_kernel on trip 1's flags: one call at a time, and
+            # BATCH calls back to back (the table's figure)
+            def admit_k():
+                fused_cuda.hop_admit(crossers, admit, capb=capb, scratch=scratch)
+
+            single = kernel_vs_plain_ms(
+                timer, admit_k, lambda: fused.hop_admit_plain(crossers, admit, capb=capb),
+                lambda: None)
+            host = batch_ms(timer, admit_k)
+            graphs = [device_ms(torch, timer, admit_k) for _ in range(2)]
+            times["hop_admit"] = (sum(graphs) / 2, single[1],
+                                  (single[2][0], graphs[0], graphs[1], single[2][3]))
+            log(f"[macro-slice] {gpu_line} | hop_admit_kernel lanes={n} one call at a time "
+                f"ms={single[0]:.4f} ({single[2][1]:.4f}, {single[2][2]:.4f}); {BATCH} calls "
+                f"back to back ms_per_call={host:.4f}; {BATCH} calls replayed from a graph "
+                f"ms_per_call={times['hop_admit'][0]:.4f} ({graphs[0]:.4f}, {graphs[1]:.4f})")
+        fused_cuda.hop_admit(crossers, admit, capb=capb, scratch=scratch)
+        ak = admit.clone()
+        fused.hop_admit_plain(crossers, admit, capb=capb)
+        need(torch.equal(ak, admit), f"macro slice trip {trip}: hop_admit_kernel != plain")
+        errs["hop_admit"] = max(errs["hop_admit"], flag_err(torch, ak, admit))
+
+        def apply_k():
+            fused_cuda.macro_stream(mesh.tet_row, work, xi, phase, pend, admit=ak, **skw)
+
+        one = kernel_vs_plain_ms(
+            timer, apply_k,
+            lambda: fused.macro_stream_plain(mesh.tet_row, work, xi, phase, pend, admit=ak,
+                                             **skw), restore_t, reps=5)
+        mp, php, ppl = work.clone(), phase.clone(), pend.clone()     # plain, timed last
+        times[f"macro_admitted_t{trip}"] = (device_ms(torch, timer, apply_k, restore_t, reps=50),
+                                            one[1], one[2])
+        restore_t()
+        fused_cuda.macro_stream(mesh.tet_row, work, xi, phase, pend, admit=ak, **skw)
+        same_t, err_t = compare(torch, work, mp, pend, ppl)
+        need(same_t and torch.equal(phase, php) and err_t <= POS_TOL_F32,
+             f"macro slice trip {trip}: apply pass != plain")
+        errs["macro"] = max(errs["macro"], err_t)
+        working = int((ph_t < k).sum())
+        substeps = int((phase.to(torch.int32) - ph_t.to(torch.int32)).sum())
+        hw = rows_changed(torch, m_t, work, 20)
+        shape = dict(n=n, elem=m0.element_size(), noise="xi", working=working,
+                     substeps=substeps)
+        counts[f"macro_crossers_t{trip}"] = ("macro_stream", dict(shape, pass_="crossers"))
+        counts[f"macro_admitted_t{trip}"] = ("macro_stream", dict(shape, pass_="admitted",
+                                                                  hops=hw, hopped=hw))
+        log(f"[macro-slice] trip {trip}: working={working} ({working / n:.4%}) "
+            f"substeps={substeps} crossers={int(crossers.sum())} admitted={int(ak.sum())} "
+            f"capb={capb} hops={hw} pending={int(pend.sum())} still_working="
+            f"{int((phase < k).sum())}")
+    log(f"[macro-slice] trip 0: stopped_share={stopped0 / n:.4%} pending_share="
+        f"{pend0 / n:.4%}")
     for name, (t_k, t_p, parts) in times.items():
         log(f"[macro-slice] {gpu_line} | {name}_kernel_ms={t_k:.4f} ({parts[1]:.4f}, "
             f"{parts[2]:.4f}) {name}_plain_ms={t_p:.4f} ({parts[0]:.4f}, {parts[3]:.4f}) "
@@ -1011,10 +1251,11 @@ def phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_se
 
 
 def phase_compact_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup, n_cycles,
-                        convex, errs, gpu_line):
+                        convex, errs, counts, gpu_line):
     """Phase 5c, second part: one 200-cycle run of the slice (bary) or of
-    the convex-default with hop_compact=4, and the compacted stream's time
-    against its plain version."""
+    the convex-default with hop_compact=4, the compacted stream's time
+    against its plain version, and the flag pass and the apply pass each on
+    its own; returns their times by timing key."""
     mesh, st0, n_in, bcfg = slice_setup
     n = st0.n_particles
     timer = Timer(torch, dev)
@@ -1028,11 +1269,13 @@ def phase_compact_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    st_c, ms_c, got = counted_run(torch, cpt, fused_cuda, timer, cmesh, st_c, ccfg, n_cycles)
+    st_c, ms_c, host_c, got = counted_run(torch, cpt, fused_cuda, timer, cmesh, st_c, ccfg,
+                                          n_cycles)
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
     ms_c /= n_cycles
     log(f"[{tag}] {gpu_line} | hop_compact=4 frac={ccfg.hop_compact_frac} "
         f"brownian_rng={ccfg.brownian_rng} ms_per_cycle={ms_c:.4f} "
+        f"host_enqueue_ms_per_cycle={host_c / n_cycles:.4f} "
         f"particle_steps_per_s={n / (ms_c * 1e-3):.4e} max_memory_allocated={peak} "
         f"launches={ {a: v for a, v in got.items() if v} }")
     pre = "convex_" if convex else ""
@@ -1092,6 +1335,30 @@ def phase_compact_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_
         f"{t[2][2]:.4f}) plain_ms={t[1]:.4f} ({t[2][0]:.4f}, {t[2][3]:.4f}) lanes={n} "
         f"(flag pass + hop_admit + apply pass)")
 
+    # each pass on its own, on the kernels' flags and admission
+    restore_c()
+    run_k()
+    adk = ad.clone()
+    hopped = moved(torch, m0, work) if convex else rows_changed(torch, m0, work, 20)
+    shape = dict(n=n, elem=m0.element_size(), noise="xi")
+    fn = "convex_stream" if convex else "stream"
+    counts[f"{key}_crossers"] = (fn, dict(shape, pass_="crossers"))
+    if convex:
+        counts[f"{key}_admitted"] = (fn, dict(shape, pass_="admitted", row_loads=n_adm,
+                                              hopped=hopped))
+    else:
+        counts[f"{key}_admitted"] = (fn, dict(shape, pass_="admitted", hops=hopped,
+                                              hopped=hopped))
+    times = {
+        f"{key}_crossers": kernel_vs_plain_ms(timer, lambda: flags_k(work, cr),
+                                              lambda: flags_p(work, cr), restore_c),
+        f"{key}_admitted": kernel_vs_plain_ms(timer, lambda: apply_k(work, pk, disp, adk),
+                                              lambda: apply_p(work, pk, disp, adk), restore_c)}
+    for name, (t_k, t_p, parts) in times.items():
+        log(f"[{tag}] {gpu_line} | {name}_kernel_ms={t_k:.4f} ({parts[1]:.4f}, {parts[2]:.4f}) "
+            f"{name}_plain_ms={t_p:.4f} ({parts[0]:.4f}, {parts[3]:.4f}) lanes={n}")
+    return times
+
 
 def copy_ms(torch, dev, timer, nbytes, reps=20):
     """Mean ms of a device copy_ that moves ``nbytes`` (half read, half
@@ -1102,11 +1369,19 @@ def copy_ms(torch, dev, timer, nbytes, reps=20):
     return time_calls(timer, lambda: dst.copy_(src), lambda: None, reps)
 
 
-def phase_bounds(torch, traffic, dev, counts, times, per_cycle, gpu_line):
+SMALL = ("hop_admit", "rare", "convex_rare")   # bound by a launch's latency, not by bytes
+
+
+def phase_bounds(torch, traffic, fused_cuda, dev, counts, times, per_cycle, gpu_line):
     """Phase 6: each timed kernel's bytes at this run's counts, its bound,
     the share bound / time, its launches per sub-step on its path, and the
-    copy yardstick; returns them by timing key."""
+    copy yardstick; for the kernels of a few megabytes also the launch
+    floor and the share of max(bound, floor); returns them by timing key."""
     timer = Timer(torch, dev)
+    floor, host_floor = launch_floor_ms(torch, fused_cuda, timer, dev)
+    log(f"[bound] {gpu_line} | launch_floor_ms={floor:.5f} host_launch_ms={host_floor:.5f}: "
+        f"hop_admit_kernel on 4 lanes, {BATCH} launches replayed from a graph, and enqueued "
+        f"through the wrapper back to back")
     out = {}
     for name, (fn, kw) in counts.items():
         t = getattr(traffic, fn)(**kw)
@@ -1115,10 +1390,16 @@ def phase_bounds(torch, traffic, dev, counts, times, per_cycle, gpu_line):
         out[name] = dict(bytes=t.bytes, bound_ms=t.bound_ms, bound_by=t.bound_by,
                          share=t.bound_ms / ms, copy_ms=cp, launches_per_cycle=per_cycle[name])
         extra = " ".join(f"{k}={v}" for k, v in kw.items() if k not in ("n", "elem"))
+        small = ""
+        if name in SMALL:
+            out[name].update(launch_floor_ms=floor,
+                             share_of_floor=traffic.share_of_floor(t.bound_ms, floor, ms))
+            small = (f" launch_floor_ms={floor:.5f} "
+                     f"share_of_floor={out[name]['share_of_floor']:.3f}")
         log(f"[bound] {gpu_line} | {name} lanes={kw['n']} {extra} bytes={t.bytes} "
             f"(read {t.read}, written {t.written}) ops={t.ops} bound_ms={t.bound_ms:.4f} "
             f"({t.bound_by}) kernel_ms={ms:.4f} share={t.bound_ms / ms:.3f} "
-            f"copy_ms={cp:.4f} launches_per_cycle={per_cycle[name]:.3f}")
+            f"copy_ms={cp:.4f} launches_per_cycle={per_cycle[name]:.3f}{small}")
     return out
 
 
@@ -1173,7 +1454,8 @@ def main():
 
     if args.rehearse:
         dev = torch.device("cpu")
-        sizes = dict(parity=(6, 4096), stats=20_000, slice=(12, 20_000, 5))
+        sizes = dict(parity=(6, 3072), stats=20_000, slice=(12, 8_000, 8),
+                     admit=(1, 3, 4, 15, 16, 17, 8155, 8192, 20_000))
         gpu_line = "cpu rehearsal"
         kind = "cpu"
     else:
@@ -1181,7 +1463,8 @@ def main():
             print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
             return 1
         dev = torch.device("cuda", 0)
-        sizes = dict(parity=(16, 65_536), stats=1_000_000, slice=(55, 1_000_000, 200))
+        sizes = dict(parity=(16, 65_536), stats=1_000_000, slice=(55, 1_000_000, 200),
+                     admit=(1, 3, 4, 15, 16, 17, 65_499, 65_536, 1_000_000, 4_000_001))
         kind = torch.cuda.get_device_name(0)
         gpu_line = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1206,6 +1489,7 @@ def main():
                         nside, n, errs)
     phase_noise(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev, nside, n,
                 sizes["stats"], errs)
+    phase_admit_sizes(torch, fused, fused_cuda, dev, sizes["admit"], errs)
     phase_compact(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev, nside, n,
                   errs)
     phase_macro(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
@@ -1222,8 +1506,9 @@ def main():
                                             gpu_line)
     times.update(m_times)
     for convex in (False, True):
-        phase_compact_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup,
-                            sizes["slice"][2], convex, errs, gpu_line)
+        times.update(phase_compact_slice(torch, cpt, fused, fused_convex, fused_cuda, dev,
+                                         slice_setup, sizes["slice"][2], convex, errs, counts,
+                                         gpu_line))
 
     # launches per sub-step of each kernel on its own path (3 timed runs)
     steps = 3 * sizes["slice"][2]
@@ -1236,7 +1521,15 @@ def main():
     for a, b in (("stream_philox", "stream"), ("convex_stream_xi", "convex_stream"),
                  ("macro_philox", "macro")):
         per_cycle[a] = per_cycle[b]
-    bounds = phase_bounds(torch, traffic, dev, counts, times, per_cycle, gpu_line)
+    # each pass of a compacted cycle runs once per cycle on its path, each
+    # pass of a compacted macro trip once per macro cycle
+    for name in counts:
+        if name.startswith(("stream_", "convex_stream_")) and name.endswith(("_crossers",
+                                                                             "_admitted")):
+            per_cycle[name] = 1.0
+        elif name.startswith(("macro_crossers_t", "macro_admitted_t")):
+            per_cycle[name] = (m_launches["macro_stream"] - m_launches["macro_crossers"]) / steps
+    bounds = phase_bounds(torch, traffic, fused_cuda, dev, counts, times, per_cycle, gpu_line)
 
     def entry(name, key, source, replaces, n_launches, err, **extra):
         return {"name": name, "route": "cuda",
@@ -1254,8 +1547,7 @@ def main():
         entry("convex_rare_kernel", "convex_rare", "convex_rare.cu", "fused_convex.py:327",
               launches["convex_rare"], errs["convex_rare"]),
         entry("hop_admit_kernel", "hop_admit", "hop_admit.cu", "fused_pallas.py:539",
-              m_launches["hop_admit"], errs["hop_admit"],
-              kernels=["hop_admit_count", "hop_admit_kernel"]),
+              m_launches["hop_admit"], errs["hop_admit"]),
         entry("macro_stream_kernel", "macro", "macro.cu", "fused_pallas.py:1536",
               m_launches["macro_stream"], errs["macro"]),
     ]}

@@ -52,8 +52,8 @@ struct LaneHead {
 // fused_pallas.py:371-396).  Then the inline single bounce on the last hop's
 // weights, or an absorb through the row's escape mask (fused.py:729-762).
 // Leaves the lane's new head in `out` and its cached row in `row`, and
-// returns its pending flag; the caller stores them (store_lane, or the
-// staged tile of stream_kernel).
+// returns its pending flag; the caller stores them (the head through its
+// staged tile, a new row with store_row_vec).
 template <typename T>
 __device__ __forceinline__ bool resolve(const T* __restrict__ tab, T row[ROW_W], T w[4],
                                         int s_cur, bool unresolved, int tet, bool admitted,
@@ -129,18 +129,6 @@ __device__ __forceinline__ bool resolve(const T* __restrict__ tab, T row[ROW_W],
   out->v[ACT] = actf;
   out->hopped = cur_tet != tet;
   return unresolved || wall;
-}
-
-// The lane's whole mega row at `me` (head, cached row, zero pad), one
-// element at a time: macro_stream_kernel's strided store.
-template <typename T>
-__device__ __forceinline__ void store_lane(T* me, const LaneHead<T>& head, const T row[ROW_W]) {
-#pragma unroll
-  for (int k = 0; k < ROW; ++k) me[k] = head.v[k];
-#pragma unroll
-  for (int k = 0; k < ROW_W; ++k) me[ROW + k] = row[k];
-#pragma unroll
-  for (int k = ROW + ROW_W; k < WIDTH; ++k) me[k] = T(0);
 }
 
 }  // namespace cpf

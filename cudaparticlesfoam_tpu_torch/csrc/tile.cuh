@@ -1,5 +1,5 @@
 // A block's tile of mega rows in shared memory, for the staged stream kernels
-// (stream.cu, convex_stream.cu).
+// (stream.cu, convex_stream.cu, macro.cu).
 //
 // A block owns LANES consecutive lanes (one thread each); their rows are one
 // contiguous run of LANES * WIDTH * sizeof(T) bytes of the mega.  The block
@@ -99,6 +99,22 @@ struct Tile {
   }
 };
 
+// A block's run of `rows` flag bytes (one per lane, `rows` <= LANES) from
+// shared memory at `s` to global memory at `g` (both 16 B aligned): one 16 B
+// store per 16 lanes by the block's first LANES / 16 threads, single bytes
+// only in a ragged last chunk.  The caller places the block barrier.
+template <int LANES>
+__device__ __forceinline__ void store_flags(uint8_t* __restrict__ g, const uint8_t* s, int rows) {
+  if (threadIdx.x < LANES / 16) {
+    const int o = 16 * threadIdx.x;
+    if (o + 16 <= rows) {
+      *reinterpret_cast<uint4*>(g + o) = *reinterpret_cast<const uint4*>(s + o);
+    } else {
+      for (int q = o; q < rows; ++q) g[q] = s[q];
+    }
+  }
+}
+
 // A table row of `n` elements (a multiple of EPC, 16 B aligned) through the
 // read-only path as 16 B vectors, in element order.
 template <typename T, int n>
@@ -109,6 +125,18 @@ __device__ __forceinline__ void load_row_vec(const T* __restrict__ src, T* row) 
   const V* s = reinterpret_cast<const V*>(src);
 #pragma unroll
   for (int k = 0; k < n / EPC; ++k) Vec16<T>::get(__ldg(s + k), row + k * EPC);
+}
+
+// `n` elements (a multiple of EPC, 16 B aligned) of memory the kernel also
+// writes, as 16 B vectors: a lane that reads its own mega row.
+template <typename T, int n>
+__device__ __forceinline__ void load_vec(const T* src, T* out) {
+  using V = typename Vec16<T>::type;
+  constexpr int EPC = 16 / sizeof(T);
+  static_assert(n % EPC == 0, "whole 16 B chunks only");
+  const V* s = reinterpret_cast<const V*>(src);
+#pragma unroll
+  for (int k = 0; k < n / EPC; ++k) Vec16<T>::get(s[k], out + k * EPC);
 }
 
 // A row of `n` elements (a multiple of EPC) to `dst` (16 B aligned) as 16 B

@@ -586,13 +586,26 @@ def stream_kwargs(cfg, dt, dtype):
     return dict(dt=dt_t, sigma=sigma, use_adv=cfg.use_advection, use_brown=cfg.use_brownian)
 
 
+def compact_scratch(n, device) -> dict:
+    """The buffers a compacted stream stage needs besides ``pending``, for a
+    caller that runs many cycles to allocate once (``run_cycles`` does):
+    ``phase``, ``crossers`` and ``admit`` [n] uint8 and the zeroed ``words``
+    of ``fused_cuda.hop_admit_scratch``."""
+    from . import fused_cuda
+
+    flags = {name: torch.empty(n, dtype=torch.uint8, device=device)
+             for name in ("phase", "crossers", "admit")}
+    return dict(flags, words=fused_cuda.hop_admit_scratch(n, device))
+
+
 def mega_cycle(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
-               pending=None) -> torch.Tensor:
+               pending=None, scratch=None) -> torch.Tensor:
     """One sub-step over the mega state, in place: stream kernel, then the
     rare kernel over the pending lanes.  ``noise`` [n, 3] replaces the
     noise draw (parity replays); under ``brownian_rng`` "rbg"/"rbg_kernel"
     a CUDA mega draws the Philox stream inside the stream kernel.
-    ``pending`` is optional [n] uint8 scratch.
+    ``pending`` is optional [n] uint8 scratch, ``scratch`` the optional
+    buffers of :func:`compact_scratch` (used under ``hop_compact=4``).
 
     With ``hop_compact=4`` and one inline hop the stream runs as the
     compacted hop gather: the crossing flags, ``hop_admit`` at capacity
@@ -610,10 +623,11 @@ def mega_cycle(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
     kw = stream_kwargs(cfg, dt, m.dtype)
     admit = None
     if cfg.hop_compact == HOP_GROUP and cfg.inline_hops == 1:
-        crossers = torch.empty(n, dtype=torch.uint8, device=dev)
-        admit = torch.empty_like(crossers)
+        sc = compact_scratch(n, dev) if scratch is None else scratch
+        crossers, admit = sc["crossers"], sc["admit"]
         fused_cuda.stream_crossers(mesh.tet_row, m, xi, crossers, noise_key=key, **kw)
-        fused_cuda.hop_admit(crossers, admit, capb=hop_capacity(n, cfg.hop_compact_frac))
+        fused_cuda.hop_admit(crossers, admit, capb=hop_capacity(n, cfg.hop_compact_frac),
+                             scratch=sc["words"])
     fused_cuda.stream_cycle(
         mesh.tet_row, m, xi, pending, bounce_on=cfg.reflect_wall and cfg.inline_bounce,
         esc_on=cfg.escape_faces, n_hops=cfg.inline_hops, noise_key=key, admit=admit, **kw)
@@ -631,15 +645,16 @@ def trip_fraction(cfg, trip: int) -> float:
 
 
 def mega_macro(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
-               pending=None) -> torch.Tensor:
+               pending=None, scratch=None) -> torch.Tensor:
     """``k = cfg.macro_cycles`` sub-steps (steps step..step+k-1) as one
     macro cycle, in place: k trips, each the macro stream kernel and the
     rare kernel over its pending lanes (``fused_pallas.macro_cycle_packed``).
     Trip 0 hops every crosser; trips t >= 1 always run the compacted hop
     gather at :func:`trip_fraction`, whatever ``cfg.hop_compact`` says, as
     JAX does.  One inline hop per trip, whatever ``inline_hops`` says.
-    ``noise`` [k, n, 3] replaces the noise draw.  Equal to k
-    :func:`mega_cycle` calls; the TetVelocity bary engine only."""
+    ``noise`` [k, n, 3] replaces the noise draw; ``pending`` and
+    ``scratch`` (:func:`compact_scratch`) are optional buffers.  Equal to
+    k :func:`mega_cycle` calls; the TetVelocity bary engine only."""
     from . import fused_cuda
 
     k = cfg.macro_cycles
@@ -648,13 +663,13 @@ def mega_macro(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
         pending = torch.empty(n, dtype=torch.uint8, device=dev)
     xi, key = cycle_noise(cfg, seed, step, n, m.dtype, dev, noise, k=k)
     kw = dict(stream_kwargs(cfg, dt, m.dtype), k=k, noise_key=key)
-    phase = torch.zeros(n, dtype=torch.uint8, device=dev)
-    crossers = torch.empty_like(phase)
-    admit = torch.empty_like(phase)
+    sc = compact_scratch(n, dev) if scratch is None else scratch
+    phase, crossers, admit = sc["phase"].zero_(), sc["crossers"], sc["admit"]
     for trip in range(k):
         if trip:
             fused_cuda.macro_crossers(mesh.tet_row, m, xi, phase, crossers, **kw)
-            fused_cuda.hop_admit(crossers, admit, capb=hop_capacity(n, trip_fraction(cfg, trip)))
+            fused_cuda.hop_admit(crossers, admit, capb=hop_capacity(n, trip_fraction(cfg, trip)),
+                                 scratch=sc["words"])
         fused_cuda.macro_stream(
             mesh.tet_row, m, xi, phase, pending, bounce_on=cfg.reflect_wall and cfg.inline_bounce,
             esc_on=cfg.escape_faces, admit=admit if trip else None, **kw)

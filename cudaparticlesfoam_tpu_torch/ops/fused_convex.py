@@ -34,8 +34,8 @@ import torch
 from ..mesh import CX_ROW_W, TetMesh
 from . import convex as convex_ops
 from . import locate as locate_ops
-from .fused import (ACT, HOP_GROUP, P0, ROW, TET, V0, stream_kwargs, cycle_noise,
-                    hop_capacity)
+from .fused import (ACT, HOP_GROUP, P0, ROW, TET, V0, compact_scratch, stream_kwargs,
+                    cycle_noise, hop_capacity)
 
 WIDTH = 32
 ROW_W = CX_ROW_W            # 8 + 24 = WIDTH: no pad column
@@ -206,13 +206,14 @@ def convex_rare_plain(mesh: TetMesh, tab, m, disp, pending, *, max_hops,
 
 
 def mega_cycle(mesh: TetMesh, tab, m, seed, step, cfg, dt, noise=None, pending=None,
-               disp=None) -> torch.Tensor:
+               disp=None, scratch=None) -> torch.Tensor:
     """One convex sub-step over the mega state, in place: the convex stream
     kernel, then the convex rare kernel over the pending lanes.  ``noise``
     [n, 3] replaces the noise draw (replays); under ``brownian_rng``
     "rbg"/"rbg_kernel" a CUDA mega draws the Philox stream inside the
-    stream kernel.  ``pending`` [n] uint8 and ``disp`` [n, 3] are optional
-    scratch.
+    stream kernel.  ``pending`` [n] uint8, ``disp`` [n, 3] and ``scratch``
+    (``fused.compact_scratch``, used under ``hop_compact=4``) are optional
+    buffers.
 
     With ``hop_compact=4`` and ``inline_hops >= 1`` the stream runs as the
     compacted hop gather (crossing flags, ``hop_admit``, then the stream
@@ -230,10 +231,11 @@ def mega_cycle(mesh: TetMesh, tab, m, seed, step, cfg, dt, noise=None, pending=N
     kw = stream_kwargs(cfg, dt, m.dtype)
     admit = None
     if cfg.hop_compact == HOP_GROUP and cfg.inline_hops >= 1:
-        crossers = torch.empty(n, dtype=torch.uint8, device=dev)
-        admit = torch.empty_like(crossers)
+        sc = compact_scratch(n, dev) if scratch is None else scratch
+        crossers, admit = sc["crossers"], sc["admit"]
         fused_cuda.convex_stream_crossers(tab, m, xi, crossers, noise_key=key, **kw)
-        fused_cuda.hop_admit(crossers, admit, capb=hop_capacity(n, cfg.hop_compact_frac))
+        fused_cuda.hop_admit(crossers, admit, capb=hop_capacity(n, cfg.hop_compact_frac),
+                             scratch=sc["words"])
     fused_cuda.convex_stream_cycle(tab, m, xi, pending, disp, n_hops=cfg.inline_hops,
                                    noise_key=key, admit=admit, **kw)
     fused_cuda.convex_rare_resolve(

@@ -35,12 +35,14 @@ Without it the kernel reads ``xi`` [n, 3] ([k, n, 3] for a macro trip).
 
 A wrapper given CPU tensors runs the plain version from ``ops/fused.py``;
 given CUDA tensors it launches the kernel on the current stream, or
-raises.  Each wrapper counts its kernel launches in ``.launches``.
+raises.  Each wrapper counts its kernel launches in ``.launches``.  A
+launch costs the host about as much as a short kernel costs the card, so
+the checks take their passing case first and nothing is looked up twice.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
@@ -53,6 +55,11 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 def _check(name, t, *, dtype, shape, device):
+    # the passing case first, in one expression: this runs several times per
+    # launch, and the host's cost per launch bounds the short kernels' paths
+    if (isinstance(t, torch.Tensor) and t.dtype == dtype and t.device == device
+            and t.shape == shape and t.is_contiguous()):
+        return
     if not torch.is_tensor(t):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.dtype != dtype:
@@ -115,6 +122,14 @@ def _flags(name, t, n, dev):
     return t.data_ptr()
 
 
+def _check_flag_alignment(**flags):
+    """hop_admit_kernel, and macro_stream_kernel's whole pass, move a block's
+    flag bytes as 16 B vectors."""
+    for name, t in flags.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
 def _check_hops(n_hops):
     if not 0 <= int(n_hops) <= 8:
         raise ValueError(f"n_hops must be in 0..8, got {n_hops}")
@@ -122,21 +137,40 @@ def _check_hops(n_hops):
 
 # the pass of a stream kernel (csrc/stream.cuh: StreamPass)
 PASS_WHOLE, PASS_CROSSERS, PASS_ADMITTED = 0, 1, 2
-_ADMIT_GROUPS = 256     # groups per block of hop_admit_kernel (ADMIT_THREADS)
+ADMIT_TILE = 8192       # lanes per block of hop_admit_kernel (ADMIT_LANES)
 
 
-def _stream_ptr(dev) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+# PyTorch's own fast getter of the current stream's handle (what its compiled
+# kernels' launchers call); the public route builds a Stream object per call
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream_ptr(dev) -> int:
+    """The current CUDA stream of ``dev`` as an integer handle."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(dev.index if dev.index is not None else torch.cuda.current_device())
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name, dtype=None):
+    """The C entry point ``cpf_<name>[_f32|_f64]`` of the kernel library."""
+    suffix = f"_{_SUFFIX[dtype]}" if dtype is not None else ""
+    return getattr(_build.library(), f"cpf_{name}{suffix}")
+
+
+def _raise_on(err, what):
+    if err:
+        _build.check(_build.library(), err, what)
 
 
 def _launch_stream(tab, m, xi_ptr, pend_ptr, adm_ptr, kw, mode, pass_, key, dev):
-    lib = _build.library()
-    fn = getattr(lib, f"cpf_stream_{_SUFFIX[m.dtype]}")
-    err = fn(tab.data_ptr(), m.data_ptr(), xi_ptr, pend_ptr, adm_ptr, m.shape[0], kw["dt"],
-             kw["sigma"], int(kw["use_adv"]), int(kw["use_brown"]),
-             int(kw.get("bounce_on", False)), int(kw.get("esc_on", False)),
-             kw.get("n_hops", 1), mode, pass_, *key, _stream_ptr(dev))
-    _build.check(lib, err, "stream_kernel")
+    err = _entry("stream", m.dtype)(
+        tab.data_ptr(), m.data_ptr(), xi_ptr, pend_ptr, adm_ptr, m.shape[0], kw["dt"],
+        kw["sigma"], int(kw["use_adv"]), int(kw["use_brown"]),
+        int(kw.get("bounce_on", False)), int(kw.get("esc_on", False)),
+        kw.get("n_hops", 1), mode, pass_, *key, _stream_ptr(dev))
+    _raise_on(err, "stream_kernel")
 
 
 def stream_cycle(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
@@ -190,12 +224,22 @@ def stream_crossers(tab, m, xi, crossers, *, dt, sigma, use_adv, use_brown, nois
 stream_crossers.launches = 0
 
 
-def hop_admit(crossers, admit, *, capb):
+def hop_admit_scratch(n, device):
+    """The zeroed int32 scratch ``hop_admit`` takes for up to ``n`` lanes
+    (``csrc/hop_admit.cu``: a ticket, a count of finished blocks and one
+    status word per tile of 8192 lanes).  The kernel leaves it zeroed, so
+    one buffer serves every call on a stream, at any lane count up to n."""
+    return torch.zeros(2 + -(-int(n) // ADMIT_TILE), dtype=torch.int32, device=device)
+
+
+def hop_admit(crossers, admit, *, capb, scratch=None):
     """Admission of the compacted hop gather (K3): ``crossers`` [n] uint8
     -> ``admit`` [n] uint8, 1 for each crosser of an admitted 4-lane group
     (fewer than ``capb`` pending groups before it; ``fused.hop_capacity``)
     with fewer than 2 crossers before it in the group
-    (``fused.hop_admit_plain``)."""
+    (``fused.hop_admit_plain``).  ``scratch``: a buffer from
+    :func:`hop_admit_scratch` for at least n lanes, to spare the
+    allocation of one per call."""
     if not torch.is_tensor(crossers) or crossers.dim() != 1:
         raise ValueError("crossers must be a 1-d tensor")
     n, dev = crossers.shape[0], crossers.device
@@ -203,6 +247,12 @@ def hop_admit(crossers, admit, *, capb):
         _check(name, t, dtype=torch.uint8, shape=(n,), device=dev)
     if int(capb) < 0:
         raise ValueError(f"capb must be >= 0, got {capb}")
+    words = 2 + -(-n // ADMIT_TILE)
+    if scratch is not None:
+        if not torch.is_tensor(scratch) or scratch.dim() != 1 or scratch.shape[0] < words:
+            raise ValueError(f"scratch must be a 1-d tensor of at least {words} words "
+                             f"(hop_admit_scratch)")
+        _check("scratch", scratch, dtype=torch.int32, shape=scratch.shape, device=dev)
     if dev.type == "cpu":
         hop_admit_plain(crossers, admit, capb=int(capb))
         return
@@ -210,13 +260,12 @@ def hop_admit(crossers, admit, *, capb):
         raise ValueError(f"unsupported device {dev}")
     if n == 0:
         return
-    groups = -(-n // 4)
-    # int32 scratch: the pending-group count of each block of the kernel
-    counts = torch.empty(-(-groups // _ADMIT_GROUPS), dtype=torch.int32, device=dev)
-    lib = _build.library()
-    err = lib.cpf_hop_admit(crossers.data_ptr(), admit.data_ptr(), counts.data_ptr(), n,
-                            int(capb), _stream_ptr(dev))
-    _build.check(lib, err, "hop_admit_kernel")
+    _check_flag_alignment(crossers=crossers, admit=admit)
+    if scratch is None:
+        scratch = hop_admit_scratch(n, dev)
+    err = _entry("hop_admit")(crossers.data_ptr(), admit.data_ptr(), scratch.data_ptr(), n,
+                              int(capb), _stream_ptr(dev))
+    _raise_on(err, "hop_admit_kernel")
     hop_admit.launches += 1
 
 
@@ -224,13 +273,12 @@ hop_admit.launches = 0
 
 
 def _launch_macro(tab, m, xi_ptr, phase, pend_ptr, adm_ptr, kw, mode, pass_, key, dev):
-    lib = _build.library()
-    fn = getattr(lib, f"cpf_macro_stream_{_SUFFIX[m.dtype]}")
-    err = fn(tab.data_ptr(), m.data_ptr(), xi_ptr, phase.data_ptr(), pend_ptr, adm_ptr,
-             m.shape[0], kw["k"], kw["dt"], kw["sigma"], int(kw["use_adv"]),
-             int(kw["use_brown"]), int(kw.get("bounce_on", False)),
-             int(kw.get("esc_on", False)), mode, pass_, *key, _stream_ptr(dev))
-    _build.check(lib, err, "macro_stream_kernel")
+    err = _entry("macro_stream", m.dtype)(
+        tab.data_ptr(), m.data_ptr(), xi_ptr, phase.data_ptr(), pend_ptr, adm_ptr,
+        m.shape[0], kw["k"], kw["dt"], kw["sigma"], int(kw["use_adv"]),
+        int(kw["use_brown"]), int(kw.get("bounce_on", False)),
+        int(kw.get("esc_on", False)), mode, pass_, *key, _stream_ptr(dev))
+    _raise_on(err, "macro_stream_kernel")
 
 
 def _macro_checks(tab, m, xi, phase, k, use_brown, noise_key):
@@ -258,6 +306,8 @@ def macro_stream(tab, m, xi, phase, pending, *, k, dt, sigma, use_adv, use_brown
         return
     if n == 0:
         return
+    if admit is None:
+        _check_flag_alignment(phase=phase, pending=pending)
     _launch_macro(tab, m, xi_ptr, phase, pending.data_ptr(), adm_ptr, kw, mode,
                   PASS_WHOLE if admit is None else PASS_ADMITTED, key, dev)
     macro_stream.launches += 1
@@ -307,12 +357,11 @@ def rare_resolve(tab, m, pending, bd_escape, *, max_hops, max_bounces,
         return
     if n == 0:
         return
-    lib = _build.library()
-    fn = getattr(lib, f"cpf_rare_{_SUFFIX[m.dtype]}")
-    err = fn(tab.data_ptr(), m.data_ptr(), pending.data_ptr(),
-             bd_escape.data_ptr(), n, bd_escape.shape[0], kw["max_hops"],
-             kw["max_bounces"], int(kw["reflect_wall"]), _stream_ptr(dev))
-    _build.check(lib, err, "rare_kernel")
+    err = _entry("rare", m.dtype)(
+        tab.data_ptr(), m.data_ptr(), pending.data_ptr(),
+        bd_escape.data_ptr(), n, bd_escape.shape[0], kw["max_hops"],
+        kw["max_bounces"], int(kw["reflect_wall"]), _stream_ptr(dev))
+    _raise_on(err, "rare_kernel")
     rare_resolve.launches += 1
 
 
@@ -321,12 +370,11 @@ rare_resolve.launches = 0
 
 def _launch_convex_stream(tab, m, xi_ptr, pend_ptr, adm_ptr, disp_ptr, kw, mode, pass_, key,
                           dev):
-    lib = _build.library()
-    fn = getattr(lib, f"cpf_convex_stream_{_SUFFIX[m.dtype]}")
-    err = fn(tab.data_ptr(), m.data_ptr(), xi_ptr, pend_ptr, adm_ptr, disp_ptr, m.shape[0],
-             kw["dt"], kw["sigma"], int(kw["use_adv"]), int(kw["use_brown"]),
-             kw.get("n_hops", 1), mode, pass_, *key, _stream_ptr(dev))
-    _build.check(lib, err, "convex_stream_kernel")
+    err = _entry("convex_stream", m.dtype)(
+        tab.data_ptr(), m.data_ptr(), xi_ptr, pend_ptr, adm_ptr, disp_ptr, m.shape[0],
+        kw["dt"], kw["sigma"], int(kw["use_adv"]), int(kw["use_brown"]),
+        kw.get("n_hops", 1), mode, pass_, *key, _stream_ptr(dev))
+    _raise_on(err, "convex_stream_kernel")
 
 
 def convex_stream_cycle(tab, m, xi, pending, disp, *, dt, sigma, use_adv, use_brown,
@@ -416,15 +464,14 @@ def convex_rare_resolve(mesh, tab, m, disp, pending, *, max_hops, reflect_wall,
         return
     if n == 0:
         return
-    lib = _build.library()
-    fn = getattr(lib, f"cpf_convex_rare_{_SUFFIX[m.dtype]}")
-    err = fn(tab.data_ptr(), mesh.tet_row_cx.data_ptr(), mesh.tet_a.data_ptr(),
-             mesh.tet_tinv.data_ptr(), mesh.tet_nbr.data_ptr(), mesh.tet_face_n.data_ptr(),
-             mesh.tet_face_d.data_ptr(), mesh.bd_escape.data_ptr(), m.data_ptr(),
-             disp.data_ptr(), pending.data_ptr(), n, nbd, kw["max_hops"],
-             int(kw["reflect_wall"]), int(kw["bary_fix"]), kw["max_bounces"],
-             _stream_ptr(dev))
-    _build.check(lib, err, "convex_rare_kernel")
+    err = _entry("convex_rare", m.dtype)(
+        tab.data_ptr(), mesh.tet_row_cx.data_ptr(), mesh.tet_a.data_ptr(),
+        mesh.tet_tinv.data_ptr(), mesh.tet_nbr.data_ptr(), mesh.tet_face_n.data_ptr(),
+        mesh.tet_face_d.data_ptr(), mesh.bd_escape.data_ptr(), m.data_ptr(),
+        disp.data_ptr(), pending.data_ptr(), n, nbd, kw["max_hops"],
+        int(kw["reflect_wall"]), int(kw["bary_fix"]), kw["max_bounces"],
+        _stream_ptr(dev))
+    _raise_on(err, "convex_rare_kernel")
     convex_rare_resolve.launches += 1
 
 

@@ -36,9 +36,11 @@ a bary table row 20 and a cx table row 24:
   the head and phase byte of each working lane, the cached row of each
   lane whose row changed, and every pending byte.  Pass "crossers": the
   flag byte of every lane.
-* ``hop_admit_count`` and ``hop_admit_kernel`` (one launch of
-  ``fused_cuda.hop_admit``): the crossing flags once each, the int32
-  block totals (one per 256 groups of 4 lanes), the admission flags.
+* ``hop_admit_kernel``: the crossing flags, the admission flags, and its
+  scratch of 32-bit words (2 and one per 8192 lanes) read and written.
+  A call this small is bound by launch latency, not by these bytes:
+  :func:`share_of_floor` holds its time against the measured time of a
+  launch that does next to nothing.
 * ``rare_kernel`` and ``convex_rare_kernel``: a floor only.  Both are
   latency-bound (each pending lane walks a dependent chain of up to 50
   row loads); counted are the pending flags, each pending lane's state
@@ -55,7 +57,7 @@ PEAK_OPS_PER_S = 67e12
 MEGA_W, ROW_W, CX_W, HEAD_W = 32, 20, 24, 8
 NOISES = ("xi", "philox", "none")
 PASSES = ("whole", "crossers", "admitted")
-ADMIT_GROUPS = 256       # groups of 4 lanes per block of hop_admit_kernel
+ADMIT_TILE = 8192        # lanes per block of hop_admit_kernel
 
 # hand counts of arithmetic per lane (csrc/): the sub-step to the hop-0
 # test, the bounce block every lane runs, one hop's re-test; a Philox draw
@@ -174,27 +176,23 @@ def macro_stream(n: int, elem: int, noise: str, pass_: str = "whole", working: i
     return Traffic(read, written, ops)
 
 
-def _admit_blocks(n: int) -> tuple[int, int]:
-    groups = -(-n // 4)
-    return groups, -(-groups // ADMIT_GROUPS)
-
-
-def hop_admit_count(n: int) -> Traffic:
-    """``hop_admit_count``: the crossing flags in, one int32 total per block out."""
-    groups, blocks = _admit_blocks(n)
-    return Traffic(n, 4 * blocks, groups * OPS["admit_group"])
-
-
-def hop_admit_kernel(n: int) -> Traffic:
-    """``hop_admit_kernel``: the crossing flags and block totals in, the
-    admission flags out."""
-    groups, blocks = _admit_blocks(n)
-    return Traffic(n + 4 * blocks, n, groups * OPS["admit_group"])
-
-
 def hop_admit(n: int) -> Traffic:
-    """Both kernels of one ``fused_cuda.hop_admit`` launch."""
-    return hop_admit_count(n) + hop_admit_kernel(n)
+    """``hop_admit_kernel``: the crossing flags and the zeroed scratch in,
+    the admission flags and the scratch (statuses, then zeroed again)
+    out; the scratch is 2 words and one per tile of 8192 lanes."""
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    words = 2 + -(-n // ADMIT_TILE)
+    return Traffic(n + 4 * words, n + 4 * words, -(-n // 4) * OPS["admit_group"])
+
+
+def share_of_floor(bound_ms: float, launch_floor_ms: float, ms: float) -> float:
+    """Share of the floor that binds a small call: its bound or the time
+    of a launch that does next to nothing (measured on the card,
+    ``chip_smoke.py``), whichever is larger, over the call's time."""
+    if ms <= 0 or bound_ms < 0 or launch_floor_ms < 0:
+        raise ValueError("times must be positive")
+    return max(bound_ms, launch_floor_ms) / ms
 
 
 def rare(n: int, elem: int, pending: int, moved: int) -> Traffic:

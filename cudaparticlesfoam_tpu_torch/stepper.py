@@ -127,6 +127,11 @@ def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
     if noise is not None and tuple(noise.shape) != (n_cycles, n, 3):
         raise ValueError(f"noise must be [{n_cycles}, {n}, 3], got {tuple(noise.shape)}")
     pending = torch.empty(n, dtype=torch.uint8, device=state.device)
+    # the compacted stages' buffers, once for the run
+    scratch = None
+    if cfg.hop_compact == fused.HOP_GROUP or (cfg.locate_mode == "bary"
+                                              and cfg.macro_cycles > 1):
+        scratch = fused.compact_scratch(n, state.device)
     if cfg.locate_mode == "convex":
         if mesh.tet_row_cx is None:
             # the JAX package runs its simple engine here
@@ -142,7 +147,7 @@ def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
         for i in range(n_cycles):
             fused_convex.mega_cycle(mesh, tab, m, state.seed, state.step + i, cfg, dt,
                                     noise=None if noise is None else noise[i],
-                                    pending=pending, disp=disp)
+                                    pending=pending, disp=disp, scratch=scratch)
         pos, vel, tet, act = fused_convex.unpack_state(m)
     else:
         m = fused.pack_state(mesh, state.pos, state.vel, state.tet_id, state.active)
@@ -151,11 +156,11 @@ def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
         for i in range(0, n_mac * k, k):
             fused.mega_macro(mesh, m, state.seed, state.step + i, cfg, dt,
                              noise=None if noise is None else noise[i : i + k],
-                             pending=pending)
+                             pending=pending, scratch=scratch)
         for i in range(n_mac * k, n_cycles):
             fused.mega_cycle(mesh, m, state.seed, state.step + i, cfg, dt,
                              noise=None if noise is None else noise[i],
-                             pending=pending)
+                             pending=pending, scratch=scratch)
         pos, vel, tet, act = fused.unpack_state(m)
     return dataclasses.replace(
         state, pos=pos.clone(), vel=vel.clone(),

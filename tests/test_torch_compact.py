@@ -301,3 +301,61 @@ def test_compacted_cycles_equal_uncompacted(dtype, case):
         for f in ("pos", "vel", "tet_id", "active"):
             assert torch.equal(getattr(got, f), getattr(want, f)), (frac, f)
     assert (want.tet_id != tet).float().mean() > 0.5
+
+
+# ---------------------------------------------------------------------------
+# 4. the admission rule at small and ragged lane counts, with a shared scratch
+# ---------------------------------------------------------------------------
+
+
+def _admit_reference(crossers, capb):
+    """The rule, lane by lane: groups of 4 in order, the first ``capb``
+    groups that hold a crosser admitted, their first two crossers valid."""
+    out = np.zeros(len(crossers), np.uint8)
+    taken = 0
+    for g in range(0, len(crossers), 4):
+        lanes = [l for l in range(g, min(g + 4, len(crossers))) if crossers[l]]
+        if lanes:
+            if taken < capb:
+                out[lanes[:2]] = 1
+            taken += 1
+    return out
+
+
+@pytest.mark.parametrize("capb", ["none", "some", "all"])
+@pytest.mark.parametrize("n", [1, 3, 15, 17, 4099])
+def test_hop_admit_small_and_ragged_lane_counts(n, capb):
+    """n = 1, 3, 15, 17 and 4,099 (no multiple of 4 or of 16), capacity 0,
+    a third of the groups, and more than the groups; no flag, every flag
+    and random flags; one scratch buffer, sized for the largest n, passed to
+    every call and left as it was."""
+    groups = -(-n // 4)
+    cap = {"none": 0, "some": groups // 3, "all": groups + 5}[capb]
+    scratch = fused_cuda.hop_admit_scratch(4099, CPU)
+    rng = np.random.default_rng(n)
+    for flags in (np.zeros(n, np.uint8), np.ones(n, np.uint8),
+                  (rng.uniform(size=n) < 0.4).astype(np.uint8)):
+        admit = torch.full((n,), 7, dtype=torch.uint8)
+        fused_cuda.hop_admit(torch.as_tensor(flags), admit, capb=cap, scratch=scratch)
+        np.testing.assert_array_equal(admit.numpy(), _admit_reference(flags, cap))
+    assert int(scratch.abs().sum()) == 0
+
+
+def test_hop_admit_scratch_size_and_refusals():
+    """The scratch holds 2 words and one per tile of 8192 lanes; a smaller
+    one, another type or another shape is refused before anything runs."""
+    assert fused_cuda.hop_admit_scratch(1, CPU).shape == (3,)
+    assert fused_cuda.hop_admit_scratch(8192, CPU).shape == (3,)
+    assert fused_cuda.hop_admit_scratch(8193, CPU).shape == (4,)
+    assert fused_cuda.hop_admit_scratch(1_000_000, CPU).shape == (125,)
+    assert fused_cuda.hop_admit_scratch(100, CPU).dtype == torch.int32
+    c = torch.ones(20_000, dtype=torch.uint8)
+    a = torch.empty_like(c)
+    fused_cuda.hop_admit(c, a, capb=10, scratch=fused_cuda.hop_admit_scratch(20_000, CPU))
+    assert int(a.sum()) == 20
+    with pytest.raises(ValueError, match="scratch"):
+        fused_cuda.hop_admit(c, a, capb=10, scratch=fused_cuda.hop_admit_scratch(8192, CPU))
+    with pytest.raises(TypeError):
+        fused_cuda.hop_admit(c, a, capb=10, scratch=torch.zeros(8, dtype=torch.int64))
+    with pytest.raises(ValueError, match="scratch"):
+        fused_cuda.hop_admit(c, a, capb=10, scratch=torch.zeros((2, 4), dtype=torch.int32))

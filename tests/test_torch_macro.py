@@ -202,3 +202,131 @@ def test_run_cycles_macro_launches_and_convex_ignores_it():
     for f in ("pos", "vel", "tet_id", "active"):
         assert torch.equal(getattr(c1, f), getattr(c4, f)), f
     assert mac.step == 12 and c4.step == 10
+
+
+def _lanes_at_phase(tm, m0, xi, phase, k, admit=None):
+    """macro_stream on a copy of ``m0`` with the given phase vector: (m,
+    phase, pending)."""
+    cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3, macro_cycles=k, escape_faces=True)
+    kw = dict(fused.stream_kwargs(cfg, cfg.dt, m0.dtype), k=k, bounce_on=True, esc_on=True)
+    m, ph = m0.clone(), phase.clone()
+    pend = torch.full_like(ph, 9)
+    fused_cuda.macro_stream(tm.tet_row, m, xi, ph, pend, admit=admit, **kw)
+    return m, ph, pend
+
+
+@pytest.mark.parametrize("n", [4096, 4099])
+@pytest.mark.parametrize("k", [2, 4])
+def test_macro_trip_with_whole_runs_of_lanes_finished(k, n):
+    """A trip on a phase vector with whole 256-lane runs finished, one run
+    holding a single working lane, and the ragged tail finished: lanes do
+    not depend on their neighbours, so each lane ends where it ends when
+    every lane is at its phase; finished lanes keep their row, are not
+    pending and keep phase k.  With and without admission flags."""
+    tm = tmesh.set_boundary_escape(convert.to_mesh(_payload(np.float32, seed=k), device=CPU), [1])
+    st = _state(tm, n, seed=30 + k)
+    m0 = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+    rng = np.random.default_rng(n + k)
+    xi = torch.as_tensor(rng.standard_normal((k, n, 3)), dtype=torch.float32)
+    phase = torch.as_tensor(rng.integers(0, k + 1, n).astype(np.uint8))
+    phase[256:1024] = k
+    phase[1280:1536] = k
+    phase[1280 + 7] = k - 1
+    phase[-300:] = k
+    admit = torch.as_tensor((rng.uniform(size=n) < 0.5).astype(np.uint8))
+    for adm in (None, admit):
+        m, ph, pend = _lanes_at_phase(tm, m0, xi, phase, k, adm)
+        done = phase == k
+        assert torch.equal(m[done], m0[done])
+        assert int(pend[done].sum()) == 0 and bool((ph[done] == k).all())
+        for p in range(k):
+            sel = phase == p
+            mu, phu, pendu = _lanes_at_phase(tm, m0, xi, torch.full_like(phase, p), k, adm)
+            assert torch.equal(m[sel], mu[sel]), p
+            assert torch.equal(ph[sel], phu[sel]) and torch.equal(pend[sel], pendu[sel]), p
+        assert bool((ph > phase)[~done].all())
+    assert int(pend.sum()) > 0
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_macro_trip_with_no_lane_working(k):
+    """Every lane at phase k: the whole pass and the flag pass leave the
+    state alone and write zero flags over whatever the buffers held."""
+    n = 4099
+    tm = convert.to_mesh(_payload(np.float32), device=CPU)
+    st = _state(tm, n, seed=3)
+    m0 = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+    xi = torch.zeros((k, n, 3))
+    phase = torch.full((n,), k, dtype=torch.uint8)
+    m, ph, pend = _lanes_at_phase(tm, m0, xi, phase, k)
+    assert torch.equal(m, m0) and torch.equal(ph, phase) and int(pend.sum()) == 0
+    cross = torch.full_like(phase, 9)
+    cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3)
+    fused_cuda.macro_crossers(tm.tet_row, m, xi, ph, cross, k=k,
+                              **fused.stream_kwargs(cfg, cfg.dt, m.dtype))
+    assert int(cross.sum()) == 0 and torch.equal(m, m0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("k", [2, 4])
+def test_macro_equals_per_cycle_steps_at_a_ragged_lane_count(k, dtype):
+    """4,099 lanes (no multiple of a block, of 16 or of 4): one macro cycle
+    against k per-cycle steps, bit for bit, under the Philox stream."""
+    tm = tmesh.set_boundary_escape(convert.to_mesh(_payload(dtype, seed=5), device=CPU), [1])
+    st = _state(tm, 4099, seed=40 + k)
+    cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3, macro_cycles=k, escape_faces=True,
+                         brownian_rng="rbg")
+    m0 = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+    ref = m0.clone()
+    for j in range(k):
+        fused.mega_cycle(tm, ref, st.seed, st.step + j, cfg, cfg.dt)
+    got = fused.mega_macro(tm, m0.clone(), st.seed, st.step, cfg, cfg.dt)
+    live = ref[:, 6] >= 0
+    assert torch.equal(got[:, :8], ref[:, :8]) and torch.equal(got[live], ref[live])
+    assert (ref[:, 6] != m0[:, 6]).float().mean() > 0.3
+
+
+HOIST_CASES = [dict(macro_cycles=4), dict(macro_cycles=3, hop_compact=4),
+               dict(hop_compact=4, hop_compact_frac=0.02),
+               dict(hop_compact=4, locate_mode="convex")]
+
+
+@pytest.mark.parametrize("case", range(len(HOIST_CASES)))
+def test_run_cycles_hoisted_scratch_equals_per_call_buffers(case):
+    """``run_cycles`` allocates the compacted stages' buffers once
+    (``fused.compact_scratch``) and hands them down; the cycles called one
+    by one without them allocate their own.  Same state, bit for bit, and a
+    scratch that is reused dirty from an earlier run changes nothing."""
+    kw = dict(dict(dt=0.3, diffusion_coeff=5e-3, brownian_rng="rbg"), **HOIST_CASES[case])
+    cfg = cpt.StepConfig(**kw)
+    tm = cpt.with_convex_rows(convert.to_mesh(_payload(np.float64, seed=6), device=CPU))
+    n, n_cycles = 1500, 7
+    st = _state(tm, n, seed=50 + case)
+    got = cpt.run_cycles(tm, st, cfg, n_cycles)
+    dirty = fused.compact_scratch(n, CPU)
+    for name in ("phase", "crossers", "admit"):
+        dirty[name].fill_(3)
+    if cfg.locate_mode == "convex":
+        from cudaparticlesfoam_tpu_torch.ops import fused_convex
+        tab = fused_convex.cx_table(tm)
+        for scratch in (None, dirty):
+            m = fused_convex.pack_state(tm, tab, st.pos, st.vel, st.tet_id, st.active)
+            for i in range(n_cycles):
+                fused_convex.mega_cycle(tm, tab, m, st.seed, st.step + i, cfg, cfg.dt,
+                                        scratch=scratch)
+            pos, vel, tet, act = fused_convex.unpack_state(m)
+            assert torch.equal(pos, got.pos) and torch.equal(tet, got.tet_id)
+            assert torch.equal(vel, got.vel) and torch.equal(act, got.active)
+        return
+    k = cfg.macro_cycles
+    for scratch in (None, dirty):
+        m = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+        n_mac = n_cycles // k if k > 1 else 0
+        for i in range(0, n_mac * k, k):
+            fused.mega_macro(tm, m, st.seed, st.step + i, cfg, cfg.dt, scratch=scratch)
+        for i in range(n_mac * k, n_cycles):
+            fused.mega_cycle(tm, m, st.seed, st.step + i, cfg, cfg.dt, scratch=scratch)
+        pos, vel, tet, act = fused.unpack_state(m)
+        assert torch.equal(pos, got.pos) and torch.equal(tet, got.tet_id)
+        assert torch.equal(vel, got.vel) and torch.equal(act, got.active)
+    assert (got.tet_id != st.tet_id).float().mean() > 0.3

@@ -134,3 +134,37 @@ def test_diagnostics_and_sub_cycling(box):
     np.testing.assert_allclose(float(d["kinetic_energy"]),
                                0.5 * float((fin.vel ** 2).sum()))
     assert cpt.n_cycles_for(0.1, 0.03) == jcpf.n_cycles_for(0.1, 0.03)
+
+
+def test_chip_smoke_rehearsal_runs_every_phase():
+    """``chip_smoke.py --rehearse`` drives every phase at small sizes on the
+    CPU through the plain versions: it must exit 2 (no device result), print
+    the table of the six kernels with every key the table carries, and no
+    ``ok`` line."""
+    import json
+    import subprocess
+    import sys
+
+    root = os.path.join(HERE, "..")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    res = subprocess.run([sys.executable, os.path.join(root, "chip_smoke.py"), "--rehearse"],
+                         cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 2, res.stderr[-2000:]
+    lines = res.stdout.strip().splitlines()
+    assert lines[-1].startswith("rehearsal done") and '"ok"' not in res.stdout
+    table = json.loads(lines[-2])
+    names = [k["name"] for k in table["kernels"]]
+    assert names == ["stream_kernel", "rare_kernel", "convex_stream_kernel",
+                     "convex_rare_kernel", "hop_admit_kernel", "macro_stream_kernel"]
+    for entry in table["kernels"]:
+        assert {"route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "bytes", "share", "copy_ms",
+                "launches_per_cycle"} <= set(entry), entry["name"]
+        assert entry["library_ms"] is None and entry["max_abs_err"] == 0.0
+        assert os.path.exists(os.path.join(root, entry["source"]))
+    floors = {k["name"] for k in table["kernels"] if "launch_floor_ms" in k}
+    assert floors == {"rare_kernel", "convex_rare_kernel", "hop_admit_kernel"}
+    for tag in ("[parity]", "[convex-parity]", "[noise]", "[admit]", "[compact]", "[macro]",
+                "[golden]", "[slice]", "[convex-slice]", "[macro-slice]", "[compact-slice]",
+                "[convex-compact-slice]", "[bound]"):
+        assert any(line.startswith(tag) for line in lines), tag

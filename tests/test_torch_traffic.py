@@ -43,15 +43,29 @@ CASES = [
                           hops=1, hopped=1), 10 + 512 + 80 + 10, 128 + 80 + 4 + 10),
     ("macro_stream", dict(elem=8, noise="philox", pass_="whole", working=10, substeps=25,
                           hops=3, hopped=3), 10 + 2560 + 480, 640 + 480 + 10 + 10),
-    # hop_admit: 3 groups of 4 lanes, one block total (int32)
-    ("hop_admit_count", dict(), 10, 4),
-    ("hop_admit_kernel", dict(), 10 + 4, 10),
-    ("hop_admit", dict(), 24, 14),
+    # the per-pass macro trips after the first (3 of 10 lanes working, 4 sub-steps between
+    # them): phase + 3 rows + 4 xi triples | every flag byte; the apply pass also reads every
+    # admission byte and 2 hop rows | 3 heads + 1 row + 3 phase bytes + every pending byte
+    ("macro_stream", dict(elem=4, noise="xi", pass_="crossers", working=3, substeps=4),
+     10 + 3 * 128 + 4 * 12, 10),
+    ("macro_stream", dict(elem=4, noise="xi", pass_="admitted", working=3, substeps=4, hops=2,
+                          hopped=1), 10 + 3 * 128 + 4 * 12 + 2 * 80 + 10, 3 * 32 + 80 + 3 + 10),
+    # hop_admit: flags in, flags out, and its scratch (2 words + 1 per tile of 8192 lanes)
+    ("hop_admit", dict(), 10 + 12, 10 + 12),
     # the rare kernels' floors
     ("rare", dict(elem=4, pending=2, moved=1), 10 + 2 * 108 + 80, 2 * 108),
     ("rare", dict(elem=8, pending=2, moved=1), 10 + 2 * 216 + 160, 2 * 216),
     ("convex_rare", dict(elem=4, pending=2), 10 + 2 * (28 + 12 + 96), 2 * (28 + 96)),
     ("convex_rare", dict(elem=8, pending=2), 10 + 2 * (56 + 24 + 192), 2 * (56 + 192)),
+    # later macro trips: no lane working (flags only), float64 with Philox, one lane working
+    ("macro_stream", dict(elem=4, noise="xi", pass_="crossers"), 10, 10),
+    ("macro_stream", dict(elem=4, noise="xi", pass_="admitted"), 10 + 10, 10),
+    ("macro_stream", dict(elem=8, noise="philox", pass_="crossers", working=3, substeps=4),
+     10 + 3 * 256, 10),
+    ("macro_stream", dict(elem=8, noise="philox", pass_="admitted", working=1, substeps=3,
+                          hops=1, hopped=1), 10 + 256 + 160 + 10, 64 + 160 + 1 + 10),
+    ("macro_stream", dict(elem=4, noise="none", pass_="whole", working=1, substeps=1),
+     10 + 128, 32 + 1 + 10),
 ]
 
 
@@ -66,9 +80,26 @@ def test_bytes_match_a_hand_count(kernel, kw, read, written):
 
 
 def test_slice_shape_admission_blocks():
-    # 1M lanes: 250,000 groups of 4, 977 blocks of 256 groups
+    # 1M lanes: 123 tiles of 8192 lanes, 125 scratch words read and left zeroed
     t = traffic.hop_admit(1_000_000)
-    assert (t.read, t.written) == (2 * 1_000_000 + 4 * 977, 1_000_000 + 4 * 977)
+    assert (t.read, t.written) == (1_000_000 + 4 * 125, 1_000_000 + 4 * 125)
+    assert t.ops == 250_000 * traffic.OPS["admit_group"]
+
+
+@pytest.mark.parametrize("bound, floor, ms, share", [
+    (0.0006, 0.002, 0.006, 0.002 / 0.006),      # a launch binds: hop_admit_kernel at 1M lanes
+    (0.0008, 0.002, 0.014, 0.002 / 0.014),      # a rare kernel
+    (0.0500, 0.002, 0.100, 0.5),                # bytes bind
+    (0.0, 0.0, 1.0, 0.0),
+])
+def test_share_of_floor_takes_the_larger_floor(bound, floor, ms, share):
+    assert traffic.share_of_floor(bound, floor, ms) == pytest.approx(share)
+
+
+def test_share_of_floor_refuses_bad_times():
+    for args in ((0.1, 0.1, 0.0), (-0.1, 0.1, 1.0), (0.1, -0.1, 1.0)):
+        with pytest.raises(ValueError):
+            traffic.share_of_floor(*args)
 
 
 def test_bound_is_the_larger_of_bytes_and_operations():
@@ -99,6 +130,8 @@ def test_operations_stay_far_below_bytes_at_the_slice():
     lambda: traffic.macro_stream(N, 4, "xi", working=2, substeps=17),
     lambda: traffic.macro_stream(N, 4, "xi", working=2, substeps=2, hops=3, hopped=3),
     lambda: traffic.rare(N, 4, pending=-1, moved=0),
+    lambda: traffic.hop_admit(-1),
+    lambda: traffic.macro_stream(N, 4, "xi", pass_="crossers", working=2, substeps=2, hops=1),
 ])
 def test_bad_arguments_raise(call):
     with pytest.raises(ValueError):
