@@ -77,6 +77,23 @@ Phases, one line of numbers each, any failure exits non-zero:
    with hop_compact=4, with the pending and overflow shares of one more
    cycle, the same checks, the compacted stream's time (flag pass +
    hop_admit + apply pass) against its plain version, and each pass alone.
+3f. (runs after 3e) the VertexVelocity (Pk) instantiations of stream_kernel
+   and rare_kernel against stream_plain and rare_plain under LAYOUT_PK: the
+   same box with its radial vertex field, float32 and float64, 65,536 and
+   65,499 lanes, inline_hops {1, 3} x escape faces {off, on} x noise {xi,
+   Philox}; tet/active/pending and the row cache identical, pos/vel within
+   1e-5 (float32) and 1e-12 (float64), and the count of Pk launches;
+5d. the slice under VertexVelocity: phase 5's mesh and seeds with the
+   vortex evaluated at the vertices and with_pk_rows; 10 warm-up + 3 x 200
+   timed cycles under threefry, launch counts of the Pk instantiations,
+   domain checks, peak memory, the hop and pending shares of one extra
+   cycle through kernel and plain, each Pk kernel's time against its plain
+   version (stream with xi and with Philox), and one 200-cycle run under
+   "rbg_kernel".  Then the simple engine (engine="simple", torch ops, no
+   kernel) on the card: 65,536 lanes, float64, VertexVelocity, 5 cycles on
+   an injected noise stream, equal to the cached engine (tet/active
+   identical, pos/vel within 1e-12); and on the card run_cycles on a mesh
+   without with_pk_rows raises instead of taking the simple engine.
 6. bounds: for each kernel and pass timed at the slice's shape, the bytes
    its call must move (ops/traffic.py, from this run's counts of lanes that
    work, hop, cross or stay pending), its bound at 3.35 TB/s, the share
@@ -244,15 +261,73 @@ def phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, e
         errs["rare"] = max(errs["rare"], err_r)
 
 
-def parity_lanes(torch, cpt, mesh, dev, nside, n, seed):
+def parity_lanes(torch, cpt, mesh, dev, nside, n, seed, dtype=None):
+    dtype = dtype or torch.float32
     rng = np.random.default_rng(seed)
-    pos = torch.as_tensor(rng.uniform(0.05, nside - 0.05, (n, 3)), dtype=torch.float32,
-                          device=dev)
+    pos = torch.as_tensor(rng.uniform(0.05, nside - 0.05, (n, 3)), dtype=dtype, device=dev)
     tet = cpt.locate_seeds(mesh, cpt.build_grid_locator(mesh), pos)
-    vel = torch.as_tensor(rng.normal(size=(n, 3)), dtype=torch.float32, device=dev)
+    vel = torch.as_tensor(rng.normal(size=(n, 3)), dtype=dtype, device=dev)
     act = torch.as_tensor(rng.uniform(size=n) > 0.02, device=dev)
-    xi = torch.as_tensor(rng.standard_normal((n, 3)), dtype=torch.float32, device=dev)
+    xi = torch.as_tensor(rng.standard_normal((n, 3)), dtype=dtype, device=dev)
     return pos, vel, tet, act, xi
+
+
+def phase_pk_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs):
+    """Phase 3f: the VertexVelocity (Pk) instantiations of stream_kernel and
+    rare_kernel against stream_plain and rare_plain under LAYOUT_PK."""
+    ly = fused.LAYOUT_PK
+    before = (fused_cuda.stream_cycle.launches, fused_cuda.rare_resolve.launches)
+    cases = 0
+    for dtype, tol in ((torch.float32, POS_TOL_F32), (torch.float64, POS_TOL_F64)):
+        npdt = np.float32 if dtype == torch.float32 else np.float64
+        # the box's own radial vertex field drives lanes into every wall
+        base = convert.to_mesh(box_payload(tmesh, nside, npdt, swirl(nside)), dev)
+        pos, vel, tet, act, xi = parity_lanes(torch, cpt, base, dev, nside, n, seed=8,
+                                              dtype=dtype)
+        for hops, esc in itertools.product((1, 3), (False, True)):
+            dt = 0.3 if hops == 1 else 0.9
+            mesh = cpt.with_pk_rows(tmesh.set_boundary_escape(base, [1] if esc else []))
+            tab = fused.row_table(mesh, ly)
+            cfg = cpt.StepConfig(dt=dt, diffusion_coeff=5e-3, inline_hops=hops,
+                                 escape_faces=esc, velocity_interp="VertexVelocity")
+            sa = stream_args(cfg, dt, dtype, fused)
+            for philox, nn in itertools.product((False, True), (n, n - RAGGED)):
+                m0 = fused.pack_state(mesh, pos[:nn], vel[:nn], tet[:nn], act[:nn], ly)
+                key = fused.philox_key(11, hops) if philox else None
+                xi_p = fused.philox_normals(key, nn, dtype, dev) if philox else xi[:nn]
+                mk, mp = m0.clone(), m0.clone()
+                pk = torch.empty(nn, dtype=torch.uint8, device=dev)
+                pp = torch.empty_like(pk)
+                fused_cuda.stream_cycle(tab, mk, None if philox else xi[:nn], pk,
+                                        noise_key=key, ly=ly, **sa)
+                fused.stream_plain(tab, mp, xi_p, pp, ly=ly, **sa)
+                same_s, err_s = compare(torch, mk, mp, pk, pp)
+                same_s = same_s and bool(torch.equal(mk[:, 8:], mp[:, 8:]))   # the row cache
+                rk, rp = mp.clone(), mp.clone()
+                fused_cuda.rare_resolve(tab, rk, pp, mesh.bd_escape, ly=ly, **rare_args(cfg))
+                fused.rare_plain(tab, rp, pp, mesh.bd_escape, ly=ly, **rare_args(cfg))
+                same_r, err_r = compare(torch, rk, rp)
+                same_r = same_r and bool(torch.equal(rk[:, 8:], rp[:, 8:]))
+                npend = int(pp.sum())
+                absorbed = int(((mp[:, 7] == 0) & (m0[:, 7] == 1)).sum())
+                cases += 1
+                tname = str(dtype).replace("torch.", "")
+                log(f"[pk-parity] {tname} lanes={nn} hops={hops} escape={int(esc)} "
+                    f"noise={'philox' if philox else 'xi'} pending={npend} absorbed={absorbed} "
+                    f"stream_identical={int(same_s)} stream_max_abs_err={err_s:.3e} "
+                    f"rare_identical={int(same_r)} rare_max_abs_err={err_r:.3e}")
+                case = f"{tname} lanes={nn} hops={hops} esc={esc} philox={philox}"
+                need(npend > 0, f"pk parity case has no pending lanes ({case})")
+                need(not esc or absorbed > 0, f"pk parity case absorbed no lane ({case})")
+                need(same_s and err_s <= tol, f"stream_kernel<pk> != stream_plain ({case})")
+                need(same_r and err_r <= tol, f"rare_kernel<pk> != rare_plain ({case})")
+                if dtype == torch.float32:
+                    errs["stream_pk"] = max(errs["stream_pk"], err_s)
+                    errs["rare_pk"] = max(errs["rare_pk"], err_r)
+    if dev.type == "cuda":
+        got = (fused_cuda.stream_cycle.launches - before[0],
+               fused_cuda.rare_resolve.launches - before[1])
+        need(got == (cases, cases), f"phase 3f launched the Pk kernels {got}, not {cases} each")
 
 
 def convex_stream_args(cfg, dt, dtype, fused):
@@ -712,6 +787,180 @@ def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_s
     need(bad_t == 0 and bool(torch.isfinite(st_t.pos).all()),
          "convex threefry slice left the domain")
     return launches, times, med
+
+
+def phase_pk_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, slice_setup, n_cycles,
+                   errs, counts, gpu_line):
+    """Phase 5d: the north-star slice under VertexVelocity: phase 5's mesh and
+    seeds, the vortex evaluated at the vertices, with_pk_rows."""
+    ly = fused.LAYOUT_PK
+    mesh, st, n_in, _ = slice_setup
+    n = st.n_particles
+    t0 = time.perf_counter()
+    pts, _, _ = tmesh.box_points_tets(nside, nside, nside)
+    mesh = cpt.with_pk_rows(cpt.replace_velocity(mesh, vert_vel=vortex(nside)(pts)))
+    t_rows = time.perf_counter() - t0
+    cfg = cpt.suggest_tuning(mesh, cpt.StepConfig(dt=0.05, diffusion_coeff=1e-3,
+                                                  velocity_interp="VertexVelocity"),
+                             n_particles=n)
+    tab = fused.row_table(mesh, ly)
+    log(f"[pk-slice] tets={mesh.n_tets} particles={n} inline_hops={cfg.inline_hops} "
+        f"inline_bounce={int(cfg.inline_bounce)} with_pk_rows_s={t_rows:.2f} "
+        f"table_bytes={tab.numel() * tab.element_size()} (tet_row_pk32, the mesh's one copy) "
+        f"mega_bytes={n * ly.width * tab.element_size()}")
+    st = cpt.run_cycles(mesh, st, cfg, 10)            # warm-up
+    timer = Timer(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for w in (fused_cuda.stream_cycle, fused_cuda.rare_resolve):
+        w.launches = 0
+    runs = []
+    for _ in range(3):
+        timer.start()
+        st = cpt.run_cycles(mesh, st, cfg, n_cycles)
+        runs.append(timer.stop())
+    launches = {"stream_pk": fused_cuda.stream_cycle.launches,
+                "rare_pk": fused_cuda.rare_resolve.launches}
+    ms_cycle = [r / n_cycles for r in runs]
+    med = float(np.median(ms_cycle))
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    log(f"[pk-slice] {gpu_line} | ms_per_cycle={['%.4f' % x for x in ms_cycle]} "
+        f"median={med:.4f} particle_steps_per_s={n / (med * 1e-3):.4e} "
+        f"max_memory_allocated={peak} launches={launches}")
+    if dev.type == "cuda":
+        need(launches == {"stream_pk": 3 * n_cycles, "rare_pk": 3 * n_cycles},
+             f"pk slice launch counts {launches} != {3 * n_cycles} per kernel")
+    domain_check(torch, cpt, mesh, st, n_in, "pk-slice")
+
+    # one extra cycle through kernel and plain on the same inputs
+    m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active, ly)
+    xi = fused._brownian_noise(st.seed, st.step, n, m0.dtype, dev)
+    nkey = fused.philox_key(st.seed, st.step)
+    sa = dict(stream_args(cfg, cfg.dt, m0.dtype, fused), ly=ly)
+    ra = dict(rare_args(cfg), ly=ly)
+    mk, mp = m0.clone(), m0.clone()
+    pk = torch.empty(n, dtype=torch.uint8, device=dev)
+    pp = torch.empty_like(pk)
+    fused_cuda.stream_cycle(tab, mk, xi, pk, **sa)
+    fused.stream_plain(tab, mp, xi, pp, **sa)
+    same_s, err_s = compare(torch, mk, mp, pk, pp)
+    m1, p1 = mp.clone(), pp.clone()
+    n_el = m0.element_size()
+    # rows loaded = lanes whose row changed (a floor when inline_hops > 1)
+    hk = rows_changed(torch, m0, mk, ly.tab_w)
+    counts["stream_pk"] = ("stream", dict(n=n, elem=n_el, noise="xi", hops=hk, hopped=hk,
+                                          layout="pk"))
+    mph = m0.clone()
+    fused_cuda.stream_cycle(tab, mph, None, torch.empty_like(pk), noise_key=nkey, **sa)
+    hph = rows_changed(torch, m0, mph, ly.tab_w)
+    counts["stream_pk_philox"] = ("stream", dict(n=n, elem=n_el, noise="philox", hops=hph,
+                                                 hopped=hph, layout="pk"))
+    fused_cuda.rare_resolve(tab, mk, pk, mesh.bd_escape, **ra)
+    counts["rare_pk"] = ("rare", dict(n=n, elem=n_el, pending=int(p1.sum()),
+                                      moved=moved(torch, m1, mk), layout="pk"))
+    fused.rare_plain(tab, mp, pp, mesh.bd_escape, **ra)
+    same, err = compare(torch, mk, mp)
+    log(f"[pk-slice] extra cycle kernel vs plain: hopped={hk} hop_share={hk / n:.4%} "
+        f"pending={int(p1.sum())} pending_share={int(p1.sum()) / n:.4%} "
+        f"stream_identical={int(same_s)} stream_max_abs_err={err_s:.3e} "
+        f"cycle_identical={int(same)} cycle_max_abs_err={err:.3e}")
+    need(same_s and same and max(err, err_s) <= POS_TOL_F32, "pk extra cycle kernel != plain")
+    errs["stream_pk"] = max(errs["stream_pk"], err_s)
+    errs["rare_pk"] = max(errs["rare_pk"], err)
+
+    work, pend = m0.clone(), pk.clone()
+
+    def restore_stream():
+        work.copy_(m0)
+
+    def restore_rare():
+        work.copy_(m1)
+        pend.copy_(p1)
+
+    times = {}
+    for key, fn, plain, restore in (
+        ("stream_pk", lambda: fused_cuda.stream_cycle(tab, work, xi, pend, **sa),
+         lambda: fused.stream_plain(tab, work, xi, pend, **sa), restore_stream),
+        ("stream_pk_philox",
+         lambda: fused_cuda.stream_cycle(tab, work, None, pend, noise_key=nkey, **sa),
+         lambda: fused.stream_plain(tab, work, fused.philox_normals(nkey, n, work.dtype, dev),
+                                    pend, **sa), restore_stream),
+        ("rare_pk", lambda: fused_cuda.rare_resolve(tab, work, pend, mesh.bd_escape, **ra),
+         lambda: fused.rare_plain(tab, work, pend, mesh.bd_escape, **ra), restore_rare),
+    ):
+        k_ms, p_ms, (p_a, k_a, k_b, p_b) = kernel_vs_plain_ms(timer, fn, plain, restore)
+        times[key] = (k_ms, p_ms)
+        log(f"[pk-slice] {gpu_line} | {key}_kernel_ms={k_ms:.4f} ({k_a:.4f}, {k_b:.4f}) "
+            f"{key}_plain_ms={p_ms:.4f} ({p_a:.4f}, {p_b:.4f}) lanes={n}")
+
+    # the same slice with the noise drawn inside the stream kernel
+    rcfg = dataclasses.replace(cfg, brownian_rng="rbg_kernel")
+    st_r = cpt.run_cycles(mesh, st, rcfg, 10)         # warm-up
+    timer.start()
+    st_r = cpt.run_cycles(mesh, st_r, rcfg, n_cycles)
+    ms_r = timer.stop() / n_cycles
+    bad_r = int((st_r.active & (st_r.tet_id < 0)).sum())
+    log(f"[pk-slice] {gpu_line} | brownian_rng=rbg_kernel ms_per_cycle={ms_r:.4f} "
+        f"particle_steps_per_s={n / (ms_r * 1e-3):.4e} (threefry median {med:.4f}) "
+        f"active_with_negative_tet={bad_r}")
+    need(bad_r == 0 and bool(torch.isfinite(st_r.pos).all()),
+         "pk rbg_kernel slice left the domain")
+    return launches, times
+
+
+def phase_simple(torch, cpt, fused_cuda, tmesh, convert, dev, nside, n, n_cycles, gpu_line):
+    """The simple engine (engine="simple": torch ops on the tensors' device,
+    no kernel) against the cached engine on one injected noise stream,
+    float64, VertexVelocity, every wall reflecting (the JAX package's gate
+    of the two engines; with absorbing faces they differ by design in when
+    an absorbed lane's active flag drops)."""
+    payload = box_payload(tmesh, nside, np.float64, swirl(nside))
+    mesh = cpt.with_pk_rows(convert.to_mesh(payload, dev))
+    pos, vel, tet, act, _ = parity_lanes(torch, cpt, mesh, dev, nside, n, seed=9,
+                                         dtype=torch.float64)
+    st = dataclasses.replace(convert.to_state(pos.cpu().numpy(), tet.cpu().numpy(),
+                                              dtype=np.float64, device=dev), vel=vel, active=act)
+    rng = np.random.default_rng(10)
+    noise = torch.as_tensor(rng.standard_normal((n_cycles, n, 3)), dtype=torch.float64,
+                            device=dev)
+    cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3, inline_hops=2,
+                         velocity_interp="VertexVelocity")
+    timer = Timer(torch, dev)
+    before = (fused_cuda.stream_cycle.launches, fused_cuda.rare_resolve.launches)
+    timer.start()
+    cached = cpt.run_cycles(mesh, st, cfg, n_cycles, noise=noise)
+    ms_c = timer.stop() / n_cycles
+    ran = (fused_cuda.stream_cycle.launches - before[0],
+           fused_cuda.rare_resolve.launches - before[1])
+    timer.start()
+    simple = cpt.run_cycles(mesh, st, dataclasses.replace(cfg, engine="simple"), n_cycles,
+                            noise=noise)
+    ms_s = timer.stop() / n_cycles
+    ran_s = (fused_cuda.stream_cycle.launches - before[0] - ran[0],
+             fused_cuda.rare_resolve.launches - before[1] - ran[1])
+    same = bool(torch.equal(cached.tet_id, simple.tet_id)
+                and torch.equal(cached.active, simple.active))
+    err = max(float((cached.pos - simple.pos).abs().max()),
+              float((cached.vel - simple.vel).abs().max()))
+    bounced = int((simple.tet_id != tet).sum())
+    log(f"[simple] {gpu_line} | float64 VertexVelocity lanes={n} cycles={n_cycles} "
+        f"lanes_in_a_new_tet={bounced} cached_equals_simple={int(same)} "
+        f"max_abs_err={err:.3e} "
+        f"simple_ms_per_cycle={ms_s:.3f} cached_ms_per_cycle={ms_c:.3f} (the first cycles "
+        f"of each, warm-up included) cached_launches={ran} simple_launches={ran_s}")
+    need(same and err <= POS_TOL_F64, "cached engine != simple engine")
+    need(bounced > 0 and simple.device == dev, "the simple engine moved no lane")
+    if dev.type == "cuda":
+        need(ran == (n_cycles, n_cycles) and ran_s == (0, 0),
+             f"engines launched {ran} and {ran_s} Pk kernels")
+        # without its table the cached engine raises on the card: no silent simple engine
+        try:
+            cpt.run_cycles(convert.to_mesh(payload, dev), st, cfg, 1)
+        except ValueError as e:
+            need("with_pk_rows" in str(e), f"unexpected error without Pk rows: {e}")
+        else:
+            need(False, "run_cycles ran VertexVelocity on the card without with_pk_rows")
 
 
 def flag_err(torch, a, b):
@@ -1369,7 +1618,8 @@ def copy_ms(torch, dev, timer, nbytes, reps=20):
     return time_calls(timer, lambda: dst.copy_(src), lambda: None, reps)
 
 
-SMALL = ("hop_admit", "rare", "convex_rare")   # bound by a launch's latency, not by bytes
+# bound by a launch's latency, not by bytes
+SMALL = ("hop_admit", "rare", "convex_rare", "rare_pk")
 
 
 def phase_bounds(torch, traffic, fused_cuda, dev, counts, times, per_cycle, gpu_line):
@@ -1423,6 +1673,8 @@ def ptxas_lines(report):
                     args.append("philox")
                 if len(flags) > 1 and flags[1] != "0":
                     args.append(("", "crossers", "admitted")[int(flags[1])])
+                if "8LayoutPk" in targs.split("EE", 1)[0]:
+                    args.append("pk")
                 name = f"{base}<{', '.join(args)}>"
         elif name and "bytes stack frame" in line:
             stack = line.split("bytes stack frame")[0].split()[-1]
@@ -1454,7 +1706,7 @@ def main():
 
     if args.rehearse:
         dev = torch.device("cpu")
-        sizes = dict(parity=(6, 3072), stats=20_000, slice=(12, 8_000, 8),
+        sizes = dict(parity=(6, 3072), stats=20_000, slice=(12, 8_000, 8), simple=3,
                      admit=(1, 3, 4, 15, 16, 17, 8155, 8192, 20_000))
         gpu_line = "cpu rehearsal"
         kind = "cpu"
@@ -1463,7 +1715,7 @@ def main():
             print("FAIL: torch.cuda.is_available() is False", file=sys.stderr)
             return 1
         dev = torch.device("cuda", 0)
-        sizes = dict(parity=(16, 65_536), stats=1_000_000, slice=(55, 1_000_000, 200),
+        sizes = dict(parity=(16, 65_536), stats=1_000_000, slice=(55, 1_000_000, 200), simple=5,
                      admit=(1, 3, 4, 15, 16, 17, 65_499, 65_536, 1_000_000, 4_000_001))
         kind = torch.cuda.get_device_name(0)
         gpu_line = subprocess.run(
@@ -1481,7 +1733,7 @@ def main():
             log(f"[build] {line}")
 
     errs = {"stream": 0.0, "rare": 0.0, "convex_stream": 0.0, "convex_rare": 0.0, "macro": 0.0,
-            "hop_admit": 0.0}
+            "hop_admit": 0.0, "stream_pk": 0.0, "rare_pk": 0.0}
     counts = {}
     nside, n = sizes["parity"]
     phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
@@ -1493,6 +1745,7 @@ def main():
     phase_compact(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev, nside, n,
                   errs)
     phase_macro(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
+    phase_pk_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
     phase_golden(torch, cpt, convert, fused_cuda, dev)
     launches, times, med, slice_setup = phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev,
                                                     *sizes["slice"], errs, counts, gpu_line)
@@ -1509,6 +1762,12 @@ def main():
         times.update(phase_compact_slice(torch, cpt, fused, fused_convex, fused_cuda, dev,
                                          slice_setup, sizes["slice"][2], convex, errs, counts,
                                          gpu_line))
+    pk_launches, pk_times = phase_pk_slice(torch, cpt, fused, fused_cuda, tmesh, dev,
+                                           sizes["slice"][0], slice_setup, sizes["slice"][2],
+                                           errs, counts, gpu_line)
+    times.update(pk_times)
+    phase_simple(torch, cpt, fused_cuda, tmesh, convert, dev, nside, n, sizes["simple"],
+                 gpu_line)
 
     # launches per sub-step of each kernel on its own path (3 timed runs)
     steps = 3 * sizes["slice"][2]
@@ -1517,9 +1776,10 @@ def main():
         "convex_stream": launches["convex_stream"] / steps,
         "convex_rare": launches["convex_rare"] / steps,
         "macro": (m_launches["macro_stream"] + m_launches["macro_crossers"]) / steps,
-        "hop_admit": m_launches["hop_admit"] / steps}
+        "hop_admit": m_launches["hop_admit"] / steps,
+        "stream_pk": pk_launches["stream_pk"] / steps, "rare_pk": pk_launches["rare_pk"] / steps}
     for a, b in (("stream_philox", "stream"), ("convex_stream_xi", "convex_stream"),
-                 ("macro_philox", "macro")):
+                 ("macro_philox", "macro"), ("stream_pk_philox", "stream_pk")):
         per_cycle[a] = per_cycle[b]
     # each pass of a compacted cycle runs once per cycle on its path, each
     # pass of a compacted macro trip once per macro cycle
@@ -1550,6 +1810,12 @@ def main():
               m_launches["hop_admit"], errs["hop_admit"]),
         entry("macro_stream_kernel", "macro", "macro.cu", "fused_pallas.py:1536",
               m_launches["macro_stream"], errs["macro"]),
+        # the VertexVelocity instantiations (the TPU kernels under ly=LAYOUT_PK)
+        entry("stream_kernel<pk>", "stream_pk", "stream.cu", "fused_pallas.py:259",
+              pk_launches["stream_pk"], errs["stream_pk"],
+              philox_ms=times["stream_pk_philox"][0]),
+        entry("rare_kernel<pk>", "rare_pk", "rare.cu", "fused.py:836", pk_launches["rare_pk"],
+              errs["rare_pk"]),
     ]}
     log(gpu_line)
     log(json.dumps(table))

@@ -1,12 +1,18 @@
 """cudaparticlesfoam_tpu_torch — the PyTorch/CUDA port of cudaparticlesfoam_tpu.
 
 Lagrangian passive-particle tracking on a tetrahedral mesh (Euler
-advection through a frozen TetVelocity field, Brownian kicks, barycentric
-tet walk, specular wall reflection), with the per-cycle hot loop in two
-hand-written CUDA kernels for the H100 (``ops/fused_cuda.py``,
-``csrc/``), for the barycentric locator and for the ConvexPoly one
-(``locate_mode="convex"`` on a mesh with ``with_convex_rows``).  On CPU tensors the same calls run the kernels' plain PyTorch
-versions.  This package imports torch and never jax.
+advection through a frozen TetVelocity or VertexVelocity field, Brownian
+kicks, barycentric tet walk, specular wall reflection), with the per-cycle
+hot loop in two hand-written CUDA kernels for the H100
+(``ops/fused_cuda.py``, ``csrc/``), for the barycentric locator (under
+TetVelocity, and under VertexVelocity on a mesh with ``with_pk_rows``) and
+for the ConvexPoly one (``locate_mode="convex"`` on a mesh with
+``with_convex_rows``).  On CPU tensors the same calls run the kernels'
+plain PyTorch versions.  The simple engine (``engine="simple"``,
+``stepper.cycle``: torch ops, also RK4 and ConstantVelocity) is their
+oracle; where a mesh lacks the cached engine's tables, ``run_cycles``
+takes it on CPU tensors and raises on the card.
+This package imports torch and never jax.
 """
 
 from .mesh import (
@@ -16,9 +22,18 @@ from .mesh import (
     replace_velocity,
     set_boundary_escape,
     with_convex_rows,
+    with_pk_rows,
 )
 from .state import ParticleState, make_state, seed_from_file, seed_in_box
-from .stepper import StepConfig, diagnostics, n_cycles_for, run_cycles, suggest_tuning
+from .stepper import (
+    StepConfig,
+    cycle,
+    diagnostics,
+    n_cycles_for,
+    run_cycles,
+    step_once,
+    suggest_tuning,
+)
 from .ops.locate import (
     GridLocator,
     build_grid_locator,
@@ -38,12 +53,15 @@ __all__ = [
     "replace_velocity",
     "set_boundary_escape",
     "with_convex_rows",
+    "with_pk_rows",
     "ParticleState",
     "make_state",
     "seed_in_box",
     "seed_from_file",
     "StepConfig",
     "run_cycles",
+    "cycle",
+    "step_once",
     "n_cycles_for",
     "diagnostics",
     "suggest_tuning",

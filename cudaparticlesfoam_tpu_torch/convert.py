@@ -13,17 +13,17 @@ import dataclasses
 import numpy as np
 import torch
 
-from .mesh import ARRAY_FIELDS, CONVEX_FIELDS, META_FIELDS, TetMesh, host_to_device
+from .mesh import ARRAY_FIELDS, META_FIELDS, OPTIONAL_FIELDS, TetMesh, host_to_device
 from .state import ParticleState, make_state
 
 
 def mesh_payload(mesh_like) -> dict:
     """numpy payload of any object with the mesh fields as attributes (a
-    JAX ``TetMesh``, or the port's own), with the convex row tables where
-    the object carries them; the JAX package's ``host_to_device`` takes
-    the same dict."""
+    JAX ``TetMesh``, or the port's own), with the convex and
+    VertexVelocity row tables where the object carries them; the JAX
+    package's ``host_to_device`` takes the same dict."""
     out = {k: np.asarray(getattr(mesh_like, k)) for k in ARRAY_FIELDS}
-    for k in CONVEX_FIELDS:
+    for k in OPTIONAL_FIELDS:
         if getattr(mesh_like, k, None) is not None:
             out[k] = np.asarray(getattr(mesh_like, k))
     out.update({k: int(getattr(mesh_like, k)) for k in META_FIELDS})

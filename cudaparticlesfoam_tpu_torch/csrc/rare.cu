@@ -1,4 +1,8 @@
-// rare_kernel<T>: the rare stage of one particle sub-step (K7).
+// rare_kernel<T, L>: the rare stage of one particle sub-step (K7), for the
+// layout L (common.cuh: LayoutTet, or LayoutPk for VertexVelocity, the XLA
+// rare stage under ly=LAYOUT_PK: the same walk and reflection over the Pk
+// table's rows, which keep A | Tinv at 0:12 and carry their neighbour codes
+// at 24:28).
 //
 // Replaces the XLA rare stage of cudaparticlesfoam_tpu/ops/fused.py:
 // _rare_stage / _rare_stage_packed (836, 921) with the lane resolver
@@ -32,7 +36,7 @@ namespace cpf {
 // _walk_mega for one lane: returns the hosting tet, -(lastTet+1) on a domain
 // exit, or the last tet when out of hops; `row` ends as the row of the last
 // non-negative tet, `slot` as the last crossed face.
-template <typename T>
+template <typename T, typename L>
 __device__ void walk(const T* __restrict__ tab, T* row, int* tet, int* slot,
                      T px, T py, T pz, int max_hops) {
   *slot = 0;
@@ -43,19 +47,19 @@ __device__ void walk(const T* __restrict__ tab, T* row, int* tet, int* slot,
     bary(row, px, py, pz, w);
     const int s = argmin4(w, &wmin);
     if (wmin >= T(0)) return;
-    const int code = code_of(row, s);
+    const int code = code_of<T, L>(row, s);
     *slot = s;
     if (code < 0) {
       *tet = -(*tet + 1);
       return;
     }
     *tet = code;
-    load_row(tab + static_cast<long long>(code) * ROW_W, row);
+    load_row<T, L>(tab + static_cast<long long>(code) * L::ROW_W, row);
   }
 }
 
 // _reflect_mega for one lane that the walk left at `*tet` (< 0 = wall hit).
-template <typename T>
+template <typename T, typename L>
 __device__ void reflect(const T* __restrict__ tab, T* row, T* p, T* v,
                         int* tet, int slot, const uint8_t* __restrict__ bd_escape,
                         int nbd, int max_bounces) {
@@ -63,7 +67,7 @@ __device__ void reflect(const T* __restrict__ tab, T* row, T* p, T* v,
   *tet = -(*tet + 1);  // the exit tet, whose row is cached
   int s = slot;
   for (int b = 0; b < max_bounces; ++b) {
-    const int code_nbr = code_of(row, s);
+    const int code_nbr = code_of<T, L>(row, s);
     if (code_nbr < 0 && nbd > 0) {
       int bd = -code_nbr - 1;
       bd = bd < nbd - 1 ? bd : nbd - 1;
@@ -89,7 +93,7 @@ __device__ void reflect(const T* __restrict__ tab, T* row, T* p, T* v,
     v[2] = v[2] - fu * gz;
     // re-walk the mirrored point from the exit tet
     int wtet = *tet, wslot;
-    walk(tab, row, &wtet, &wslot, p[0], p[1], p[2], MAX_HOPS_DEFAULT);
+    walk<T, L>(tab, row, &wtet, &wslot, p[0], p[1], p[2], MAX_HOPS_DEFAULT);
     if (wtet >= 0) {
       *tet = wtet;
       return;
@@ -99,7 +103,7 @@ __device__ void reflect(const T* __restrict__ tab, T* row, T* p, T* v,
   }
 }
 
-template <typename T>
+template <typename T, typename L>
 __global__ void __launch_bounds__(THREADS)
 rare_kernel(const T* __restrict__ tab, T* __restrict__ m,
             const uint8_t* __restrict__ pend,
@@ -107,15 +111,15 @@ rare_kernel(const T* __restrict__ tab, T* __restrict__ m,
             int max_hops, int max_bounces, int reflect_wall) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n || !pend[i]) return;
-  T* me = m + i * WIDTH;
+  T* me = m + i * L::WIDTH;
   T p[3] = {me[P0], me[P0 + 1], me[P0 + 2]};
   T v[3] = {me[V0], me[V0 + 1], me[V0 + 2]};
   int tet = static_cast<int>(me[TET]);
-  T row[ROW_W];
-  load_row(me + ROW, row);
+  T row[L::ROW_W];
+  load_row<T, L>(me + ROW, row);
   int slot;
-  walk(tab, row, &tet, &slot, p[0], p[1], p[2], max_hops);
-  if (reflect_wall) reflect(tab, row, p, v, &tet, slot, bd_escape, nbd, max_bounces);
+  walk<T, L>(tab, row, &tet, &slot, p[0], p[1], p[2], max_hops);
+  if (reflect_wall) reflect<T, L>(tab, row, p, v, &tet, slot, bd_escape, nbd, max_bounces);
   me[P0] = p[0];
   me[P0 + 1] = p[1];
   me[P0 + 2] = p[2];
@@ -124,16 +128,16 @@ rare_kernel(const T* __restrict__ tab, T* __restrict__ m,
   me[V0 + 2] = v[2];
   me[TET] = static_cast<T>(tet);
 #pragma unroll
-  for (int k = 0; k < ROW_W; ++k) me[ROW + k] = row[k];
+  for (int k = 0; k < L::ROW_W; ++k) me[ROW + k] = row[k];
 }
 
-template <typename T>
+template <typename T, typename L = LayoutTet>
 int launch_rare(const void* tab, void* m, const void* pend,
                 const void* bd_escape, long long n, int nbd, int max_hops,
                 int max_bounces, int reflect_wall, void* stream) {
   if (n <= 0) return 0;
   const long long blocks = (n + THREADS - 1) / THREADS;
-  rare_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0,
+  rare_kernel<T, L><<<static_cast<unsigned>(blocks), THREADS, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(tab), static_cast<T*>(m),
       static_cast<const uint8_t*>(pend), static_cast<const uint8_t*>(bd_escape),
@@ -157,4 +161,21 @@ extern "C" int cpf_rare_f64(const void* tab, void* m, const void* pend,
                             void* stream) {
   return cpf::launch_rare<double>(tab, m, pend, bd_escape, n, nbd, max_hops,
                                   max_bounces, reflect_wall, stream);
+}
+
+// The VertexVelocity instantiations: tab [nt, 32] (padded), m [n, 40].
+extern "C" int cpf_rare_pk_f32(const void* tab, void* m, const void* pend,
+                               const void* bd_escape, long long n, int nbd,
+                               int max_hops, int max_bounces, int reflect_wall,
+                               void* stream) {
+  return cpf::launch_rare<float, cpf::LayoutPk>(tab, m, pend, bd_escape, n, nbd, max_hops,
+                                                max_bounces, reflect_wall, stream);
+}
+
+extern "C" int cpf_rare_pk_f64(const void* tab, void* m, const void* pend,
+                               const void* bd_escape, long long n, int nbd,
+                               int max_hops, int max_bounces, int reflect_wall,
+                               void* stream) {
+  return cpf::launch_rare<double, cpf::LayoutPk>(tab, m, pend, bd_escape, n, nbd, max_hops,
+                                                 max_bounces, reflect_wall, stream);
 }

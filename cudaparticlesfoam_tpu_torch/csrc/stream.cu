@@ -1,5 +1,5 @@
-// stream_kernel<T, kPhilox, kPass>: the stream section of one particle sub-step
-// (K1 + K2, and the compacted stage of K3).
+// stream_kernel<T, kPhilox, kPass, L>: the stream section of one particle
+// sub-step (K1 + K2, and the compacted stage of K3), for the layout L.
 //
 // Replaces the TPU stream kernels of cudaparticlesfoam_tpu/ops/fused_pallas.py:
 // kernel A (_kernel_a / _kernel_a_packed: advect, kick, move, hop-0 test,
@@ -49,18 +49,31 @@
 // lines 128 B apart, the row in local memory) took 0.60 ms on an H100.
 // Later work: the random row load per hop (row table 80 MB at 1M tets,
 // above the 50 MB L2), and fusing the rare stage in.
+//
+// L = LayoutPk (VertexVelocity; common.cuh) is the ly=LAYOUT_PK
+// instantiation of the same TPU kernels (fused_pallas._a_compute :259-268,
+// _b_core under ly): the advecting velocity is the barycentric blend of the
+// cached row's 4 vertex velocities at the lane's current position, taken
+// before the move, and the hops, the bounce and the absorb read the Pk
+// row's columns.  Only the whole pass exists for it (the JAX package keeps
+// the compacted hop gather to TetVelocity).  Bytes per lane: the 160 B mega
+// row (float32), xi, the head and the flag, and a 128 B padded table row per
+// hop, read and written back.  Its rows are 10 chunks wide, so its tile is
+// pitched instead of xor-swizzled and holds 160 lanes of float or 96 of
+// double (tile.cuh); the rest of the design is the one above.
 #include "stream.cuh"
 
 namespace cpf {
 
-template <typename T, bool kPhilox, int kPass>
-__global__ void __launch_bounds__(Tile<T>::LANES)
+template <typename T, bool kPhilox, int kPass, typename L = LayoutTet>
+__global__ void __launch_bounds__(Tile<T, L>::LANES)
 stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
               const T* __restrict__ xi, uint8_t* __restrict__ pend,
               uint8_t* __restrict__ adm, long long n, T dt, T sigma, int use_adv,
               int use_brown, int bounce_on, int esc_on, int n_hops, PhiloxKey key) {
-  using TL = Tile<T>;
-  __shared__ typename TL::V tile[TL::LANES * TL::CH];
+  using TL = Tile<T, L>;
+  constexpr int WIDTH = L::WIDTH, ROW_W = L::ROW_W;
+  __shared__ typename TL::V tile[TL::LANES * TL::PITCH];
   const long long base = static_cast<long long>(blockIdx.x) * TL::LANES;
   const int rows = static_cast<int>(n - base < TL::LANES ? n - base : TL::LANES);
   T* blk = m + base * WIDTH;
@@ -78,7 +91,9 @@ stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
     const bool act = hd[ACT] > T(0.5);
     const bool alive = use_adv ? (act && tet >= 0) : act;
     const T alf = alive ? T(1) : T(0);
-    const T ux = row[VEL], uy = row[VEL + 1], uz = row[VEL + 2];
+    T u[3];
+    row_velocity<T, L>(row, hd[P0], hd[P0 + 1], hd[P0 + 2], u);
+    const T ux = u[0], uy = u[1], uz = u[2];
     T dx, dy, dz, vx, vy, vz;
     if (use_adv) {
       dx = alf * ux * dt;
@@ -113,12 +128,12 @@ stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
     const int s_cur = argmin4(w, &wmin);
     const bool unresolved = (wmin < T(0)) && (tet >= 0);
     if constexpr (kPass == kCrossers) {
-      adm[i] = (unresolved && code_of(row, s_cur) >= 0) ? 1 : 0;
+      adm[i] = (unresolved && code_of<T, L>(row, s_cur) >= 0) ? 1 : 0;
     } else {
       const bool admitted = kPass != kAdmitted || adm[i] != 0;
       LaneHead<T> head;
-      pend[i] = resolve(tab, row, w, s_cur, unresolved, tet, admitted, px, py, pz, vx, vy, vz,
-                        actf, n_hops, bounce_on, esc_on, &head) ? 1 : 0;
+      pend[i] = resolve<T, L>(tab, row, w, s_cur, unresolved, tet, admitted, px, py, pz, vx,
+                              vy, vz, actf, n_hops, bounce_on, esc_on, &head) ? 1 : 0;
       TL::template write<0, ROW>(tile, r, head.v);
       if (head.hopped) store_row_vec<T, ROW_W>(m + i * WIDTH + ROW, row);
     }
@@ -129,29 +144,35 @@ stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
 template <typename T, bool kPhilox>
 using StreamFn = decltype(&stream_kernel<T, kPhilox, kWhole>);
 
-// The instantiation of a (noise, pass) pair; nullptr for an unknown pass.
-template <typename T, bool kPhilox>
+// The instantiation of a (noise, pass) pair; nullptr for an unknown pass, and
+// under LayoutPk for any pass but the whole one.
+template <typename T, bool kPhilox, typename L>
 StreamFn<T, kPhilox> stream_instance(int pass) {
-  switch (pass) {
-    case kWhole: return stream_kernel<T, kPhilox, kWhole>;
-    case kCrossers: return stream_kernel<T, kPhilox, kCrossers>;
-    case kAdmitted: return stream_kernel<T, kPhilox, kAdmitted>;
-    default: return nullptr;
+  if constexpr (L::VERTEX) {
+    return pass == kWhole ? stream_kernel<T, kPhilox, kWhole, L> : nullptr;
+  } else {
+    switch (pass) {
+      case kWhole: return stream_kernel<T, kPhilox, kWhole>;
+      case kCrossers: return stream_kernel<T, kPhilox, kCrossers>;
+      case kAdmitted: return stream_kernel<T, kPhilox, kAdmitted>;
+      default: return nullptr;
+    }
   }
 }
 
-template <typename T>
+template <typename T, typename L = LayoutTet>
 int launch_stream(const void* tab, void* m, const void* xi, void* pend, void* adm,
                   long long n, T dt, T sigma, int use_adv, int use_brown,
                   int bounce_on, int esc_on, int n_hops, int noise_mode, int pass,
                   PhiloxKey key, void* stream) {
   if (n <= 0) return 0;
-  constexpr int lanes = Tile<T>::LANES;
+  constexpr int lanes = Tile<T, L>::LANES;
   const unsigned blocks = static_cast<unsigned>((n + lanes - 1) / lanes);
   // the noise source and the pass are template arguments, so the xi
   // instantiation of the whole cycle is the kernel without any Philox or
   // compaction code
-  auto kernel = noise_mode == 1 ? stream_instance<T, true>(pass) : stream_instance<T, false>(pass);
+  auto kernel = noise_mode == 1 ? stream_instance<T, true, L>(pass)
+                                : stream_instance<T, false, L>(pass);
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<blocks, lanes, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(tab), static_cast<T*>(m), static_cast<const T*>(xi),
@@ -180,6 +201,28 @@ extern "C" int cpf_stream_f64(const void* tab, void* m, const void* xi,
   return cpf::launch_stream<double>(tab, m, xi, pend, adm, n, dt, sigma, use_adv,
                                     use_brown, bounce_on, esc_on, n_hops, noise_mode, pass,
                                     cpf::PhiloxKey{k0, k1, k2, k3}, stream);
+}
+
+// The VertexVelocity instantiations: tab [nt, 32] (padded), m [n, 40]; the
+// whole pass only.
+extern "C" int cpf_stream_pk_f32(const void* tab, void* m, const void* xi,
+                                 void* pend, void* adm, long long n, float dt, float sigma,
+                                 int use_adv, int use_brown, int bounce_on,
+                                 int esc_on, int n_hops, int noise_mode, int pass, uint32_t k0,
+                                 uint32_t k1, uint32_t k2, uint32_t k3, void* stream) {
+  return cpf::launch_stream<float, cpf::LayoutPk>(
+      tab, m, xi, pend, adm, n, dt, sigma, use_adv, use_brown, bounce_on, esc_on, n_hops,
+      noise_mode, pass, cpf::PhiloxKey{k0, k1, k2, k3}, stream);
+}
+
+extern "C" int cpf_stream_pk_f64(const void* tab, void* m, const void* xi,
+                                 void* pend, void* adm, long long n, double dt, double sigma,
+                                 int use_adv, int use_brown, int bounce_on,
+                                 int esc_on, int n_hops, int noise_mode, int pass, uint32_t k0,
+                                 uint32_t k1, uint32_t k2, uint32_t k3, void* stream) {
+  return cpf::launch_stream<double, cpf::LayoutPk>(
+      tab, m, xi, pend, adm, n, dt, sigma, use_adv, use_brown, bounce_on, esc_on, n_hops,
+      noise_mode, pass, cpf::PhiloxKey{k0, k1, k2, k3}, stream);
 }
 
 extern "C" const char* cpf_error_string(int err) {

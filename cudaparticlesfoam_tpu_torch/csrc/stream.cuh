@@ -53,9 +53,10 @@ struct LaneHead {
 // weights, or an absorb through the row's escape mask (fused.py:729-762).
 // Leaves the lane's new head in `out` and its cached row in `row`, and
 // returns its pending flag; the caller stores them (the head through its
-// staged tile, a new row with store_row_vec).
-template <typename T>
-__device__ __forceinline__ bool resolve(const T* __restrict__ tab, T row[ROW_W], T w[4],
+// staged tile, a new row with store_row_vec).  The layout L gives the row's
+// width and the columns of its neighbour codes and escape mask.
+template <typename T, typename L = LayoutTet>
+__device__ __forceinline__ bool resolve(const T* __restrict__ tab, T row[L::ROW_W], T w[4],
                                         int s_cur, bool unresolved, int tet, bool admitted,
                                         T px, T py, T pz, T vx, T vy, T vz, T actf, int n_hops,
                                         int bounce_on, int esc_on, LaneHead<T>* out) {
@@ -67,7 +68,7 @@ __device__ __forceinline__ bool resolve(const T* __restrict__ tab, T row[ROW_W],
   // inline hops; a lane that is resolved would only recompute the same
   // weights, so it leaves the loop
   for (int h = 0; h < n_hops && unresolved; ++h) {
-    const int code = code_of(row, s_cur);
+    const int code = code_of<T, L>(row, s_cur);
     if (code < 0) {
       wall = true;
       wall_slot = s_cur;
@@ -75,7 +76,7 @@ __device__ __forceinline__ bool resolve(const T* __restrict__ tab, T row[ROW_W],
       break;
     }
     if (!admitted) break;
-    load_row_vec<T, ROW_W>(tab + static_cast<long long>(code) * ROW_W, row);
+    load_row_vec<T, L::ROW_W>(tab + static_cast<long long>(code) * L::ROW_W, row);
     cur_tet = code;
     bary(row, px, py, pz, w);
     s_cur = argmin4(w, &wmin);
@@ -87,8 +88,8 @@ __device__ __forceinline__ bool resolve(const T* __restrict__ tab, T row[ROW_W],
     bool refl = wall;
     bool esc = false;
     if (esc_on) {
-      const int code_w = code_of(row, wall_slot);
-      const int escm = static_cast<int>(row[ESC]);
+      const int code_w = code_of<T, L>(row, wall_slot);
+      const int escm = static_cast<int>(row[L::ESC]);
       esc = wall && code_w < 0 && ((escm >> wall_slot) & 1);
       refl = wall && !esc;
     }

@@ -18,6 +18,14 @@
 //
 // Size: 32 KB (TILE_BYTES, within the 48 KB of static shared memory): 256
 // lanes of float or 128 of double.  A 128-lane float tile was no faster.
+//
+// A layout whose row is not a power of two chunks wide (LayoutPk: 40 columns,
+// 10 chunks of float or 20 of double) cannot take the xor, which would leave
+// the row.  Its tile rows are pitched one chunk wider than the row instead
+// (11 or 21 chunks, an odd count), so 8 consecutive rows start in 8 distinct
+// bank groups and the per-row accesses spread as the xor spreads them; the
+// tile holds as many whole warps as fit in TILE_BYTES (160 lanes of float,
+// 96 of double).
 #pragma once
 
 #include "common.cuh"
@@ -46,15 +54,25 @@ template <> struct Vec16<double> {
   }
 };
 
-template <typename T>
+template <typename T, typename L = LayoutTet>
 struct Tile {
   using V = typename Vec16<T>::type;
+  static constexpr int WIDTH = L::WIDTH;
   static constexpr int EPC = 16 / sizeof(T);               // elements per 16 B chunk
   static constexpr int CH = WIDTH / EPC;                   // chunks per mega row
-  static constexpr int LANES = TILE_BYTES / (WIDTH * sizeof(T));
-  static_assert(LANES % 32 == 0 && LANES <= 1024, "tile must hold whole warps");
+  static constexpr bool XOR = (CH & (CH - 1)) == 0;        // power of two: xor swizzle
+  static constexpr int PITCH = XOR ? CH : (CH | 1);        // chunks per tile row
+  static constexpr int LANES = TILE_BYTES / (PITCH * 16) / 32 * 32;
+  static_assert(WIDTH % EPC == 0 && (XOR ? CH >= 8 : PITCH % 2 == 1), "row must be whole chunks");
+  static_assert(LANES % 32 == 0 && LANES > 0 && LANES <= 1024, "tile must hold whole warps");
 
-  __device__ __forceinline__ static int slot(int r, int c) { return r * CH + (c ^ (r & 7)); }
+  __device__ __forceinline__ static int slot(int r, int c) {
+    if constexpr (XOR) {
+      return r * CH + (c ^ (r & 7));
+    } else {
+      return r * PITCH + c;
+    }
+  }
 
   // rows [0, rows) of the block's run at `src` into the tile; ends with a
   // block barrier

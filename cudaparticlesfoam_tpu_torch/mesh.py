@@ -21,6 +21,14 @@ ConvexPoly tables (:func:`with_convex_rows`, optional): ``tet_row_cx``
 codes 16:20 | global face ids 20:24 (exact float integers), and
 ``tet_row_cxe`` [nt, 24], the convex engine's row cache (``cx_table``):
 cols 0:20 of ``tet_row_cx`` | tet velocity 20:23 | 0.
+
+VertexVelocity table (:func:`with_pk_rows`, optional): ``tet_row_pk``
+[nt, 29] = A 0:3 | Tinv 3:12 | the 4 vertex velocities v0..v3 12:24 |
+neighbour codes 24:28 | escape mask 28.  On the device it is stored once,
+as ``tet_row_pk32`` [nt, 32]: the same rows padded with zeros to whole 16 B
+chunks (one 128 B line a row in float32), which is the table the
+VertexVelocity kernels read; ``tet_row_pk`` is its ``[:, :29]`` view, and
+the host payload stays 29 wide.
 """
 
 from __future__ import annotations
@@ -44,9 +52,12 @@ ARRAY_FIELDS = (
     "bounds_lo", "bounds_hi",
 )
 META_FIELDS = ("n_points", "n_tets", "n_faces", "n_bd_faces")
-# optional array entries: present once with_convex_rows has run
-CONVEX_FIELDS = ("tet_row_cx", "tet_row_cxe")
+# optional array entries and the row width of each: present once
+# with_convex_rows (the first two) or with_pk_rows (the last) has run
 CX_ROW_W = 24
+PK_ROW_W = 29
+PK_TAB_W = 32     # tet_row_pk as stored on the device (module docstring)
+OPTIONAL_FIELDS = {"tet_row_cx": CX_ROW_W, "tet_row_cxe": CX_ROW_W, "tet_row_pk": PK_ROW_W}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -81,6 +92,8 @@ class TetMesh:
     n_bd_faces: int
     tet_row_cx: torch.Tensor | None = None    # [nt, 24] (module docstring)
     tet_row_cxe: torch.Tensor | None = None   # [nt, 24] convex row cache
+    tet_row_pk: torch.Tensor | None = None    # [nt, 29] view of tet_row_pk32
+    tet_row_pk32: torch.Tensor | None = None  # [nt, 32] VertexVelocity rows, padded
 
     @property
     def dtype(self) -> torch.dtype:
@@ -310,15 +323,26 @@ def _check_f32_codes(n_tets: int, dtype) -> None:
         raise ValueError("float32 row tables need < 2^24 tets (exact codes)")
 
 
+def _upload(name: str, arr: np.ndarray, dev) -> dict:
+    """The tensor fields of host array ``name`` on ``dev``: one tensor of the
+    same name, and for ``tet_row_pk`` the padded table with its view."""
+    if name == "tet_row_pk":
+        padded = np.zeros((arr.shape[0], PK_TAB_W), arr.dtype)
+        padded[:, :PK_ROW_W] = arr
+        t = torch.from_numpy(padded).to(dev)
+        return {"tet_row_pk32": t, "tet_row_pk": t[:, :PK_ROW_W]}
+    return {name: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)}
+
+
 def host_to_device(payload: dict, device=None) -> TetMesh:
     """Upload a :func:`from_arrays_host` payload to ``device`` (default
     the card, ``dtypes.canonical_device``; one copy per field; dtypes
     already final).  ``payload`` values may be any
     array-likes (e.g. the fields of a JAX ``TetMesh``); they are kept as
-    numpy in ``mesh.host``.  The convex tables ride along where the
-    payload has them (not None)."""
+    numpy in ``mesh.host``.  The convex and VertexVelocity tables ride
+    along where the payload has them (not None)."""
     dev = canonical_device(device)
-    fields = ARRAY_FIELDS + tuple(k for k in CONVEX_FIELDS
+    fields = ARRAY_FIELDS + tuple(k for k in OPTIONAL_FIELDS
                                   if payload.get(k) is not None)
     host = {k: np.array(payload[k]) for k in fields}
     for k in META_FIELDS:
@@ -326,10 +350,12 @@ def host_to_device(payload: dict, device=None) -> TetMesh:
     if host["tet_row"].shape[1] != 20:
         raise ValueError(f"tet_row must be [nt, 20], got {host['tet_row'].shape}")
     for k in fields[len(ARRAY_FIELDS):]:
-        if host[k].shape != (host["n_tets"], CX_ROW_W):
-            raise ValueError(f"{k} must be [nt, {CX_ROW_W}], got {host[k].shape}")
+        if host[k].shape != (host["n_tets"], OPTIONAL_FIELDS[k]):
+            raise ValueError(f"{k} must be [nt, {OPTIONAL_FIELDS[k]}], got {host[k].shape}")
     _check_f32_codes(host["n_tets"], host["tet_row"].dtype)
-    tensors = {k: torch.from_numpy(host[k]).to(dev) for k in fields}
+    tensors = {}
+    for k in fields:
+        tensors.update(_upload(k, host[k], dev))
     return TetMesh(host=host, **tensors, **{k: host[k] for k in META_FIELDS})
 
 
@@ -399,8 +425,9 @@ def _with_host(mesh: TetMesh, updates: dict) -> TetMesh:
     """New mesh with host fields replaced and re-uploaded."""
     host = dict(mesh.host)
     host.update(updates)
-    kw = {k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.device)
-          for k, v in updates.items()}
+    kw = {}
+    for k, v in updates.items():
+        kw.update(_upload(k, v, mesh.device))
     return dataclasses.replace(mesh, host=host, **kw)
 
 
@@ -408,7 +435,8 @@ def replace_velocity(mesh: TetMesh, tet_vel=None, vert_vel=None) -> TetMesh:
     """Velocity refresh (``cudaUpdateVelocity``, ``particles.cu:733-749``):
     a mesh with new velocity arrays; ``tet_vel`` also lands in tet_row
     cols 12:15 and, once :func:`with_convex_rows` has run, in tet_row_cxe
-    cols 20:23."""
+    cols 20:23; ``vert_vel`` also lands in tet_row_pk cols 12:24 once
+    :func:`with_pk_rows` has run."""
     fdt = mesh.host["points"].dtype
 
     def as_np(x):
@@ -427,15 +455,21 @@ def replace_velocity(mesh: TetMesh, tet_vel=None, vert_vel=None) -> TetMesh:
             cxe[:, 20:23] = tv
             updates["tet_row_cxe"] = cxe
     if vert_vel is not None:
-        updates["vert_vel"] = as_np(vert_vel)
+        vv = as_np(vert_vel)
+        updates["vert_vel"] = vv
+        if "tet_row_pk" in mesh.host:
+            pk = mesh.host["tet_row_pk"].copy()
+            pk[:, 12:24] = vv[mesh.host["tets"]].reshape(mesh.n_tets, 12)
+            updates["tet_row_pk"] = pk
     return _with_host(mesh, updates)
 
 
 def set_boundary_escape(mesh: TetMesh, escape_patch_ids) -> TetMesh:
     """Mark boundary faces of the given ``bd_patch`` ids as absorbing.
 
-    Sets both places the port reads: ``bd_escape`` (the rare stage's
-    reflector) and the 4-bit mask in tet_row col 19 (the stream kernel's
+    Sets every place the port reads: ``bd_escape`` (the rare stage's
+    reflector) and the 4-bit mask in tet_row col 19 and, where
+    :func:`with_pk_rows` has run, tet_row_pk col 28 (the stream kernel's
     inline bounce), as the JAX package's ``set_boundary_escape`` does."""
     ids = np.asarray(list(escape_patch_ids))
     nbd = mesh.n_bd_faces
@@ -447,7 +481,12 @@ def set_boundary_escape(mesh: TetMesh, escape_patch_ids) -> TetMesh:
     maskv = (bits.astype(np.int64) * np.array([1, 2, 4, 8])).sum(axis=1)
     row = mesh.host["tet_row"].copy()
     row[:, 19] = maskv
-    return _with_host(mesh, {"bd_escape": esc, "tet_row": row})
+    updates = {"bd_escape": esc, "tet_row": row}
+    if "tet_row_pk" in mesh.host:
+        pk = mesh.host["tet_row_pk"].copy()
+        pk[:, 28] = maskv
+        updates["tet_row_pk"] = pk
+    return _with_host(mesh, updates)
 
 
 def with_convex_rows(mesh: TetMesh) -> TetMesh:
@@ -469,3 +508,27 @@ def with_convex_rows(mesh: TetMesh) -> TetMesh:
     cxe = np.concatenate([row[:, 0:20], h["tet_vel"].astype(fdt),
                           np.zeros((nt, 1), fdt)], axis=1)
     return _with_host(mesh, {"tet_row_cx": row, "tet_row_cxe": cxe})
+
+
+def with_pk_rows(mesh: TetMesh) -> TetMesh:
+    """Attach the VertexVelocity row table ``tet_row_pk`` [nt, 29] and its
+    padded store ``tet_row_pk32`` (module docstring; JAX
+    ``mesh.with_pk_rows``), built on the host from the
+    mesh's own numpy payload: one row serves the barycentric test, the
+    blend of the 4 vertex velocities (``particles.cu:245-313``), the
+    neighbour step, the reflection plane and the absorb test, as
+    ``tet_row`` does for TetVelocity.  The mask column is copied from
+    ``tet_row`` col 19, so an earlier :func:`set_boundary_escape` is kept.
+    A mesh that has the table is returned as is."""
+    if mesh.tet_row_pk is not None:
+        return mesh
+    h = mesh.host
+    nt = mesh.n_tets
+    _check_f32_codes(nt, h["points"].dtype)
+    row = np.concatenate([
+        h["tet_row"][:, 0:12],
+        h["vert_vel"][h["tets"]].reshape(nt, 12),
+        h["tet_row"][:, 15:19],
+        h["tet_row"][:, 19:20],
+    ], axis=1)
+    return _with_host(mesh, {"tet_row_pk": row})

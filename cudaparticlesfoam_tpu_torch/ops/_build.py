@@ -119,7 +119,9 @@ def library() -> ctypes.CDLL:
     for suffix, fl in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
         for name, args in (
             ("stream", [vp] * 5 + [ll, fl, fl, i, i, i, i, i, i, *key, vp]),
+            ("stream_pk", [vp] * 5 + [ll, fl, fl, i, i, i, i, i, i, *key, vp]),
             ("rare", [vp, vp, vp, vp, ll, i, i, i, i, vp]),
+            ("rare_pk", [vp, vp, vp, vp, ll, i, i, i, i, vp]),
             ("convex_stream", [vp] * 6 + [ll, fl, fl, i, i, i, i, *key, vp]),
             ("convex_rare", [vp] * 11 + [ll, i, i, i, i, i, vp]),
             ("macro_stream", [vp] * 6 + [ll, i, fl, fl, i, i, i, i, i, *key, vp]),

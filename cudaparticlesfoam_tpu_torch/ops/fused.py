@@ -1,9 +1,17 @@
 """Row-cached fused sub-step (port of ``cudaparticlesfoam_tpu/ops/fused.py``,
-TetVelocity layout).
+TetVelocity and VertexVelocity layouts).
 
-All per-particle data lives in ONE row-major ``[n, 32]`` mega array
-(128 B per lane): 0:3 pos | 3:6 vel | 6 tet (exact float integer) |
+All per-particle data lives in ONE row-major mega array, a :class:`Layout`
+per interpolation mode.  TetVelocity (``LAYOUT_TET``): ``[n, 32]`` (128 B
+per lane in float32): 0:3 pos | 3:6 vel | 6 tet (exact float integer) |
 7 active | 8:28 the lane's cached tet row (``mesh.tet_row``) | 28:32 pad.
+VertexVelocity (``LAYOUT_PK``): ``[n, 40]``: the same head | 8:37 the
+lane's cached ``mesh.tet_row_pk`` row | 37:40 pad, equal to the JAX
+package's Pk mega element for element.  The row table the Pk cycle reads
+is ``mesh.tet_row_pk32``, the same rows padded to 32 columns where the
+mesh uploads them (:func:`row_table`), so that a table row is one 128 B
+line in float32 and every row starts on a 16 B boundary: columns 8:40 of
+a Pk mega row are one such padded row.
 
 One cycle is two kernels (``ops/fused_cuda.py``):
 
@@ -47,6 +55,7 @@ import torch
 
 from ..dtypes import numpy_float
 from ..mesh import TetMesh
+from .advect import VERTEX_VELOCITY
 from .locate import MAX_HOPS
 
 # mega-row column offsets
@@ -57,25 +66,48 @@ P0, V0, TET, ACT, ROW = 0, 3, 6, 7, 8
 class Layout:
     """Row-table geometry for one interpolation mode."""
 
-    row_w: int    # table row width
+    row_w: int    # mesh table row width (the escape mask is its last column)
     width: int    # mega-row width
-    vel: int      # row-offset of the velocity payload
+    vel: int      # row-offset of the velocity payload (u, or v0..v3)
     nbr: int      # row-offset of the 4 neighbour codes
+    tab_w: int    # row width of :func:`row_table`, the row block a hop moves
+
+    @property
+    def esc(self) -> int:
+        """Row column of the 4-bit escape mask."""
+        return self.row_w - 1
 
 
-LAYOUT_TET = Layout(row_w=20, width=32, vel=12, nbr=15)
-ESC = 19   # row column of the 4-bit escape mask
+LAYOUT_TET = Layout(row_w=20, width=32, vel=12, nbr=15, tab_w=20)
+LAYOUT_PK = Layout(row_w=29, width=40, vel=12, nbr=24, tab_w=32)
 
 
-def pack_state(mesh: TetMesh, pos, vel, tet_id, active) -> torch.Tensor:
-    """Build the [n, 32] mega array (one row-table gather for the cache)."""
+def layout_for(cfg) -> Layout:
+    """The layout of ``cfg.velocity_interp`` (JAX ``fused.layout_for``)."""
+    return LAYOUT_PK if cfg.velocity_interp == VERTEX_VELOCITY else LAYOUT_TET
+
+
+def row_table(mesh: TetMesh, ly: Layout = LAYOUT_TET) -> torch.Tensor:
+    """The table [nt, ly.tab_w] a cycle under ``ly`` reads: ``mesh.tet_row``,
+    or ``mesh.tet_row_pk32`` (``tet_row_pk`` padded with zeros to 32
+    columns, stored once by the mesh)."""
+    if ly is LAYOUT_TET:
+        return mesh.tet_row
+    if mesh.tet_row_pk32 is None:
+        raise ValueError("the VertexVelocity cached engine needs mesh.with_pk_rows(mesh)")
+    return mesh.tet_row_pk32
+
+
+def pack_state(mesh: TetMesh, pos, vel, tet_id, active, ly: Layout = LAYOUT_TET) -> torch.Tensor:
+    """Build the [n, ly.width] mega array (one row-table gather for the cache)."""
     n = pos.shape[0]
-    m = torch.zeros((n, LAYOUT_TET.width), dtype=pos.dtype, device=pos.device)
+    tab = row_table(mesh, ly)
+    m = torch.zeros((n, ly.width), dtype=pos.dtype, device=pos.device)
     m[:, P0 : P0 + 3] = pos
     m[:, V0 : V0 + 3] = vel
     m[:, TET] = tet_id.to(pos.dtype)
     m[:, ACT] = active.to(pos.dtype)
-    m[:, ROW : ROW + LAYOUT_TET.row_w] = mesh.tet_row[tet_id.long().clamp(min=0)]
+    m[:, ROW : ROW + ly.tab_w] = tab[tet_id.long().clamp(min=0)]
     return m
 
 
@@ -145,6 +177,21 @@ def philox_normals(key4, n: int, dtype, device=None) -> torch.Tensor:
                         r[:, 1] * torch.cos(a[:, 1])], dim=1)
 
 
+def _stream_seed(seed: int, step: int, device) -> int:
+    """Generator seed of the (seed, step) threefry-mode stream, below 2^63.
+    On the card ``seed`` in the high and ``step`` in the low 32 bits: its
+    generator takes all 64.  torch's CPU generator keeps only the low 32
+    bits of its seed, so there a splitmix64 hash of the pair, whose halves
+    both depend on ``seed`` and on ``step``."""
+    if torch.device(device).type != "cpu":
+        return ((int(seed) << 32) + int(step)) % (1 << 63)
+    m = (1 << 64) - 1
+    x = (int(seed) * 0x9E3779B97F4A7C15 + int(step) + 0x632BE59BD9B4E019) & m
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & m
+    return (x ^ (x >> 31)) >> 1
+
+
 def _brownian_noise(seed: int, step: int, n: int, dtype, device,
                     mode: str = "threefry") -> torch.Tensor:
     """Per-cycle standard-normal noise [n, 3].
@@ -162,7 +209,7 @@ def _brownian_noise(seed: int, step: int, n: int, dtype, device,
     if mode != "threefry":
         raise ValueError(f"unknown brownian_rng {mode!r}")
     g = torch.Generator(device=device)
-    g.manual_seed(((int(seed) << 32) + int(step)) % (1 << 63))
+    g.manual_seed(_stream_seed(seed, step, device))
     return torch.randn((n, 3), generator=g, dtype=dtype, device=device)
 
 
@@ -181,7 +228,8 @@ def scalars(cfg, dt, dtype) -> tuple[float, float]:
 
 
 def _bary(rows, px, py, pz):
-    """Barycentric components against [n, 20] rows (A 0:3, Tinv 3:12)."""
+    """Barycentric components against table rows (A 0:3, Tinv 3:12 in
+    every layout)."""
     rx = px - rows[:, 0]
     ry = py - rows[:, 1]
     rz = pz - rows[:, 2]
@@ -212,9 +260,9 @@ def _pick4(w4, slot):
     return _pick(torch.stack(w4, dim=1), slot)
 
 
-def _codes(rows, slot):
+def _codes(rows, slot, ly=LAYOUT_TET):
     """Neighbour code of ``slot`` as int64 (exact float integers)."""
-    nb = LAYOUT_TET.nbr
+    nb = ly.nbr
     return _pick(rows[:, nb : nb + 4], slot).to(torch.int64)
 
 
@@ -245,12 +293,23 @@ def _lane_start(m, use_adv):
     return tet, alive, alf, alf if use_adv else m[:, ACT]
 
 
-def _sub_step(rows, vel, alf, alive, xi, *, dt, sigma, use_adv, use_brown):
+def _sub_step(rows, pos, vel, alf, alive, xi, *, dt, sigma, use_adv, use_brown,
+              ly=LAYOUT_TET):
     """One sub-step's displacement (dx, dy, dz) and velocity (vx, vy, vz)
-    from the cached rows, the lanes' velocity ``vel`` (3 columns) and the
-    noise ``xi`` [n, 3] (read iff use_brown)."""
-    RV = LAYOUT_TET.vel
-    ux, uy, uz = rows[:, RV], rows[:, RV + 1], rows[:, RV + 2]
+    from the cached rows, the lanes' position ``pos`` and velocity ``vel``
+    (3 columns each) and the noise ``xi`` [n, 3] (read iff use_brown).
+    Under ``LAYOUT_PK`` the advecting velocity is the barycentric blend of
+    the row's 4 vertex velocities at the CURRENT position
+    (``particles.cu:245-313``), associated ((w0 v0 + w1 v1) + w2 v2) + w3 v3
+    per component as the JAX package does."""
+    RV = ly.vel
+    if ly is LAYOUT_PK:
+        w4 = _bary(rows, *pos)
+        ux, uy, uz = (((w4[0] * rows[:, RV + c] + w4[1] * rows[:, RV + 3 + c])
+                       + w4[2] * rows[:, RV + 6 + c]) + w4[3] * rows[:, RV + 9 + c]
+                      for c in range(3))
+    else:
+        ux, uy, uz = rows[:, RV], rows[:, RV + 1], rows[:, RV + 2]
     if use_adv:
         dx, dy, dz = alf * ux * dt, alf * uy * dt, alf * uz * dt
         # advected velocity into vel columns (particles.cu:361)
@@ -265,12 +324,13 @@ def _sub_step(rows, vel, alf, alive, xi, *, dt, sigma, use_adv, use_brown):
 
 
 def _resolve(tab, rows, bw, s_cur, unresolved, tet, admit, pos, vel, actf, *,
-             n_hops, bounce_on, esc_on):
+             n_hops, bounce_on, esc_on, ly=LAYOUT_TET):
     """Everything after the hop-0 test (``resolve`` in
     csrc/stream.cuh): up to ``n_hops`` inline hops, a crosser whose
     ``admit`` flag is 0 skipping its first hop and staying pending with its
     cached row and pre-hop tet (``_b_compute_c`` with extra_pend), then the
-    inline single bounce or absorb.  Returns (mega rows [n, 32], pending)."""
+    inline single bounce or absorb.  ``rows`` and ``tab`` are ``ly.tab_w``
+    wide.  Returns (mega rows [n, ly.width], pending)."""
     T, dev = rows.dtype, rows.device
     px, py, pz = pos
     vx, vy, vz = vel
@@ -281,7 +341,7 @@ def _resolve(tab, rows, bw, s_cur, unresolved, tet, admit, pos, vel, actf, *,
 
     # inline hops: each mover takes its neighbour's row
     for h in range(n_hops):
-        code = _codes(cur_rows, s_cur)
+        code = _codes(cur_rows, s_cur, ly)
         mv = unresolved & (code >= 0)
         new_wall = unresolved & (code < 0)
         wall_slot = torch.where(new_wall, s_cur, wall_slot)
@@ -303,8 +363,8 @@ def _resolve(tab, rows, bw, s_cur, unresolved, tet, admit, pos, vel, actf, *,
         refl = wall
         esc = torch.zeros_like(wall)
         if esc_on:
-            code_w = _codes(cur_rows, wall_slot)
-            escm = cur_rows[:, ESC].to(torch.int64)
+            code_w = _codes(cur_rows, wall_slot, ly)
+            escm = cur_rows[:, ly.esc].to(torch.int64)
             esc = wall & (code_w < 0) & (((escm >> wall_slot) & 1) > 0)
             refl = wall & ~esc
         rf = refl.to(T)
@@ -329,17 +389,17 @@ def _resolve(tab, rows, bw, s_cur, unresolved, tet, admit, pos, vel, actf, *,
     else:
         tet1 = cur_tet
 
-    pad = torch.zeros((rows.shape[0], LAYOUT_TET.width - ROW - LAYOUT_TET.row_w), dtype=T,
-                      device=dev)
+    pad = torch.zeros((rows.shape[0], ly.width - ROW - ly.tab_w), dtype=T, device=dev)
     head = torch.stack([px, py, pz, vx, vy, vz, tet1.to(T), actf], dim=1)
     return torch.cat([head, cur_rows, pad], dim=1), unresolved | wall
 
 
 def stream_plain(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
-                 bounce_on, esc_on, n_hops, admit=None, crossers=None):
-    """Plain version of ``stream_kernel``: updates ``m`` [n, 32] in place
-    and writes ``pending`` [n] uint8.  ``dt``/``sigma`` are already rounded
-    to m's dtype (:func:`scalars`); ``xi`` [n, 3] is read iff use_brown.
+                 bounce_on, esc_on, n_hops, admit=None, crossers=None, ly=LAYOUT_TET):
+    """Plain version of ``stream_kernel``: updates ``m`` [n, ly.width] in
+    place and writes ``pending`` [n] uint8; ``tab`` is :func:`row_table`
+    of ``ly``.  ``dt``/``sigma`` are already rounded to m's dtype
+    (:func:`scalars`); ``xi`` [n, 3] is read iff use_brown.
 
     The two stages of the compacted hop gather: with ``crossers`` [n]
     uint8 the call only writes each lane's hop-0 crossing flag (m and
@@ -349,19 +409,20 @@ def stream_plain(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
     dt = torch.tensor(dt, dtype=T, device=dev)
     sigma = torch.tensor(sigma, dtype=T, device=dev)
     tet, alive, alf, actf = _lane_start(m, use_adv)
-    rows = m[:, ROW : ROW + LAYOUT_TET.row_w]
-    (dx, dy, dz), vel = _sub_step(rows, (m[:, V0], m[:, V0 + 1], m[:, V0 + 2]), alf, alive,
-                                  xi, dt=dt, sigma=sigma, use_adv=use_adv,
-                                  use_brown=use_brown)
-    pos = (m[:, P0] + dx, m[:, P0 + 1] + dy, m[:, P0 + 2] + dz)
+    rows = m[:, ROW : ROW + ly.tab_w]
+    pos0 = (m[:, P0], m[:, P0 + 1], m[:, P0 + 2])
+    (dx, dy, dz), vel = _sub_step(rows, pos0, (m[:, V0], m[:, V0 + 1], m[:, V0 + 2]), alf,
+                                  alive, xi, dt=dt, sigma=sigma, use_adv=use_adv,
+                                  use_brown=use_brown, ly=ly)
+    pos = (pos0[0] + dx, pos0[1] + dy, pos0[2] + dz)
     bw = _bary(rows, *pos)
     s_cur, wmin = _argmin4(*bw)
     unresolved = (wmin < 0.0) & (tet >= 0)
     if crossers is not None:
-        crossers.copy_(unresolved & (_codes(rows, s_cur) >= 0))
+        crossers.copy_(unresolved & (_codes(rows, s_cur, ly) >= 0))
         return
     out, pend = _resolve(tab, rows, bw, s_cur, unresolved, tet, admit, pos, vel, actf,
-                         n_hops=n_hops, bounce_on=bounce_on, esc_on=esc_on)
+                         n_hops=n_hops, bounce_on=bounce_on, esc_on=esc_on, ly=ly)
     m.copy_(out)
     pending.copy_(pend)
 
@@ -432,7 +493,7 @@ def macro_stream_plain(tab, m, xi, phase, pending, *, k, dt, sigma, use_adv, use
     need = torch.zeros_like(run)
     for j in range(k):
         ex = run & ~need & (ph == j)
-        d, v = _sub_step(rows, vel, alf, alive, xi[j] if use_brown else None, dt=dt,
+        d, v = _sub_step(rows, pos, vel, alf, alive, xi[j] if use_brown else None, dt=dt,
                          sigma=sigma, use_adv=use_adv, use_brown=use_brown)
         pos = tuple(torch.where(ex, p + dp, p) for p, dp in zip(pos, d))
         vel = tuple(torch.where(ex, a, b) for a, b in zip(v, vel))
@@ -458,7 +519,7 @@ def macro_stream_plain(tab, m, xi, phase, pending, *, k, dt, sigma, use_adv, use
 # ---------------------------------------------------------------------------
 
 
-def _walk(tab, rows, tet0, px, py, pz, act, max_hops):
+def _walk(tab, rows, tet0, px, py, pz, act, max_hops, ly=LAYOUT_TET):
     """``_walk_mega``: baryTetSearch from the cached rows toward (px,py,pz).
     Runs max(2, max_hops) hops at most (the JAX package unrolls two hops
     before its bounded loop).  Returns (rows of the last non-negative tet,
@@ -473,7 +534,7 @@ def _walk(tab, rows, tet0, px, py, pz, act, max_hops):
         s, wmin = _argmin4(*_bary(rows, px, py, pz))
         inside = wmin >= 0.0
         stepping = ~done & ~inside
-        code = _codes(rows, s)
+        code = _codes(rows, s, ly)
         out = stepping & (code < 0)
         tet = torch.where(stepping, torch.where(out, -(tet + 1), code), tet)
         slot = torch.where(stepping, s, slot)
@@ -483,7 +544,8 @@ def _walk(tab, rows, tet0, px, py, pz, act, max_hops):
     return rows, tet, slot
 
 
-def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces):
+def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces,
+             ly=LAYOUT_TET):
     """``_reflect_mega``: mirror across the exit face of the cached exit-tet
     row, re-walk (default MAX_HOPS, not cfg.max_hops), repeat up to
     ``max_bounces``; absorbing faces (``bd_escape``) deactivate the lane
@@ -499,7 +561,7 @@ def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces):
         if bool(settled.all()):
             break
         refl = ~settled
-        code_nbr = _codes(rows, s)
+        code_nbr = _codes(rows, s, ly)
         if nbd:
             bd = (-code_nbr - 1).clamp(0, nbd - 1)
             esc = refl & (code_nbr < 0) & bd_escape[bd]
@@ -521,7 +583,7 @@ def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces):
         vy = torch.where(refl, vy - fu * gy, vy)
         vz = torch.where(refl, vz - fu * gz, vz)
         rows_w, wtet, wslot = _walk(tab, rows, tet.clamp(min=0), px, py, pz,
-                                    refl, MAX_HOPS)
+                                    refl, MAX_HOPS, ly)
         in_dom = wtet >= 0
         newly = refl & in_dom
         tet = torch.where(newly, wtet, torch.where(refl, -(wtet + 1), tet))
@@ -532,24 +594,25 @@ def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces):
 
 
 def rare_plain(tab, m, pending, bd_escape, *, max_hops, max_bounces,
-               reflect_wall):
+               reflect_wall, ly=LAYOUT_TET):
     """Plain version of ``rare_kernel``: resolve every lane whose
     ``pending`` flag is set (walk, then reflect), updating ``m`` in place:
     pos, vel, tet and the row cache; the active column is left as is (a
-    lane that left the domain is killed by the next cycle's advect)."""
+    lane that left the domain is killed by the next cycle's advect).
+    ``tab`` is :func:`row_table` of ``ly``."""
     idx = pending.nonzero()[:, 0]
     if idx.numel() == 0:
         return
     mc = m[idx]
-    rw = LAYOUT_TET.row_w
+    rw = ly.tab_w
     qx, qy, qz = mc[:, P0], mc[:, P0 + 1], mc[:, P0 + 2]
     act = torch.ones(idx.shape[0], dtype=torch.bool, device=m.device)
     rows, code, slot = _walk(tab, mc[:, ROW : ROW + rw], mc[:, TET].to(torch.int64),
-                             qx, qy, qz, act, max_hops)
+                             qx, qy, qz, act, max_hops, ly)
     vel = mc[:, V0 : V0 + 3]
     if reflect_wall:
         rows, vel, qx, qy, qz, code = _reflect(
-            tab, rows, vel, qx, qy, qz, code, slot, bd_escape, max_bounces)
+            tab, rows, vel, qx, qy, qz, code, slot, bd_escape, max_bounces, ly)
     out = torch.cat([torch.stack([qx, qy, qz], dim=1), vel,
                      code.to(m.dtype)[:, None], mc[:, ACT : ACT + 1], rows,
                      mc[:, ROW + rw :]], dim=1)
@@ -601,7 +664,9 @@ def compact_scratch(n, device) -> dict:
 def mega_cycle(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
                pending=None, scratch=None) -> torch.Tensor:
     """One sub-step over the mega state, in place: stream kernel, then the
-    rare kernel over the pending lanes.  ``noise`` [n, 3] replaces the
+    rare kernel over the pending lanes.  The layout is that of
+    ``cfg.velocity_interp`` (:func:`layout_for`), the table its
+    :func:`row_table`.  ``noise`` [n, 3] replaces the
     noise draw (parity replays); under ``brownian_rng`` "rbg"/"rbg_kernel"
     a CUDA mega draws the Philox stream inside the stream kernel.
     ``pending`` is optional [n] uint8 scratch, ``scratch`` the optional
@@ -613,27 +678,32 @@ def mega_cycle(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
     The JAX package engages it on its TPU packed path only (n >=
     ``PACK_MIN_LANES``, a TPU speed threshold); the port applies it
     whenever it is set.  The state after the rare stage is the same either
-    way: a crosser the compaction skips walks from its pre-hop tet."""
+    way: a crosser the compaction skips walks from its pre-hop tet.  Under
+    ``LAYOUT_PK`` ``hop_compact`` is ignored, as in the JAX package
+    (``_b_compute_c`` takes no layout)."""
     from . import fused_cuda
 
+    ly = layout_for(cfg)
+    tab = row_table(mesh, ly)
     n, dev = m.shape[0], m.device
     if pending is None:
         pending = torch.empty(n, dtype=torch.uint8, device=dev)
     xi, key = cycle_noise(cfg, seed, step, n, m.dtype, dev, noise)
     kw = stream_kwargs(cfg, dt, m.dtype)
     admit = None
-    if cfg.hop_compact == HOP_GROUP and cfg.inline_hops == 1:
+    if cfg.hop_compact == HOP_GROUP and cfg.inline_hops == 1 and ly is LAYOUT_TET:
         sc = compact_scratch(n, dev) if scratch is None else scratch
         crossers, admit = sc["crossers"], sc["admit"]
-        fused_cuda.stream_crossers(mesh.tet_row, m, xi, crossers, noise_key=key, **kw)
+        fused_cuda.stream_crossers(tab, m, xi, crossers, noise_key=key, **kw)
         fused_cuda.hop_admit(crossers, admit, capb=hop_capacity(n, cfg.hop_compact_frac),
                              scratch=sc["words"])
     fused_cuda.stream_cycle(
-        mesh.tet_row, m, xi, pending, bounce_on=cfg.reflect_wall and cfg.inline_bounce,
-        esc_on=cfg.escape_faces, n_hops=cfg.inline_hops, noise_key=key, admit=admit, **kw)
+        tab, m, xi, pending, bounce_on=cfg.reflect_wall and cfg.inline_bounce,
+        esc_on=cfg.escape_faces, n_hops=cfg.inline_hops, noise_key=key, admit=admit, ly=ly,
+        **kw)
     fused_cuda.rare_resolve(
-        mesh.tet_row, m, pending, mesh.bd_escape, max_hops=cfg.max_hops,
-        max_bounces=cfg.max_bounces, reflect_wall=cfg.reflect_wall,
+        tab, m, pending, mesh.bd_escape, max_hops=cfg.max_hops,
+        max_bounces=cfg.max_bounces, reflect_wall=cfg.reflect_wall, ly=ly,
     )
     return m
 

@@ -8,6 +8,9 @@
 * :func:`rare_resolve` -> ``rare_kernel`` (``csrc/rare.cu``): the XLA rare
   stage (``fused._rare_stage(_packed)`` with ``_walk_mega`` and
   ``_reflect_mega``).
+  Both take the layout ``ly``: ``LAYOUT_TET`` (TetVelocity) or
+  ``LAYOUT_PK`` (VertexVelocity: the TPU kernels' ``ly=LAYOUT_PK``
+  instantiations), each its own instantiation of the kernel.
 * :func:`convex_stream_cycle` -> ``convex_stream_kernel``
   (``csrc/convex_stream.cu``): the convex stream kernels CA / CB
   (``_kernel_ca_packed``, ``_kernel_ca_packed_k``, ``_kernel_cb_packed``)
@@ -48,8 +51,8 @@ import torch
 
 from . import _build
 from . import fused_convex
-from .fused import (LAYOUT_TET, hop_admit_plain, macro_stream_plain, philox_normals,
-                    rare_plain, stream_plain)
+from .fused import (LAYOUT_PK, LAYOUT_TET, hop_admit_plain, macro_stream_plain,
+                    philox_normals, rare_plain, stream_plain)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -164,8 +167,18 @@ def _raise_on(err, what):
         _build.check(_build.library(), err, what)
 
 
-def _launch_stream(tab, m, xi_ptr, pend_ptr, adm_ptr, kw, mode, pass_, key, dev):
-    err = _entry("stream", m.dtype)(
+def _layout_entry(name, ly):
+    """Name of the C entry of ``name``'s instantiation for layout ``ly``."""
+    if ly is LAYOUT_TET:
+        return name
+    if ly is LAYOUT_PK:
+        return name + "_pk"
+    raise ValueError(f"no kernel instantiation for {ly!r}")
+
+
+def _launch_stream(tab, m, xi_ptr, pend_ptr, adm_ptr, kw, mode, pass_, key, dev,
+                   ly=LAYOUT_TET):
+    err = _entry(_layout_entry("stream", ly), m.dtype)(
         tab.data_ptr(), m.data_ptr(), xi_ptr, pend_ptr, adm_ptr, m.shape[0], kw["dt"],
         kw["sigma"], int(kw["use_adv"]), int(kw["use_brown"]),
         int(kw.get("bounce_on", False)), int(kw.get("esc_on", False)),
@@ -174,14 +187,18 @@ def _launch_stream(tab, m, xi_ptr, pend_ptr, adm_ptr, kw, mode, pass_, key, dev)
 
 
 def stream_cycle(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
-                 bounce_on, esc_on, n_hops, noise_key=None, admit=None):
-    """Stream section of one cycle (K1 + K2), in place on ``m`` [n, 32];
+                 bounce_on, esc_on, n_hops, noise_key=None, admit=None, ly=LAYOUT_TET):
+    """Stream section of one cycle (K1 + K2), in place on ``m``
+    [n, ly.width] with ``tab`` = ``fused.row_table`` [nt, ly.tab_w];
     writes the rare-stage flags into ``pending`` [n] uint8.  With
     ``use_brown``, either ``xi`` [n, 3] (same dtype) or ``noise_key``
     (Philox, module docstring) gives the noise.  ``admit`` [n] uint8 (from
     :func:`hop_admit`) makes it the apply stage of the compacted hop
-    gather: a crosser whose flag is 0 skips its hop and goes pending."""
-    n, dev = _check_tab_m(tab, m)
+    gather: a crosser whose flag is 0 skips its hop and goes pending
+    (``LAYOUT_TET`` only, as in the JAX package)."""
+    if admit is not None and ly is not LAYOUT_TET:
+        raise ValueError("the compacted hop gather is TetVelocity only")
+    n, dev = _check_tab_m(tab, m, ly.width, ly.tab_w)
     _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
     adm_ptr = _flags("admit", admit, n, dev)
     xi, xi_ptr, mode, key = _noise_args(xi, n, m, use_brown, noise_key)
@@ -189,16 +206,16 @@ def stream_cycle(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
     kw = dict(dt=dt, sigma=sigma, use_adv=bool(use_adv), use_brown=bool(use_brown),
               bounce_on=bool(bounce_on), esc_on=bool(esc_on), n_hops=int(n_hops))
     if dev.type == "cpu":
-        stream_plain(tab, m, xi, pending, admit=admit, **kw)
+        stream_plain(tab, m, xi, pending, admit=admit, ly=ly, **kw)
         return
     if n == 0:
         return
     _launch_stream(tab, m, xi_ptr, pending.data_ptr(), adm_ptr, kw, mode,
-                   PASS_WHOLE if admit is None else PASS_ADMITTED, key, dev)
+                   PASS_WHOLE if admit is None else PASS_ADMITTED, key, dev, ly)
     stream_cycle.launches += 1
 
 
-stream_cycle.launches = 0
+stream_cycle.launches = 0     # of any instantiation
 
 
 def stream_crossers(tab, m, xi, crossers, *, dt, sigma, use_adv, use_brown, noise_key=None):
@@ -339,25 +356,26 @@ macro_crossers.launches = 0
 
 
 def rare_resolve(tab, m, pending, bd_escape, *, max_hops, max_bounces,
-                 reflect_wall):
-    """Rare stage (K7), in place on ``m``: every lane with ``pending`` set
+                 reflect_wall, ly=LAYOUT_TET):
+    """Rare stage (K7), in place on ``m`` [n, ly.width] with ``tab`` =
+    ``fused.row_table`` [nt, ly.tab_w]: every lane with ``pending`` set
     runs the bounded walk (max(2, max_hops) hops) and, with
     ``reflect_wall``, up to ``max_bounces`` specular reflections, each
     re-walk bounded by the default 50 hops; ``bd_escape`` [nbd] bool marks
     absorbing faces.  The kernel covers all n lanes and returns at once
     where the flag is 0 (no host sync, no compaction)."""
-    n, dev = _check_tab_m(tab, m)
+    n, dev = _check_tab_m(tab, m, ly.width, ly.tab_w)
     _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
     _check("bd_escape", bd_escape, dtype=torch.bool, shape=(bd_escape.shape[0],),
            device=dev)
     kw = dict(max_hops=int(max_hops), max_bounces=int(max_bounces),
               reflect_wall=bool(reflect_wall))
     if dev.type == "cpu":
-        rare_plain(tab, m, pending, bd_escape, **kw)
+        rare_plain(tab, m, pending, bd_escape, ly=ly, **kw)
         return
     if n == 0:
         return
-    err = _entry("rare", m.dtype)(
+    err = _entry(_layout_entry("rare", ly), m.dtype)(
         tab.data_ptr(), m.data_ptr(), pending.data_ptr(),
         bd_escape.data_ptr(), n, bd_escape.shape[0], kw["max_hops"],
         kw["max_bounces"], int(kw["reflect_wall"]), _stream_ptr(dev))

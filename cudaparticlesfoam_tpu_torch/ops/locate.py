@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..mesh import TetMesh
+from .geometry import bary_from_tinv
 
 MAX_HOPS = 50  # RTQuery.cu:42
 
@@ -29,12 +30,7 @@ MAX_HOPS = 50  # RTQuery.cu:42
 def _bary_at(mesh: TetMesh, p, tet):
     """Barycentric weights [n, 4] of p in tet (clamped ids) via the walk
     table; same association order as ``geometry.bary_from_tinv``."""
-    rel = p - mesh.tet_a[tet]
-    t = mesh.tet_tinv[tet]
-    wbcd = (t[:, :, 0] * rel[:, None, 0] + t[:, :, 1] * rel[:, None, 1]
-            + t[:, :, 2] * rel[:, None, 2])
-    wa = 1.0 - ((wbcd[:, 0] + wbcd[:, 1]) + wbcd[:, 2])
-    return torch.cat([wa[:, None], wbcd], dim=1)
+    return bary_from_tinv(p, mesh.tet_a[tet], mesh.tet_tinv[tet])
 
 
 def _argmin_first(w):

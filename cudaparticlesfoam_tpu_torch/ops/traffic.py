@@ -18,7 +18,11 @@ kernel here is bound by bytes.
 
 Kernels (``csrc/``) and what a call moves, per lane of n, with e the
 element size (4 for float32, 8 for float64); the mega row is 32 columns,
-a bary table row 20 and a cx table row 24:
+a bary table row 20 and a cx table row 24.  Under the VertexVelocity
+layout (``layout="pk"`` of :func:`stream` and :func:`rare`) the mega row is
+40 columns and a table row 32: the kernels read ``fused.row_table``, the
+29-column ``tet_row_pk`` padded to 32, and move whole padded rows, so the
+pad is counted as what the function is given, not as waste:
 
 * ``stream_kernel``: reads the mega row, xi (3 columns, noise "xi" only),
   the admission byte (pass "admitted") and one table row per hop; writes
@@ -52,9 +56,13 @@ from __future__ import annotations
 
 import dataclasses
 
+from .fused import LAYOUT_PK, LAYOUT_TET
+
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
-MEGA_W, ROW_W, CX_W, HEAD_W = 32, 20, 24, 8
+MEGA_W, ROW_W, CX_W, HEAD_W = LAYOUT_TET.width, LAYOUT_TET.tab_w, 24, 8
+# (mega row, table row) widths per layout
+LAYOUTS = {"tet": (MEGA_W, ROW_W), "pk": (LAYOUT_PK.width, LAYOUT_PK.tab_w)}
 NOISES = ("xi", "philox", "none")
 PASSES = ("whole", "crossers", "admitted")
 ADMIT_TILE = 8192        # lanes per block of hop_admit_kernel
@@ -63,7 +71,15 @@ ADMIT_TILE = 8192        # lanes per block of hop_admit_kernel
 # test, the bounce block every lane runs, one hop's re-test; a Philox draw
 # (10 rounds, the uniforms, 2 log, 2 sqrt, sin, cos)
 OPS = {"stream": 110, "stream_hop": 25, "convex": 110, "convex_hop": 70, "philox": 240,
-       "macro_step": 45, "rare_lane": 60, "admit_group": 12}
+       "macro_step": 45, "rare_lane": 60, "admit_group": 12,
+       # the Pk blend: the weights at the current point (21) and 3 x 7
+       "pk_blend": 42}
+
+
+def _widths(layout):
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {tuple(LAYOUTS)}, got {layout!r}")
+    return LAYOUTS[layout]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,20 +131,26 @@ def _noise_ops(noise, draws):
 
 
 def stream(n: int, elem: int, noise: str, pass_: str = "whole", hops: int = 0,
-           hopped: int = 0) -> Traffic:
+           hopped: int = 0, layout: str = "tet") -> Traffic:
     """``stream_kernel``: ``hops`` table rows loaded (summed over the inline
     hops; 0 in the crossers pass), ``hopped`` lanes whose cached row
-    changed (written back)."""
+    changed (written back).  ``layout`` "pk": the VertexVelocity
+    instantiation (40-column mega, 32-column padded table rows, the whole
+    pass only)."""
     _check(n, elem, noise, pass_, hopped)
+    mega_w, row_w = _widths(layout)
+    if layout == "pk" and pass_ != "whole":
+        raise ValueError("the VertexVelocity stream has the whole pass only")
     if pass_ == "crossers" and hops:
         raise ValueError("the crossers pass does not hop")
     if hopped > hops:
         raise ValueError("a lane's row changes only by a hop")
-    read = n * MEGA_W * elem + hops * ROW_W * elem
+    read = n * mega_w * elem + hops * row_w * elem
     read += n * 3 * elem if noise == "xi" else 0
     read += n if pass_ == "admitted" else 0
-    written = n if pass_ == "crossers" else n * HEAD_W * elem + hopped * ROW_W * elem + n
+    written = n if pass_ == "crossers" else n * HEAD_W * elem + hopped * row_w * elem + n
     ops = n * OPS["stream"] + hops * OPS["stream_hop"] + _noise_ops(noise, n)
+    ops += n * OPS["pk_blend"] if layout == "pk" else 0
     return Traffic(read, written, ops)
 
 
@@ -195,13 +217,14 @@ def share_of_floor(bound_ms: float, launch_floor_ms: float, ms: float) -> float:
     return max(bound_ms, launch_floor_ms) / ms
 
 
-def rare(n: int, elem: int, pending: int, moved: int) -> Traffic:
+def rare(n: int, elem: int, pending: int, moved: int, layout: str = "tet") -> Traffic:
     """``rare_kernel``, a floor: ``pending`` lanes read and write pos, vel,
-    tet and their row (27 columns); ``moved`` lanes whose tet changed load
-    at least their new row."""
+    tet and their row (27 columns; 39 under ``layout`` "pk"); ``moved``
+    lanes whose tet changed load at least their new row."""
     _check(n, elem, "none", "whole", pending, moved)
-    lane = (6 + 1 + ROW_W) * elem
-    return Traffic(n + pending * lane + moved * ROW_W * elem, pending * lane,
+    row_w = _widths(layout)[1]
+    lane = (6 + 1 + row_w) * elem
+    return Traffic(n + pending * lane + moved * row_w * elem, pending * lane,
                    pending * OPS["rare_lane"])
 
 

@@ -1,7 +1,11 @@
-"""The fused particle stepper (port of ``cudaparticlesfoam_tpu/stepper.py``,
-cached engine).
+"""The particle stepper (port of ``cudaparticlesfoam_tpu/stepper.py``): the
+cached engine, whose cycle runs in hand-written CUDA kernels, and the
+simple engine (:func:`cycle`: ``ops.advect`` + ``ops.locate`` /
+``ops.convex`` as torch ops), which is the cached engine's oracle and runs
+what its kernels do not cover (``StepConfig.resolved_engine``).
 
-``run_cycles`` packs the state into the [n, 32] mega array once, runs
+``run_cycles`` packs the state into the mega array once ([n, 32] under
+TetVelocity, [n, 40] under VertexVelocity), runs
 ``n_cycles`` sub-steps of :func:`ops.fused.mega_cycle` (or, with
 ``locate_mode="convex"``, :func:`ops.fused_convex.mega_cycle`; two
 kernels each on CUDA: stream + rare, with ``hop_compact=4`` four: the
@@ -21,8 +25,10 @@ import math
 import numpy as np
 import torch
 
+from .dtypes import numpy_float
 from .mesh import TetMesh
 from .ops import advect as advect_ops
+from .ops import convex as convex_ops
 from .ops import fused, fused_convex
 from .ops import locate as locate_ops
 from .state import ParticleState
@@ -31,8 +37,8 @@ from .state import ParticleState
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     """Per-run knobs, every field of the JAX package's ``StepConfig`` with
-    the same defaults and validation.  Settings whose kernels are not
-    ported yet raise ``NotImplementedError`` at :func:`run_cycles` (see
+    the same defaults and validation.  Settings that are not ported yet
+    raise ``NotImplementedError`` at :func:`run_cycles` (see
     :func:`check_ported`)."""
 
     dt: float = 1e-4
@@ -78,23 +84,45 @@ class StepConfig:
                 f" and trips are unrolled), got {self.macro_cycles!r}"
             )
 
+    def resolved_engine(self) -> str:
+        """"cached" or "simple" (JAX ``StepConfig.resolved_engine``): under
+        ``engine="auto"`` the cached engine takes TetVelocity + Euler with
+        the ConvexPoly locator, and TetVelocity / VertexVelocity with the
+        barycentric one; everything else goes to the simple engine.
+        On CPU tensors ``run_cycles`` also falls back to the simple engine
+        where the mesh lacks the cached engine's tables; on the card it
+        raises there."""
+        if self.engine != "auto":
+            return self.engine
+        if self.locate_mode == "convex":
+            return ("cached" if self.velocity_interp == advect_ops.TET_VELOCITY
+                    and self.integrator == "euler" else "simple")
+        return ("cached" if self.velocity_interp in (advect_ops.TET_VELOCITY,
+                                                     advect_ops.VERTEX_VELOCITY)
+                and self.locate_mode == "bary" and self.integrator in ("euler", "rk4")
+                else "simple")
+
 
 def check_ported(cfg: StepConfig) -> None:
-    """Raise ``NotImplementedError`` for a setting whose kernels the port
-    does not have yet (naming the setting and its ROADMAP queue 1 item),
-    and ``ValueError`` for values the kernels cannot take."""
+    """Raise ``NotImplementedError`` for a setting the port does not have
+    yet (naming the setting and its ROADMAP queue 1 item), and
+    ``ValueError`` for values the engines cannot take.  ``integrator="rk4"``
+    runs on the simple engine when that is asked for (``engine="simple"``,
+    or where ``resolved_engine`` picks it); on the cached engine its stage
+    velocities (``fused._stage_velocity``) are not ported."""
     todo = []
-    if cfg.engine == "simple":
-        todo.append("engine='simple' (the simple engine; ROADMAP queue 1 item 3)")
-    elif cfg.engine not in ("auto", "cached"):
+    if cfg.engine not in ("auto", "cached", "simple"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
     if cfg.locate_mode not in ("bary", "convex"):
         raise ValueError(f"unknown locate_mode {cfg.locate_mode!r}")
-    if cfg.integrator == "rk4":
-        todo.append("integrator='rk4' (_stage_velocity, ROADMAP queue 1 item 8)")
-    if cfg.velocity_interp != advect_ops.TET_VELOCITY:
-        todo.append(f"velocity_interp={cfg.velocity_interp!r} "
-                    "(LAYOUT_PK, ROADMAP queue 1 item 8)")
+    if cfg.integrator not in ("euler", "rk4"):
+        raise ValueError(f"unknown integrator {cfg.integrator!r}")
+    if cfg.velocity_interp not in (advect_ops.TET_VELOCITY, advect_ops.VERTEX_VELOCITY,
+                                   advect_ops.CONSTANT_VELOCITY):
+        raise ValueError(f"unknown velocity interpolation mode {cfg.velocity_interp!r}")
+    if cfg.integrator == "rk4" and cfg.resolved_engine() == "cached":
+        todo.append("integrator='rk4' on the cached engine (_stage_velocity, ROADMAP "
+                    "queue 1 item 8; engine='simple' runs it)")
     if cfg.brownian_rng not in ("threefry",) + fused.RBG_MODES:
         raise ValueError(f"unknown brownian_rng {cfg.brownian_rng!r}")
     if cfg.cycle_chunks > 1:
@@ -109,37 +137,134 @@ def check_ported(cfg: StepConfig) -> None:
         raise ValueError(f"inline_hops must be in 0..8, got {cfg.inline_hops}")
 
 
+def cycle(mesh: TetMesh, state: ParticleState, cfg: StepConfig, dt,
+          noise=None) -> ParticleState:
+    """One Lagrangian sub-step of the simple engine (one iteration of
+    ``advect.H:86-184``; JAX ``stepper.cycle``): advect, Brownian kick,
+    locate (the barycentric walk, or with ``locate_mode="convex"`` the
+    segment tracer, its reflector and the ``convex_bary_fix`` pass),
+    reflect, move.  Torch ops on the tensors' device, no kernel.  ``noise``
+    [n, 3] replaces the cycle's noise draw, as in :func:`run_cycles`, so
+    that the cached and the simple engine can be run on one stream."""
+    T = state.dtype
+    dt = float(np.asarray(dt, numpy_float(T)))   # dt in the state dtype first, as JAX casts it
+    pos, vel, disp = state.pos, state.vel, state.disp
+    tet_id, active = state.tet_id, state.active
+
+    # advect: disp = dt * u(x); kills lanes with negative tet ids
+    if cfg.use_advection:
+        disp, vel, active = advect_ops.advect(
+            mesh, pos, vel, tet_id, active, dt, cfg.velocity_interp,
+            integrator=cfg.integrator)
+
+    # brownian: disp += sqrt(2 D dt) N(0,1)
+    if cfg.use_brownian:
+        xi = noise if noise is not None else fused._brownian_noise(
+            state.seed, state.step, state.n_particles, T, state.device, cfg.brownian_rng)
+        disp = advect_ops.brownian(disp, active, xi, dt, cfg.diffusion_coeff)
+
+    if cfg.locate_mode == "convex":
+        # ConvexPoly mode: exact segment tracing + its reflector
+        tet_id, stop_tet, p_cross, hit_face = convex_ops.trace_segment(
+            mesh, pos, disp, tet_id, active=active, max_tets=cfg.max_hops)
+        if cfg.reflect_wall:
+            pos, disp, vel, tet_id = convex_ops.convex_reflect(
+                mesh, pos, disp, vel, tet_id, stop_tet, p_cross, hit_face)
+            if cfg.convex_bary_fix:
+                # barycentric consistency pass on the landed position
+                p_land = pos + torch.where(active[:, None], disp, torch.zeros_like(disp))
+                tet_chk, _ = locate_ops.walk(mesh, p_land, tet_id)
+                d_fix, vel, tet_id = locate_ops.reflect_walls(
+                    mesh, p_land, torch.zeros_like(disp), vel, tet_chk,
+                    max_bounces=cfg.max_bounces)
+                disp = torch.where(active[:, None], disp + d_fix, disp)
+    else:
+        # locate: walk from the previous tet to pos + disp
+        tet_id, _ = locate_ops.walk(mesh, pos + disp, tet_id, max_hops=cfg.max_hops)
+        # reflect wall hits (specular, all boundaries but the absorbing ones)
+        if cfg.reflect_wall:
+            disp, vel, tet_id = locate_ops.reflect_walls(
+                mesh, pos, disp, vel, tet_id, max_bounces=cfg.max_bounces)
+
+    # move: pos += disp; disp = 0
+    pos, disp = advect_ops.move(pos, disp, active)
+    return dataclasses.replace(
+        state, pos=pos, vel=vel, disp=disp, tet_id=tet_id.to(torch.int32), active=active,
+        step=state.step + 1)
+
+
+def step_once(mesh: TetMesh, state: ParticleState, cfg: StepConfig, dt,
+              noise=None) -> ParticleState:
+    """Single sub-step of the simple engine, for tests and interactive use
+    (JAX ``stepper.step_once``)."""
+    check_ported(dataclasses.replace(cfg, engine="simple"))
+    return cycle(mesh, state, cfg, dt, noise=noise)
+
+
+def engine_for(mesh: TetMesh, cfg: StepConfig, device) -> str:
+    """The engine :func:`run_cycles` runs on ``device``:
+    ``cfg.resolved_engine()``, except where that is "cached" and the mesh
+    lacks the table it reads.  Then "simple" on the CPU, and ``ValueError``
+    on any other device (see :func:`run_cycles`)."""
+    engine = cfg.resolved_engine()
+    missing = None
+    if engine == "cached" and cfg.locate_mode == "convex":
+        missing = "with_convex_rows" if mesh.tet_row_cx is None else None
+    elif engine == "cached" and cfg.velocity_interp == advect_ops.VERTEX_VELOCITY:
+        missing = "with_pk_rows" if mesh.tet_row_pk is None else None
+    if missing is None:
+        return engine
+    if torch.device(device).type != "cpu":
+        raise ValueError(
+            f"the cached engine needs mesh.{missing}(mesh) on {device}: attach the table, or "
+            f"pass engine='simple' for the simple engine (torch ops, no kernel)")
+    return "simple"
+
+
 def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
                n_cycles: int, dt=None, noise=None) -> ParticleState:
-    """``n_cycles`` sub-steps of the cached engine (bary, or ConvexPoly
-    with ``locate_mode="convex"`` on a mesh with ``with_convex_rows``).
+    """``n_cycles`` sub-steps.  The engine is ``cfg.resolved_engine()``: the
+    cached engine (bary under TetVelocity or VertexVelocity, or ConvexPoly
+    with ``locate_mode="convex"`` under TetVelocity), or the simple engine
+    (:func:`cycle`).  Where the mesh lacks the cached engine's tables
+    (VertexVelocity without ``mesh.with_pk_rows``, convex without
+    ``mesh.with_convex_rows``) the JAX package hands the run to the simple
+    engine without a word.  The port does so on CPU tensors only; on the
+    card, where that would trade the kernels for torch ops with a host
+    sync per walk hop, it raises ``ValueError`` and names the two ways on:
+    attach the table, or ask for ``engine="simple"``.
 
     ``dt`` defaults to cfg.dt (``advect.H:36-37``: pass the Eulerian
     ``cycleDt`` for sub-cycled runs).  ``noise`` [n_cycles, n, 3], when
     given, replaces the per-step noise draw (replays of a recorded
-    Brownian stream).  On CUDA tensors every cycle runs the stream and
-    rare kernels; on CPU tensors their plain versions.  ``macro_cycles``
-    applies to the bary engine only (the convex engine never reads it, as
-    in JAX); a macro cycle takes ``noise`` k steps at a time."""
+    Brownian stream).  On CUDA tensors every cycle of the cached engine
+    runs the stream and rare kernels; on CPU tensors their plain versions.
+    ``macro_cycles`` applies to the bary engine only (the convex engine
+    never reads it, as in JAX); a macro cycle takes ``noise`` k steps at a
+    time.
+
+    VertexVelocity keeps to the JAX package's envelope: ``hop_compact=4``
+    is ignored (its compacted hop gather takes no layout) and
+    ``macro_cycles`` > 1 runs cycle by cycle (a macro sub-step needs a
+    velocity that is constant within a tet), so both give the plain run's
+    result."""
     check_ported(cfg)
     dt = cfg.dt if dt is None else dt
     n = state.n_particles
     if noise is not None and tuple(noise.shape) != (n_cycles, n, 3):
         raise ValueError(f"noise must be [{n_cycles}, {n}, 3], got {tuple(noise.shape)}")
+    ly = fused.layout_for(cfg)
+    if engine_for(mesh, cfg, state.device) == "simple":
+        for i in range(n_cycles):
+            state = cycle(mesh, state, cfg, dt, noise=None if noise is None else noise[i])
+        return state
     pending = torch.empty(n, dtype=torch.uint8, device=state.device)
+    macro = cfg.locate_mode == "bary" and cfg.macro_cycles > 1 and ly is fused.LAYOUT_TET
     # the compacted stages' buffers, once for the run
     scratch = None
-    if cfg.hop_compact == fused.HOP_GROUP or (cfg.locate_mode == "bary"
-                                              and cfg.macro_cycles > 1):
+    if (cfg.hop_compact == fused.HOP_GROUP and ly is fused.LAYOUT_TET) or macro:
         scratch = fused.compact_scratch(n, state.device)
     if cfg.locate_mode == "convex":
-        if mesh.tet_row_cx is None:
-            # the JAX package runs its simple engine here
-            raise NotImplementedError(
-                "locate_mode='convex' needs the cached engine's tables: call "
-                "mesh.with_convex_rows(mesh) first (without them the JAX package "
-                "falls back to the simple engine, not ported yet; ROADMAP queue 1 "
-                "item 3)")
         tab = fused_convex.cx_table(mesh)
         m = fused_convex.pack_state(mesh, tab, state.pos, state.vel, state.tet_id,
                                     state.active)
@@ -150,9 +275,9 @@ def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
                                     pending=pending, disp=disp, scratch=scratch)
         pos, vel, tet, act = fused_convex.unpack_state(m)
     else:
-        m = fused.pack_state(mesh, state.pos, state.vel, state.tet_id, state.active)
+        m = fused.pack_state(mesh, state.pos, state.vel, state.tet_id, state.active, ly)
         k = cfg.macro_cycles
-        n_mac = n_cycles // k if k > 1 else 0
+        n_mac = n_cycles // k if macro else 0
         for i in range(0, n_mac * k, k):
             fused.mega_macro(mesh, m, state.seed, state.step + i, cfg, dt,
                              noise=None if noise is None else noise[i : i + k],

@@ -1,5 +1,6 @@
 """PyTorch port: the StepConfig surface, the settings that are not ported
-yet (each message names its setting and ROADMAP item), suggest_tuning
+yet (each message names its setting and ROADMAP item), the settings that
+run on the simple engine, suggest_tuning
 against the JAX package, and the kernel build's error when there is no
 CUDA toolkit."""
 
@@ -17,7 +18,7 @@ from cudaparticlesfoam_tpu_torch import convert
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch.ops import _build, fused_cuda
 
-CPU = torch.device("cpu")   # the port's builders default to the card
+from torch_port_common import CPU   # also caps torch at one thread
 
 
 def test_step_config_fields_and_defaults_match_jax():
@@ -38,19 +39,34 @@ def test_validation_mirrors_jax(kw):
 
 
 # (setting, the text its message must carry: the setting and its ROADMAP
-# queue 1 item); convex without with_convex_rows needs the simple engine
+# queue 1 item)
 UNPORTED = [
-    (dict(engine="simple"), "engine='simple' (the simple engine; ROADMAP queue 1 item 3)"),
-    (dict(locate_mode="convex"), "with_convex_rows"),
-    (dict(integrator="rk4"), "integrator='rk4' (_stage_velocity, ROADMAP queue 1 item 8)"),
-    (dict(velocity_interp="VertexVelocity"), "velocity_interp='VertexVelocity' "
-     "(LAYOUT_PK, ROADMAP queue 1 item 8)"),
-    (dict(velocity_interp="ConstantVelocity"), "velocity_interp='ConstantVelocity' "
-     "(LAYOUT_PK, ROADMAP queue 1 item 8)"),
+    (dict(integrator="rk4"), "integrator='rk4' on the cached engine (_stage_velocity, ROADMAP "
+     "queue 1 item 8; engine='simple' runs it)"),
+    (dict(integrator="rk4", engine="cached", velocity_interp="VertexVelocity"),
+     "integrator='rk4' on the cached engine"),
     (dict(cycle_chunks=2), "cycle_chunks>1 (ROADMAP queue 1 item 10)"),
     (dict(engine_impl="jnp"), "engine_impl='jnp' (the port picks the kernel from the "
      "tensors' device; ROADMAP queue 1 item 10)"),
 ]
+
+# settings that go to the simple engine (stepper.cycle), by request or
+# because the cached engine does not cover them or the mesh lacks its tables
+SIMPLE = [
+    dict(engine="simple"),
+    dict(engine="simple", integrator="rk4"),
+    dict(engine="simple", locate_mode="convex"),
+    dict(locate_mode="convex"),                          # no with_convex_rows
+    dict(locate_mode="convex", integrator="rk4"),
+    dict(locate_mode="convex", velocity_interp="VertexVelocity"),
+    dict(velocity_interp="VertexVelocity"),              # no with_pk_rows
+    dict(velocity_interp="ConstantVelocity"),
+    dict(velocity_interp="ConstantVelocity", integrator="rk4"),
+]
+
+
+def _ids(cases):
+    return ["-".join(f"{k}={v}" for k, v in kw.items()) for kw in cases]
 
 
 @pytest.fixture(scope="module")
@@ -62,19 +78,48 @@ def tiny():
     return mesh, st
 
 
-@pytest.mark.parametrize("kw,msg", UNPORTED,
-                         ids=["-".join(f"{k}={v}" for k, v in kw.items()) for kw, _ in UNPORTED])
+@pytest.mark.parametrize("kw,msg", UNPORTED, ids=_ids([kw for kw, _ in UNPORTED]))
 def test_unported_settings_raise(tiny, kw, msg):
     mesh, st = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
-        cpt.run_cycles(mesh, st, cpt.StepConfig(**kw), 1)
+        cpt.run_cycles(cpt.with_pk_rows(mesh), st, cpt.StepConfig(**kw), 1)
     assert msg in str(exc.value)
-    # still refused on a mesh with the convex rows, and under locate_mode
-    # convex, unless it is the convex setting itself
-    if kw != dict(locate_mode="convex"):
+    # still refused under locate_mode convex on a mesh with the convex rows,
+    # except RK4, which the convex locator hands to the simple engine
+    if "integrator" not in kw:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cpt.run_cycles(cpt.with_convex_rows(mesh), st,
                            cpt.StepConfig(locate_mode="convex", **kw), 1)
+
+
+@pytest.mark.parametrize("kw", SIMPLE, ids=_ids(SIMPLE))
+def test_simple_engine_settings_run(tiny, kw, monkeypatch):
+    """Each of these runs through ``stepper.cycle`` and never through the
+    cached engine's wrappers."""
+    mesh, st = tiny
+
+    def refuse(*a, **k):
+        raise AssertionError("the cached engine ran")
+
+    for name in ("stream_cycle", "rare_resolve", "convex_stream_cycle", "convex_rare_resolve"):
+        monkeypatch.setattr(fused_cuda, name, refuse)
+    cfg = cpt.StepConfig(dt=0.01, **kw)
+    assert cfg.resolved_engine() == jcpf.StepConfig(dt=0.01, **kw).resolved_engine()
+    out = cpt.run_cycles(mesh, st, cfg, 2)
+    assert int(out.active.sum()) == 8 and out.step == 2
+    assert bool(torch.isfinite(out.pos).all()) and not torch.equal(out.pos, st.pos)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(integrator="rk4"), dict(velocity_interp="VertexVelocity"),
+    dict(velocity_interp="VertexVelocity", integrator="rk4"),
+    dict(velocity_interp="ConstantVelocity"), dict(locate_mode="convex"),
+    dict(locate_mode="convex", velocity_interp="VertexVelocity"),
+    dict(locate_mode="convex", integrator="rk4"), dict(engine="simple"),
+    dict(engine="cached", integrator="rk4"),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()) or "default")
+def test_resolved_engine_matches_jax(kw):
+    assert cpt.StepConfig(**kw).resolved_engine() == jcpf.StepConfig(**kw).resolved_engine()
 
 
 def test_ported_settings_run(tiny):
@@ -88,8 +133,14 @@ def test_ported_settings_run(tiny):
                dict(locate_mode="convex", escape_faces=True, convex_bary_fix=False)):
         out = cpt.run_cycles(mesh_cx, st, cpt.StepConfig(dt=0.01, **kw), 2)
         assert int(out.active.sum()) == 8 and out.step == 2
+    for kw in (dict(velocity_interp="VertexVelocity"),
+               dict(velocity_interp="VertexVelocity", inline_hops=3, escape_faces=True,
+                    brownian_rng="rbg_kernel")):
+        out = cpt.run_cycles(cpt.with_pk_rows(mesh), st, cpt.StepConfig(dt=0.01, **kw), 2)
+        assert int(out.active.sum()) == 8 and out.step == 2
     for kw in (dict(inline_hops=9), dict(locate_mode="convex", inline_hops=9),
-               dict(locate_mode="walk"), dict(brownian_rng="philox")):
+               dict(locate_mode="walk"), dict(brownian_rng="philox"), dict(engine="fast"),
+               dict(integrator="rk2"), dict(velocity_interp="FaceVelocity")):
         with pytest.raises(ValueError):
             cpt.run_cycles(mesh_cx, st, cpt.StepConfig(**kw), 1)
 

@@ -32,7 +32,7 @@ from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch.ops import convex, fused, fused_convex, fused_cuda
 from cudaparticlesfoam_tpu_torch.ops import locate
 
-CPU = torch.device("cpu")   # the port's builders default to the card
+from torch_port_common import CPU   # also caps torch at one thread
 
 TOL64 = dict(atol=1e-12, rtol=0)
 
@@ -402,10 +402,19 @@ def test_convex_run_matches_jax_run_cycles():
 
 def test_convex_needs_the_row_tables():
     tm = convert.to_mesh(_payload(2, np.float64), device=CPU)
-    st = convert.to_state(np.full((4, 3), 1.0), np.zeros(4, np.int32), dtype=np.float64,
-                          device=CPU)
-    with pytest.raises(NotImplementedError, match="with_convex_rows"):
-        cpt.run_cycles(tm, st, cpt.StepConfig(locate_mode="convex"), 1)
+    pos = np.random.default_rng(0).uniform(0.2, 1.8, (64, 3))
+    st = convert.to_state(pos, np.zeros(64, np.int32), dtype=np.float64, device=CPU)
+    st = dataclasses.replace(st, tet_id=cpt.locate_seeds(tm, cpt.build_grid_locator(tm), st.pos))
+    # the cached convex engine needs them ...
+    with pytest.raises(ValueError, match="with_convex_rows"):
+        fused_convex.cx_table(tm)
+    # ... so without them run_cycles hands the run to the simple engine, as
+    # the JAX package does, and with them to the cached one: the same state
+    cfg = cpt.StepConfig(locate_mode="convex", dt=0.05, use_brownian=False)
+    got = cpt.run_cycles(tm, st, cfg, 3)
+    want = cpt.run_cycles(cpt.with_convex_rows(tm), st, cfg, 3)
+    assert got.step == 3 and torch.equal(got.tet_id, want.tet_id)
+    np.testing.assert_allclose(got.pos.numpy(), want.pos.numpy(), atol=1e-12, rtol=0)
 
 
 def test_convex_wrappers_check_inputs():

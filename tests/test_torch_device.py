@@ -11,7 +11,7 @@ import cudaparticlesfoam_tpu_torch as cpt
 from cudaparticlesfoam_tpu_torch import convert, dtypes
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 
-CPU = torch.device("cpu")
+from torch_port_common import CPU   # also caps torch at one thread
 
 
 def _payload():

@@ -31,7 +31,7 @@ from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch.ops import fused, fused_cuda
 from tests.test_torch_compact import N, NSIDE, _payload, _x32
 
-CPU = torch.device("cpu")   # the port's builders default to the card
+from torch_port_common import CPU   # also caps torch at one thread
 
 
 def _state(tm, n, seed):

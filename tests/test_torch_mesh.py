@@ -16,7 +16,7 @@ from cudaparticlesfoam_tpu_torch import convert
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch import state as tstate
 
-CPU = torch.device("cpu")   # the port's builders default to the card
+from torch_port_common import CPU   # also caps torch at one thread
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -21,7 +21,7 @@ import cudaparticlesfoam_tpu_torch as cpt
 from cudaparticlesfoam_tpu_torch import convert
 from cudaparticlesfoam_tpu_torch.ops import fused, fused_cuda
 
-CPU = torch.device("cpu")   # the port's builders default to the card
+from torch_port_common import CPU   # also caps torch at one thread
 
 KEYS = [
     (0, 0, 0),                       # (seed, step, lane_offset)

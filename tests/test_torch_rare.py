@@ -15,7 +15,7 @@ from cudaparticlesfoam_tpu_torch import StepConfig, build_grid_locator, convert,
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch.ops import fused, fused_cuda
 
-CPU = torch.device("cpu")   # the port's builders default to the card
+from torch_port_common import CPU   # also caps torch at one thread
 
 NSIDE, N = 6, 2048
 

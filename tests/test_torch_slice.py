@@ -17,7 +17,7 @@ import cudaparticlesfoam_tpu_torch as cpt
 from cudaparticlesfoam_tpu_torch import convert
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 
-CPU = torch.device("cpu")   # the port's builders default to the card
+from torch_port_common import CPU   # also caps torch at one thread
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "golden", "particles_f64.npz")
@@ -139,7 +139,7 @@ def test_diagnostics_and_sub_cycling(box):
 def test_chip_smoke_rehearsal_runs_every_phase():
     """``chip_smoke.py --rehearse`` drives every phase at small sizes on the
     CPU through the plain versions: it must exit 2 (no device result), print
-    the table of the six kernels with every key the table carries, and no
+    the table of the eight kernel entries with every key the table carries, and no
     ``ok`` line."""
     import json
     import subprocess
@@ -155,7 +155,8 @@ def test_chip_smoke_rehearsal_runs_every_phase():
     table = json.loads(lines[-2])
     names = [k["name"] for k in table["kernels"]]
     assert names == ["stream_kernel", "rare_kernel", "convex_stream_kernel",
-                     "convex_rare_kernel", "hop_admit_kernel", "macro_stream_kernel"]
+                     "convex_rare_kernel", "hop_admit_kernel", "macro_stream_kernel",
+                     "stream_kernel<pk>", "rare_kernel<pk>"]
     for entry in table["kernels"]:
         assert {"route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "bytes", "share", "copy_ms",
@@ -163,8 +164,8 @@ def test_chip_smoke_rehearsal_runs_every_phase():
         assert entry["library_ms"] is None and entry["max_abs_err"] == 0.0
         assert os.path.exists(os.path.join(root, entry["source"]))
     floors = {k["name"] for k in table["kernels"] if "launch_floor_ms" in k}
-    assert floors == {"rare_kernel", "convex_rare_kernel", "hop_admit_kernel"}
+    assert floors == {"rare_kernel", "convex_rare_kernel", "hop_admit_kernel", "rare_kernel<pk>"}
     for tag in ("[parity]", "[convex-parity]", "[noise]", "[admit]", "[compact]", "[macro]",
                 "[golden]", "[slice]", "[convex-slice]", "[macro-slice]", "[compact-slice]",
-                "[convex-compact-slice]", "[bound]"):
+                "[convex-compact-slice]", "[pk-parity]", "[pk-slice]", "[simple]", "[bound]"):
         assert any(line.startswith(tag) for line in lines), tag

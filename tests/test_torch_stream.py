@@ -18,7 +18,7 @@ from cudaparticlesfoam_tpu_torch import StepConfig, build_grid_locator, convert,
 from cudaparticlesfoam_tpu_torch import mesh as tmesh
 from cudaparticlesfoam_tpu_torch.ops import fused, fused_cuda
 
-CPU = torch.device("cpu")   # the port's builders default to the card
+from torch_port_common import CPU   # also caps torch at one thread
 
 
 def _payload(nside, dtype):
@@ -165,3 +165,19 @@ def test_brownian_noise_is_per_step_and_reproducible():
     c = fused._brownian_noise(7, 4, 1000, torch.float32, torch.device("cpu"))
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert abs(float(a.mean())) < 0.1 and abs(float(a.std()) - 1.0) < 0.1
+
+
+def test_stream_seed_separates_seed_and_step_on_both_devices():
+    """Every (seed, step) pair gets a generator seed of its own in the bits
+    the device's generator keeps: all 63 on the card (seed high, step low),
+    the low 32 on the CPU (hashed, since mt19937 drops the rest)."""
+    pairs = [(sd, st) for sd in (0, 1, 2, 7, 1 << 20, (1 << 31) - 1) for st in range(0, 4000, 7)]
+    cuda = [fused._stream_seed(sd, st, torch.device("cuda", 0)) for sd, st in pairs]
+    assert cuda == [(sd << 32) + st for sd, st in pairs] and len(set(cuda)) == len(pairs)
+    cpu = [fused._stream_seed(sd, st, "cpu") for sd, st in pairs]
+    assert all(0 <= x < (1 << 63) for x in cpu)
+    assert len({x & 0xFFFFFFFF for x in cpu}) == len(pairs)
+    # and the CPU draws differ by seed as well as by step
+    a = fused._brownian_noise(7, 3, 100, torch.float64, torch.device("cpu"))
+    b = fused._brownian_noise(8, 3, 100, torch.float64, torch.device("cpu"))
+    assert not torch.equal(a, b)

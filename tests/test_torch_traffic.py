@@ -2,6 +2,7 @@
 per call, pinned against hand counts at 10 lanes (float32, e = 4 bytes,
 and float64, e = 8), and the bound derived from them."""
 
+import torch_port_common  # noqa: F401  (caps torch at one thread)
 import pytest
 
 from cudaparticlesfoam_tpu_torch.ops import traffic
@@ -66,6 +67,18 @@ CASES = [
                           hops=1, hopped=1), 10 + 256 + 160 + 10, 64 + 160 + 1 + 10),
     ("macro_stream", dict(elem=4, noise="none", pass_="whole", working=1, substeps=1),
      10 + 128, 32 + 1 + 10),
+    # the VertexVelocity instantiations: mega row 40 columns, padded table row 32
+    # stream: mega + xi + hop rows | head + rows of lanes that hopped + pending byte
+    ("stream", dict(elem=4, noise="xi", hops=3, hopped=2, layout="pk"),
+     10 * 160 + 10 * 12 + 3 * 128, 10 * 32 + 2 * 128 + 10),
+    ("stream", dict(elem=4, noise="philox", hops=1, hopped=1, layout="pk"), 1600 + 128,
+     320 + 128 + 10),
+    ("stream", dict(elem=8, noise="xi", hops=4, hopped=3, layout="pk"),
+     10 * 320 + 10 * 24 + 4 * 256, 10 * 64 + 3 * 256 + 10),
+    ("stream", dict(elem=8, noise="none", layout="pk"), 3200, 640 + 10),
+    # rare: flags + pending lanes' pos, vel, tet and 32-column row (39 columns) + new rows
+    ("rare", dict(elem=4, pending=2, moved=1, layout="pk"), 10 + 2 * 156 + 128, 2 * 156),
+    ("rare", dict(elem=8, pending=3, moved=2, layout="pk"), 10 + 3 * 312 + 2 * 256, 3 * 312),
 ]
 
 
@@ -113,6 +126,7 @@ def test_bound_is_the_larger_of_bytes_and_operations():
 
 def test_operations_stay_far_below_bytes_at_the_slice():
     for t in (traffic.stream(1_000_000, 4, "philox", hops=130_000, hopped=120_000),
+              traffic.stream(1_000_000, 4, "philox", hops=130_000, hopped=120_000, layout="pk"),
               traffic.convex_stream(1_000_000, 4, "philox", row_loads=130_000, hopped=120_000),
               traffic.macro_stream(1_000_000, 4, "philox", working=1_000_000,
                                    substeps=3_300_000, hops=410_000, hopped=380_000)):
@@ -132,6 +146,10 @@ def test_operations_stay_far_below_bytes_at_the_slice():
     lambda: traffic.rare(N, 4, pending=-1, moved=0),
     lambda: traffic.hop_admit(-1),
     lambda: traffic.macro_stream(N, 4, "xi", pass_="crossers", working=2, substeps=2, hops=1),
+    lambda: traffic.stream(N, 4, "xi", layout="pk", pass_="crossers"),
+    lambda: traffic.stream(N, 4, "xi", layout="pk", pass_="admitted"),
+    lambda: traffic.stream(N, 4, "xi", layout="vertex"),
+    lambda: traffic.rare(N, 4, pending=1, moved=0, layout="cx"),
 ])
 def test_bad_arguments_raise(call):
     with pytest.raises(ValueError):
