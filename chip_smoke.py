@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py               # the full check on cuda:0
     python3 chip_smoke.py --rehearse    # small sizes on the CPU, plain versions only
+    python3 chip_smoke.py --parent DIR  # also phase 7, against the checkout in DIR
 
 Phases, one line of numbers each, any failure exits non-zero:
 
@@ -14,12 +15,16 @@ Phases, one line of numbers each, any failure exits non-zero:
    one cycle, for hops {1, 4} x escape faces {off, on} x reflect_wall {on,
    off}: stream_kernel against stream_plain, then rare_kernel against
    rare_plain on the same (m, pending); tet/active/pending identical,
-   pos/vel within 1e-5;
+   pos/vel within 1e-5; the rare kernel also bit for bit on six pending
+   patterns (the cycle's own, none, all, the last lane, the ragged tail
+   group, the cycle's own in a view one byte off 16 B), one launch a call,
+   in float32 and, after a float64 plain stream cycle, in float64;
 3b. convex kernel vs plain, float32: the same box and both lane counts, one cycle, for
    inline_hops {0, 1} x escape faces {off, on} x (reflect_wall with
    convex_bary_fix | no reflection): convex_stream_kernel against
    convex_stream_plain, then convex_rare_kernel against convex_rare_plain
-   on the same (m, disp, pending); same tolerances;
+   on the same (m, disp, pending); same tolerances; the rare kernel on the
+   six pending patterns, float32 and float64, as in phase 3;
 3c. in-kernel Philox noise (brownian_rng "rbg_kernel"): one bary and one
    convex cycle through the kernels against the plain cycle fed
    philox_normals (tet/active identical, pos within 1e-5), then the kicks
@@ -82,7 +87,8 @@ Phases, one line of numbers each, any failure exits non-zero:
    same box with its radial vertex field, float32 and float64, 65,536 and
    65,499 lanes, inline_hops {1, 3} x escape faces {off, on} x noise {xi,
    Philox}; tet/active/pending and the row cache identical, pos/vel within
-   1e-5 (float32) and 1e-12 (float64), and the count of Pk launches;
+   1e-5 (float32) and 1e-12 (float64), the rare kernel bit for bit and on
+   the six pending patterns, and the count of Pk launches;
 5d. the slice under VertexVelocity: phase 5's mesh and seeds with the
    vortex evaluated at the vertices and with_pk_rows; 10 warm-up + 3 x 200
    timed cycles under threefry, launch counts of the Pk instantiations,
@@ -103,7 +109,19 @@ Phases, one line of numbers each, any failure exits non-zero:
    calls it.  For the kernels of a few megabytes (hop_admit_kernel and the
    two rare kernels) also the launch floor, the time of hop_admit_kernel on
    4 lanes replayed from a graph, the host's time to enqueue that launch
-   through the wrapper, and the share of max(bound, floor).
+   through the wrapper, and the share of max(bound, floor).  Then the rare
+   kernels' latency bound: chase_kernel (csrc/probe.cu, a measuring kernel
+   the port never calls) gives the latency of one dependent load, along the
+   neighbour codes of the slice's table and over a random chain as large;
+   each rare kernel's pending lanes, their chains of row loads (rare_chain)
+   and latency_bound = launch floor + (2 + longest chain) x that latency;
+   its share bound / time (the device's time, replayed from a graph, as in
+   the slice phases, which take these readings while their state is alive),
+   its time with every pending lane moved first, and a sweep by longest
+   chain;
+7. (only with --parent DIR, a checkout of another commit) that tree's rare
+   kernels, built from its sources, against this tree's on the slice's
+   inputs, in turns, bit for bit, with both shares of the latency bound.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -187,6 +205,59 @@ def compare(torch, a, b, pa=None, pb=None):
     return same, float((a[:, :6] - b[:, :6]).abs().max())
 
 
+def bitwise_equal(torch, a, b):
+    """a and b hold the same bits (float32 / float64 tensors)."""
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return a.shape == b.shape and bool(torch.equal(a.view(it), b.view(it)))
+
+
+# pending flags the rare kernels' frame (csrc/pending.cuh) must take: a
+# cycle's own, none, every lane, one lane in the last (partial) strip, only
+# the tail group past the last 16 B boundary, and the cycle's own flags in a
+# view whose data pointer is one byte past a 16 B boundary
+PATTERNS = ("real", "none", "all", "last", "tail", "unaligned")
+
+
+def pend_pattern(torch, name, real):
+    n = real.shape[0]
+    if name == "real":
+        return real
+    if name == "none":
+        return torch.zeros_like(real)
+    if name == "all":
+        return torch.ones_like(real)
+    if name == "unaligned":
+        buf = torch.zeros(n + 1, dtype=torch.uint8, device=real.device)
+        view = buf[1:]
+        view.copy_(real)
+        if real.device.type == "cuda":
+            need(view.data_ptr() % 16 != 0, "the unaligned pending view is aligned")
+        return view
+    p = torch.zeros_like(real)
+    if name == "last":
+        p[n - 1] = 1
+    else:
+        p[16 * ((n - 1) // 16):] = 1
+    return p
+
+
+def rare_patterns(torch, counter, kernel, plain, m, real, tag):
+    """The rare kernel ``kernel(m, pend)`` against ``plain(m, pend)`` on
+    every pattern of PATTERNS: the whole mega identical bit for bit, one
+    launch a call.  Returns the launches made."""
+    for name in PATTERNS:
+        pend = pend_pattern(torch, name, real)
+        mk, mp = m.clone(), m.clone()
+        before = counter.launches
+        kernel(mk, pend)
+        launched = counter.launches - before
+        plain(mp, pend)
+        need(bitwise_equal(torch, mk, mp), f"{tag} pending={name}: kernel != plain")
+        if m.device.type == "cuda":
+            need(launched == 1, f"{tag} pending={name}: {launched} launches for one call")
+    return len(PATTERNS)
+
+
 def box_payload(tmesh, nside, dtype, vel_fn):
     pts, tets, vv = tmesh.box_points_tets(nside, nside, nside)
     cen = pts[tets].mean(axis=1)
@@ -248,17 +319,43 @@ def phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, e
         fused_cuda.rare_resolve(mesh.tet_row, rk, pp, mesh.bd_escape, **rare_args(cfg))
         fused.rare_plain(mesh.tet_row, rp, pp, mesh.bd_escape, **rare_args(cfg))
         same_r, err_r = compare(torch, rk, rp)
+        same_r = same_r and bitwise_equal(torch, rk, rp)
         npend = int(pp.sum())
+        case = f"lanes={nn} hops={hops} esc={esc} refl={refl}"
+        rare_patterns(
+            torch, fused_cuda.rare_resolve,
+            lambda mm, q: fused_cuda.rare_resolve(mesh.tet_row, mm, q, mesh.bd_escape,
+                                                  **rare_args(cfg)),
+            lambda mm, q: fused.rare_plain(mesh.tet_row, mm, q, mesh.bd_escape, **rare_args(cfg)),
+            mp, pp, f"rare_kernel ({case})")
         log(f"[parity] lanes={nn} hops={hops} escape={int(esc)} reflect={int(refl)} "
             f"pending={npend} stream_identical={int(same_s)} "
             f"stream_max_abs_err={err_s:.3e} rare_identical={int(same_r)} "
-            f"rare_max_abs_err={err_r:.3e}")
-        case = f"lanes={nn} hops={hops} esc={esc} refl={refl}"
+            f"rare_max_abs_err={err_r:.3e} rare_patterns_identical=1 ({','.join(PATTERNS)})")
         need(npend > 0, f"parity case has no pending lanes ({case})")
         need(same_s and err_s <= POS_TOL_F32, f"stream_kernel != stream_plain ({case})")
         need(same_r and err_r <= POS_TOL_F32, f"rare_kernel != rare_plain ({case})")
         errs["stream"] = max(errs["stream"], err_s)
         errs["rare"] = max(errs["rare"], err_r)
+    # rare_kernel<double> on the same pending patterns, after a float64
+    # stream cycle of the plain version (escape faces, reflection)
+    mesh = tmesh.set_boundary_escape(
+        convert.to_mesh(box_payload(tmesh, nside, np.float64, swirl(nside)), dev), [1])
+    cfg = cpt.StepConfig(dt=0.2, diffusion_coeff=5e-3, inline_hops=1, escape_faces=True,
+                         reflect_wall=True)
+    sa, ra = stream_args(cfg, cfg.dt, torch.float64, fused), rare_args(cfg)
+    for nn in (n, n - RAGGED):
+        m = fused.pack_state(mesh, pos[:nn].double(), vel[:nn].double(), tet[:nn], act[:nn])
+        pp = torch.empty(nn, dtype=torch.uint8, device=dev)
+        fused.stream_plain(mesh.tet_row, m, xi[:nn].double(), pp, **sa)
+        need(int(pp.sum()) > 0, f"float64 parity case has no pending lanes (lanes={nn})")
+        rare_patterns(
+            torch, fused_cuda.rare_resolve,
+            lambda mm, q: fused_cuda.rare_resolve(mesh.tet_row, mm, q, mesh.bd_escape, **ra),
+            lambda mm, q: fused.rare_plain(mesh.tet_row, mm, q, mesh.bd_escape, **ra),
+            m, pp, f"rare_kernel<double> (lanes={nn})")
+        log(f"[parity] float64 lanes={nn} hops=1 escape=1 reflect=1 pending={int(pp.sum())} "
+            f"rare_patterns_identical=1 ({','.join(PATTERNS)})")
 
 
 def parity_lanes(torch, cpt, mesh, dev, nside, n, seed, dtype=None):
@@ -277,7 +374,7 @@ def phase_pk_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n
     rare_kernel against stream_plain and rare_plain under LAYOUT_PK."""
     ly = fused.LAYOUT_PK
     before = (fused_cuda.stream_cycle.launches, fused_cuda.rare_resolve.launches)
-    cases = 0
+    cases = extra = 0
     for dtype, tol in ((torch.float32, POS_TOL_F32), (torch.float64, POS_TOL_F64)):
         npdt = np.float32 if dtype == torch.float32 else np.float64
         # the box's own radial vertex field drives lanes into every wall
@@ -307,16 +404,24 @@ def phase_pk_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n
                 fused_cuda.rare_resolve(tab, rk, pp, mesh.bd_escape, ly=ly, **rare_args(cfg))
                 fused.rare_plain(tab, rp, pp, mesh.bd_escape, ly=ly, **rare_args(cfg))
                 same_r, err_r = compare(torch, rk, rp)
-                same_r = same_r and bool(torch.equal(rk[:, 8:], rp[:, 8:]))
+                same_r = same_r and bitwise_equal(torch, rk, rp)
                 npend = int(pp.sum())
                 absorbed = int(((mp[:, 7] == 0) & (m0[:, 7] == 1)).sum())
                 cases += 1
                 tname = str(dtype).replace("torch.", "")
+                case = f"{tname} lanes={nn} hops={hops} esc={esc} philox={philox}"
+                extra += rare_patterns(
+                    torch, fused_cuda.rare_resolve,
+                    lambda mm, q: fused_cuda.rare_resolve(tab, mm, q, mesh.bd_escape, ly=ly,
+                                                          **rare_args(cfg)),
+                    lambda mm, q: fused.rare_plain(tab, mm, q, mesh.bd_escape, ly=ly,
+                                                   **rare_args(cfg)),
+                    mp, pp, f"rare_kernel<pk> ({case})")
                 log(f"[pk-parity] {tname} lanes={nn} hops={hops} escape={int(esc)} "
                     f"noise={'philox' if philox else 'xi'} pending={npend} absorbed={absorbed} "
                     f"stream_identical={int(same_s)} stream_max_abs_err={err_s:.3e} "
-                    f"rare_identical={int(same_r)} rare_max_abs_err={err_r:.3e}")
-                case = f"{tname} lanes={nn} hops={hops} esc={esc} philox={philox}"
+                    f"rare_identical={int(same_r)} rare_max_abs_err={err_r:.3e} "
+                    f"rare_patterns_identical=1")
                 need(npend > 0, f"pk parity case has no pending lanes ({case})")
                 need(not esc or absorbed > 0, f"pk parity case absorbed no lane ({case})")
                 need(same_s and err_s <= tol, f"stream_kernel<pk> != stream_plain ({case})")
@@ -327,7 +432,8 @@ def phase_pk_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n
     if dev.type == "cuda":
         got = (fused_cuda.stream_cycle.launches - before[0],
                fused_cuda.rare_resolve.launches - before[1])
-        need(got == (cases, cases), f"phase 3f launched the Pk kernels {got}, not {cases} each")
+        need(got == (cases, cases + extra),
+             f"phase 3f launched the Pk kernels {got}, not {(cases, cases + extra)}")
 
 
 def convex_stream_args(cfg, dt, dtype, fused):
@@ -379,19 +485,47 @@ def phase_convex_parity(torch, cpt, fused, fused_convex, fused_cuda, tmesh, conv
             cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3, inline_hops=hops,
                                  escape_faces=esc, reflect_wall=refl, convex_bary_fix=refl,
                                  locate_mode="convex")
-            same_s, err_s, same_r, err_r, npend, *_ = convex_cycle_pair(
+            same_s, err_s, same_r, err_r, npend, m1, d1, p1 = convex_cycle_pair(
                 torch, fused_convex, fused_cuda, mesh, tab, m0[:nn], xi[:nn], None, xi[:nn],
                 cfg, cfg.dt, fused)
+            case = f"lanes={nn} hops={hops} esc={esc} refl={refl}"
+            ra = convex_rare_args(cfg)
+            rare_patterns(
+                torch, fused_cuda.convex_rare_resolve,
+                lambda mm, q: fused_cuda.convex_rare_resolve(mesh, tab, mm, d1, q, **ra),
+                lambda mm, q: fused_convex.convex_rare_plain(mesh, tab, mm, d1, q, **ra),
+                m1, p1, f"convex_rare_kernel ({case})")
             log(f"[convex-parity] lanes={nn} hops={hops} escape={int(esc)} reflect={int(refl)} "
                 f"bary_fix={int(refl)} pending={npend} stream_identical={int(same_s)} "
                 f"stream_max_abs_err={err_s:.3e} rare_identical={int(same_r)} "
-                f"rare_max_abs_err={err_r:.3e}")
-            case = f"lanes={nn} hops={hops} esc={esc} refl={refl}"
+                f"rare_max_abs_err={err_r:.3e} rare_patterns_identical=1")
             need(npend > 0, f"convex parity case has no pending lanes ({case})")
             need(same_s and err_s <= POS_TOL_F32, f"convex_stream_kernel != plain ({case})")
             need(same_r and err_r <= POS_TOL_F32, f"convex_rare_kernel != plain ({case})")
             errs["convex_stream"] = max(errs["convex_stream"], err_s)
             errs["convex_rare"] = max(errs["convex_rare"], err_r)
+    # convex_rare_kernel<double> on the same pending patterns, after a
+    # float64 stream cycle of the plain version (escape faces, bary_fix)
+    mesh = cpt.with_convex_rows(tmesh.set_boundary_escape(
+        convert.to_mesh(box_payload(tmesh, nside, np.float64, swirl(nside)), dev), [1]))
+    tab = fused_convex.cx_table(mesh)
+    cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3, inline_hops=1, escape_faces=True,
+                         reflect_wall=True, convex_bary_fix=True, locate_mode="convex")
+    sa, ra = convex_stream_args(cfg, cfg.dt, torch.float64, fused), convex_rare_args(cfg)
+    for nn in (n, n - RAGGED):
+        m = fused_convex.pack_state(mesh, tab, pos[:nn].double(), vel[:nn].double(), tet[:nn],
+                                    act[:nn])
+        pp = torch.empty(nn, dtype=torch.uint8, device=dev)
+        d = torch.empty((nn, 3), dtype=torch.float64, device=dev)
+        fused_convex.convex_stream_plain(tab, m, xi[:nn].double(), pp, d, **sa)
+        need(int(pp.sum()) > 0, f"float64 convex parity case has no pending lanes (lanes={nn})")
+        rare_patterns(
+            torch, fused_cuda.convex_rare_resolve,
+            lambda mm, q: fused_cuda.convex_rare_resolve(mesh, tab, mm, d, q, **ra),
+            lambda mm, q: fused_convex.convex_rare_plain(mesh, tab, mm, d, q, **ra),
+            m, pp, f"convex_rare_kernel<double> (lanes={nn})")
+        log(f"[convex-parity] float64 lanes={nn} hops=1 escape=1 reflect=1 bary_fix=1 "
+            f"pending={int(pp.sum())} rare_patterns_identical=1")
 
 
 def kick_stats(torch, z):
@@ -516,8 +650,76 @@ def rows_changed(torch, before, after, width):
     return int((before[:, 8:8 + width] != after[:, 8:8 + width]).any(dim=1).sum())
 
 
+@dataclasses.dataclass
+class RareCase:
+    """One rare kernel's call at the slice, for phase 6 (the latency bound
+    and the pending-first run) and the parent A/B: the inputs (the state
+    after the stream kernel, its pending flags, and disp for the convex
+    kernel), each pending lane's chain (``rare_chain``), the wrapper's call
+    ``run(m, pend, disp)`` and the bare C call ``c_call(fn, m, pend, disp,
+    stream)`` of the kernel's entry ``entry`` in any build of the library."""
+    m1: object
+    p1: object
+    d1: object
+    chain: object
+    run: object
+    c_call: object
+    entry: str
+
+
+class RareStudy:
+    """The readings of phases 6 and 7 that need a rare case's inputs,
+    taken by ``add`` in phases 5, 5b and 5d while those are alive: the
+    chain statistics, the call on the real and on the pending-first order,
+    the chain sweep and, with ``parent`` (the other build's library and
+    this one's), the A/B.  Only numbers are kept, so no later phase holds
+    a slice's state and its peak memory stays the port's."""
+
+    def __init__(self, torch, dev, parent=None):
+        self.torch, self.dev, self.parent, self.rows = torch, dev, parent, {}
+
+    def add(self, name, case):
+        torch = self.torch
+        timer = Timer(torch, self.dev)
+        mean, p99, cmax = chain_stats(torch, case.chain)
+        real_ms, w_real = rare_call_ms(torch, timer, case.run, case.m1, case.p1, case.d1)
+        m_f, p_f, d_f, order = pending_first(torch, case)
+        first_ms, w_first = rare_call_ms(torch, timer, case.run, m_f, p_f, d_f)
+        need(bitwise_equal(torch, w_first, w_real[order]),
+             f"{name}: the pending-first run differs from the real one")
+        del w_real, w_first, m_f, p_f, d_f
+        sweep, per_step, at_zero = chain_sweep(torch, timer, case)
+        self.rows[name] = dict(
+            lanes=case.m1.shape[0], pending=int(case.p1.sum()), chain_mean=mean, chain_p99=p99,
+            chain_max=cmax, real_ms=real_ms, pending_first_ms=first_ms, sweep=sweep,
+            ms_per_chain_step=per_step, ms_at_chain_0=at_zero,
+            parent=parent_ab(torch, timer, self.dev, name, case, *self.parent)
+            if self.parent else None)
+
+
+def rare_row(torch, timer, fn, plain, restore):
+    """(device ms, plain ms, (plain, one call at a time, one call at a
+    time, plain)) of a rare kernel: the device's time by device_ms with
+    ``restore`` (graph replay, the restore copy subtracted); one call at a
+    time reads the host's launch cost as much as the kernel, and stays
+    beside it so that the earlier readings can be compared."""
+    _, p_ms, parts = kernel_vs_plain_ms(timer, fn, plain, restore)
+    return device_ms(torch, timer, fn, restore), p_ms, parts
+
+
+def bary_rare_case(torch, fused, fused_cuda, tab, mesh, m1, p1, ra, ly, entry):
+    return RareCase(
+        m1, p1, None, fused.rare_chain(tab, m1, p1, mesh.bd_escape, ly=ly, **ra),
+        lambda m, p, d: fused_cuda.rare_resolve(tab, m, p, mesh.bd_escape, ly=ly, **ra),
+        lambda f, m, p, d, s: f(tab.data_ptr(), m.data_ptr(), p.data_ptr(),
+                                mesh.bd_escape.data_ptr(), m.shape[0],
+                                mesh.bd_escape.shape[0], ra["max_hops"], ra["max_bounces"],
+                                int(ra["reflect_wall"]), s),
+        entry)
+
+
 def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
-                n_cycles, errs, counts, gpu_line):
+                n_cycles, errs, counts, rares, gpu_line):
     """Phase 5: the north-star slice through run_cycles."""
     t0 = time.perf_counter()
     pts, tets, _ = tmesh.box_points_tets(nside, nside, nside)
@@ -616,6 +818,17 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
         pend.copy_(p1)
 
     times = {}
+    ra = rare_args(cfg)
+    times["rare"] = rare_row(
+        torch, timer, lambda: fused_cuda.rare_resolve(mesh.tet_row, work, pend, mesh.bd_escape,
+                                                      **ra),
+        lambda: fused.rare_plain(mesh.tet_row, work, pend, mesh.bd_escape, **ra), restore_rare)
+    rares.add("rare", bary_rare_case(torch, fused, fused_cuda, mesh.tet_row, mesh, m1, p1, ra,
+                                     fused.LAYOUT_TET, "cpf_rare_f32"))
+    t = times["rare"]
+    log(f"[slice] {gpu_line} | rare_kernel_ms={t[0]:.5f} (device: {BATCH} calls replayed from a "
+        f"graph, restore subtracted) one_call_at_a_time_ms=({t[2][1]:.4f}, {t[2][2]:.4f}) "
+        f"rare_plain_ms={t[1]:.4f} ({t[2][0]:.4f}, {t[2][3]:.4f}) lanes={n_particles}")
     for key, fn, plain, restore in (
         ("stream", lambda: fused_cuda.stream_cycle(mesh.tet_row, work, xi, pend, **sa),
          lambda: fused.stream_plain(mesh.tet_row, work, xi, pend, **sa), restore_stream),
@@ -624,10 +837,6 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
          lambda: fused.stream_plain(mesh.tet_row, work,
                                     fused.philox_normals(nkey, n_particles, work.dtype, dev),
                                     pend, **sa), restore_stream),
-        ("rare", lambda: fused_cuda.rare_resolve(mesh.tet_row, work, pend, mesh.bd_escape,
-                                                 **rare_args(cfg)),
-         lambda: fused.rare_plain(mesh.tet_row, work, pend, mesh.bd_escape,
-                                  **rare_args(cfg)), restore_rare),
     ):
         fn(), plain()    # warm-up
         # alternate plain, kernel, kernel, plain
@@ -655,7 +864,7 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
 
 
 def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup,
-                       n_cycles, errs, counts, gpu_line):
+                       n_cycles, errs, counts, rares, gpu_line):
     """Phase 5b: the convex slice (the bench's convex-default) through
     run_cycles, on phase 5's mesh and seeds."""
     mesh, st, n_in, bcfg = slice_setup
@@ -759,10 +968,6 @@ def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_s
              tab, work, fused.philox_normals(key, n_particles, work.dtype, dev), pend, disp,
              **sa),
          restore_stream),
-        ("convex_rare",
-         lambda: fused_cuda.convex_rare_resolve(mesh, tab, work, disp, pend, **ra),
-         lambda: fused_convex.convex_rare_plain(mesh, tab, work, disp, pend, **ra),
-         restore_rare),
     ):
         restore(), fn(), restore(), plain()    # warm-up
         p_a = time_calls(timer, plain, restore, 3)
@@ -773,6 +978,27 @@ def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_s
         log(f"[convex-slice] {gpu_line} | {name}_kernel_ms={times[name][0]:.4f} "
             f"({k_a:.4f}, {k_b:.4f}) {name}_plain_ms={times[name][1]:.4f} "
             f"({p_a:.4f}, {p_b:.4f}) lanes={n_particles}")
+
+    times["convex_rare"] = rare_row(
+        torch, timer, lambda: fused_cuda.convex_rare_resolve(mesh, tab, work, disp, pend, **ra),
+        lambda: fused_convex.convex_rare_plain(mesh, tab, work, disp, pend, **ra), restore_rare)
+    t = times["convex_rare"]
+    log(f"[convex-slice] {gpu_line} | convex_rare_kernel_ms={t[0]:.5f} (device: {BATCH} calls "
+        f"replayed from a graph, restore subtracted) one_call_at_a_time_ms=({t[2][1]:.4f}, "
+        f"{t[2][2]:.4f}) convex_rare_plain_ms={t[1]:.4f} ({t[2][0]:.4f}, {t[2][3]:.4f}) "
+        f"lanes={n_particles}")
+
+    def c_call(f, m, p, d, s):
+        return f(tab.data_ptr(), mesh.tet_row_cx.data_ptr(), mesh.tet_a.data_ptr(),
+                 mesh.tet_tinv.data_ptr(), mesh.tet_nbr.data_ptr(), mesh.tet_face_n.data_ptr(),
+                 mesh.tet_face_d.data_ptr(), mesh.bd_escape.data_ptr(), m.data_ptr(),
+                 d.data_ptr(), p.data_ptr(), m.shape[0], mesh.n_bd_faces, ra["max_hops"],
+                 int(ra["reflect_wall"]), int(ra["bary_fix"]), ra["max_bounces"], s)
+
+    rares.add("convex_rare", RareCase(
+        m1, p1, d1, fused_convex.rare_chain(mesh, tab, m1, d1, p1, **ra),
+        lambda m, p, d: fused_cuda.convex_rare_resolve(mesh, tab, m, d, p, **ra), c_call,
+        "cpf_convex_rare_f32"))
 
     # the same slice with the noise drawn by torch.randn outside the kernel
     tcfg = dataclasses.replace(cfg, brownian_rng="threefry")
@@ -790,7 +1016,7 @@ def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_s
 
 
 def phase_pk_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, slice_setup, n_cycles,
-                   errs, counts, gpu_line):
+                   errs, counts, rares, gpu_line):
     """Phase 5d: the north-star slice under VertexVelocity: phase 5's mesh and
     seeds, the vortex evaluated at the vertices, with_pk_rows."""
     ly = fused.LAYOUT_PK
@@ -886,13 +1112,21 @@ def phase_pk_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, slice_setup
          lambda: fused_cuda.stream_cycle(tab, work, None, pend, noise_key=nkey, **sa),
          lambda: fused.stream_plain(tab, work, fused.philox_normals(nkey, n, work.dtype, dev),
                                     pend, **sa), restore_stream),
-        ("rare_pk", lambda: fused_cuda.rare_resolve(tab, work, pend, mesh.bd_escape, **ra),
-         lambda: fused.rare_plain(tab, work, pend, mesh.bd_escape, **ra), restore_rare),
     ):
         k_ms, p_ms, (p_a, k_a, k_b, p_b) = kernel_vs_plain_ms(timer, fn, plain, restore)
         times[key] = (k_ms, p_ms)
         log(f"[pk-slice] {gpu_line} | {key}_kernel_ms={k_ms:.4f} ({k_a:.4f}, {k_b:.4f}) "
             f"{key}_plain_ms={p_ms:.4f} ({p_a:.4f}, {p_b:.4f}) lanes={n}")
+    rra = rare_args(cfg)
+    times["rare_pk"] = rare_row(
+        torch, timer, lambda: fused_cuda.rare_resolve(tab, work, pend, mesh.bd_escape, **ra),
+        lambda: fused.rare_plain(tab, work, pend, mesh.bd_escape, **ra), restore_rare)
+    rares.add("rare_pk", bary_rare_case(torch, fused, fused_cuda, tab, mesh, m1, p1, rra, ly,
+                                        "cpf_rare_pk_f32"))
+    t = times["rare_pk"]
+    log(f"[pk-slice] {gpu_line} | rare_pk_kernel_ms={t[0]:.5f} (device: {BATCH} calls replayed "
+        f"from a graph, restore subtracted) one_call_at_a_time_ms=({t[2][1]:.4f}, "
+        f"{t[2][2]:.4f}) rare_pk_plain_ms={t[1]:.4f} ({t[2][0]:.4f}, {t[2][3]:.4f}) lanes={n}")
 
     # the same slice with the noise drawn inside the stream kernel
     rcfg = dataclasses.replace(cfg, brownian_rng="rbg_kernel")
@@ -1622,16 +1856,12 @@ def copy_ms(torch, dev, timer, nbytes, reps=20):
 SMALL = ("hop_admit", "rare", "convex_rare", "rare_pk")
 
 
-def phase_bounds(torch, traffic, fused_cuda, dev, counts, times, per_cycle, gpu_line):
+def phase_bounds(torch, traffic, dev, counts, times, per_cycle, floor, gpu_line):
     """Phase 6: each timed kernel's bytes at this run's counts, its bound,
     the share bound / time, its launches per sub-step on its path, and the
     copy yardstick; for the kernels of a few megabytes also the launch
     floor and the share of max(bound, floor); returns them by timing key."""
     timer = Timer(torch, dev)
-    floor, host_floor = launch_floor_ms(torch, fused_cuda, timer, dev)
-    log(f"[bound] {gpu_line} | launch_floor_ms={floor:.5f} host_launch_ms={host_floor:.5f}: "
-        f"hop_admit_kernel on 4 lanes, {BATCH} launches replayed from a graph, and enqueued "
-        f"through the wrapper back to back")
     out = {}
     for name, (fn, kw) in counts.items():
         t = getattr(traffic, fn)(**kw)
@@ -1653,6 +1883,231 @@ def phase_bounds(torch, traffic, fused_cuda, dev, counts, times, per_cycle, gpu_
     return out
 
 
+CHASE_STEPS = 4096   # dependent loads per chase_kernel launch
+CHASE_REPS = 20      # launches in one reading (device_ms)
+
+
+def chase_latency(torch, probe, timer, dev, tab, nbr):
+    """(neighbour-walk ms, memory ms) per dependent load: chase_kernel's
+    two chains, CHASE_STEPS loads a launch, CHASE_REPS launches replayed
+    from a graph (device_ms).  The memory chain runs over a random
+    single-cycle permutation of as many 4-byte entries as ``tab`` holds
+    (the table's bytes, in float32).  On the CPU the host loops."""
+    state = torch.tensor([0, 12345], dtype=torch.int32, device=dev)
+    nbr_ms = device_ms(torch, timer, lambda: probe.chase_neighbours(tab, nbr, CHASE_STEPS, state),
+                       reps=CHASE_REPS) / CHASE_STEPS
+    nxt = probe.permutation(tab.numel(), 7, dev)
+    pstate = torch.zeros(2, dtype=torch.int32, device=dev)
+    mem_ms = device_ms(torch, timer, lambda: probe.chase_permutation(nxt, CHASE_STEPS, pstate),
+                       reps=CHASE_REPS) / CHASE_STEPS
+    del nxt
+    return nbr_ms, mem_ms
+
+
+def probe_parity(torch, probe, tab, nbr, dev):
+    """chase_kernel against its host loop: 300 steps of each chain from
+    the same state land on the same entry (the neighbour walk on ``tab``,
+    the permutation over 100,003 entries)."""
+    for name, run, data in (
+        ("neighbour", lambda t, s: probe.chase_neighbours(t, nbr, 300, s), tab),
+        ("permutation", lambda t, s: probe.chase_permutation(t, 300, s),
+         probe.permutation(100_003, 3, dev)),
+    ):
+        sk = torch.tensor([5, 777], dtype=torch.int32, device=dev)
+        sp = sk.cpu()
+        run(data, sk)
+        run(data.cpu(), sp)
+        need(torch.equal(sk.cpu(), sp), f"chase_kernel ({name}) != its host loop")
+
+
+def chain_stats(torch, chain):
+    """(mean, p99, max) of a [n_pending] chain tensor; zeros when empty."""
+    if chain.numel() == 0:
+        return 0.0, 0.0, 0
+    c = chain.double()
+    return float(c.mean()), float(torch.quantile(c, 0.99)), int(chain.max())
+
+
+def pending_first(torch, case):
+    """The case's inputs with the lanes reordered so that every pending
+    lane comes first (in lane order), and the order: the wave experiment,
+    all pending lanes in the first blocks."""
+    order = torch.argsort(case.p1.to(torch.int16), descending=True, stable=True)
+    d = None if case.d1 is None else case.d1[order].contiguous()
+    return case.m1[order].contiguous(), case.p1[order].contiguous(), d, order
+
+
+def rare_call_ms(torch, timer, call, m_in, p_in, d_in):
+    """Device ms of one rare call ``call(m, pend, disp)`` on copies of the
+    inputs (device_ms with restore), and the state it leaves."""
+    work, pend = m_in.clone(), p_in.clone()
+    disp = None if d_in is None else d_in.clone()
+
+    def restore():
+        work.copy_(m_in)
+        pend.copy_(p_in)
+
+    ms = device_ms(torch, timer, lambda: call(work, pend, disp), restore)
+    restore()
+    call(work, pend, disp)
+    return ms, work
+
+
+def chain_sweep(torch, timer, case):
+    """The case's call timed with only the lanes whose chain is at most c
+    left pending, for each c of the run: (c, lanes, device ms) and the
+    least-squares line through (c, ms), whose slope is what one more step
+    of the longest chain costs and whose intercept is what a call costs
+    besides its chain (launch, flag scan, the lane's own rows)."""
+    idx = case.p1.nonzero()[:, 0]
+    rows = []
+    for c in sorted(set(case.chain.tolist())):
+        p = torch.zeros_like(case.p1)
+        p[idx[case.chain <= c]] = 1
+        rows.append((c, int(p.sum()), rare_call_ms(torch, timer, case.run, case.m1, p,
+                                                   case.d1)[0]))
+    if len(rows) < 2:
+        return rows, 0.0, rows[0][2] if rows else 0.0
+    slope, intercept = np.polyfit([r[0] for r in rows], [r[2] for r in rows], 1)
+    return rows, float(slope), float(intercept)
+
+
+def phase_latency(torch, traffic, probe, fused, fused_cuda, dev, tab, rares, times, floor,
+                  gpu_line):
+    """Phase 6, the rare kernels' latency bound: the latency of one
+    dependent load (chase_kernel: the neighbour walk on the slice's table
+    and a random chain over as many bytes), and for each rare row the
+    readings ``rares`` (a RareStudy) took in its slice phase: chain
+    statistics (rare_chain on the slice's pending lanes), its time again
+    and with the pending lanes moved into the first blocks (the same lanes,
+    reordered; identical results), the sweep by longest chain; with them
+    its latency bound and share of it.  Returns the keys each rare row adds
+    to the kernel table."""
+    timer = Timer(torch, dev)
+    nbr = fused.LAYOUT_TET.nbr
+    probe_parity(torch, probe, tab, nbr, dev)
+    t_nbr, t_mem = chase_latency(torch, probe, timer, dev, tab, nbr)
+    how = ("chase_kernel, one thread" if dev.type == "cuda"
+           else "host loop (cpu rehearsal), not a device figure")
+    log(f"[latency] {gpu_line} | dependent load: neighbour walk t_dep_ms={t_nbr:.3e} "
+        f"({t_nbr * 1e6:.1f} ns; tet_row {tuple(tab.shape)}, codes at {nbr}:{nbr + 4}), "
+        f"random chain over {tab.numel() * 4} B t_dep_hbm_ms={t_mem:.3e} ({t_mem * 1e6:.1f} ns); "
+        f"{CHASE_STEPS} loads a launch, {CHASE_REPS} launches replayed from a graph; {how}")
+    if dev.type == "cuda":
+        # each instantiation's grid: min(ceil(n / 256), the blocks resident at once)
+        for n in (rares.rows["rare"]["lanes"], 65_536):
+            grids = []
+            for tname, dt in (("float", torch.float32), ("double", torch.float64)):
+                grids += [f"rare_kernel<{tname}>={fused_cuda.rare_grid(n, dt)}",
+                          f"rare_kernel<{tname}, pk>={fused_cuda.rare_grid(n, dt, fused.LAYOUT_PK)}",
+                          f"convex_rare_kernel<{tname}>={fused_cuda.convex_rare_grid(n, dt)}"]
+            log(f"[latency] grid blocks at {n} lanes: {' '.join(grids)}")
+    out = {}
+    for name, r in rares.rows.items():
+        bound = traffic.latency_bound(r["chain_max"], t_nbr, floor)
+        ms = times[name][0]
+        out[name] = dict(pending=r["pending"], chain_mean=r["chain_mean"],
+                         chain_p99=r["chain_p99"], chain_max=r["chain_max"], t_dep_nbr_ms=t_nbr,
+                         t_dep_hbm_ms=t_mem, latency_bound_ms=bound,
+                         share_of_latency=traffic.share_of_latency(bound, ms),
+                         one_call_at_a_time_ms=(times[name][2][1] + times[name][2][2]) / 2,
+                         real_ms=r["real_ms"], pending_first_ms=r["pending_first_ms"],
+                         ms_per_chain_step=r["ms_per_chain_step"],
+                         ms_at_chain_0=r["ms_at_chain_0"])
+        o = out[name]
+        log(f"[latency] {gpu_line} | {name} lanes={r['lanes']} pending={o['pending']} "
+            f"chain_mean={o['chain_mean']:.3f} chain_p99={o['chain_p99']:.1f} "
+            f"chain_max={o['chain_max']} latency_bound_ms={bound:.5f} (launch floor "
+            f"{floor:.5f} + (2 + {o['chain_max']}) x {t_nbr:.3e}) kernel_ms={ms:.5f} "
+            f"share_of_latency={o['share_of_latency']:.3f} "
+            f"one_call_at_a_time_ms={o['one_call_at_a_time_ms']:.4f} "
+            f"again_ms={o['real_ms']:.5f} pending_first_ms={o['pending_first_ms']:.5f}")
+        log(f"[latency] {gpu_line} | {name} by longest chain c (lanes with chain <= c "
+            f"pending): " + " ".join(f"c={c}:{k}:{t:.5f}" for c, k, t in r["sweep"])
+            + f" ms_per_chain_step={o['ms_per_chain_step']:.3e} "
+            f"ms_at_chain_0={o['ms_at_chain_0']:.5f}")
+    return out
+
+
+def load_parent(_build, parent):
+    """(the library built from the sources of the checkout ``parent``, this
+    tree's library), for phase 7; logs the build and its rare kernels'
+    ptxas lines."""
+    import ctypes
+
+    csrc = os.path.join(parent, "cudaparticlesfoam_tpu_torch", "csrc")
+    t0 = time.perf_counter()
+    plib = ctypes.CDLL(_build.build(csrc))
+    log(f"[parent] {parent}: built from {len(_build.sources(csrc))} sources in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in ptxas_lines(_build.ptxas_report(csrc)):
+        if "rare" in line:
+            log(f"[parent] {line}")
+    return plib, _build.library()
+
+
+def parent_ab(torch, timer, dev, name, case, plib, mine):
+    """Phase 7's readings of one rare case: the parent's kernel and this
+    tree's, through their bare C entries on the same inputs, in turns
+    (parent, this, this, parent), on the real pending lanes and on the
+    pending-first order (results identical), and the host's time to enqueue
+    one call of each (no sync).  Returns {(tag, order): [ms, ms]} and
+    {"enqueue": {tag: [ms, ms]}}."""
+    fp, fm = getattr(plib, case.entry), getattr(mine, case.entry)
+    fp.argtypes, fp.restype = fm.argtypes, fm.restype
+
+    def call(f):
+        return lambda m, p, d: need(case.c_call(f, m, p, d, torch.cuda.current_stream(
+            dev).cuda_stream) == 0, f"{name} launch failed")
+
+    first = pending_first(torch, case)[:3]
+    res, kept = {}, {}
+    for tag, f in (("parent", fp), ("this", fm), ("this", fm), ("parent", fp)):
+        for order, ins in (("real", (case.m1, case.p1, case.d1)), ("first", first)):
+            ms, w = rare_call_ms(torch, timer, call(f), *ins)
+            res.setdefault((tag, order), []).append(ms)
+            kept.setdefault((tag, order), w)
+    for order in ("real", "first"):
+        need(bitwise_equal(torch, kept[("parent", order)], kept[("this", order)]),
+             f"{name}: this tree's kernel != the parent's ({order})")
+    del kept, first
+    work, pend = case.m1.clone(), case.p1.clone()
+    enqueue = {}
+    for tag, f in (("parent", fp), ("this", fm), ("this", fm), ("parent", fp)):
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for _ in range(BATCH):
+            call(f)(work, pend, case.d1)
+        enqueue.setdefault(tag, []).append((time.perf_counter() - h0) * 1e3 / BATCH)
+        torch.cuda.synchronize()
+    res["enqueue"] = enqueue
+    return res
+
+
+def phase_parent(traffic, rares, latency, gpu_line):
+    """Phase 7 (``--parent DIR``, a checkout of another commit): its rare
+    kernels against this tree's, from the readings ``parent_ab`` took in
+    the slice phases, each share of the latency bound of phase 6."""
+    for name, r in rares.rows.items():
+        res = dict(r["parent"])
+        enqueue = res.pop("enqueue")
+        bound = latency[name]["latency_bound_ms"]
+        mean = {key: sum(v) / len(v) for key, v in res.items()}
+        share = {tag: traffic.share_of_latency(bound, mean[(tag, "real")])
+                 for tag in ("parent", "this")}
+        latency[name].update(parent_ms=mean[("parent", "real")],
+                             parent_pending_first_ms=mean[("parent", "first")],
+                             parent_share_of_latency=share["parent"],
+                             parent_host_enqueue_ms=sum(enqueue["parent"]) / 2,
+                             host_enqueue_ms=sum(enqueue["this"]) / 2)
+        line = " ".join(f"{tag}_{order}_ms=({', '.join(f'{ms:.5f}' for ms in runs)})"
+                        for (tag, order), runs in res.items())
+        log(f"[parent] {gpu_line} | {name} {line} latency_bound_ms={bound:.5f} "
+            f"share_of_latency parent={share['parent']:.3f} this={share['this']:.3f} "
+            f"identical=1 host_enqueue_ms_per_call " + " ".join(
+                f"{tag}=({', '.join(f'{x:.5f}' for x in v)})" for tag, v in enqueue.items()))
+
+
 def ptxas_lines(report):
     """One 'kernel<type>: registers, stack' entry per compiled kernel."""
     out, name = [], None
@@ -1666,7 +2121,9 @@ def ptxas_lines(report):
             base = rest[len(digits): len(digits) + int(digits)]
             targs = rest[len(digits) + int(digits):]
             name = base
-            if targs.startswith("I"):
+            if targs.startswith("ILi"):
+                name = f"{base}<{re.match(r'ILi(-?\d+)E', targs).group(1)}>"
+            elif targs.startswith("I"):
                 args = [{"d": "double", "f": "float"}[targs[1]]]
                 flags = re.findall(r"L[bi](\d+)E", targs.split("EE", 1)[0] + "E")
                 if flags and flags[0] == "1":
@@ -1691,6 +2148,9 @@ def main():
     ap.add_argument("--rehearse", action="store_true",
                     help="run every phase at small sizes on the CPU (plain versions "
                          "only); prints no device result and exits 2")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also build the rare kernels of the checkout in DIR (another commit) "
+                         "and time them against this tree's on the same inputs (phase 7)")
     args = ap.parse_args()
 
     import torch
@@ -1699,12 +2159,14 @@ def main():
     import cudaparticlesfoam_tpu_torch as cpt
     from cudaparticlesfoam_tpu_torch import convert
     from cudaparticlesfoam_tpu_torch import mesh as tmesh
-    from cudaparticlesfoam_tpu_torch.ops import _build, fused, fused_convex, fused_cuda, traffic
+    from cudaparticlesfoam_tpu_torch.ops import (_build, fused, fused_convex, fused_cuda, probe,
+                                                 traffic)
 
     need("jax" not in sys.modules, "the port imported jax")
     need(os.path.exists(GOLDEN) and os.path.exists(INPUTS), "golden fixtures missing")
 
     if args.rehearse:
+        need(not args.parent, "--parent needs the card")
         dev = torch.device("cpu")
         sizes = dict(parity=(6, 3072), stats=20_000, slice=(12, 8_000, 8), simple=3,
                      admit=(1, 3, 4, 15, 16, 17, 8155, 8192, 20_000))
@@ -1747,11 +2209,13 @@ def main():
     phase_macro(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
     phase_pk_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
     phase_golden(torch, cpt, convert, fused_cuda, dev)
+    rares = RareStudy(torch, dev, load_parent(_build, args.parent) if args.parent else None)
     launches, times, med, slice_setup = phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev,
-                                                    *sizes["slice"], errs, counts, gpu_line)
+                                                    *sizes["slice"], errs, counts, rares,
+                                                    gpu_line)
     c_launches, c_times, _ = phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda,
                                                 dev, slice_setup, sizes["slice"][2], errs,
-                                                counts, gpu_line)
+                                                counts, rares, gpu_line)
     launches.update(c_launches)
     times.update(c_times)
     m_launches, m_times = phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev,
@@ -1764,7 +2228,7 @@ def main():
                                          gpu_line))
     pk_launches, pk_times = phase_pk_slice(torch, cpt, fused, fused_cuda, tmesh, dev,
                                            sizes["slice"][0], slice_setup, sizes["slice"][2],
-                                           errs, counts, gpu_line)
+                                           errs, counts, rares, gpu_line)
     times.update(pk_times)
     phase_simple(torch, cpt, fused_cuda, tmesh, convert, dev, nside, n, sizes["simple"],
                  gpu_line)
@@ -1789,14 +2253,23 @@ def main():
             per_cycle[name] = 1.0
         elif name.startswith(("macro_crossers_t", "macro_admitted_t")):
             per_cycle[name] = (m_launches["macro_stream"] - m_launches["macro_crossers"]) / steps
-    bounds = phase_bounds(torch, traffic, fused_cuda, dev, counts, times, per_cycle, gpu_line)
+    floor, host_floor = launch_floor_ms(torch, fused_cuda, Timer(torch, dev), dev)
+    log(f"[bound] {gpu_line} | launch_floor_ms={floor:.5f} host_launch_ms={host_floor:.5f}: "
+        f"hop_admit_kernel on 4 lanes, {BATCH} launches replayed from a graph, and enqueued "
+        f"through the wrapper back to back")
+    bounds = phase_bounds(torch, traffic, dev, counts, times, per_cycle, floor, gpu_line)
+    latency = phase_latency(torch, traffic, probe, fused, fused_cuda, dev, slice_setup[0].tet_row,
+                            rares, times, floor, gpu_line)
+    if args.parent:
+        phase_parent(traffic, rares, latency, gpu_line)
 
     def entry(name, key, source, replaces, n_launches, err, **extra):
         return {"name": name, "route": "cuda",
                 "source": f"cudaparticlesfoam_tpu_torch/csrc/{source}",
                 "replaces": f"cudaparticlesfoam_tpu/ops/{replaces}",
                 "launches": n_launches, "max_abs_err": err, "ms": times[key][0],
-                "plain_ms": times[key][1], "library_ms": None, **bounds[key], **extra}
+                "plain_ms": times[key][1], "library_ms": None, **bounds[key],
+                **latency.get(key, {}), **extra}
 
     table = {"kernels": [
         entry("stream_kernel", "stream", "stream.cu", "fused_pallas.py:334", launches["stream"],

@@ -46,12 +46,6 @@ struct LayoutPk {
   static constexpr bool VERTEX = true;
 };
 
-template <typename T, typename L = LayoutTet>
-__device__ __forceinline__ void load_row(const T* __restrict__ src, T* row) {
-#pragma unroll
-  for (int k = 0; k < L::ROW_W; ++k) row[k] = src[k];
-}
-
 // Barycentric weights of (px,py,pz) in a cached row (fused._bary4_rows).
 template <typename T>
 __device__ __forceinline__ void bary(const T* r, T px, T py, T pz, T w[4]) {

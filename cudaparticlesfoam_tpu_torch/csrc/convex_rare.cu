@@ -9,27 +9,32 @@
 // RTreflection, RTQuery.cu:35-186) on the landed point.  The plain version
 // is ops/fused_convex.py:convex_rare_plain.
 //
-// One thread per lane over all n lanes; a lane whose pending flag is 0
-// returns at once (no compaction, no host sync; each pending lane is
-// resolved exactly once, as in the TPU's block-compacted rounds).  JAX runs
-// each stage as a lockstep while_loop over all lanes; every one of them
-// freezes a finished lane, so a per-lane loop with the same bound gives the
-// same result.  Kept from the JAX package: wall codes -(startTet+1); the
-// main trace bounded by max_hops, every re-trace after a bounce by the
-// default 50 tets; at most 5 convex bounces; absorbing faces park the lane
-// at the hit point with its wall code and no displacement; the safety net
-// mirrors across the OUTWARD face plane (tet_face_n / tet_face_d), not
-// along the Tinv gradient of rare.cu; the active column is left untouched.
+// JAX runs each stage as a lockstep while_loop over all lanes; every one of
+// them freezes a finished lane, so a per-lane loop with the same bound
+// gives the same result.  Kept from the JAX package: wall codes
+// -(startTet+1); the main trace bounded by max_hops, every re-trace after a
+// bounce by the default 50 tets; at most 5 convex bounces; absorbing faces
+// park the lane at the hit point with its wall code and no displacement;
+// the safety net mirrors across the OUTWARD face plane (tet_face_n /
+// tet_face_d), not along the Tinv gradient of rare.cu; the active column is
+// left untouched.
 //
 // Tables: tet_row_cx (planes, neighbour codes and face ids of the trace and
 // the face matching), tet_a / tet_tinv / tet_nbr (the walk), tet_face_n /
 // tet_face_d (reflect_walls), bd_escape, and cx_table for the row refresh.
 //
-// What bounds it on the H100: divergence (pending lanes are a few percent
-// of a warp, and one deep tracer or bouncer holds its warp) and a random
-// 96 B row load per traced tet.  Later work: compact pending lanes with a
-// warp ballot, or fuse the stage into convex_stream_kernel.
+// What bounds it on the H100: latency.  A pending lane is a dependent chain
+// of row loads: its flag and mega row, one cx row per traced tet (and per
+// re-traced tet after each bounce), with convex_bary_fix one walk row and
+// one neighbour entry per hop and one face plane per bounce, and the
+// refreshed cx_table row (ops/fused_convex.py:rare_chain counts them).
+// The kernel runs in the frame of pending.cuh: one wave of resident blocks
+// that compact their own pending lanes, so it lasts about the longest
+// chain.  The head, each traced cx row and the refreshed row move as 16 B
+// vectors (the face matching and the mirror re-read the row the trace
+// ended in, from the cache).
 #include "convex.cuh"
+#include "pending.cuh"
 
 namespace cpf {
 
@@ -66,7 +71,8 @@ __device__ int trace(const Tables<T>& tb, const T pos[3], const T disp[3], int t
   if (tet_id >= 0) {
     for (int it = 0; it < max_tets; ++it) {
       const T seg[3] = {pe[0] - p0[0], pe[1] - p0[1], pe[2] - p0[2]};
-      const T* r = cx_row(tb, tet);
+      T r[CX_W];
+      load_row_vec<T, CX_W>(cx_row(tb, tet), r);
       int sup = 0;
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
@@ -75,8 +81,8 @@ __device__ int trace(const Tables<T>& tb, const T pos[3], const T disp[3], int t
       T dt_;
       const int slot = cx_exit(r, p0, seg, sup, &dt_);
       if (slot < 0) break;  // the segment ends inside
-      const int nxt = static_cast<int>(r[CX_NBR + slot]);
-      const int fid = static_cast<int>(r[CX_FID + slot]);
+      const int nxt = static_cast<int>(pick4(r + CX_NBR, slot));
+      const int fid = static_cast<int>(pick4(r + CX_FID, slot));
 #pragma unroll
       for (int k = 0; k < 3; ++k) p0[k] = p0[k] + dt_ * seg[k];
       inlet = fid;
@@ -271,34 +277,45 @@ __global__ void __launch_bounds__(THREADS)
 convex_rare_kernel(Tables<T> tb, T* __restrict__ m, const T* __restrict__ disp,
                    const uint8_t* __restrict__ pend, long long n, int max_hops,
                    int reflect_wall, int bary_fix, int max_bounces) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || !pend[i]) return;
-  T* me = m + i * WIDTH;
-  T pos[3] = {me[P0], me[P0 + 1], me[P0 + 2]};
-  T vel[3] = {me[V0], me[V0 + 1], me[V0 + 2]};
-  T d2[3] = {disp[3 * i], disp[3 * i + 1], disp[3 * i + 2]};
-  int stop_tet, hit_face;
-  T p_cross[3];
-  int code = trace(tb, pos, d2, static_cast<int>(me[TET]), max_hops, &stop_tet, p_cross,
-                   &hit_face);
-  if (reflect_wall) {
-    code = convex_reflect(tb, pos, d2, vel, code, stop_tet, p_cross, hit_face);
-    if (bary_fix) {
-      const T p_land[3] = {pos[0] + d2[0], pos[1] + d2[1], pos[2] + d2[2]};
-      int wslot;
-      const int tet_chk = bary_walk(tb, p_land, code, MAX_HOPS_DEFAULT, &wslot);
-      code = reflect_walls(tb, p_land, d2, vel, tet_chk, max_bounces);
+  for_each_pending(pend, n, [&](long long i) {
+    T* me = m + i * WIDTH;
+    T head[ROW];
+    load_vec<T, ROW>(me, head);
+    T pos[3] = {head[P0], head[P0 + 1], head[P0 + 2]};
+    T vel[3] = {head[V0], head[V0 + 1], head[V0 + 2]};
+    T d2[3] = {disp[3 * i], disp[3 * i + 1], disp[3 * i + 2]};
+    int stop_tet, hit_face;
+    T p_cross[3];
+    int code = trace(tb, pos, d2, static_cast<int>(head[TET]), max_hops, &stop_tet, p_cross,
+                     &hit_face);
+    if (reflect_wall) {
+      code = convex_reflect(tb, pos, d2, vel, code, stop_tet, p_cross, hit_face);
+      if (bary_fix) {
+        const T p_land[3] = {pos[0] + d2[0], pos[1] + d2[1], pos[2] + d2[2]};
+        int wslot;
+        const int tet_chk = bary_walk(tb, p_land, code, MAX_HOPS_DEFAULT, &wslot);
+        code = reflect_walls(tb, p_land, d2, vel, tet_chk, max_bounces);
+      }
     }
-  }
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    me[P0 + k] = pos[k] + d2[k];
-    me[V0 + k] = vel[k];
-  }
-  me[TET] = static_cast<T>(code);
-  const T* src = tb.tab + static_cast<long long>(code < 0 ? 0 : code) * CX_W;
-#pragma unroll
-  for (int k = 0; k < CX_W; ++k) me[ROW + k] = src[k];
+    for (int k = 0; k < 3; ++k) {
+      head[P0 + k] = pos[k] + d2[k];
+      head[V0 + k] = vel[k];
+    }
+    head[TET] = static_cast<T>(code);
+    store_row_vec<T, ROW>(me, head);
+    T row[CX_W];
+    load_row_vec<T, CX_W>(tb.tab + static_cast<long long>(code < 0 ? 0 : code) * CX_W, row);
+    store_row_vec<T, CX_W>(me + ROW, row);
+  });
+}
+
+// The grid of one instantiation over n lanes (pending.cuh), its resident
+// block count cached per device.
+template <typename T>
+cudaError_t convex_rare_grid(long long n, int* blocks) {
+  static int cache[MAX_DEVICES] = {};
+  return pending_grid(convex_rare_kernel<T>, n, cache, blocks);
 }
 
 template <typename T>
@@ -308,17 +325,25 @@ int launch_convex_rare(const void* tab, const void* cx, const void* a, const voi
                        long long n, int nbd, int max_hops, int reflect_wall, int bary_fix,
                        int max_bounces, void* stream) {
   if (n <= 0) return 0;
+  int blocks = 0;
+  const cudaError_t err = convex_rare_grid<T>(n, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const Tables<T> tb{static_cast<const T*>(tab), static_cast<const T*>(cx),
                      static_cast<const T*>(a), static_cast<const T*>(tinv),
                      static_cast<const int*>(nbr), static_cast<const T*>(face_n),
                      static_cast<const T*>(face_d), static_cast<const uint8_t*>(bd_escape),
                      nbd};
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  convex_rare_kernel<T><<<static_cast<unsigned>(blocks), THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  convex_rare_kernel<T><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       tb, static_cast<T*>(m), static_cast<const T*>(disp),
       static_cast<const uint8_t*>(pend), n, max_hops, reflect_wall, bary_fix, max_bounces);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int convex_grid_or_error(long long n) {
+  int blocks = 0;
+  const cudaError_t err = convex_rare_grid<T>(n, &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 }  // namespace cpf
@@ -335,3 +360,6 @@ int launch_convex_rare(const void* tab, const void* cx, const void* a, const voi
   }
 CPF_CONVEX_RARE(f32, float)
 CPF_CONVEX_RARE(f64, double)
+
+extern "C" int cpf_convex_rare_grid_f32(long long n) { return cpf::convex_grid_or_error<float>(n); }
+extern "C" int cpf_convex_rare_grid_f64(long long n) { return cpf::convex_grid_or_error<double>(n); }

@@ -11,25 +11,26 @@
 // RTreflection, RTQuery.cu:109-186).  The plain version is
 // ops/fused.py:rare_plain.
 //
-// One thread per lane over all n lanes; a lane whose pending flag is 0
-// returns at once.  The TPU version sorted pending lanes into blocks and an
-// arena (lax.sort compaction, several rounds); that only bought speed on a
-// machine without per-lane control flow, and each pending lane is resolved
-// exactly once either way, so the kernel needs no compaction and the host
-// never waits for a count.
-//
 // Semantics kept from the JAX package: the walk runs max(2, max_hops) hops
 // (two are unrolled there before its bounded loop); the re-walk after a
 // bounce uses the default 50 hops, not max_hops; an absorbing face
 // (bd_escape) ends the lane with tet = -(tet+1); a lane out of bounces keeps
 // its non-negative exit tet; the active column is left untouched.
 //
-// What bounds it on the H100: divergence (pending lanes are ~1% of a warp's
-// lanes at the slice's regime, and one deep walker holds its warp) and one
-// random 80 B row load per hop.  Later work: compact pending lanes with a
-// warp ballot, or fuse this stage into stream_kernel so a pending lane
-// continues without a second pass over the mega.
-#include "common.cuh"
+// What bounds it on the H100: latency, not bytes.  A pending lane is a
+// dependent chain: its flag, its own mega row, then one table row per hop
+// of the walk and of every re-walk after a bounce (ops/fused.py:rare_chain
+// counts them; ops/traffic.py:latency_bound prices them with the latency
+// of one dependent row load, measured by csrc/probe.cu).  The TPU version
+// sorted pending lanes into blocks (lax.sort compaction) because it had no
+// per-lane control flow; here the kernel compacts them itself, inside one
+// wave of resident blocks (pending.cuh), so it lasts about the longest
+// chain rather than one chain per wave of a grid over all n lanes.  Rows
+// move as 16 B vectors (tile.cuh): the lane's head and cached row in and
+// out, each table row of the walk in through the read-only path.  Each
+// lane is still resolved by one thread with the same arithmetic, so the
+// result is bit for bit that of the plain version.
+#include "pending.cuh"
 
 namespace cpf {
 
@@ -54,7 +55,7 @@ __device__ void walk(const T* __restrict__ tab, T* row, int* tet, int* slot,
       return;
     }
     *tet = code;
-    load_row<T, L>(tab + static_cast<long long>(code) * L::ROW_W, row);
+    load_row_vec<T, L::ROW_W>(tab + static_cast<long long>(code) * L::ROW_W, row);
   }
 }
 
@@ -109,26 +110,35 @@ rare_kernel(const T* __restrict__ tab, T* __restrict__ m,
             const uint8_t* __restrict__ pend,
             const uint8_t* __restrict__ bd_escape, long long n, int nbd,
             int max_hops, int max_bounces, int reflect_wall) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || !pend[i]) return;
-  T* me = m + i * L::WIDTH;
-  T p[3] = {me[P0], me[P0 + 1], me[P0 + 2]};
-  T v[3] = {me[V0], me[V0 + 1], me[V0 + 2]};
-  int tet = static_cast<int>(me[TET]);
-  T row[L::ROW_W];
-  load_row<T, L>(me + ROW, row);
-  int slot;
-  walk<T, L>(tab, row, &tet, &slot, p[0], p[1], p[2], max_hops);
-  if (reflect_wall) reflect<T, L>(tab, row, p, v, &tet, slot, bd_escape, nbd, max_bounces);
-  me[P0] = p[0];
-  me[P0 + 1] = p[1];
-  me[P0 + 2] = p[2];
-  me[V0] = v[0];
-  me[V0 + 1] = v[1];
-  me[V0 + 2] = v[2];
-  me[TET] = static_cast<T>(tet);
+  for_each_pending(pend, n, [&](long long i) {
+    T* me = m + i * L::WIDTH;
+    T head[ROW];
+    load_vec<T, ROW>(me, head);
+    T p[3] = {head[P0], head[P0 + 1], head[P0 + 2]};
+    T v[3] = {head[V0], head[V0 + 1], head[V0 + 2]};
+    int tet = static_cast<int>(head[TET]);
+    T row[L::ROW_W];
+    load_vec<T, L::ROW_W>(me + ROW, row);
+    int slot;
+    walk<T, L>(tab, row, &tet, &slot, p[0], p[1], p[2], max_hops);
+    if (reflect_wall) reflect<T, L>(tab, row, p, v, &tet, slot, bd_escape, nbd, max_bounces);
 #pragma unroll
-  for (int k = 0; k < L::ROW_W; ++k) me[ROW + k] = row[k];
+    for (int k = 0; k < 3; ++k) {
+      head[P0 + k] = p[k];
+      head[V0 + k] = v[k];
+    }
+    head[TET] = static_cast<T>(tet);
+    store_row_vec<T, ROW>(me, head);
+    store_row_vec<T, L::ROW_W>(me + ROW, row);
+  });
+}
+
+// The grid of one instantiation over n lanes (pending.cuh), its resident
+// block count cached per device.
+template <typename T, typename L>
+cudaError_t rare_grid(long long n, int* blocks) {
+  static int cache[MAX_DEVICES] = {};
+  return pending_grid(rare_kernel<T, L>, n, cache, blocks);
 }
 
 template <typename T, typename L = LayoutTet>
@@ -136,13 +146,22 @@ int launch_rare(const void* tab, void* m, const void* pend,
                 const void* bd_escape, long long n, int nbd, int max_hops,
                 int max_bounces, int reflect_wall, void* stream) {
   if (n <= 0) return 0;
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  rare_kernel<T, L><<<static_cast<unsigned>(blocks), THREADS, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  int blocks = 0;
+  const cudaError_t err = rare_grid<T, L>(n, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rare_kernel<T, L><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(tab), static_cast<T*>(m),
       static_cast<const uint8_t*>(pend), static_cast<const uint8_t*>(bd_escape),
       n, nbd, max_hops, max_bounces, reflect_wall);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks the launch over n lanes would use, or -(cuda error).
+template <typename T, typename L>
+int grid_or_error(long long n) {
+  int blocks = 0;
+  const cudaError_t err = rare_grid<T, L>(n, &blocks);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 }  // namespace cpf
@@ -179,3 +198,8 @@ extern "C" int cpf_rare_pk_f64(const void* tab, void* m, const void* pend,
   return cpf::launch_rare<double, cpf::LayoutPk>(tab, m, pend, bd_escape, n, nbd, max_hops,
                                                  max_bounces, reflect_wall, stream);
 }
+
+extern "C" int cpf_rare_grid_f32(long long n) { return cpf::grid_or_error<float, cpf::LayoutTet>(n); }
+extern "C" int cpf_rare_grid_f64(long long n) { return cpf::grid_or_error<double, cpf::LayoutTet>(n); }
+extern "C" int cpf_rare_grid_pk_f32(long long n) { return cpf::grid_or_error<float, cpf::LayoutPk>(n); }
+extern "C" int cpf_rare_grid_pk_f64(long long n) { return cpf::grid_or_error<double, cpf::LayoutPk>(n); }

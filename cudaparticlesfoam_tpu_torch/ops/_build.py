@@ -54,33 +54,35 @@ def find_nvcc() -> str:
     )
 
 
-def sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def sources(csrc: str = CSRC) -> list[str]:
+    return sorted(glob.glob(os.path.join(csrc, "*.cu")))
 
 
-def _digest() -> str:
+def _digest(csrc: str = CSRC) -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for path in sorted(glob.glob(os.path.join(CSRC, "*.cu*"))):
+    for path in sorted(glob.glob(os.path.join(csrc, "*.cu*"))):
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + fh.read())
     return h.hexdigest()[:16]
 
 
-def build() -> str:
-    """Compile the kernels if the hashed library is missing; returns its
-    path.  One nvcc per source, run in parallel, then one link; every
-    output goes to a temporary name first, so a cut build leaves nothing
-    that looks finished."""
-    lib = os.path.join(BUILD_DIR, f"libcpf_kernels_{_digest()}.so")
+def build(csrc: str = CSRC) -> str:
+    """Compile the kernels of ``csrc`` (the package's own by default;
+    another checkout's for an A/B measurement) if the hashed library is
+    missing; returns its path.  One nvcc per source, run in parallel, then
+    one link; every output goes to a temporary name first, so a cut build
+    leaves nothing that looks finished."""
+    digest = _digest(csrc)
+    lib = os.path.join(BUILD_DIR, f"libcpf_kernels_{digest}.so")
     if os.path.exists(lib):
         return lib
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tag = f"{_digest()}.{os.getpid()}"
+    tag = f"{digest}.{os.getpid()}"
     jobs = []
-    for src in sources():
+    for src in sources(csrc):
         obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
-        cmd = [nvcc, *FLAGS, "-I", CSRC, "-c", "-o", obj, src]
+        cmd = [nvcc, *FLAGS, "-I", csrc, "-c", "-o", obj, src]
         jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                 stderr=subprocess.PIPE, text=True)))
     report = []
@@ -97,14 +99,15 @@ def build() -> str:
     for _, obj, _ in jobs:
         os.remove(obj)
     os.replace(tmp, lib)
-    _LIB["ptxas"] = "".join(report)
+    _LIB[("ptxas", csrc)] = "".join(report)
     return lib
 
 
-def ptxas_report() -> str:
+def ptxas_report(csrc: str = CSRC) -> str:
     """ptxas's ``-v`` lines (registers, stack, spills per kernel) of the
-    build this process ran; empty when the library was already built."""
-    return _LIB.get("ptxas", "")
+    build of ``csrc`` this process ran; empty when the library was already
+    built."""
+    return _LIB.get(("ptxas", csrc), "")
 
 
 def library() -> ctypes.CDLL:
@@ -129,8 +132,16 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"cpf_{name}_{suffix}")
             fn.argtypes = args
             fn.restype = i
+    for name in ("rare_grid_f32", "rare_grid_f64", "rare_grid_pk_f32", "rare_grid_pk_f64",
+                 "convex_rare_grid_f32", "convex_rare_grid_f64"):
+        getattr(lib, f"cpf_{name}").argtypes = [ll]
+        getattr(lib, f"cpf_{name}").restype = i
     lib.cpf_hop_admit.argtypes = [vp, vp, vp, ll, ll, vp]
     lib.cpf_hop_admit.restype = i
+    lib.cpf_chase_nbr.argtypes = [vp, i, i, i, vp, vp]
+    lib.cpf_chase_nbr.restype = i
+    lib.cpf_chase_perm.argtypes = [vp, i, vp, vp]
+    lib.cpf_chase_perm.restype = i
     lib.cpf_error_string.argtypes = [i]
     lib.cpf_error_string.restype = ctypes.c_char_p
     _LIB["lib"] = lib

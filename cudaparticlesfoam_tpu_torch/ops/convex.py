@@ -95,12 +95,13 @@ def _exit_face(mesh: TetMesh, p0, seg, tet, inlet_face):
 
 
 def trace_segment(mesh: TetMesh, pos, disp, tet_id, active=None,
-                  max_tets: int = MAX_TETS):
+                  max_tets: int = MAX_TETS, chain=None):
     """Vectorized ``particleLocator``.  Returns (code, stop_tet, p_cross,
     last_face): ``code`` = final hosting tet or ``-(startTet+1)`` on a wall
     hit; ``stop_tet`` = the tet the march stopped in; ``p_cross`` = the
     march point (the hit point for wall lanes); ``last_face`` = the id of
-    the last crossed face (-2 if none).  Integer outputs are int64."""
+    the last crossed face (-2 if none).  Integer outputs are int64.
+    ``chain`` (int64, one per lane): adds the cx rows each lane traced."""
     n = pos.shape[0]
     tet_id = tet_id.to(torch.int64)
     p_end = pos + disp
@@ -114,6 +115,8 @@ def trace_segment(mesh: TetMesh, pos, disp, tet_id, active=None,
     for _ in range(max_tets):
         if bool(done.all()):
             break
+        if chain is not None:
+            chain += ~done
         seg = p_end - p0
         dt_, slot, nxt, fid = _exit_face(mesh, p0, seg, tet, inlet)
         crossing = ~done & (slot >= 0)
@@ -168,11 +171,13 @@ def _mirror(mesh, p_end, u, tet, p_at, fid, refl):
 
 
 def convex_reflect(mesh: TetMesh, pos, disp, vel, tet_id, stop_tet, p_cross,
-                   hit_face, max_bounces: int = MAX_BOUNCES):
+                   hit_face, max_bounces: int = MAX_BOUNCES, chain=None):
     """Vectorized ``convexReflector`` for wall-hit lanes (tet_id < 0).
     Absorbing faces keep the negative wall code, park the lane at the hit
     point and drop its displacement.  Every re-trace uses the default
-    ``MAX_TETS``.  Returns (pos, disp, vel, tet_id)."""
+    ``MAX_TETS``.  Returns (pos, disp, vel, tet_id).  ``chain``: adds the
+    re-traces' cx rows (the face matching and the mirror read the row the
+    trace ended in)."""
     tet_id = tet_id.to(torch.int64)
     hit = tet_id < 0
     p_end = pos + disp
@@ -189,7 +194,7 @@ def convex_reflect(mesh: TetMesh, pos, disp, vel, tet_id, stop_tet, p_cross,
             break
         refl = ~settled
         code, s_tet, p_cr, l_face = trace_segment(mesh, p_start, p_end - p_start,
-                                                  tet.clamp(min=0), active=refl)
+                                                  tet.clamp(min=0), active=refl, chain=chain)
         landed = refl & (code >= 0)
         tet = torch.where(landed, code, torch.where(refl, s_tet, tet))
         settled = settled | landed

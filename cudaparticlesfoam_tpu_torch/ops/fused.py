@@ -519,12 +519,13 @@ def macro_stream_plain(tab, m, xi, phase, pending, *, k, dt, sigma, use_adv, use
 # ---------------------------------------------------------------------------
 
 
-def _walk(tab, rows, tet0, px, py, pz, act, max_hops, ly=LAYOUT_TET):
+def _walk(tab, rows, tet0, px, py, pz, act, max_hops, ly=LAYOUT_TET, chain=None):
     """``_walk_mega``: baryTetSearch from the cached rows toward (px,py,pz).
     Runs max(2, max_hops) hops at most (the JAX package unrolls two hops
     before its bounded loop).  Returns (rows of the last non-negative tet,
     code = hosting tet or -(lastTet+1) or the last tet when out of hops,
-    slot = last crossed face)."""
+    slot = last crossed face).  ``chain`` (int64, one per lane): adds each
+    lane's table row loads (one per hop into a tet)."""
     tet = tet0.clone()
     done = (tet0 < 0) | ~act
     slot = torch.zeros_like(tet0)
@@ -539,18 +540,21 @@ def _walk(tab, rows, tet0, px, py, pz, act, max_hops, ly=LAYOUT_TET):
         tet = torch.where(stepping, torch.where(out, -(tet + 1), code), tet)
         slot = torch.where(stepping, s, slot)
         moved = stepping & (code >= 0)
+        if chain is not None:
+            chain += moved
         rows = torch.where(moved[:, None], tab[torch.where(moved, code, 0)], rows)
         done = done | inside | out
     return rows, tet, slot
 
 
 def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces,
-             ly=LAYOUT_TET):
+             ly=LAYOUT_TET, chain=None):
     """``_reflect_mega``: mirror across the exit face of the cached exit-tet
     row, re-walk (default MAX_HOPS, not cfg.max_hops), repeat up to
     ``max_bounces``; absorbing faces (``bd_escape``) deactivate the lane
     with tet = -(tet+1).  A lane out of bounces keeps its non-negative
-    exit tet."""
+    exit tet.  ``chain``: adds the re-walks' row loads, as :func:`_walk`
+    (the mirror reads the cached row)."""
     vx, vy, vz = vel[:, 0], vel[:, 1], vel[:, 2]
     hit = code < 0
     tet = torch.where(hit, -(code + 1), code)
@@ -583,7 +587,7 @@ def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces,
         vy = torch.where(refl, vy - fu * gy, vy)
         vz = torch.where(refl, vz - fu * gz, vz)
         rows_w, wtet, wslot = _walk(tab, rows, tet.clamp(min=0), px, py, pz,
-                                    refl, MAX_HOPS, ly)
+                                    refl, MAX_HOPS, ly, chain)
         in_dom = wtet >= 0
         newly = refl & in_dom
         tet = torch.where(newly, wtet, torch.where(refl, -(wtet + 1), tet))
@@ -593,30 +597,50 @@ def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces,
     return rows, torch.stack([vx, vy, vz], dim=1), px, py, pz, tet
 
 
-def rare_plain(tab, m, pending, bd_escape, *, max_hops, max_bounces,
-               reflect_wall, ly=LAYOUT_TET):
-    """Plain version of ``rare_kernel``: resolve every lane whose
-    ``pending`` flag is set (walk, then reflect), updating ``m`` in place:
-    pos, vel, tet and the row cache; the active column is left as is (a
-    lane that left the domain is killed by the next cycle's advect).
-    ``tab`` is :func:`row_table` of ``ly``."""
-    idx = pending.nonzero()[:, 0]
-    if idx.numel() == 0:
-        return
+def _rare_lanes(tab, m, idx, bd_escape, max_hops, max_bounces, reflect_wall, ly, chain):
+    """The new mega rows of lanes ``idx`` (walk, then reflect)."""
     mc = m[idx]
     rw = ly.tab_w
     qx, qy, qz = mc[:, P0], mc[:, P0 + 1], mc[:, P0 + 2]
     act = torch.ones(idx.shape[0], dtype=torch.bool, device=m.device)
     rows, code, slot = _walk(tab, mc[:, ROW : ROW + rw], mc[:, TET].to(torch.int64),
-                             qx, qy, qz, act, max_hops, ly)
+                             qx, qy, qz, act, max_hops, ly, chain)
     vel = mc[:, V0 : V0 + 3]
     if reflect_wall:
         rows, vel, qx, qy, qz, code = _reflect(
-            tab, rows, vel, qx, qy, qz, code, slot, bd_escape, max_bounces, ly)
-    out = torch.cat([torch.stack([qx, qy, qz], dim=1), vel,
-                     code.to(m.dtype)[:, None], mc[:, ACT : ACT + 1], rows,
-                     mc[:, ROW + rw :]], dim=1)
-    m[idx] = out
+            tab, rows, vel, qx, qy, qz, code, slot, bd_escape, max_bounces, ly, chain)
+    return torch.cat([torch.stack([qx, qy, qz], dim=1), vel,
+                      code.to(m.dtype)[:, None], mc[:, ACT : ACT + 1], rows,
+                      mc[:, ROW + rw :]], dim=1)
+
+
+def rare_plain(tab, m, pending, bd_escape, *, max_hops, max_bounces,
+               reflect_wall, ly=LAYOUT_TET, chain=None):
+    """Plain version of ``rare_kernel``: resolve every lane whose
+    ``pending`` flag is set (walk, then reflect), updating ``m`` in place:
+    pos, vel, tet and the row cache; the active column is left as is (a
+    lane that left the domain is killed by the next cycle's advect).
+    ``tab`` is :func:`row_table` of ``ly``.  ``chain`` ([n_pending] int64
+    zeros): receives each pending lane's chain (:func:`rare_chain`)."""
+    idx = pending.nonzero()[:, 0]
+    if idx.numel() == 0:
+        return
+    m[idx] = _rare_lanes(tab, m, idx, bd_escape, max_hops, max_bounces, reflect_wall, ly,
+                         chain)
+
+
+def rare_chain(tab, m, pending, bd_escape, *, max_hops, max_bounces, reflect_wall,
+               ly=LAYOUT_TET):
+    """The dependent chain of each pending lane of ``rare_kernel``, in lane
+    order: [n_pending] int64 table row loads, one per hop of the walk and of
+    each re-walk after a bounce, beyond the flag and the lane's own mega row
+    (``traffic.latency_bound`` adds those two).  ``m`` is not touched; the
+    arguments are :func:`rare_plain`'s."""
+    idx = pending.nonzero()[:, 0]
+    chain = torch.zeros(idx.shape[0], dtype=torch.int64, device=m.device)
+    if idx.numel():
+        _rare_lanes(tab, m, idx, bd_escape, max_hops, max_bounces, reflect_wall, ly, chain)
+    return chain
 
 
 # ---------------------------------------------------------------------------

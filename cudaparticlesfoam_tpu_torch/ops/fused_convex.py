@@ -169,35 +169,64 @@ def convex_stream_plain(tab, m, xi, pending, disp, *, dt, sigma, use_adv, use_br
 # ---------------------------------------------------------------------------
 
 
-def convex_rare_plain(mesh: TetMesh, tab, m, disp, pending, *, max_hops,
-                      reflect_wall, bary_fix, max_bounces):
-    """Plain version of ``convex_rare_kernel``: every lane whose ``pending``
-    flag is set marches from its start (pos columns) by ``disp``: trace,
-    convex reflection, barycentric safety net; pos/vel/tet and the row
-    cache are updated in place, the active column is left as is."""
-    idx = pending.nonzero()[:, 0]
-    if idx.numel() == 0:
-        return
+def _rare_lanes(mesh, tab, m, disp, idx, max_hops, reflect_wall, bary_fix, max_bounces,
+                chain):
+    """The new convex mega rows of lanes ``idx``."""
     mc = m[idx]
     dsub = disp[idx]
     pos = mc[:, P0 : P0 + 3]
     vel = mc[:, V0 : V0 + 3]
     code, stop_tet, p_cross, hit_face = convex_ops.trace_segment(
-        mesh, pos, dsub, mc[:, TET].to(torch.int64), max_tets=max_hops)
+        mesh, pos, dsub, mc[:, TET].to(torch.int64), max_tets=max_hops, chain=chain)
     d2 = dsub
     if reflect_wall:
         pos, d2, vel, code = convex_ops.convex_reflect(
-            mesh, pos, d2, vel, code, stop_tet, p_cross, hit_face)
+            mesh, pos, d2, vel, code, stop_tet, p_cross, hit_face, chain=chain)
         if bary_fix:
             p_land = pos + d2
-            tet_chk, _ = locate_ops.walk(mesh, p_land, code)
+            tet_chk, _ = locate_ops.walk(mesh, p_land, code, chain=chain)
             d_fix, vel, code = locate_ops.reflect_walls(
-                mesh, p_land, torch.zeros_like(d2), vel, tet_chk, max_bounces=max_bounces)
+                mesh, p_land, torch.zeros_like(d2), vel, tet_chk, max_bounces=max_bounces,
+                chain=chain)
             d2 = d2 + d_fix
+    if chain is not None:
+        chain += 1        # the refreshed cx_table row
     code = code.to(torch.int64)
-    out = torch.cat([pos + d2, vel, code.to(m.dtype)[:, None], mc[:, ACT : ACT + 1],
-                     tab[code.clamp(min=0)]], dim=1)
-    m[idx] = out
+    return torch.cat([pos + d2, vel, code.to(m.dtype)[:, None], mc[:, ACT : ACT + 1],
+                      tab[code.clamp(min=0)]], dim=1)
+
+
+def convex_rare_plain(mesh: TetMesh, tab, m, disp, pending, *, max_hops,
+                      reflect_wall, bary_fix, max_bounces, chain=None):
+    """Plain version of ``convex_rare_kernel``: every lane whose ``pending``
+    flag is set marches from its start (pos columns) by ``disp``: trace,
+    convex reflection, barycentric safety net; pos/vel/tet and the row
+    cache are updated in place, the active column is left as is.
+    ``chain`` ([n_pending] int64 zeros): receives each pending lane's chain
+    (:func:`rare_chain`)."""
+    idx = pending.nonzero()[:, 0]
+    if idx.numel() == 0:
+        return
+    m[idx] = _rare_lanes(mesh, tab, m, disp, idx, max_hops, reflect_wall, bary_fix,
+                         max_bounces, chain)
+
+
+def rare_chain(mesh: TetMesh, tab, m, disp, pending, *, max_hops, reflect_wall, bary_fix,
+               max_bounces):
+    """The dependent chain of each pending lane of ``convex_rare_kernel``,
+    in lane order: [n_pending] int64 row loads beyond the flag and the
+    lane's own mega row: one cx row per tet the trace and each re-trace
+    after a bounce visit, with ``convex_bary_fix`` one A/Tinv row per tet
+    the walks visit, one neighbour entry per step and one face plane per
+    mirror, and the refreshed cx_table row.  The face matching and the
+    convex mirror re-read the row the trace ended in and add nothing.
+    ``m`` is not touched; the arguments are :func:`convex_rare_plain`'s."""
+    idx = pending.nonzero()[:, 0]
+    chain = torch.zeros(idx.shape[0], dtype=torch.int64, device=m.device)
+    if idx.numel():
+        _rare_lanes(mesh, tab, m, disp, idx, max_hops, reflect_wall, bary_fix, max_bounces,
+                    chain)
+    return chain
 
 
 # ---------------------------------------------------------------------------

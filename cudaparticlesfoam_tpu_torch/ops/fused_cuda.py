@@ -7,7 +7,8 @@
   kernel that loads neighbour rows itself.
 * :func:`rare_resolve` -> ``rare_kernel`` (``csrc/rare.cu``): the XLA rare
   stage (``fused._rare_stage(_packed)`` with ``_walk_mega`` and
-  ``_reflect_mega``).
+  ``_reflect_mega``), in one wave of resident blocks that compact their
+  own pending lanes (``csrc/pending.cuh``, as ``convex_rare_kernel``).
   Both take the layout ``ly``: ``LAYOUT_TET`` (TetVelocity) or
   ``LAYOUT_PK`` (VertexVelocity: the TPU kernels' ``ly=LAYOUT_PK``
   instantiations), each its own instantiation of the kernel.
@@ -362,8 +363,9 @@ def rare_resolve(tab, m, pending, bd_escape, *, max_hops, max_bounces,
     runs the bounded walk (max(2, max_hops) hops) and, with
     ``reflect_wall``, up to ``max_bounces`` specular reflections, each
     re-walk bounded by the default 50 hops; ``bd_escape`` [nbd] bool marks
-    absorbing faces.  The kernel covers all n lanes and returns at once
-    where the flag is 0 (no host sync, no compaction)."""
+    absorbing faces.  The kernel finds the pending lanes itself, in one
+    wave of resident blocks (``csrc/pending.cuh``; no host sync); ``pending``
+    may start on any byte."""
     n, dev = _check_tab_m(tab, m, ly.width, ly.tab_w)
     _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
     _check("bd_escape", bd_escape, dtype=torch.bool, shape=(bd_escape.shape[0],),
@@ -384,6 +386,26 @@ def rare_resolve(tab, m, pending, bd_escape, *, max_hops, max_bounces,
 
 
 rare_resolve.launches = 0
+
+
+def _grid(entry, n, what):
+    blocks = entry(int(n))
+    if blocks < 0:
+        _raise_on(-blocks, what)
+    return blocks
+
+
+def rare_grid(n, dtype, ly=LAYOUT_TET):
+    """Blocks ``rare_kernel``'s instantiation for ``dtype`` and ``ly``
+    launches over ``n`` lanes on the current device: min(ceil(n / 256),
+    the blocks the card holds at once).  Launches nothing."""
+    return _grid(_entry(_layout_entry("rare_grid", ly), dtype), n, "rare_kernel")
+
+
+def convex_rare_grid(n, dtype):
+    """Blocks ``convex_rare_kernel`` launches over ``n`` lanes, as
+    :func:`rare_grid`."""
+    return _grid(_entry("convex_rare_grid", dtype), n, "convex_rare_kernel")
 
 
 def _launch_convex_stream(tab, m, xi_ptr, pend_ptr, adm_ptr, disp_ptr, kw, mode, pass_, key,
@@ -456,8 +478,8 @@ def convex_rare_resolve(mesh, tab, m, disp, pending, *, max_hops, reflect_wall,
     re-trace 50 tets) and, with ``bary_fix``, runs the barycentric walk +
     ``reflect_walls`` (``max_bounces``) on the landed point.  Reads the
     mesh's ``tet_row_cx``, ``tet_a``, ``tet_tinv``, ``tet_nbr``,
-    ``tet_face_n``, ``tet_face_d`` and ``bd_escape``.  The kernel covers
-    all n lanes and returns at once where the flag is 0."""
+    ``tet_face_n``, ``tet_face_d`` and ``bd_escape``.  The kernel finds
+    the pending lanes itself, as :func:`rare_resolve`'s does."""
     n, dev = _check_tab_m(tab, m, fused_convex.WIDTH, fused_convex.ROW_W)
     _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
     _check("disp", disp, dtype=m.dtype, shape=(n, 3), device=dev)
@@ -475,6 +497,8 @@ def convex_rare_resolve(mesh, tab, m, disp, pending, *, max_hops, reflect_wall,
         ("bd_escape", mesh.bd_escape, torch.bool, (nbd,)),
     ):
         _check(name, t, dtype=dtype, shape=shape, device=dev)
+    if dev.type == "cuda" and mesh.tet_row_cx.data_ptr() % 16:
+        raise ValueError("tet_row_cx must start on a 16-byte boundary")   # 16 B row loads
     kw = dict(max_hops=int(max_hops), reflect_wall=bool(reflect_wall),
               bary_fix=bool(bary_fix), max_bounces=int(max_bounces))
     if dev.type == "cpu":

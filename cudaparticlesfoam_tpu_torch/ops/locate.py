@@ -44,11 +44,13 @@ def _argmin_first(w):
     return slot, best
 
 
-def walk(mesh: TetMesh, p, tet0, active=None, max_hops: int = MAX_HOPS):
+def walk(mesh: TetMesh, p, tet0, active=None, max_hops: int = MAX_HOPS, chain=None):
     """Vectorized ``baryTetSearch``.  Returns (tet, slot): the hosting tet,
     ``-(lastTet+1)`` on a domain exit, or the last visited tet when
     ``max_hops`` ran out; ``slot`` is the last face stepped through (-1 if
-    none).  Negative ``tet0`` and inactive lanes pass through."""
+    none).  Negative ``tet0`` and inactive lanes pass through.  ``chain``
+    (int64, one per lane): adds each lane's dependent loads, the tet's
+    A/Tinv row per visit and the exit face's neighbour entry per step."""
     tet = tet0.to(torch.int64)
     done = tet < 0
     if active is not None:
@@ -61,6 +63,8 @@ def walk(mesh: TetMesh, p, tet0, active=None, max_hops: int = MAX_HOPS):
         exit_slot, wmin = _argmin_first(_bary_at(mesh, p, safe))
         inside = wmin >= 0.0
         stepping = ~done & ~inside
+        if chain is not None:
+            chain += (~done).to(torch.int64) + stepping
         nbr = mesh.tet_nbr[safe, exit_slot].to(torch.int64)
         out = stepping & (nbr < 0)
         tet = torch.where(stepping, torch.where(nbr < 0, -(tet + 1), nbr), tet)
@@ -69,14 +73,15 @@ def walk(mesh: TetMesh, p, tet0, active=None, max_hops: int = MAX_HOPS):
     return tet.to(torch.int32), slot.to(torch.int32)
 
 
-def reflect_walls(mesh: TetMesh, pos, disp, vel, tet_id, max_bounces: int = 10):
+def reflect_walls(mesh: TetMesh, pos, disp, vel, tet_id, max_bounces: int = 10, chain=None):
     """Vectorized ``RTreflection`` (``RTQuery.cu:109-186``; JAX
     ``locate.reflect_walls``): for lanes with a wall-hit code (tet_id < 0)
     mirror the end point and velocity across the OUTWARD face plane
     (``tet_face_n``/``tet_face_d``) of the walk's exit face, re-walk,
     repeat up to ``max_bounces``; absorbing faces (``bd_escape``) settle
     the lane with tet = -(exitTet+1).  Returns (disp, vel, tet_id); lanes
-    with tet_id >= 0 pass through."""
+    with tet_id >= 0 pass through.  ``chain``: adds the re-walks' loads
+    (:func:`walk`) and one face plane per mirror."""
     tet_id = tet_id.to(torch.int64)
     hit = tet_id < 0
     tet_bd = torch.where(hit, -(tet_id + 1), tet_id)
@@ -87,7 +92,7 @@ def reflect_walls(mesh: TetMesh, pos, disp, vel, tet_id, max_bounces: int = 10):
     for _ in range(max_bounces):
         if bool(settled.all()):
             break
-        wtet, wslot = walk(mesh, p_ref, tet_bd, active=~settled)
+        wtet, wslot = walk(mesh, p_ref, tet_bd, active=~settled, chain=chain)
         wtet, wslot = wtet.to(torch.int64), wslot.to(torch.int64)
         in_domain = wtet >= 0
         newly = ~settled & in_domain
@@ -105,6 +110,8 @@ def reflect_walls(mesh: TetMesh, pos, disp, vel, tet_id, max_bounces: int = 10):
         tet_bd = torch.where(esc, -(ex_tet + 1), tet_bd)
         settled = settled | esc
         refl = refl & ~esc
+        if chain is not None:
+            chain += refl
         n = mesh.tet_face_n[ex_tet, ex_slot]
         d = mesh.tet_face_d[ex_tet, ex_slot]
         pn = (p_ref[:, 0] * n[:, 0] + p_ref[:, 1] * n[:, 1]) + p_ref[:, 2] * n[:, 2]

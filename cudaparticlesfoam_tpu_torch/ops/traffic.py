@@ -45,11 +45,17 @@ pad is counted as what the function is given, not as waste:
   A call this small is bound by launch latency, not by these bytes:
   :func:`share_of_floor` holds its time against the measured time of a
   launch that does next to nothing.
-* ``rare_kernel`` and ``convex_rare_kernel``: a floor only.  Both are
-  latency-bound (each pending lane walks a dependent chain of up to 50
-  row loads); counted are the pending flags, each pending lane's state
-  (read and written) and one new row per lane whose tet changed, not the
-  rows the walk passed through.
+* ``rare_kernel`` and ``convex_rare_kernel``: bound by latency, not by
+  bytes.  Their bytes (:func:`rare`, :func:`convex_rare`) are a floor: the
+  pending flags, each pending lane's state (read and written) and one new
+  row per lane whose tet changed, not the rows the walk passed through.
+  Their bound is :func:`latency_bound`: a pending lane is a chain of
+  dependent loads (its flag, its own mega row, then the row loads that
+  ``fused.rare_chain`` / ``fused_convex.rare_chain`` count), the lanes run
+  side by side, so the call lasts at least one launch plus the longest
+  chain times the latency of one dependent load (``ops/probe.py``
+  measures it on the card).  :func:`share_of_latency` holds the time
+  against it.
 """
 
 from __future__ import annotations
@@ -61,8 +67,7 @@ from .fused import LAYOUT_PK, LAYOUT_TET
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 MEGA_W, ROW_W, CX_W, HEAD_W = LAYOUT_TET.width, LAYOUT_TET.tab_w, 24, 8
-# (mega row, table row) widths per layout
-LAYOUTS = {"tet": (MEGA_W, ROW_W), "pk": (LAYOUT_PK.width, LAYOUT_PK.tab_w)}
+LAYOUT_NAMES = {"tet": LAYOUT_TET, "pk": LAYOUT_PK}
 NOISES = ("xi", "philox", "none")
 PASSES = ("whole", "crossers", "admitted")
 ADMIT_TILE = 8192        # lanes per block of hop_admit_kernel
@@ -77,9 +82,12 @@ OPS = {"stream": 110, "stream_hop": 25, "convex": 110, "convex_hop": 70, "philox
 
 
 def _widths(layout):
-    if layout not in LAYOUTS:
-        raise ValueError(f"layout must be one of {tuple(LAYOUTS)}, got {layout!r}")
-    return LAYOUTS[layout]
+    """(mega row, table row) widths of a layout name, from ``fused``'s
+    layouts: the table row is what a hop moves (``tab_w``)."""
+    if layout not in LAYOUT_NAMES:
+        raise ValueError(f"layout must be one of {tuple(LAYOUT_NAMES)}, got {layout!r}")
+    ly = LAYOUT_NAMES[layout]
+    return ly.width, ly.tab_w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,3 +244,29 @@ def convex_rare(n: int, elem: int, pending: int) -> Traffic:
     state = (6 + 1) * elem
     return Traffic(n + pending * (state + 3 * elem + CX_W * elem),
                    pending * (state + CX_W * elem), pending * OPS["rare_lane"])
+
+
+# the two loads before a pending lane's walk: its flag and its own mega row
+LANE_LOADS = 2
+
+
+def latency_bound(chain_max: int, t_dep_ms: float, launch_floor_ms: float) -> float:
+    """The least time of a rare kernel's call: one launch that does next
+    to nothing (``launch_floor_ms``, measured on the card) plus the longest
+    dependent chain, (2 + ``chain_max``) loads of ``t_dep_ms`` each: the
+    flag, the lane's own mega row and ``chain_max`` row loads (the chain's
+    counters, ``fused.rare_chain``).  Lanes run side by side, so only the
+    longest chain counts; ``t_dep_ms`` is the neighbour walk's latency
+    (``ops/probe.py``), the smaller of the two measured, so this stays a
+    lower bound."""
+    if chain_max < 0 or t_dep_ms < 0 or launch_floor_ms < 0:
+        raise ValueError("chain length and times must be >= 0")
+    return launch_floor_ms + (LANE_LOADS + chain_max) * t_dep_ms
+
+
+def share_of_latency(latency_bound_ms: float, ms: float) -> float:
+    """Share of its latency bound a rare kernel's call reaches:
+    ``latency_bound_ms`` / ``ms``."""
+    if ms <= 0 or latency_bound_ms < 0:
+        raise ValueError("times must be positive")
+    return latency_bound_ms / ms

@@ -165,6 +165,27 @@ def test_chip_smoke_rehearsal_runs_every_phase():
         assert os.path.exists(os.path.join(root, entry["source"]))
     floors = {k["name"] for k in table["kernels"] if "launch_floor_ms" in k}
     assert floors == {"rare_kernel", "convex_rare_kernel", "hop_admit_kernel", "rare_kernel<pk>"}
+    # the rare rows' latency bound (phase 6): chains, both latencies, bound and share
+    rare = {"rare_kernel", "convex_rare_kernel", "rare_kernel<pk>"}
+    for entry in table["kernels"]:
+        keys = {"pending", "chain_mean", "chain_p99", "chain_max", "t_dep_nbr_ms", "t_dep_hbm_ms",
+                "latency_bound_ms", "share_of_latency", "one_call_at_a_time_ms",
+                "pending_first_ms", "ms_per_chain_step", "ms_at_chain_0"}
+        assert (keys <= set(entry)) == (entry["name"] in rare), entry["name"]
+        if entry["name"] in rare:
+            assert entry["chain_max"] >= entry["chain_p99"] >= 0 and entry["pending"] > 0
+            assert entry["latency_bound_ms"] == pytest.approx(
+                entry["launch_floor_ms"] + (2 + entry["chain_max"]) * entry["t_dep_nbr_ms"])
+            assert entry["share_of_latency"] == pytest.approx(
+                entry["latency_bound_ms"] / entry["ms"])
+    latency = [line for line in lines if line.startswith("[latency]")]
+    assert len(latency) == 7 and "host loop (cpu rehearsal)" in latency[0]
+    for name in ("rare", "convex_rare", "rare_pk"):
+        assert any(f"| {name} lanes=" in line and "share_of_latency=" in line
+                   and "pending_first_ms=" in line for line in latency), name
+        assert any(f"| {name} by longest chain" in line and "ms_per_chain_step=" in line
+                   for line in latency), name
+    assert any("rare_patterns_identical=1" in line for line in lines if line.startswith("[parity]"))
     for tag in ("[parity]", "[convex-parity]", "[noise]", "[admit]", "[compact]", "[macro]",
                 "[golden]", "[slice]", "[convex-slice]", "[macro-slice]", "[compact-slice]",
                 "[convex-compact-slice]", "[pk-parity]", "[pk-slice]", "[simple]", "[bound]"):

@@ -154,3 +154,85 @@ def test_operations_stay_far_below_bytes_at_the_slice():
 def test_bad_arguments_raise(call):
     with pytest.raises(ValueError):
         call()
+
+
+# the rare kernels' latency bound: one launch + (flag + own mega row + the
+# longest chain) dependent loads
+@pytest.mark.parametrize("chain_max, t_dep, floor, bound", [
+    (7, 0.0005, 0.0022, 0.0022 + 9 * 0.0005),
+    (0, 0.0004, 0.0020, 0.0028),
+    (50, 0.001, 0.0, 0.052),
+    (3, 0.0, 0.0031, 0.0031),
+])
+def test_latency_bound_matches_a_hand_count(chain_max, t_dep, floor, bound):
+    assert traffic.latency_bound(chain_max, t_dep, floor) == pytest.approx(bound, rel=1e-12)
+    assert traffic.share_of_latency(bound, 2 * bound) == pytest.approx(0.5)
+
+
+def test_share_of_latency_against_hand_values():
+    assert traffic.share_of_latency(0.0067, 0.0134) == pytest.approx(0.5)
+    assert traffic.share_of_latency(0.0067, 0.0067) == pytest.approx(1.0)
+    assert traffic.share_of_latency(0.0, 0.02) == 0.0
+
+
+@pytest.mark.parametrize("call", [
+    lambda: traffic.latency_bound(-1, 0.0005, 0.002),
+    lambda: traffic.latency_bound(3, -0.0005, 0.002),
+    lambda: traffic.latency_bound(3, 0.0005, -0.002),
+    lambda: traffic.share_of_latency(0.006, 0.0),
+    lambda: traffic.share_of_latency(0.006, -1.0),
+    lambda: traffic.share_of_latency(-0.006, 0.01),
+])
+def test_latency_bound_refuses_bad_arguments(call):
+    with pytest.raises(ValueError):
+        call()
+
+
+def test_layout_widths_come_from_the_fused_layouts():
+    from cudaparticlesfoam_tpu_torch.ops import fused
+
+    assert traffic._widths("tet") == (fused.LAYOUT_TET.width, fused.LAYOUT_TET.tab_w) == (32, 20)
+    assert traffic._widths("pk") == (fused.LAYOUT_PK.width, fused.LAYOUT_PK.tab_w) == (40, 32)
+    assert traffic.LAYOUT_NAMES["pk"] is fused.LAYOUT_PK
+    assert not hasattr(traffic, "LAYOUTS")
+
+
+# the measuring chains of csrc/probe.cu, through their host loops
+def test_chase_neighbours_host_loop_follows_the_hash():
+    import torch
+
+    from cudaparticlesfoam_tpu_torch.ops import probe
+
+    # 3 tets in a row; faces 0..3 of tet t: t - 1, t + 1, a wall, t (itself)
+    codes = [[-1, 1, -2, 0], [0, 2, -2, 1], [1, -3, -2, 2]]
+    tab = torch.zeros((3, 20), dtype=torch.float32)
+    tab[:, 15:19] = torch.tensor(codes, dtype=torch.float32)
+    state = torch.tensor([1, 99], dtype=torch.int32)
+    probe.chase_neighbours(tab, 15, 50, state)
+    at, h = 1, 99
+    for _ in range(50):
+        h = (h * 1664525 + 1013904223) & 0xFFFFFFFF
+        code = codes[at][h >> 30]
+        at = code if code >= 0 else at
+    assert int(state[0]) == at and int(state[1]) & 0xFFFFFFFF == h
+    with pytest.raises(ValueError):
+        probe.chase_neighbours(tab.double(), 15, 5, state)
+    with pytest.raises(ValueError):
+        probe.chase_neighbours(tab, 17, 5, state)
+
+
+def test_permutation_is_one_cycle_through_every_entry():
+    import torch
+
+    from cudaparticlesfoam_tpu_torch.ops import probe
+
+    nxt = probe.permutation(1000, 4, torch.device("cpu"))
+    assert nxt.dtype == torch.int32 and sorted(nxt.tolist()) == list(range(1000))
+    state = torch.zeros(2, dtype=torch.int32)
+    seen = set()
+    for _ in range(1000):
+        probe.chase_permutation(nxt, 1, state)
+        seen.add(int(state[0]))
+    assert len(seen) == 1000 and int(state[0]) == 0
+    with pytest.raises(ValueError):
+        probe.chase_permutation(nxt.long(), 1, state)
