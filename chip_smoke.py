@@ -122,6 +122,33 @@ Phases, one line of numbers each, any failure exits non-zero:
 7. (only with --parent DIR, a checkout of another commit) that tree's rare
    kernels, built from its sources, against this tree's on the slice's
    inputs, in turns, bit for bit, with both shares of the latency bound.
+8. (runs after 5d, before phase 6, whose bounds and latency lines take
+   8c's rows) the uncoupled driver, models/uncoupled.py, in a temporary
+   copy of the repo's pitzDaily tutorial with the shear field of
+   tests/test_golden.py's driver anchor at time 282:
+   8a. the driver anchor: 200 particles, deltaT 0.01 (100 cycles), float64,
+       uncoupled.run on the card with the JAX run's Brownian normals
+       (tests/golden/torch_port_pitz_noise.npz) replayed through
+       ops/fused.py:_brownian_noise; pos within 1e-9 of pitz_pos,
+       tet/active exact, every launch count set to 0 before the run and
+       exactly 100 stream and 100 rare launches after it; skipped with its
+       reason where the base-point builder is not the anchor's (no g++);
+   8b. the tutorial at its own settings (1e5 particles, dt 1e-4, deltaT
+       0.1: 1000 cycles, saveInterval 10: 101 frames), float32, through
+       ``python -m cudaparticlesfoam_tpu_torch uncoupled <case> --out <dir>``
+       in a subprocess: every frame parses, in the last every lane active
+       with a tet >= 0, inside the pitzDaily bounds, KEs all zeros, no lane
+       out of the domain; the phase times (device spans and the host's),
+       Advect ms/cycle, particle-steps/s, peak memory and the kernel
+       launches the driver logs (one stream and one rare a cycle);
+   8c. one cycle at 8b's shape (its mesh, seeds and tuning: inline_hops 1,
+       inline_bounce on) after 100 cycles: stream_kernel and rare_kernel
+       against their plain versions (tet/active/pending identical, pos/vel
+       within 1e-5), the hop and pending shares, each kernel's time by
+       graph replay and its plain version's; before it, the driver's
+       run_cycles loop warm in process (in the driver's chunks and as one
+       call: device and host ms/cycle) and one frame's copy and write.
+   The rehearsal runs 8a as is and 8b/8c at 2,000 particles, deltaT 0.01.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -135,6 +162,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1853,7 +1881,7 @@ def copy_ms(torch, dev, timer, nbytes, reps=20):
 
 
 # bound by a launch's latency, not by bytes
-SMALL = ("hop_admit", "rare", "convex_rare", "rare_pk")
+SMALL = ("hop_admit", "rare", "convex_rare", "rare_pk", "rare_tutorial")
 
 
 def phase_bounds(torch, traffic, dev, counts, times, per_cycle, floor, gpu_line):
@@ -2108,6 +2136,281 @@ def phase_parent(traffic, rares, latency, gpu_line):
                 f"{tag}=({', '.join(f'{x:.5f}' for x in v)})" for tag, v in enqueue.items()))
 
 
+PITZ = os.path.join(HERE, "tutorials", "incompressible", "cudaParticlesUncoupledFoam",
+                    "pitzDaily")
+PITZ_NOISE = os.path.join(HERE, "tests", "golden", "torch_port_pitz_noise.npz")
+
+
+def pitz_case(dst, particles=None, delta_t=None):
+    """A copy of the repo's pitzDaily tutorial in ``dst`` with the
+    synthetic converged field of tests/test_golden.py's driver anchor
+    (u_x = 1 + 20 y at the cell centres, time 282, inside the particle
+    window); ``particles`` / ``delta_t`` shrink its cudaParticlesDict /
+    controlDict as that test does (None keeps the tutorial's own)."""
+    import shutil
+
+    from cudaparticlesfoam_tpu_torch.io import blockmesh, foamfile, polymesh
+
+    case = os.path.join(dst, "pitzDaily")
+    shutil.copytree(PITZ, case)
+    for name, key, value in (("cudaParticlesDict", "numParticles", particles),
+                             ("controlDict", "deltaT", delta_t)):
+        if value is None:
+            continue
+        path = os.path.join(case, "system", name)
+        d = foamfile.read(path)
+        d.pop("FoamFile", None)
+        d.pop("functions", None)
+        d[key] = value
+        foamfile.write(path, d, obj_name=name)
+    pm = blockmesh.generate(os.path.join(case, "system", "blockMeshDict"))
+    ctrs, _ = polymesh.cell_centres_volumes(pm)
+    u = np.zeros((pm.n_cells, 3))
+    u[:, 0] = 1.0 + 20.0 * ctrs[:, 1]
+    os.makedirs(os.path.join(case, "282"))
+    polymesh.write_field(os.path.join(case, "282", "U"), "U", u)
+    return case
+
+
+def phase_driver_anchor(torch, fused, fused_cuda, dev, tmp, gpu_line):
+    """Phase 8a: the pitzDaily driver anchor (tests/test_golden.py) through
+    uncoupled.run in float64 on ``dev``, the JAX run's Brownian normals
+    replayed from tests/golden/torch_port_pitz_noise.npz; gated on the
+    base-point builder as the test is."""
+    from cudaparticlesfoam_tpu_torch.models import case as caselib
+    from cudaparticlesfoam_tpu_torch.models import uncoupled
+
+    g = np.load(GOLDEN)
+    want = str(g["builder_flavor"])
+    if caselib._builder_flavor() != want:
+        log(f"[driver-anchor] skipped: the anchor was built with the {want} base-point "
+            f"builder, this host has {caselib._builder_flavor()} (no g++)")
+        return
+    noise = torch.as_tensor(np.load(PITZ_NOISE)["noise"], device=dev)
+    case_dir = pitz_case(tmp, particles=200, delta_t=0.01)
+    draw = fused._brownian_noise
+    fused._brownian_noise = lambda seed, step, n, dtype, device, mode="threefry": noise[step]
+    try:
+        for name in COUNTED:
+            getattr(fused_cuda, name).launches = 0
+        t0 = time.perf_counter()
+        _, st, stats = uncoupled.run(case_dir, write_output=False, dtype=np.float64,
+                                     device=dev, log=lambda *a: None)
+        secs = time.perf_counter() - t0
+        got = {name: getattr(fused_cuda, name).launches for name in COUNTED}
+    finally:
+        fused._brownian_noise = draw
+    err = float(np.abs(st.pos.cpu().numpy() - g["pitz_pos"]).max())
+    tet_ok = bool((st.tet_id.cpu().numpy() == g["pitz_tet"]).all())
+    act_ok = bool((st.active.cpu().numpy() == g["pitz_active"]).all())
+    ran = {k: v for k, v in got.items() if v}
+    log(f"[driver-anchor] {gpu_line} | pitzDaily shear, 200 particles, f64, builder={want}: "
+        f"cycles={stats['cycles']} max_abs_err={err:.3e} tet_exact={int(tet_ok)} "
+        f"active_exact={int(act_ok)} launches={ran} run_s={secs:.2f}")
+    need(stats["cycles"] == 100 and tet_ok and act_ok and err <= POS_TOL_GOLDEN,
+         "the pitzDaily driver anchor failed")
+    need_launches(dev, got, {"stream_cycle": 100, "rare_resolve": 100}, "driver anchor")
+
+
+def _frame_summary(path):
+    """(points, DataArray names) of a VTU frame: it parses as XML."""
+    import xml.etree.ElementTree as ET
+
+    root = ET.parse(path).getroot()
+    return (int(next(root.iter("Piece")).get("NumberOfPoints")),
+            [da.get("Name") for da in root.iter("DataArray")])
+
+
+TUTORIAL_PATH = "uncoupled driver, pitzDaily tutorial (1e5 particles, 1000 cycles)"
+FRAME_ARRAYS = ["Position", "ParticleType", "ParticleID", "ParticleTetID", "vels", "KEs",
+                "connectivity", "offsets", "types"]
+
+
+def phase_driver_tutorial(torch, dev, tmp, rehearse, gpu_line):
+    """Phase 8b: the tutorial at its own settings through the CLI in a
+    subprocess (``python -m cudaparticlesfoam_tpu_torch uncoupled``), on
+    the card in float32: 1e5 particles, dt 1e-4, deltaT 0.1 (1000 cycles),
+    saveInterval 10 (101 frames); the rehearsal shrinks it to 2,000
+    particles and deltaT 0.01 on the CPU.  Returns (case dir, launches)."""
+    import concurrent.futures as cf
+    import xml.etree.ElementTree as ET
+
+    shrink = dict(particles=2_000, delta_t=0.01) if rehearse else {}
+    case_dir = pitz_case(tmp, **shrink)
+    out = os.path.join(tmp, "frames")
+    cmd = [sys.executable, "-m", "cudaparticlesfoam_tpu_torch", "uncoupled", case_dir,
+           "--out", out] + (["--device", "cpu"] if rehearse else [])
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
+    secs = time.perf_counter() - t0
+    need(res.returncode == 0, f"the CLI tutorial run failed: {res.stderr[-3000:]}")
+    text = res.stdout
+    n_cycles = int(re.search(r"nCycles: (\d+)", text).group(1))
+    n_part = 2_000 if rehearse else 100_000
+    phases = {m.group(1): [float(x) for x in m.group(2).split("\t") if x]
+              for m in re.finditer(r"^\t(Init|Seed|Advect|IO)\t([\d.\t]+)$", text, re.M)}
+    runtime = re.search(r"Simulation RunTime=([\d.]+) ms \(([\d.]+)M particle-steps/s\)", text)
+    ood = [int(x) for x in re.findall(r"Out-of-domain particles\(-tetID\) = (\d+)", text)]
+
+    frames = sorted(f for f in os.listdir(out) if f.endswith(".vtu"))
+    t1 = time.perf_counter()
+    with cf.ProcessPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        summaries = list(ex.map(_frame_summary, [os.path.join(out, f) for f in frames]))
+    parse_s = time.perf_counter() - t1
+    need(len(frames) == len(range(0, n_cycles, 10)) + 1 and frames[0] == "particle_0000.vtu",
+         f"{len(frames)} frames for {n_cycles} cycles")
+    need(all(s == (n_part, FRAME_ARRAYS) for s in summaries), "a frame does not parse")
+    root = ET.parse(os.path.join(out, frames[-1])).getroot()
+    arrays = {da.get("Name"): np.array(da.text.split(), dtype=float)
+              for da in root.iter("DataArray")}
+    pos = arrays["Position"].reshape(-1, 3)
+    tet, act = arrays["ParticleTetID"], arrays["ParticleType"] > 0
+    bounds = (np.array([-0.0206, -0.0254, -0.0005]), np.array([0.29, 0.0254, 0.0005]))
+    inside = bool(((pos[act] >= bounds[0] - 1e-6) & (pos[act] <= bounds[1] + 1e-6)).all())
+    out_of_domain = int((tet < 0).sum())
+    frames_mb = sum(os.path.getsize(os.path.join(out, f)) for f in frames) / 1e6
+    # the phase table: device span first, the host's time last on the card
+    host_s = {k: v[-1] if dev.type == "cuda" else v[0] for k, v in phases.items()}
+    dev_line = re.search(r"#adv: on (.*): Advect ([\d.]+) ms/cycle on the device, ([\d.]+) "
+                         r"ms/cycle to issue; kernel launches (\{.*\}); peak device memory "
+                         r"([\d.]+) GiB", text)
+    if dev_line:     # the same spans to 4 decimals
+        adv_ms, issue_ms = float(dev_line.group(2)), float(dev_line.group(3))
+    else:
+        adv_ms, issue_ms = (phases["Advect"][0] / n_cycles * 1e3,
+                            host_s["Advect"] / n_cycles * 1e3)
+    line = (f"[driver-tutorial] {gpu_line} | pitzDaily tutorial via the CLI: particles={n_part} "
+            f"cycles={n_cycles} frames={len(frames)} ({frames_mb:.0f} MB, parsed in "
+            f"{parse_s:.1f} s) active={int(act.sum())} active_tet_ge_0="
+            f"{int((tet[act] >= 0).all())} inside_bounds={int(inside)} "
+            f"out_of_domain={out_of_domain} seeding_out_of_domain={ood} "
+            f"KEs_zero={int((arrays['KEs'] == 0).all())} "
+            f"phases_s={ {k: v[0] for k, v in phases.items()} } host_phases_s={host_s} "
+            f"advect_ms_per_cycle={adv_ms:.4f} host_issue_ms_per_cycle={issue_ms:.4f} "
+            f"advect_particle_steps_per_s={n_part / max(adv_ms * 1e-3, 1e-12):.4e} "
+            f"runtime_ms={runtime.group(1)} ({runtime.group(2)}M particle-steps/s, frames "
+            f"included) command_s={secs:.1f}")
+    launches = {}
+    if dev_line:
+        launches = json.loads(dev_line.group(4).replace("'", '"'))
+        line += (f" peak_device_GiB={dev_line.group(5)} launches={launches} "
+                 f"stream_per_cycle={launches.get('stream_cycle', 0) / n_cycles:.3f} "
+                 f"rare_per_cycle={launches.get('rare_resolve', 0) / n_cycles:.3f}")
+    log(line)
+    need(act.all() and (tet[act] >= 0).all() and inside and out_of_domain == 0
+         and ood == [0] and (arrays["KEs"] == 0).all() and np.isfinite(pos).all(),
+         "the tutorial run left the domain or broke the frame contract")
+    if dev.type == "cuda":
+        need(dev_line is not None, "the CLI run printed no device line")
+        need(launches == {"stream_cycle": n_cycles, "rare_resolve": n_cycles},
+             f"the tutorial run launched {launches}, not one stream and one rare kernel "
+             f"a cycle")
+    return case_dir, launches
+
+
+def phase_driver_cycle(torch, cpt, fused, fused_cuda, dev, case_dir, warm, errs, counts, rares,
+                       gpu_line):
+    """Phase 8c: one cycle at 8b's shape (its mesh, seeds and tuning, with
+    inline_bounce=True, after ``warm`` cycles), stream_kernel and
+    rare_kernel against their plain versions, and each kernel's time at
+    this shape (device_ms) for phase 6's bounds.  Returns the times."""
+    from cudaparticlesfoam_tpu_torch.models import case as caselib
+
+    case = caselib.load_case(case_dir, log=lambda *a: None, device=dev)
+    st = caselib.init_particles(case, log=lambda *a: None)
+    cfg = cpt.suggest_tuning(case.tet_mesh, case.particles.step_config(),
+                             n_particles=st.n_particles)
+    need(cfg.inline_bounce and cfg.inline_hops == 1,
+         f"the tutorial's tuning is inline_hops={cfg.inline_hops} inline_bounce="
+         f"{cfg.inline_bounce}, not 1 and True")
+    mesh, n = case.tet_mesh, st.n_particles
+    n_cycles, dt = cpt.n_cycles_for(case.control.delta_t, case.particles.dt)
+    st = cpt.run_cycles(mesh, st, cfg, warm, dt)
+    timer = Timer(torch, dev)
+
+    # the driver's loop, warm, in process: 100 cycles in the chunks it runs
+    # between two frames (1, then saveInterval - 1), and as one run_cycles
+    # call; the device's ms per cycle (events) and the host's time to issue
+    every = case.particles.save_interval
+    for name, chunks in (("chunks", [1, every - 1] * (100 // every)), ("one_call", [100])):
+        s = cpt.run_cycles(mesh, st, cfg, chunks[0], dt)          # warm-up
+        timer.start()
+        h0 = time.perf_counter()
+        for c in chunks:
+            s = cpt.run_cycles(mesh, s, cfg, c, dt)
+        host_ms = (time.perf_counter() - h0) * 1e3 / sum(chunks)
+        ms = timer.stop() / sum(chunks)
+        log(f"[driver-cycle] {gpu_line} | warm run_cycles loop, {name} {chunks[:2]}...: "
+            f"ms_per_cycle={ms:.4f} host_issue_ms_per_cycle={host_ms:.4f} lanes={n}")
+    # one frame: the copy off the card and the native writer, on the host clock
+    from cudaparticlesfoam_tpu_torch.io import vtu
+
+    h0 = time.perf_counter()
+    held = vtu.AsyncVTUWriter()
+    held.write(0, s, out_dir=os.path.join(os.path.dirname(case_dir), "frame"))
+    copy_s = time.perf_counter() - h0
+    held.close()
+    log(f"[driver-cycle] {gpu_line} | one frame of {n} lanes: copy off the card "
+        f"{copy_s * 1e3:.2f} ms, copy + write {(time.perf_counter() - h0):.3f} s")
+    m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active)
+    xi = fused._brownian_noise(st.seed, st.step, n, m0.dtype, dev)
+    sa = stream_args(cfg, dt, m0.dtype, fused)
+    ra = rare_args(cfg)
+    mk, mp = m0.clone(), m0.clone()
+    pk = torch.empty(n, dtype=torch.uint8, device=dev)
+    pp = torch.empty_like(pk)
+    fused_cuda.stream_cycle(mesh.tet_row, mk, xi, pk, **sa)
+    fused.stream_plain(mesh.tet_row, mp, xi, pp, **sa)
+    same_s, err_s = compare(torch, mk, mp, pk, pp)
+    m1, p1 = mp.clone(), pp.clone()
+    hops = rows_changed(torch, m0, mk, 20)
+    fused_cuda.rare_resolve(mesh.tet_row, mk, pk, mesh.bd_escape, **ra)
+    fused.rare_plain(mesh.tet_row, mp, pp, mesh.bd_escape, **ra)
+    same, err = compare(torch, mk, mp)
+    pending = int(p1.sum())
+    n_el = m0.element_size()
+    counts["stream_tutorial"] = ("stream", dict(n=n, elem=n_el, noise="xi", hops=hops,
+                                                hopped=hops))
+    counts["rare_tutorial"] = ("rare", dict(n=n, elem=n_el, pending=pending,
+                                            moved=moved(torch, m1, mk)))
+    log(f"[driver-cycle] tutorial shape: lanes={n} tets={mesh.n_tets} after {warm} of "
+        f"{n_cycles} cycles, inline_hops={cfg.inline_hops} inline_bounce={int(cfg.inline_bounce)}: "
+        f"hop_share={hops / n:.4f} pending={pending} pending_share={pending / n:.4f} "
+        f"stream_identical={int(same_s)} stream_max_abs_err={err_s:.3e} "
+        f"cycle_identical={int(same)} cycle_max_abs_err={err:.3e}")
+    need(same_s and same and max(err, err_s) <= POS_TOL_F32,
+         "the tutorial cycle: kernel != plain")
+    errs["stream_tutorial"], errs["rare_tutorial"] = err_s, err
+
+    work, pend = m0.clone(), pk.clone()
+
+    def restore_stream():
+        work.copy_(m0)
+
+    def restore_rare():
+        work.copy_(m1)
+        pend.copy_(p1)
+
+    times = {}
+    for key, fn, plain, restore in (
+        ("stream_tutorial", lambda: fused_cuda.stream_cycle(mesh.tet_row, work, xi, pend, **sa),
+         lambda: fused.stream_plain(mesh.tet_row, work, xi, pend, **sa), restore_stream),
+        ("rare_tutorial",
+         lambda: fused_cuda.rare_resolve(mesh.tet_row, work, pend, mesh.bd_escape, **ra),
+         lambda: fused.rare_plain(mesh.tet_row, work, pend, mesh.bd_escape, **ra),
+         restore_rare),
+    ):
+        times[key] = rare_row(torch, timer, fn, plain, restore)
+        t = times[key]
+        log(f"[driver-cycle] {gpu_line} | {key}_kernel_ms={t[0]:.5f} (device: {BATCH} calls "
+            f"replayed from a graph, restore subtracted) one_call_at_a_time_ms=({t[2][1]:.4f}, "
+            f"{t[2][2]:.4f}) {key}_plain_ms={t[1]:.4f} ({t[2][0]:.4f}, {t[2][3]:.4f}) lanes={n}")
+    rares.add("rare_tutorial", bary_rare_case(torch, fused, fused_cuda, mesh.tet_row, mesh, m1,
+                                              p1, ra, fused.LAYOUT_TET, "cpf_rare_f32"))
+    return times
+
+
 def ptxas_lines(report):
     """One 'kernel<type>: registers, stack' entry per compiled kernel."""
     out, name = [], None
@@ -2169,7 +2472,7 @@ def main():
         need(not args.parent, "--parent needs the card")
         dev = torch.device("cpu")
         sizes = dict(parity=(6, 3072), stats=20_000, slice=(12, 8_000, 8), simple=3,
-                     admit=(1, 3, 4, 15, 16, 17, 8155, 8192, 20_000))
+                     admit=(1, 3, 4, 15, 16, 17, 8155, 8192, 20_000), driver_warm=20)
         gpu_line = "cpu rehearsal"
         kind = "cpu"
     else:
@@ -2178,7 +2481,8 @@ def main():
             return 1
         dev = torch.device("cuda", 0)
         sizes = dict(parity=(16, 65_536), stats=1_000_000, slice=(55, 1_000_000, 200), simple=5,
-                     admit=(1, 3, 4, 15, 16, 17, 65_499, 65_536, 1_000_000, 4_000_001))
+                     admit=(1, 3, 4, 15, 16, 17, 65_499, 65_536, 1_000_000, 4_000_001),
+                     driver_warm=100)
         kind = torch.cuda.get_device_name(0)
         gpu_line = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2195,7 +2499,8 @@ def main():
             log(f"[build] {line}")
 
     errs = {"stream": 0.0, "rare": 0.0, "convex_stream": 0.0, "convex_rare": 0.0, "macro": 0.0,
-            "hop_admit": 0.0, "stream_pk": 0.0, "rare_pk": 0.0}
+            "hop_admit": 0.0, "stream_pk": 0.0, "rare_pk": 0.0, "stream_tutorial": 0.0,
+            "rare_tutorial": 0.0}
     counts = {}
     nside, n = sizes["parity"]
     phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs)
@@ -2232,6 +2537,13 @@ def main():
     times.update(pk_times)
     phase_simple(torch, cpt, fused_cuda, tmesh, convert, dev, nside, n, sizes["simple"],
                  gpu_line)
+    # phase 8, the uncoupled driver (before phase 6, whose bounds take 8c's rows)
+    with tempfile.TemporaryDirectory(prefix="cpf_driver_") as tmp:
+        phase_driver_anchor(torch, fused, fused_cuda, dev, os.path.join(tmp, "anchor"), gpu_line)
+        case_dir, tut_launches = phase_driver_tutorial(
+            torch, dev, os.path.join(tmp, "tutorial"), args.rehearse, gpu_line)
+        times.update(phase_driver_cycle(torch, cpt, fused, fused_cuda, dev, case_dir,
+                                        sizes["driver_warm"], errs, counts, rares, gpu_line))
 
     # launches per sub-step of each kernel on its own path (3 timed runs)
     steps = 3 * sizes["slice"][2]
@@ -2242,6 +2554,8 @@ def main():
         "macro": (m_launches["macro_stream"] + m_launches["macro_crossers"]) / steps,
         "hop_admit": m_launches["hop_admit"] / steps,
         "stream_pk": pk_launches["stream_pk"] / steps, "rare_pk": pk_launches["rare_pk"] / steps}
+    # the tutorial run of phase 8b: one stream and one rare launch a cycle (checked there)
+    per_cycle["stream_tutorial"] = per_cycle["rare_tutorial"] = 1.0
     for a, b in (("stream_philox", "stream"), ("convex_stream_xi", "convex_stream"),
                  ("macro_philox", "macro"), ("stream_pk_philox", "stream_pk")):
         per_cycle[a] = per_cycle[b]
@@ -2263,8 +2577,8 @@ def main():
     if args.parent:
         phase_parent(traffic, rares, latency, gpu_line)
 
-    def entry(name, key, source, replaces, n_launches, err, **extra):
-        return {"name": name, "route": "cuda",
+    def entry(name, key, source, replaces, n_launches, err, path="north-star slice", **extra):
+        return {"name": name, "path": path, "route": "cuda",
                 "source": f"cudaparticlesfoam_tpu_torch/csrc/{source}",
                 "replaces": f"cudaparticlesfoam_tpu/ops/{replaces}",
                 "launches": n_launches, "max_abs_err": err, "ms": times[key][0],
@@ -2276,19 +2590,27 @@ def main():
               errs["stream"]),
         entry("rare_kernel", "rare", "rare.cu", "fused.py:921", launches["rare"], errs["rare"]),
         entry("convex_stream_kernel", "convex_stream", "convex_stream.cu",
-              "fused_pallas.py:1910", launches["convex_stream"], errs["convex_stream"]),
+              "fused_pallas.py:1910", launches["convex_stream"], errs["convex_stream"],
+              path="north-star slice, convex"),
         entry("convex_rare_kernel", "convex_rare", "convex_rare.cu", "fused_convex.py:327",
-              launches["convex_rare"], errs["convex_rare"]),
+              launches["convex_rare"], errs["convex_rare"], path="north-star slice, convex"),
         entry("hop_admit_kernel", "hop_admit", "hop_admit.cu", "fused_pallas.py:539",
-              m_launches["hop_admit"], errs["hop_admit"]),
+              m_launches["hop_admit"], errs["hop_admit"], path="north-star slice, macro_cycles=4"),
         entry("macro_stream_kernel", "macro", "macro.cu", "fused_pallas.py:1536",
-              m_launches["macro_stream"], errs["macro"]),
+              m_launches["macro_stream"], errs["macro"], path="north-star slice, macro_cycles=4"),
         # the VertexVelocity instantiations (the TPU kernels under ly=LAYOUT_PK)
         entry("stream_kernel<pk>", "stream_pk", "stream.cu", "fused_pallas.py:259",
               pk_launches["stream_pk"], errs["stream_pk"],
-              philox_ms=times["stream_pk_philox"][0]),
+              path="north-star slice, VertexVelocity", philox_ms=times["stream_pk_philox"][0]),
         entry("rare_kernel<pk>", "rare_pk", "rare.cu", "fused.py:836", pk_launches["rare_pk"],
-              errs["rare_pk"]),
+              errs["rare_pk"], path="north-star slice, VertexVelocity"),
+        # this slice's main path: the uncoupled driver on the pitzDaily tutorial
+        # (launches from the CLI run of phase 8b, times and errors from 8c)
+        entry("stream_kernel", "stream_tutorial", "stream.cu", "fused_pallas.py:319",
+              tut_launches.get("stream_cycle", 0), errs["stream_tutorial"],
+              path=TUTORIAL_PATH),
+        entry("rare_kernel", "rare_tutorial", "rare.cu", "fused.py:921",
+              tut_launches.get("rare_resolve", 0), errs["rare_tutorial"], path=TUTORIAL_PATH),
     ]}
     log(gpu_line)
     log(json.dumps(table))

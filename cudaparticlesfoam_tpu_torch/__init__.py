@@ -12,6 +12,12 @@ plain PyTorch versions.  The simple engine (``engine="simple"``,
 ``stepper.cycle``: torch ops, also RK4 and ConstantVelocity) is their
 oracle; where a mesh lacks the cached engine's tables, ``run_cycles``
 takes it on CPU tensors and raises on the card.
+
+A case directory runs through the uncoupled driver
+(``models/uncoupled.py``, ``python -m cudaparticlesfoam_tpu_torch
+uncoupled <case>``): the OpenFOAM I/O of ``io/``, the case set-up of
+``config.py`` and ``models/case.py``, then ``run_cycles`` chunk by chunk
+between VTU frames, on the card unless told otherwise.
 This package imports torch and never jax.
 """
 

@@ -1,0 +1,95 @@
+"""Command-line entry points of the PyTorch/CUDA port (port of
+``cudaparticlesfoam_tpu/cli.py``).
+
+Replaces the reference's OpenFOAM executables and Allrun scripts:
+
+    python -m cudaparticlesfoam_tpu_torch uncoupled <case>   # cudaParticlesUncoupledFoam
+    python -m cudaparticlesfoam_tpu_torch blockmesh <case>   # blockMesh
+    python -m cudaparticlesfoam_tpu_torch dict <file> -entry <key> [-set <value>]
+
+``uncoupled`` runs on the card unless ``--device cpu`` asks for the CPU
+(the kernels' plain versions); ``--f64`` runs in float64.  The JAX CLI's
+``replay``, ``coupled`` and ``simple`` are not ported yet (ROADMAP.md
+queue 1 items 11 and 12).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="cudaparticlesfoam_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("uncoupled", help="frozen-field particle tracking")
+    p.add_argument("case", help="OpenFOAM-style case directory")
+    p.add_argument("--out", default=None, help="output directory")
+    p.add_argument("--no-write", action="store_true", help="skip VTU output")
+    p.add_argument("--f64", action="store_true", help="run in float64 (parity mode)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain versions)")
+    p.add_argument("--profile", default=None, help="write a torch.profiler trace here")
+    p.add_argument("--devices", type=int, default=None,
+                   help="particle devices; more than one is not ported yet")
+    p.add_argument("--strategy", default="auto",
+                   choices=("auto", "single", "dp", "partitioned"),
+                   help="multi-device strategy; only auto/single are ported")
+
+    p = sub.add_parser("blockmesh", help="generate constant/polyMesh from blockMeshDict")
+    p.add_argument("case")
+
+    p = sub.add_parser(
+        "dict", help="read/modify a dictionary entry (foamDictionary equivalent)"
+    )
+    p.add_argument("file")
+    p.add_argument("-entry", required=True)
+    p.add_argument("-set", dest="value", default=None)
+
+    args = ap.parse_args(argv)
+
+    if args.cmd == "dict":
+        from .io import foamfile
+
+        d = foamfile.read(args.file)
+        obj = d.pop("FoamFile", {}).get("object") or os.path.basename(args.file)
+        if args.value is None:
+            print(d.get(args.entry))
+            return 0
+        try:
+            val = float(args.value)
+            val = int(val) if val.is_integer() and "." not in args.value else val
+        except ValueError:
+            val = args.value
+        d[args.entry] = val
+        foamfile.write(args.file, d, obj_name=str(obj))
+        return 0
+
+    if args.cmd == "blockmesh":
+        from .io import blockmesh, polymesh
+
+        pm = blockmesh.generate(os.path.join(args.case, "system", "blockMeshDict"))
+        out = os.path.join(args.case, "constant", "polyMesh")
+        polymesh.write_polymesh(pm, out)
+        print(f"wrote {pm.n_cells} cells to {out}")
+        return 0
+
+    from .models import uncoupled
+
+    uncoupled.run(
+        args.case,
+        out_dir=args.out,
+        write_output=not args.no_write,
+        dtype="float64" if args.f64 else None,
+        profile_dir=args.profile,
+        devices=args.devices,
+        strategy=args.strategy,
+        device=args.device,
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -421,6 +421,34 @@ def box_mesh(nx: int, ny: int, nz: int, dtype=None, device=None) -> TetMesh:
                        dtype=dtype, device=device)
 
 
+def read_dataset(vert_fname: str, cell_fname: str, solv_fname: str | None = None,
+                 solc_fname: str | None = None, dtype=None, device=None) -> TetMesh:
+    """ASCII vert/cell/solution reader (``HostTetMesh::readDataSet``,
+    ``HostTetMesh.h:146-262``; JAX ``mesh.read_dataset``): vert.dat (header
+    + xyz rows), cell.dat (header + 4 ids), solution.dat (p u v w rows,
+    per-vertex or per-cell); the mesh lands on ``device`` (default the card)."""
+    with open(vert_fname) as fh:
+        nv = int(fh.readline().split()[-1])
+        fh.readline()  # column comment
+        points = np.loadtxt(fh, max_rows=nv, ndmin=2)
+    with open(cell_fname) as fh:
+        nt = int(fh.readline().split()[-1])
+        fh.readline()
+        tets = np.loadtxt(fh, dtype=np.int64, max_rows=nt, ndmin=2)
+
+    vert_vel = tet_vel = None
+    if solv_fname:
+        with open(solv_fname) as fh:
+            fh.readline()
+            vert_vel = np.loadtxt(fh, max_rows=nv, ndmin=2)[:, 1:4]
+    elif solc_fname:
+        with open(solc_fname) as fh:
+            fh.readline()
+            tet_vel = np.loadtxt(fh, max_rows=nt, ndmin=2)[:, 1:4]
+    return from_arrays(points, tets, tet_vel=tet_vel, vert_vel=vert_vel, dtype=dtype,
+                       device=device)
+
+
 def _with_host(mesh: TetMesh, updates: dict) -> TetMesh:
     """New mesh with host fields replaced and re-uploaded."""
     host = dict(mesh.host)

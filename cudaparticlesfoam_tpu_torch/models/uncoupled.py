@@ -1,0 +1,227 @@
+"""Uncoupled (frozen-field) particle tracking driver.
+
+The equivalent of ``cudaParticlesUncoupledFoam``
+(``applications/cudaParticlesUncoupledFoam/cudaParticlesUncoupledFoam.C:60-89``):
+read the latest converged ``U``, build the tet mesh + particle state, then
+run ``nCycles = ceil(deltaT/dt)`` Lagrangian sub-steps of the frozen field
+in one shot (``advect.H`` included once, no time loop).
+
+The port's copy of ``cudaparticlesfoam_tpu/models/uncoupled.py``, on one
+device (default the card).  Each chunk of cycles between two VTU writes is
+one :func:`~cudaparticlesfoam_tpu_torch.stepper.run_cycles` call, which on
+the card launches the stream and rare kernels of every cycle with no host
+synchronisation; the host waits only for the frame copies (every
+``saveInterval`` cycles) and the single scalar readbacks the JAX driver
+also takes (seeding, injection, the final report).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from ..dtypes import canonical_device
+from ..io import vtu
+from ..ops import advect as advect_ops
+from ..stepper import n_cycles_for, run_cycles, suggest_tuning
+from ..utils.profiling import PhaseTimer, device_trace
+from . import case as caselib
+
+# the CUDA wrappers a run of the cached engine can launch (ops/fused_cuda.py)
+_KERNEL_WRAPPERS = ("stream_cycle", "stream_crossers", "hop_admit", "macro_stream",
+                    "macro_crossers", "rare_resolve", "convex_stream_cycle",
+                    "convex_stream_crossers", "convex_rare_resolve")
+
+
+def write_schedule(n_cycles: int, save_interval: int):
+    """Cycle indices after which a VTU frame is written, and the frame id.
+
+    Matches ``advect.H:166-169``: after cycle i (0-based), write frame i+1
+    iff i % saveInterval == 0.
+    """
+    return [(i, i + 1) for i in range(0, n_cycles, save_interval)]
+
+
+def _launch_counts() -> dict:
+    from ..ops import fused_cuda
+
+    return {name: getattr(fused_cuda, name).launches for name in _KERNEL_WRAPPERS}
+
+
+def run(
+    case_dir: str,
+    out_dir: str | None = None,
+    write_output: bool = True,
+    dtype=None,
+    log=print,
+    trajectories: bool | None = None,
+    profile_dir: str | None = None,
+    devices: int | None = None,
+    strategy: str = "auto",
+    device=None,
+):
+    """Run the uncoupled case end-to-end on ``device`` (default the card;
+    ``"cpu"`` runs the kernels' plain versions).  Returns (case,
+    final_state, stats).
+
+    ``stats``: ``frames`` (paths), ``cycles``, ``wall_s`` (the advect loop
+    with its frame writes; on the card between two CUDA events),
+    ``phases`` (seconds per phase; on the card the device's spans),
+    ``host_phases`` (the host's clock: on the card the time to issue), and
+    on the card ``launches`` (kernel launches of the loop, by wrapper) and
+    ``peak_bytes`` (peak device memory of the run).  ``devices`` /
+    ``strategy`` are the JAX driver's; more than one device, or a
+    multi-device strategy, raises ``NotImplementedError`` (never a quiet
+    single-device run).
+    """
+    if (devices is not None and devices > 1) or strategy not in ("auto", "single"):
+        raise NotImplementedError(
+            f"devices={devices!r}, strategy={strategy!r}: the multi-device strategies "
+            "(particle DP, spatial partitioning) are not ported to PyTorch/CUDA yet "
+            "(ROADMAP.md queue 1 item 13); run on one device (strategy 'auto' or 'single')")
+    device = canonical_device(device)
+    cuda = device.type == "cuda"
+    if cuda:
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"no usable CUDA device for device={str(device)!r} (this "
+                               "torch has none); pass device='cpu' (CLI: --device cpu)")
+        torch.cuda.reset_peak_memory_stats(device)
+    timer = PhaseTimer(device)
+    with timer.phase("Init"):
+        case = caselib.load_case(case_dir, dtype=dtype, log=log, device=device)
+    pcfg = case.particles
+    ctrl = case.control
+    out_dir = out_dir or case_dir
+
+    t = case.time_value
+    with timer.phase("Seed"):
+        state = caselib.init_particles(case, log=log)
+    cfg = suggest_tuning(case.tet_mesh, pcfg.step_config(), n_particles=state.n_particles)
+    if cfg.locate_mode == "convex":
+        from ..mesh import with_convex_rows
+
+        case.tet_mesh = with_convex_rows(case.tet_mesh)
+    elif cfg.velocity_interp == advect_ops.VERTEX_VELOCITY and cuda:
+        # on the CPU the run takes the simple engine, as the JAX driver's
+        # does (no Pk table); on the card run_cycles would raise without one
+        from ..mesh import with_pk_rows
+
+        case.tet_mesh = with_pk_rows(case.tet_mesh)
+
+    # warm-up advect: initCuda.H:184-199 computes vel/disp once (no move)
+    # so frame 0 carries velocities; reproduce via the advect op alone.
+    disp0, vel0, act0 = advect_ops.advect(
+        case.tet_mesh, state.pos, state.vel, state.tet_id, state.active,
+        pcfg.dt, cfg.velocity_interp,
+    )
+    state = dataclasses.replace(state, vel=vel0, disp=disp0, active=act0)
+
+    track = vtu.Trajectories(state.n_particles) if (
+        trajectories if trajectories is not None else pcfg.save_streamlines
+    ) else None
+
+    # ConvexPoly builds write an extra ConvexTetID column (utils.cpp:216-228)
+    convex_ids = (lambda st: st.tet_id) if cfg.locate_mode == "convex" else (lambda st: None)
+
+    stats = {"frames": [], "cycles": 0, "wall_s": 0.0}
+    writer = vtu.AsyncVTUWriter()   # formatting/IO overlaps device compute
+    if write_output:
+        with timer.phase("IO"):
+            path = writer.write(
+                0, state, convex_tet_id=convex_ids(state), out_dir=out_dir, verbose=True,
+            )
+        stats["frames"].append(path)
+
+    if not (pcfg.start_time <= t <= pcfg.end_time):
+        log(
+            f"#adv: time {t} outside particle window "
+            f"[{pcfg.start_time}, {pcfg.end_time}]; nothing to do (advect.H:33)"
+        )
+        writer.close()
+        return case, state, stats
+
+    n_cycles, cycle_dt = n_cycles_for(ctrl.delta_t, pcfg.dt)
+    log(f"dtE:{ctrl.delta_t} dtL: {pcfg.dt}")
+    log(f"nCycles: {n_cycles} cycleDt: {cycle_dt}")
+
+    # clear the warm-up displacement before the real loop (the reference's
+    # first cudaAdvect overwrite does this implicitly, particles.cu:362)
+    state = dataclasses.replace(state, disp=torch.zeros_like(state.disp))
+
+    launches0 = _launch_counts() if cuda else None
+    wall0 = time.perf_counter()
+    if cuda:
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev0.record(torch.cuda.current_stream(device))
+    with device_trace(profile_dir, device):
+        inj_active = pcfg.injection_interval > 0
+        i = 0
+        while i < n_cycles:
+            # run up to the next write boundary in one run_cycles call
+            if i % pcfg.save_interval == 0:
+                chunk = 1
+            else:
+                next_write = ((i // pcfg.save_interval) + 1) * pcfg.save_interval
+                chunk = min(next_write, n_cycles) - i
+            if inj_active:
+                # break chunks at injection boundaries too, so every
+                # multiple of injectionInterval is a chunk start
+                inj = pcfg.injection_interval
+                chunk = min(chunk, ((i // inj) + 1) * inj - i)
+            with timer.phase("Advect"):
+                # the stepper updates its mega array in place and returns
+                # fresh state tensors (the JAX driver donates the state)
+                state = run_cycles(case.tet_mesh, state, cfg, chunk, cycle_dt)
+            prev = i
+            i += chunk
+            if inj_active and prev % pcfg.injection_interval == 0:
+                from .. import state as statelib
+
+                state, n_inj = statelib.inject(
+                    state, case.tet_mesh, case.locator,
+                    pcfg.seeding_box_lo, pcfg.seeding_box_hi,
+                    pcfg.injection_count, rng_seed=pcfg.rng_seed,
+                )
+                if n_inj:
+                    log(f"#adv: injected {n_inj} particles at step {prev}")
+            if prev % pcfg.save_interval == 0:
+                if track is not None:
+                    track.append(state)
+                if write_output:
+                    with timer.phase("IO"):
+                        path = writer.write(
+                            prev + 1, state, convex_tet_id=convex_ids(state),
+                            out_dir=out_dir, verbose=True,
+                        )
+                    stats["frames"].append(path)
+        with timer.phase("IO"):
+            writer.close()
+    if cuda:
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev1.record(torch.cuda.current_stream(device))
+        ev1.synchronize()
+        stats["wall_s"] = ev0.elapsed_time(ev1) * 1e-3
+        stats["launches"] = {k: v - launches0[k] for k, v in _launch_counts().items()}
+        stats["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    else:
+        stats["wall_s"] = time.perf_counter() - wall0
+    stats["cycles"] = n_cycles
+    rate = state.n_particles * n_cycles / max(stats["wall_s"], 1e-12)
+    log(
+        f"#adv: Simulation RunTime={stats['wall_s']*1e3:.1f} ms "
+        f"({rate/1e6:.2f}M particle-steps/s)"
+    )
+    timer.report(log=log)
+    stats["phases"] = dict(timer.totals)
+    stats["host_phases"] = dict(timer.host)
+    if cuda:
+        ran = {k: v for k, v in stats["launches"].items() if v}
+        log(f"#adv: on {torch.cuda.get_device_name(device)}: Advect "
+            f"{stats['phases']['Advect'] / n_cycles * 1e3:.4f} ms/cycle on the device, "
+            f"{stats['host_phases']['Advect'] / n_cycles * 1e3:.4f} ms/cycle to issue; "
+            f"kernel launches {ran}; peak device memory {stats['peak_bytes'] / 2**30:.3f} GiB")
+    if track is not None:
+        track.save_vtk(f"{out_dir}/Streamline.vtk")
+    return case, state, stats

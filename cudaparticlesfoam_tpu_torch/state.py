@@ -4,6 +4,8 @@
 The JAX package carries a threefry key; the port carries an integer
 ``seed`` and the completed sub-step count ``step``, from which each cycle
 seeds its own ``torch.Generator`` (see ``ops.fused._brownian_noise``).
+Injection (:func:`inject`, :func:`inject_device`) draws its uniforms the
+same way (:func:`_inject_uniforms`).
 """
 
 from __future__ import annotations
@@ -136,3 +138,113 @@ def seed_from_file(path: str, n: int | None = None, rng_seed: int = 0,
     tet_id = data[:n, 3].astype(np.int32) if data.shape[1] >= 4 else None
     return make_state(data[:n, :3], tet_id=tet_id, rng_seed=rng_seed,
                       dtype=dtype, device=device)
+
+
+def save_particle_file(path: str, state: ParticleState) -> None:
+    """Writer for the seed-file format (round-trips with seed_from_file);
+    the reference has the reader but no writer — this closes the
+    checkpoint gap noted in SURVEY.md §5."""
+    pos = state.pos.detach().cpu().numpy()
+    tet = state.tet_id.detach().cpu().numpy()
+    with open(path, "w") as fh:
+        fh.write(f"NumParticles {len(pos)}\n")
+        fh.write("x y z tetID\n")
+        for p, t in zip(pos, tet):
+            fh.write(f"{p[0]:.17g} {p[1]:.17g} {p[2]:.17g} {int(t)}\n")
+
+
+def _inject_uniforms(state: ParticleState, count: int, rng_seed: int) -> torch.Tensor:
+    """[count, 3] uniforms in [0, 1) of an injection at ``state.step``: a
+    ``torch.Generator`` on the state's device seeded from (seed, step +
+    7919 + rng_seed), the stream the JAX package draws with
+    ``jax.random.uniform(fold_in(key, step + 7919 + rng_seed))`` (whose bits
+    torch cannot reproduce; parity tests feed both the same uniforms)."""
+    from .ops.fused import _stream_seed
+
+    g = torch.Generator(device=state.device)
+    g.manual_seed(_stream_seed(state.seed, int(state.step) + 7919 + int(rng_seed),
+                               state.device))
+    return torch.rand((count, 3), generator=g, dtype=state.dtype, device=state.device)
+
+
+def _box_points(state: ParticleState, u, box_lo, box_hi):
+    lo = torch.as_tensor(box_lo, dtype=state.dtype, device=state.device)
+    hi = torch.as_tensor(box_hi, dtype=state.dtype, device=state.device)
+    return lo + u * (hi - lo)
+
+
+def inject_device(state: ParticleState, mesh, locator, box_lo, box_hi, count: int,
+                  rng_seed: int = 0) -> ParticleState:
+    """:func:`inject` with no host synchronisation (JAX
+    ``state.inject_device``): dead slots come from a sort of the lane ids
+    (live lanes sorted last), seeds from the same uniform draw
+    (:func:`_inject_uniforms`), location from the grid + walk
+    ``ops.locate.first_locate`` (no brute-force fallback: unresolved seeds
+    stay dead, like the host path's ``ok`` mask).  With >= ``count`` dead
+    slots and a grid-resolvable box the result equals :func:`inject`'s."""
+    from .ops import locate as locate_ops
+
+    n = state.n_particles
+    count = int(count)
+    if count <= 0:
+        return state
+    new_pos = _box_points(state, _inject_uniforms(state, count, rng_seed), box_lo, box_hi)
+    tet = locate_ops.first_locate(mesh, locator, new_pos)
+    lane = torch.arange(n, dtype=torch.int64, device=state.device)
+    slots = torch.sort(torch.where(state.active, n, lane)).values[:count]
+    k = slots.shape[0]
+    new_pos, tet = new_pos[:k], tet[:k]
+    ok = (slots < n) & (tet >= 0)
+    # slots == n (fewer dead lanes than count) are dropped, as JAX's mode="drop"
+    live = slots < n
+    sl, zeros3 = slots[live], torch.zeros((k, 3), dtype=state.dtype, device=state.device)
+
+    def put(x, v):
+        x = x.clone()
+        x[sl] = v[live]
+        return x
+
+    return dataclasses.replace(
+        state,
+        pos=put(state.pos, new_pos),
+        vel=put(state.vel, zeros3),
+        disp=put(state.disp, zeros3),
+        tet_id=put(state.tet_id, tet.to(torch.int32)),
+        active=put(state.active, ok),
+    )
+
+
+def inject(state: ParticleState, mesh, locator, box_lo, box_hi, count: int,
+           rng_seed: int = 0) -> tuple[ParticleState, int]:
+    """Continuous injection with slot reuse (BASELINE.json config 4):
+    re-seed up to ``count`` dead slots uniformly in the box, locate them,
+    and reactivate.  Dead slots come from absorbing boundaries
+    (escapePatches) or reflection-off runs.  Returns (state, n_injected).
+
+    Host-ordered (runs between chunks of cycles, like VTU writes; one
+    readback of the active flags); the reference has no injection
+    machinery at all — particles only ever die (``particles.cu:262-266``).
+    The uniforms are :func:`_inject_uniforms`'s."""
+    from .ops import locate as locate_ops
+
+    dead = torch.nonzero(~state.active).flatten()
+    if dead.numel() == 0 or count <= 0:
+        return state, 0
+    slots = dead[:count]
+    new_pos = _box_points(state, _inject_uniforms(state, slots.numel(), rng_seed),
+                          box_lo, box_hi)
+    tet = locate_ops.locate_seeds(mesh, locator, new_pos)
+    ok = tet >= 0
+
+    def put(x, v):
+        x = x.clone()
+        x[slots] = v
+        return x
+
+    return (
+        dataclasses.replace(
+            state, pos=put(state.pos, new_pos), vel=put(state.vel, 0.0),
+            disp=put(state.disp, 0.0), tet_id=put(state.tet_id, tet.to(torch.int32)),
+            active=put(state.active, ok)),
+        int(ok.sum()),
+    )

@@ -126,7 +126,8 @@ def test_locate_seeds_matches_jax():
 
 def test_import_pulls_in_neither_jax_nor_triton():
     code = ("import sys, cudaparticlesfoam_tpu_torch, cudaparticlesfoam_tpu_torch.ops.fused_cuda, "
-            "cudaparticlesfoam_tpu_torch.convert; "
+            "cudaparticlesfoam_tpu_torch.convert, cudaparticlesfoam_tpu_torch.cli, "
+            "cudaparticlesfoam_tpu_torch.models.uncoupled, cudaparticlesfoam_tpu_torch.io.native; "
             "print(sorted(m for m in ('jax', 'triton', 'cudaparticlesfoam_tpu') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -139,8 +139,9 @@ def test_diagnostics_and_sub_cycling(box):
 def test_chip_smoke_rehearsal_runs_every_phase():
     """``chip_smoke.py --rehearse`` drives every phase at small sizes on the
     CPU through the plain versions: it must exit 2 (no device result), print
-    the table of the eight kernel entries with every key the table carries, and no
-    ``ok`` line."""
+    the table of the ten kernel entries (the eight of the north-star slice's
+    paths and the two of the uncoupled driver's, phase 8) with every key the
+    table carries, and no ``ok`` line."""
     import json
     import subprocess
     import sys
@@ -156,9 +157,11 @@ def test_chip_smoke_rehearsal_runs_every_phase():
     names = [k["name"] for k in table["kernels"]]
     assert names == ["stream_kernel", "rare_kernel", "convex_stream_kernel",
                      "convex_rare_kernel", "hop_admit_kernel", "macro_stream_kernel",
-                     "stream_kernel<pk>", "rare_kernel<pk>"]
+                     "stream_kernel<pk>", "rare_kernel<pk>", "stream_kernel", "rare_kernel"]
+    assert [k["path"].startswith("uncoupled driver") for k in table["kernels"]] == \
+        [False] * 8 + [True] * 2
     for entry in table["kernels"]:
-        assert {"route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+        assert {"path", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "bytes", "share", "copy_ms",
                 "launches_per_cycle"} <= set(entry), entry["name"]
         assert entry["library_ms"] is None and entry["max_abs_err"] == 0.0
@@ -179,8 +182,8 @@ def test_chip_smoke_rehearsal_runs_every_phase():
             assert entry["share_of_latency"] == pytest.approx(
                 entry["latency_bound_ms"] / entry["ms"])
     latency = [line for line in lines if line.startswith("[latency]")]
-    assert len(latency) == 7 and "host loop (cpu rehearsal)" in latency[0]
-    for name in ("rare", "convex_rare", "rare_pk"):
+    assert len(latency) == 9 and "host loop (cpu rehearsal)" in latency[0]
+    for name in ("rare", "convex_rare", "rare_pk", "rare_tutorial"):
         assert any(f"| {name} lanes=" in line and "share_of_latency=" in line
                    and "pending_first_ms=" in line for line in latency), name
         assert any(f"| {name} by longest chain" in line and "ms_per_chain_step=" in line
@@ -188,5 +191,15 @@ def test_chip_smoke_rehearsal_runs_every_phase():
     assert any("rare_patterns_identical=1" in line for line in lines if line.startswith("[parity]"))
     for tag in ("[parity]", "[convex-parity]", "[noise]", "[admit]", "[compact]", "[macro]",
                 "[golden]", "[slice]", "[convex-slice]", "[macro-slice]", "[compact-slice]",
-                "[convex-compact-slice]", "[pk-parity]", "[pk-slice]", "[simple]", "[bound]"):
+                "[convex-compact-slice]", "[pk-parity]", "[pk-slice]", "[simple]", "[bound]",
+                "[driver-anchor]", "[driver-tutorial]", "[driver-cycle]"):
         assert any(line.startswith(tag) for line in lines), tag
+    # phase 8: the anchor through the driver, the CLI tutorial run, one cycle at its shape
+    anchor = next(line for line in lines if line.startswith("[driver-anchor]"))
+    assert ("tet_exact=1 active_exact=1" in anchor and "cycles=100" in anchor) or \
+        "skipped" in anchor
+    tutorial = next(line for line in lines if line.startswith("[driver-tutorial]"))
+    assert "frames=11 " in tutorial and "out_of_domain=0 " in tutorial
+    assert any("stream_identical=1" in line and "cycle_identical=1" in line
+               for line in lines if line.startswith("[driver-cycle]"))
+    assert any("| stream_tutorial lanes=" in line for line in lines if line.startswith("[bound]"))

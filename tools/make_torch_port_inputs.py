@@ -10,6 +10,16 @@ without jax:
 * ``noise`` [60, 256, 3] f64 — the per-step Brownian normals
   ``jax.random.normal(fold_in(PRNGKey(0), step), (256, 3))``, steps 0..59.
 
+It also writes tests/golden/torch_port_pitz_noise.npz, what the pitzDaily
+driver anchor (``pitz_pos``, ``pitz_tet``, ``pitz_active`` of
+tests/golden/particles_f64.npz, from tests/test_golden.py's shrunk
+tutorial: 200 particles, 100 sub-steps, rngSeed 0) needs besides the
+repo's own tutorial to run without jax:
+
+* ``noise`` [100, 200, 3] f64 — the cached engine's per-step Brownian
+  normals ``jax.random.normal(fold_in(PRNGKey(0), step), (200, 3))``,
+  steps 0..99 (the warm-up advect draws none).
+
 Run it with JAX on the CPU, then review the diff:
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_inputs.py
@@ -23,9 +33,11 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np  # noqa: E402
 
-OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests",
-                   "golden", "torch_port_box_inputs.npz")
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests", "golden")
+OUT = os.path.join(GOLDEN_DIR, "torch_port_box_inputs.npz")
+OUT_PITZ = os.path.join(GOLDEN_DIR, "torch_port_pitz_noise.npz")
 N_CYCLES = 60
+PITZ_PARTICLES, PITZ_CYCLES, PITZ_SEED = 200, 100, 0
 
 
 def make_inputs() -> dict:
@@ -58,10 +70,27 @@ def make_inputs() -> dict:
     }
 
 
+def make_pitz_noise() -> dict:
+    """The pitz driver anchor's noise (needs jax with x64 enabled on the
+    CPU): the draws of the JAX cached engine, ``fused._brownian_noise`` in
+    threefry mode, for the anchor's lane count (a multiple of the engine's
+    8-lane block, so it draws for exactly these lanes)."""
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    key = jax.random.PRNGKey(PITZ_SEED)
+    noise = np.stack([
+        np.asarray(jax.random.normal(jax.random.fold_in(key, step), (PITZ_PARTICLES, 3),
+                                     dtype=np.float64))
+        for step in range(PITZ_CYCLES)
+    ])
+    return {"noise": noise}
+
+
 def main():
-    data = make_inputs()
-    np.savez_compressed(OUT, **data)
-    print(f"wrote {os.path.normpath(OUT)} ({os.path.getsize(OUT)} bytes)")
+    for path, data in ((OUT, make_inputs()), (OUT_PITZ, make_pitz_noise())):
+        np.savez_compressed(path, **data)
+        print(f"wrote {os.path.normpath(path)} ({os.path.getsize(path)} bytes)")
 
 
 if __name__ == "__main__":
