@@ -149,6 +149,31 @@ Phases, one line of numbers each, any failure exits non-zero:
        run_cycles loop warm in process (in the driver's chunks and as one
        call: device and host ms/cycle) and one frame's copy and write.
    The rehearsal runs 8a as is and 8b/8c at 2,000 particles, deltaT 0.01.
+9. (runs after 5d, before phase 8) RK4 on the cached engine and the duct
+   oracle:
+   9a. the RK4 instantiations of stream_kernel against stream_plain(rk4):
+       float32 and float64 x TET and PK x inline_hops {1, 3} x escape faces
+       {off, on} x noise {xi, Philox} x 65,536 and 65,499 lanes on the
+       swirl box, the whole mega and the pending flags bit for bit, then
+       rare_kernel after them bit for bit; every stage walks and some stage
+       points leave the domain; one RK4 launch a case;
+   9b. cached RK4 (the kernels) = simple RK4 (torch ops), float64, 65,536
+       lanes, TetVelocity and VertexVelocity, 5 cycles on injected noise:
+       tet/active identical, pos/vel within 1e-12;
+   9c. the analytic square-duct oracle (tests/test_duct.py) through the
+       kernels, float32 and float64, Euler and RK4: relative error max <
+       0.02, median < 0.006, x/y untouched, every lane in the mesh;
+   9d. the rk4-tracers cell (bench.py's rk4-tracers: RK4, wall rebound, no
+       Brownian term) on phase 5's mesh and seeds, TetVelocity and
+       VertexVelocity: 100 cycles with the counts set to 0 just before
+       (one RK4 stream and one rare launch a cycle), ms/cycle,
+       particle-steps/s, the host's issue time, peak memory, the domain
+       checks, one more cycle kernel = plain with each stage's walkers and
+       rows, stream_kernel<rk4>'s time against its plain version and
+       rare_kernel's device time (their bounds in phase 6);
+   9e. (with the build) ptxas's registers, stack and spills of the eight
+       RK4 instantiations, and every other kernel's line against the lines
+       pinned from the build before RK4 (where nvcc is the pinned one).
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -1881,7 +1906,8 @@ def copy_ms(torch, dev, timer, nbytes, reps=20):
 
 
 # bound by a launch's latency, not by bytes
-SMALL = ("hop_admit", "rare", "convex_rare", "rare_pk", "rare_tutorial")
+SMALL = ("hop_admit", "rare", "convex_rare", "rare_pk", "rare_tutorial", "rare_rk4",
+         "rare_pk_rk4")
 
 
 def phase_bounds(torch, traffic, dev, counts, times, per_cycle, floor, gpu_line):
@@ -2411,6 +2437,346 @@ def phase_driver_cycle(torch, cpt, fused, fused_cuda, dev, case_dir, warm, errs,
     return times
 
 
+def phase_rk4_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, errs):
+    """Phase 9a: the RK4 instantiations of stream_kernel against stream_plain
+    with rk4, bit for bit, then rare_kernel after them: float32 and float64
+    x TET and PK x inline_hops {1, 3} x escape faces {off, on} x noise {xi,
+    Philox} x 65,536 and 65,499 lanes, on the swirl box (stage points that
+    stay, walk, and leave the domain)."""
+    before = (fused_cuda.stream_cycle.rk4_launches, fused_cuda.rare_resolve.launches)
+    cases = 0
+    for dtype in (torch.float32, torch.float64):
+        npdt = np.float32 if dtype == torch.float32 else np.float64
+        base = convert.to_mesh(box_payload(tmesh, nside, npdt, swirl(nside)), dev)
+        pos, vel, tet, act, xi = parity_lanes(torch, cpt, base, dev, nside, n, seed=12,
+                                              dtype=dtype)
+        tname = str(dtype).replace("torch.", "")
+        for lname, hops, esc in itertools.product(("tet", "pk"), (1, 3), (False, True)):
+            ly = fused.LAYOUT_PK if lname == "pk" else fused.LAYOUT_TET
+            dt = 0.3 if hops == 1 else 0.9
+            mesh = tmesh.set_boundary_escape(base, [1] if esc else [])
+            mesh = cpt.with_pk_rows(mesh) if lname == "pk" else mesh
+            tab = fused.row_table(mesh, ly)
+            cfg = cpt.StepConfig(dt=dt, diffusion_coeff=5e-3, inline_hops=hops,
+                                 escape_faces=esc, integrator="rk4",
+                                 velocity_interp="VertexVelocity" if lname == "pk"
+                                 else "TetVelocity")
+            sa = dict(stream_args(cfg, dt, dtype, fused), ly=ly)
+            ra = dict(rare_args(cfg), ly=ly)
+            for philox, nn in itertools.product((False, True), (n, n - RAGGED)):
+                m0 = fused.pack_state(mesh, pos[:nn], vel[:nn], tet[:nn], act[:nn], ly)
+                key = fused.philox_key(13, hops) if philox else None
+                xi_p = fused.philox_normals(key, nn, dtype, dev) if philox else xi[:nn]
+                mk, mp = m0.clone(), m0.clone()
+                pk = torch.empty(nn, dtype=torch.uint8, device=dev)
+                pp = torch.empty_like(pk)
+                walks = torch.zeros((3, 3), dtype=torch.int64, device=dev)
+                fused_cuda.stream_cycle(tab, mk, None if philox else xi[:nn], pk,
+                                        noise_key=key, rk4=True, **sa)
+                fused.stream_plain(tab, mp, xi_p, pp, rk4=True, stage_walks=walks, **sa)
+                same_s = bitwise_equal(torch, mk, mp) and bool(torch.equal(pk, pp))
+                _, err_s = compare(torch, mk, mp)
+                rk, rp = mp.clone(), mp.clone()
+                fused_cuda.rare_resolve(tab, rk, pp, mesh.bd_escape, **ra)
+                fused.rare_plain(tab, rp, pp, mesh.bd_escape, **ra)
+                same_r = bitwise_equal(torch, rk, rp)
+                cases += 1
+                w = walks.cpu().tolist()
+                case = (f"{tname} {lname} lanes={nn} hops={hops} esc={esc} "
+                        f"noise={'philox' if philox else 'xi'}")
+                log(f"[rk4-parity] {case} pending={int(pp.sum())} "
+                    f"stage_walkers={[s[0] for s in w]} stage_rows={[s[1] for s in w]} "
+                    f"stage_left_domain={[s[2] for s in w]} stream_identical={int(same_s)} "
+                    f"stream_max_abs_err={err_s:.3e} rare_identical={int(same_r)}")
+                need(all(s[0] > 0 and s[1] > 0 for s in w) and sum(s[2] for s in w) > 0,
+                     f"rk4 parity case walks no stage, or none leaves the domain ({case})")
+                need(same_s, f"stream_kernel<rk4> != stream_plain(rk4) ({case})")
+                need(same_r, f"rare_kernel after rk4 != rare_plain ({case})")
+                if dtype == torch.float32:
+                    errs["stream_rk4"] = max(errs.get("stream_rk4", 0.0), err_s)
+    if dev.type == "cuda":
+        got = (fused_cuda.stream_cycle.rk4_launches - before[0],
+               fused_cuda.rare_resolve.launches - before[1])
+        need(got == (cases, cases), f"phase 9a launched {got}, not {(cases, cases)}")
+
+
+def phase_rk4_simple(torch, cpt, fused_cuda, tmesh, convert, dev, nside, n, n_cycles, gpu_line):
+    """Phase 9b: cached RK4 (the kernels) against the simple engine's RK4
+    (torch ops) on one injected noise stream, float64, TetVelocity and
+    VertexVelocity, every wall reflecting (as in phase 5d's [simple])."""
+    payload = box_payload(tmesh, nside, np.float64, swirl(nside))
+    mesh = cpt.with_pk_rows(convert.to_mesh(payload, dev))
+    pos, vel, tet, act, _ = parity_lanes(torch, cpt, mesh, dev, nside, n, seed=14,
+                                         dtype=torch.float64)
+    st = dataclasses.replace(convert.to_state(pos.cpu().numpy(), tet.cpu().numpy(),
+                                              dtype=np.float64, device=dev), vel=vel, active=act)
+    noise = torch.as_tensor(np.random.default_rng(15).standard_normal((n_cycles, n, 3)),
+                            dtype=torch.float64, device=dev)
+    for vi in ("TetVelocity", "VertexVelocity"):
+        cfg = cpt.StepConfig(dt=0.2, diffusion_coeff=5e-3, inline_hops=2, velocity_interp=vi,
+                             integrator="rk4")
+        before = (fused_cuda.stream_cycle.rk4_launches, fused_cuda.rare_resolve.launches)
+        cached = cpt.run_cycles(mesh, st, cfg, n_cycles, noise=noise)
+        ran = (fused_cuda.stream_cycle.rk4_launches - before[0],
+               fused_cuda.rare_resolve.launches - before[1])
+        simple = cpt.run_cycles(mesh, st, dataclasses.replace(cfg, engine="simple"), n_cycles,
+                                noise=noise)
+        same = bool(torch.equal(cached.tet_id, simple.tet_id)
+                    and torch.equal(cached.active, simple.active))
+        err = max(float((cached.pos - simple.pos).abs().max()),
+                  float((cached.vel - simple.vel).abs().max()))
+        hopped = int((simple.tet_id != tet).sum())
+        log(f"[rk4-simple] {gpu_line} | float64 {vi} lanes={n} cycles={n_cycles} "
+            f"lanes_in_a_new_tet={hopped} cached_equals_simple={int(same)} "
+            f"max_abs_err={err:.3e} cached_launches={ran}")
+        need(same and err <= POS_TOL_F64, f"cached RK4 != simple RK4 ({vi})")
+        need(hopped > 0, f"the RK4 runs moved no lane across a face ({vi})")
+        if dev.type == "cuda":
+            need(ran == (n_cycles, n_cycles), f"cached RK4 launched {ran} ({vi})")
+
+
+DUCT_CYCLES = 25     # tests/test_duct.py: k = 25 steps of ~0.01 cm at the centreline
+DUCT_LANES = 4000    # and its lanes (its tolerances are tied to the 16 x 16 section)
+RK4_PATH = "rk4-tracers cell (north-star slice, RK4, no Brownian term)"
+
+
+def phase_duct(torch, cpt, fused_cuda, dev, n, gpu_line):
+    """Phase 9c: the analytic square-duct oracle (tests/test_duct.py:70-140)
+    through the cached engine's kernels, float32 and float64, Euler and
+    RK4: 16 x 16 x 4 cells, the profile at the vertices, ``n`` lanes in
+    the inner 80% of the section; the displacement against the exact
+    k dt vz(x0, y0) within the test's bounds (max 0.02, median 0.006 of
+    k dt vmax), x and y untouched."""
+    from cudaparticlesfoam_tpu_torch.models import duct as mduct
+    from cudaparticlesfoam_tpu_torch.ops import duct
+
+    h = duct.TUBE_H
+    rng = np.random.default_rng(11)
+    pos0 = np.stack([rng.uniform(-0.4 * h, 0.4 * h, n), rng.uniform(0.1 * h, 0.9 * h, n),
+                     rng.uniform(0.05, 0.1, n)], axis=1)
+    vmax = float(duct.square_duct_velocity(np.array([0.0]), np.array([h / 2]))[0])
+    dt, k = 0.01 / vmax, DUCT_CYCLES
+    dz_exact = k * dt * duct.square_duct_velocity(pos0[:, 0], pos0[:, 1])
+    for dtype in (torch.float32, torch.float64):
+        mesh = mduct.duct_mesh(dtype=dtype, device=dev)
+        st = cpt.make_state(pos0, dtype=dtype, device=dev)
+        st = dataclasses.replace(st, tet_id=cpt.locate_seeds(mesh, cpt.build_grid_locator(mesh),
+                                                             st.pos))
+        need(int((st.tet_id < 0).sum()) == 0, "a duct seed is outside the mesh")
+        for integ in ("euler", "rk4"):
+            cfg = cpt.StepConfig(dt=dt, use_brownian=False, velocity_interp="VertexVelocity",
+                                 integrator=integ)
+            before = (fused_cuda.stream_cycle.rk4_launches, fused_cuda.stream_cycle.launches)
+            out = cpt.run_cycles(mesh, st, cfg, k)
+            ran = (fused_cuda.stream_cycle.rk4_launches - before[0],
+                   fused_cuda.stream_cycle.launches - before[1])
+            pos = out.pos.double().cpu().numpy()
+            rel = np.abs(pos[:, 2] - pos0[:, 2] - dz_exact) / (k * dt * vmax)
+            dxy = float(np.abs(pos[:, :2] - st.pos.double().cpu().numpy()[:, :2]).max())
+            tname = str(dtype).replace("torch.", "")
+            log(f"[duct] {gpu_line} | {tname} {integ} lanes={n} cycles={k} "
+                f"rel_err_max={rel.max():.4e} rel_err_median={np.median(rel):.4e} "
+                f"xy_drift={dxy:.3e} out_of_domain={int((out.tet_id < 0).sum())} "
+                f"launches={ran}")
+            need(int((out.tet_id < 0).sum()) == 0, f"duct lanes left the mesh ({tname} {integ})")
+            need(rel.max() < 0.02 and np.median(rel) < 0.006 and dxy <= 1e-7,
+                 f"duct oracle bounds not held ({tname} {integ})")
+            if dev.type == "cuda":
+                want = (k if integ == "rk4" else 0, k)
+                need(ran == want, f"duct run launched {ran}, not {want} ({tname} {integ})")
+
+
+def phase_rk4_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, slice_setup, n_cycles,
+                    errs, counts, rares, gpu_line):
+    """Phase 9d: the rk4-tracers cell (bench.py's rk4-tracers: RK4 with wall
+    rebound, no Brownian term) at the north-star size, phase 5's mesh and
+    seeds, TetVelocity and VertexVelocity (the vortex at the vertices):
+    10 warm-up + ``n_cycles`` timed cycles through run_cycles with every
+    launch count set to 0 just before, the domain checks, peak memory and
+    the host's issue time; one more cycle kernel against plain (bit for
+    bit) with the stage walks of each stage and the hop and pending
+    shares; stream_kernel<rk4>'s time against its plain version and
+    rare_kernel's device time at this shape."""
+    mesh0, st0, n_in, _ = slice_setup
+    n = st0.n_particles
+    pts, _, _ = tmesh.box_points_tets(nside, nside, nside)
+    launches, times = {}, {}
+    timer = Timer(torch, dev)
+    for lname in ("tet", "pk"):
+        ly = fused.LAYOUT_PK if lname == "pk" else fused.LAYOUT_TET
+        vi = "VertexVelocity" if lname == "pk" else "TetVelocity"
+        mesh = (cpt.with_pk_rows(cpt.replace_velocity(mesh0, vert_vel=vortex(nside)(pts)))
+                if lname == "pk" else mesh0)
+        tab = fused.row_table(mesh, ly)
+        cfg = cpt.suggest_tuning(mesh, cpt.StepConfig(dt=0.05, use_brownian=False,
+                                                      integrator="rk4", velocity_interp=vi),
+                                 n_particles=n)
+        skey, rkey = ("stream_pk_rk4", "rare_pk_rk4") if lname == "pk" else ("stream_rk4",
+                                                                             "rare_rk4")
+        st = cpt.run_cycles(mesh, st0, cfg, 10)            # warm-up
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        fused_cuda.stream_cycle.rk4_launches = 0
+        st, ms, host_ms, got = counted_run(torch, cpt, fused_cuda, timer, mesh, st, cfg, n_cycles)
+        launches[skey] = fused_cuda.stream_cycle.rk4_launches
+        launches[rkey] = got["rare_resolve"]
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+        log(f"[rk4-slice] {gpu_line} | {vi} tets={mesh.n_tets} particles={n} "
+            f"inline_hops={cfg.inline_hops} inline_bounce={int(cfg.inline_bounce)} "
+            f"ms_per_cycle={ms / n_cycles:.4f} "
+            f"particle_steps_per_s={n / (ms / n_cycles * 1e-3):.4e} "
+            f"host_issue_ms_per_cycle={host_ms / n_cycles:.4f} max_memory_allocated={peak} "
+            f"launches={ {k: v for k, v in got.items() if v} } rk4_launches={launches[skey]}")
+        need_launches(dev, got, {"stream_cycle": n_cycles, "rare_resolve": n_cycles},
+                      f"rk4 slice ({vi})")
+        if dev.type == "cuda":
+            need(launches[skey] == n_cycles, f"rk4 slice ran {launches[skey]} RK4 launches")
+        domain_check(torch, cpt, mesh, st, n_in, "rk4-slice")
+
+        # one more cycle through kernel and plain, with the plain's stage walks
+        m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active, ly)
+        sa = dict(stream_args(cfg, cfg.dt, m0.dtype, fused), ly=ly, rk4=True)
+        ra = dict(rare_args(cfg), ly=ly)
+        mk, mp = m0.clone(), m0.clone()
+        pk = torch.empty(n, dtype=torch.uint8, device=dev)
+        pp = torch.empty_like(pk)
+        walks = torch.zeros((3, 3), dtype=torch.int64, device=dev)
+        fused_cuda.stream_cycle(tab, mk, None, pk, **sa)
+        fused.stream_plain(tab, mp, None, pp, stage_walks=walks, **sa)
+        same_s = bitwise_equal(torch, mk, mp) and bool(torch.equal(pk, pp))
+        m1, p1 = mp.clone(), pp.clone()
+        hk = rows_changed(torch, m0, mk, ly.tab_w)
+        w = walks.cpu().tolist()
+        counts[skey] = ("stream", dict(n=n, elem=m0.element_size(), noise="none", hops=hk,
+                                       hopped=hk, layout=lname, rk4=True,
+                                       stage_rows=sum(s[1] for s in w)))
+        fused_cuda.rare_resolve(tab, mk, pk, mesh.bd_escape, **ra)
+        counts[rkey] = ("rare", dict(n=n, elem=m0.element_size(), pending=int(p1.sum()),
+                                     moved=moved(torch, m1, mk), layout=lname))
+        fused.rare_plain(tab, mp, pp, mesh.bd_escape, **ra)
+        same = bitwise_equal(torch, mk, mp)
+        log(f"[rk4-slice] {vi} extra cycle kernel vs plain: stage_walkers={[s[0] for s in w]} "
+            f"stage_walk_share={['%.4f' % (s[0] / n) for s in w]} "
+            f"stage_rows={[s[1] for s in w]} stage_left_domain={[s[2] for s in w]} "
+            f"hop_share={hk / n:.4%} pending={int(p1.sum())} "
+            f"pending_share={int(p1.sum()) / n:.4%} stream_identical={int(same_s)} "
+            f"cycle_identical={int(same)}")
+        need(same_s and same, f"rk4 slice extra cycle kernel != plain ({vi})")
+        errs[skey] = errs[rkey] = 0.0
+
+        work, pend = m0.clone(), pk.clone()
+
+        def restore_stream():
+            work.copy_(m0)
+
+        def restore_rare():
+            work.copy_(m1)
+            pend.copy_(p1)
+
+        k_ms, p_ms, (p_a, k_a, k_b, p_b) = kernel_vs_plain_ms(
+            timer, lambda: fused_cuda.stream_cycle(tab, work, None, pend, **sa),
+            lambda: fused.stream_plain(tab, work, None, pend, **sa), restore_stream)
+        times[skey] = (k_ms, p_ms)
+        times[rkey] = rare_row(
+            torch, timer, lambda: fused_cuda.rare_resolve(tab, work, pend, mesh.bd_escape, **ra),
+            lambda: fused.rare_plain(tab, work, pend, mesh.bd_escape, **ra), restore_rare)
+        t = times[rkey]
+        log(f"[rk4-slice] {gpu_line} | {skey}_kernel_ms={k_ms:.4f} ({k_a:.4f}, {k_b:.4f}) "
+            f"{skey}_plain_ms={p_ms:.4f} ({p_a:.4f}, {p_b:.4f}) {rkey}_kernel_ms={t[0]:.5f} "
+            f"(device: {BATCH} calls replayed from a graph, restore subtracted) "
+            f"{rkey}_plain_ms={t[1]:.4f} lanes={n}")
+        rares.add(rkey, bary_rare_case(torch, fused, fused_cuda, tab, mesh, m1, p1,
+                                       rare_args(cfg), ly,
+                                       "cpf_rare_pk_f32" if lname == "pk" else "cpf_rare_f32"))
+        # the next layout's peak memory holds phase 5's mesh and seeds, not these
+        del st, m0, mk, mp, m1, p1, pk, pp, work, pend, mesh, tab
+    return launches, times
+
+
+# ptxas's lines (ptxas_lines) of every kernel of the library before the RK4
+# instantiations existed, built by nvcc PINNED_NVCC on an H100 machine: the
+# tree without them and this one, in one call.  The instantiations that were
+# there must come out of this build unchanged.
+PINNED_NVCC = "release 12.9, V12.9.86"
+PINNED_PTXAS = (
+    "chase_kernel<0>: 26 regs, 0 B stack, 0 B spill",
+    "chase_kernel<1>: 24 regs, 0 B stack, 0 B spill",
+    "convex_rare_kernel<double>: 106 regs, 0 B stack, 0 B spill",
+    "convex_rare_kernel<float>: 62 regs, 0 B stack, 0 B spill",
+    "convex_stream_kernel<double, admitted>: 170 regs, 0 B stack, 0 B spill",
+    "convex_stream_kernel<double, crossers>: 69 regs, 0 B stack, 0 B spill",
+    "convex_stream_kernel<double, philox, admitted>: 170 regs, 40 B stack, 0 B spill",
+    "convex_stream_kernel<double, philox, crossers>: 90 regs, 40 B stack, 0 B spill",
+    "convex_stream_kernel<double, philox>: 170 regs, 40 B stack, 0 B spill",
+    "convex_stream_kernel<double>: 170 regs, 0 B stack, 0 B spill",
+    "convex_stream_kernel<float, admitted>: 80 regs, 16 B stack, 12 B spill",
+    "convex_stream_kernel<float, crossers>: 54 regs, 0 B stack, 0 B spill",
+    "convex_stream_kernel<float, philox, admitted>: 80 regs, 32 B stack, 16 B spill",
+    "convex_stream_kernel<float, philox, crossers>: 54 regs, 32 B stack, 0 B spill",
+    "convex_stream_kernel<float, philox>: 80 regs, 32 B stack, 16 B spill",
+    "convex_stream_kernel<float>: 80 regs, 16 B stack, 12 B spill",
+    "hop_admit_kernel: 32 regs, 0 B stack, 0 B spill",
+    "macro_stream_kernel<double, admitted>: 94 regs, 0 B stack, 0 B spill",
+    "macro_stream_kernel<double, crossers>: 68 regs, 0 B stack, 0 B spill",
+    "macro_stream_kernel<double, philox, admitted>: 104 regs, 40 B stack, 0 B spill",
+    "macro_stream_kernel<double, philox, crossers>: 82 regs, 40 B stack, 0 B spill",
+    "macro_stream_kernel<double, philox>: 128 regs, 56 B stack, 12 B spill",
+    "macro_stream_kernel<double>: 96 regs, 0 B stack, 0 B spill",
+    "macro_stream_kernel<float, admitted>: 53 regs, 0 B stack, 0 B spill",
+    "macro_stream_kernel<float, crossers>: 40 regs, 0 B stack, 0 B spill",
+    "macro_stream_kernel<float, philox, admitted>: 60 regs, 32 B stack, 0 B spill",
+    "macro_stream_kernel<float, philox, crossers>: 48 regs, 32 B stack, 0 B spill",
+    "macro_stream_kernel<float, philox>: 62 regs, 32 B stack, 0 B spill",
+    "macro_stream_kernel<float>: 64 regs, 0 B stack, 0 B spill",
+    "rare_kernel<double, pk>: 112 regs, 32 B stack, 0 B spill",
+    "rare_kernel<double>: 80 regs, 32 B stack, 0 B spill",
+    "rare_kernel<float, pk>: 63 regs, 16 B stack, 0 B spill",
+    "rare_kernel<float>: 48 regs, 16 B stack, 0 B spill",
+    "stream_kernel<double, admitted>: 90 regs, 0 B stack, 0 B spill",
+    "stream_kernel<double, crossers>: 65 regs, 0 B stack, 0 B spill",
+    "stream_kernel<double, philox, admitted>: 106 regs, 40 B stack, 0 B spill",
+    "stream_kernel<double, philox, crossers>: 78 regs, 40 B stack, 0 B spill",
+    "stream_kernel<double, philox, pk>: 124 regs, 40 B stack, 0 B spill",
+    "stream_kernel<double, philox>: 106 regs, 40 B stack, 0 B spill",
+    "stream_kernel<double, pk>: 115 regs, 0 B stack, 0 B spill",
+    "stream_kernel<double>: 90 regs, 0 B stack, 0 B spill",
+    "stream_kernel<float, admitted>: 55 regs, 0 B stack, 0 B spill",
+    "stream_kernel<float, crossers>: 40 regs, 0 B stack, 0 B spill",
+    "stream_kernel<float, philox, admitted>: 53 regs, 32 B stack, 0 B spill",
+    "stream_kernel<float, philox, crossers>: 48 regs, 32 B stack, 0 B spill",
+    "stream_kernel<float, philox, pk>: 64 regs, 32 B stack, 0 B spill",
+    "stream_kernel<float, philox>: 56 regs, 32 B stack, 0 B spill",
+    "stream_kernel<float, pk>: 61 regs, 0 B stack, 0 B spill",
+    "stream_kernel<float>: 48 regs, 0 B stack, 0 B spill",
+)
+
+
+def register_report(_build, lines):
+    """Phase 9e: ptxas's registers, stack and spills of each RK4
+    instantiation of stream_kernel, and every other kernel's line against
+    PINNED_PTXAS (compared where this build's nvcc is the pinned one)."""
+    rk4 = [line for line in lines if "rk4" in line.split(":")[0]]
+    rest = sorted(line for line in lines if line not in rk4)
+    for line in rk4:
+        log(f"[registers] {line}")
+    if not lines:
+        log("[registers] unchanged_against_pinned=skipped: the library was built before "
+            "this process")
+        return
+    out = subprocess.run([_build.find_nvcc(), "--version"], capture_output=True, text=True,
+                         timeout=60).stdout
+    if PINNED_NVCC not in out:
+        log(f"[registers] unchanged_against_pinned=skipped: this nvcc is not "
+            f"{PINNED_NVCC!r} ({out.strip()!r})")
+        return
+    changed = sorted(set(PINNED_PTXAS) ^ set(rest))
+    log(f"[registers] rk4_instantiations={len(rk4)} other_kernels={len(rest)} "
+        f"unchanged_against_pinned={int(not changed)} (nvcc {PINNED_NVCC})")
+    need(len(rk4) == 8 and not changed,
+         f"ptxas lines differ from the pinned ones: {changed}, or not 8 RK4 lines: {rk4}")
+
+
 def ptxas_lines(report):
     """One 'kernel<type>: registers, stack' entry per compiled kernel."""
     out, name = [], None
@@ -2435,6 +2801,8 @@ def ptxas_lines(report):
                     args.append(("", "crossers", "admitted")[int(flags[1])])
                 if "8LayoutPk" in targs.split("EE", 1)[0]:
                     args.append("pk")
+                if len(flags) > 2 and flags[2] == "1":
+                    args.append("rk4")
                 name = f"{base}<{', '.join(args)}>"
         elif name and "bytes stack frame" in line:
             stack = line.split("bytes stack frame")[0].split()[-1]
@@ -2472,7 +2840,8 @@ def main():
         need(not args.parent, "--parent needs the card")
         dev = torch.device("cpu")
         sizes = dict(parity=(6, 3072), stats=20_000, slice=(12, 8_000, 8), simple=3,
-                     admit=(1, 3, 4, 15, 16, 17, 8155, 8192, 20_000), driver_warm=20)
+                     admit=(1, 3, 4, 15, 16, 17, 8155, 8192, 20_000), driver_warm=20, rk4=8,
+                     rk4_parity=1024)
         gpu_line = "cpu rehearsal"
         kind = "cpu"
     else:
@@ -2482,7 +2851,7 @@ def main():
         dev = torch.device("cuda", 0)
         sizes = dict(parity=(16, 65_536), stats=1_000_000, slice=(55, 1_000_000, 200), simple=5,
                      admit=(1, 3, 4, 15, 16, 17, 65_499, 65_536, 1_000_000, 4_000_001),
-                     driver_warm=100)
+                     driver_warm=100, rk4=100, rk4_parity=65_536)
         kind = torch.cuda.get_device_name(0)
         gpu_line = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2495,8 +2864,10 @@ def main():
         log(f"[build] nvcc sm_90a --fmad=false build+load_s={secs:.2f} "
             f"(phase {time.perf_counter() - t0:.2f} s, {len(_build.sources())} sources in "
             f"parallel)")
-        for line in ptxas_lines(_build.ptxas_report()):
+        lines = ptxas_lines(_build.ptxas_report())
+        for line in lines:
             log(f"[build] {line}")
+        register_report(_build, lines)
 
     errs = {"stream": 0.0, "rare": 0.0, "convex_stream": 0.0, "convex_rare": 0.0, "macro": 0.0,
             "hop_admit": 0.0, "stream_pk": 0.0, "rare_pk": 0.0, "stream_tutorial": 0.0,
@@ -2537,6 +2908,16 @@ def main():
     times.update(pk_times)
     phase_simple(torch, cpt, fused_cuda, tmesh, convert, dev, nside, n, sizes["simple"],
                  gpu_line)
+    # phase 9: RK4 on the cached engine, the duct oracle
+    phase_rk4_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside,
+                     sizes["rk4_parity"], errs)
+    phase_rk4_simple(torch, cpt, fused_cuda, tmesh, convert, dev, nside, n, sizes["simple"],
+                     gpu_line)
+    phase_duct(torch, cpt, fused_cuda, dev, DUCT_LANES, gpu_line)
+    rk4_launches, rk4_times = phase_rk4_slice(torch, cpt, fused, fused_cuda, tmesh, dev,
+                                              sizes["slice"][0], slice_setup, sizes["rk4"],
+                                              errs, counts, rares, gpu_line)
+    times.update(rk4_times)
     # phase 8, the uncoupled driver (before phase 6, whose bounds take 8c's rows)
     with tempfile.TemporaryDirectory(prefix="cpf_driver_") as tmp:
         phase_driver_anchor(torch, fused, fused_cuda, dev, os.path.join(tmp, "anchor"), gpu_line)
@@ -2556,6 +2937,9 @@ def main():
         "stream_pk": pk_launches["stream_pk"] / steps, "rare_pk": pk_launches["rare_pk"] / steps}
     # the tutorial run of phase 8b: one stream and one rare launch a cycle (checked there)
     per_cycle["stream_tutorial"] = per_cycle["rare_tutorial"] = 1.0
+    # the rk4-tracers cell of phase 9d: one RK4 stream and one rare launch a cycle
+    for name in rk4_launches:
+        per_cycle[name] = rk4_launches[name] / sizes["rk4"]
     for a, b in (("stream_philox", "stream"), ("convex_stream_xi", "convex_stream"),
                  ("macro_philox", "macro"), ("stream_pk_philox", "stream_pk")):
         per_cycle[a] = per_cycle[b]
@@ -2611,6 +2995,18 @@ def main():
               path=TUTORIAL_PATH),
         entry("rare_kernel", "rare_tutorial", "rare.cu", "fused.py:921",
               tut_launches.get("rare_resolve", 0), errs["rare_tutorial"], path=TUTORIAL_PATH),
+        # the RK4 instantiations (the XLA stage velocity of the jnp engine) on
+        # the rk4-tracers cell, and the rare kernel on that path
+        entry("stream_kernel<rk4>", "stream_rk4", "stream.cu", "fused.py:515",
+              rk4_launches["stream_rk4"], errs["stream_rk4"], path=RK4_PATH),
+        entry("rare_kernel", "rare_rk4", "rare.cu", "fused.py:921", rk4_launches["rare_rk4"],
+              errs["rare_rk4"], path=RK4_PATH),
+        entry("stream_kernel<pk, rk4>", "stream_pk_rk4", "stream.cu", "fused.py:515",
+              rk4_launches["stream_pk_rk4"], errs["stream_pk_rk4"],
+              path=RK4_PATH + ", VertexVelocity"),
+        entry("rare_kernel<pk>", "rare_pk_rk4", "rare.cu", "fused.py:836",
+              rk4_launches["rare_pk_rk4"], errs["rare_pk_rk4"],
+              path=RK4_PATH + ", VertexVelocity"),
     ]}
     log(gpu_line)
     log(json.dumps(table))

@@ -1,17 +1,18 @@
 """cudaparticlesfoam_tpu_torch — the PyTorch/CUDA port of cudaparticlesfoam_tpu.
 
-Lagrangian passive-particle tracking on a tetrahedral mesh (Euler
+Lagrangian passive-particle tracking on a tetrahedral mesh (Euler or RK4
 advection through a frozen TetVelocity or VertexVelocity field, Brownian
 kicks, barycentric tet walk, specular wall reflection), with the per-cycle
 hot loop in two hand-written CUDA kernels for the H100
 (``ops/fused_cuda.py``, ``csrc/``), for the barycentric locator (under
-TetVelocity, and under VertexVelocity on a mesh with ``with_pk_rows``) and
-for the ConvexPoly one (``locate_mode="convex"`` on a mesh with
-``with_convex_rows``).  On CPU tensors the same calls run the kernels'
-plain PyTorch versions.  The simple engine (``engine="simple"``,
-``stepper.cycle``: torch ops, also RK4 and ConstantVelocity) is their
-oracle; where a mesh lacks the cached engine's tables, ``run_cycles``
-takes it on CPU tensors and raises on the card.
+TetVelocity, and under VertexVelocity on a mesh with ``with_pk_rows``;
+Euler or RK4) and for the ConvexPoly one (``locate_mode="convex"`` on a
+mesh with ``with_convex_rows``).  On CPU tensors the same calls run the
+kernels' plain PyTorch versions.  The simple engine (``engine="simple"``,
+``stepper.cycle``: torch ops, also ConstantVelocity) is their oracle;
+where a mesh lacks the cached engine's tables, ``run_cycles`` takes it on
+CPU tensors and raises on the card.  The analytic square-duct oracle
+(``ops/duct.py``, ``models/duct.py``) checks trajectories end to end.
 
 A case directory runs through the uncoupled driver
 (``models/uncoupled.py``, ``python -m cudaparticlesfoam_tpu_torch

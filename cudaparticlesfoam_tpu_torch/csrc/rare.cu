@@ -31,33 +31,9 @@
 // lane is still resolved by one thread with the same arithmetic, so the
 // result is bit for bit that of the plain version.
 #include "pending.cuh"
+#include "walk.cuh"
 
 namespace cpf {
-
-// _walk_mega for one lane: returns the hosting tet, -(lastTet+1) on a domain
-// exit, or the last tet when out of hops; `row` ends as the row of the last
-// non-negative tet, `slot` as the last crossed face.
-template <typename T, typename L>
-__device__ void walk(const T* __restrict__ tab, T* row, int* tet, int* slot,
-                     T px, T py, T pz, int max_hops) {
-  *slot = 0;
-  if (*tet < 0) return;
-  const int bound = max_hops > 2 ? max_hops : 2;
-  for (int h = 0; h < bound; ++h) {
-    T w[4], wmin;
-    bary(row, px, py, pz, w);
-    const int s = argmin4(w, &wmin);
-    if (wmin >= T(0)) return;
-    const int code = code_of<T, L>(row, s);
-    *slot = s;
-    if (code < 0) {
-      *tet = -(*tet + 1);
-      return;
-    }
-    *tet = code;
-    load_row_vec<T, L::ROW_W>(tab + static_cast<long long>(code) * L::ROW_W, row);
-  }
-}
 
 // _reflect_mega for one lane that the walk left at `*tet` (< 0 = wall hit).
 template <typename T, typename L>

@@ -61,11 +61,76 @@
 // hop, read and written back.  Its rows are 10 chunks wide, so its tile is
 // pitched instead of xor-swizzled and holds 160 lanes of float or 96 of
 // double (tile.cuh); the rest of the design is the one above.
+//
+// kRK4 = true is the RK4 integrator, both layouts, the whole pass only.  It
+// replaces XLA code of the JAX package, not a Pallas body (fused_pallas's
+// supported() and packed_supported() keep RK4 off the TPU kernels):
+// fused._stage_velocity (fused.py:515-584) and the RK4 branch of
+// _mega_cycle_aligned (:630-650).  The TPU version sorted the lanes whose
+// stage point leaves their cell into an arena and walked them in rounds of a
+// while_loop; here each thread walks its own lane's stage point (walk.cuh,
+// the rare kernel's walk), so there is no sort, no arena, no round loop and
+// no host sync, and a cycle stays two launches.  Each of the three stages
+// starts from the lane's cached row as the tile holds it (a second row
+// buffer; the cached row the move needs stays in registers) and never
+// changes the lane's cached row.  What it adds to the bytes: one table row
+// per hop of a stage walk (ops/traffic.py, stage_rows); 1-2 hops are
+// typical and 50 the bound, so a warp waits for its longest walk.  The
+// kRK4 = false instantiations are the code they were before it existed.
 #include "stream.cuh"
+#include "walk.cuh"
 
 namespace cpf {
 
-template <typename T, bool kPhilox, int kPass, typename L = LayoutTet>
+// min with NaN propagation (torch.minimum / jnp.minimum)
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
+  return (a != a || a < b) ? a : b;
+}
+
+// fused._stage_velocity for one lane (ops/fused.py:stage_velocity): the
+// velocity `k` at stage point (qx, qy, qz).  The hop-0 test on the lane's
+// cached row (tile row r); a live lane that fails it walks from its cached
+// tet with the default 50 hops and takes the velocity of the tet it ends in;
+// a walk that leaves the domain, and a lane that does not walk, keeps the
+// own row's velocity at the stage point (under LayoutPk its blend there).
+template <typename T, typename L, typename TL>
+__device__ __forceinline__ void stage_velocity(const T* __restrict__ tab,
+                                               const typename TL::V* tile, int r, int tet,
+                                               bool live, T qx, T qy, T qz, T k[3]) {
+  T srow[L::ROW_W];
+  TL::template read<ROW, L::ROW_W>(tile, r, srow);
+  row_velocity<T, L>(srow, qx, qy, qz, k);
+  T w[4];
+  bary(srow, qx, qy, qz, w);
+  const T wmin = nan_min(nan_min(w[0], w[1]), nan_min(w[2], w[3]));
+  if (live && wmin < T(0)) {
+    int t = tet, slot;
+    walk<T, L>(tab, srow, &t, &slot, qx, qy, qz, MAX_HOPS_DEFAULT);
+    if (t >= 0) row_velocity<T, L>(srow, qx, qy, qz, k);
+  }
+}
+
+// The classical RK4 velocity of a lane at p0 from its k1 `u` (fused.py:
+// 630-650, arithmetic order kept): stages at p0 + dt/2 k1, p0 + dt/2 k2 and
+// p0 + dt k3, then u = (((k1 + 2 k2) + 2 k3) + k4) / 6.
+template <typename T, typename L, typename TL>
+__device__ __forceinline__ void rk4_velocity(const T* __restrict__ tab,
+                                             const typename TL::V* tile, int r, int tet,
+                                             bool live, const T p0[3], T dt, T u[3]) {
+  const T half = T(0.5) * dt;
+  T k2[3], k3[3], k4[3];
+  stage_velocity<T, L, TL>(tab, tile, r, tet, live, p0[0] + half * u[0], p0[1] + half * u[1],
+                           p0[2] + half * u[2], k2);
+  stage_velocity<T, L, TL>(tab, tile, r, tet, live, p0[0] + half * k2[0],
+                           p0[1] + half * k2[1], p0[2] + half * k2[2], k3);
+  stage_velocity<T, L, TL>(tab, tile, r, tet, live, p0[0] + dt * k3[0], p0[1] + dt * k3[1],
+                           p0[2] + dt * k3[2], k4);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) u[c] = (((u[c] + T(2) * k2[c]) + T(2) * k3[c]) + k4[c]) / T(6);
+}
+
+template <typename T, bool kPhilox, int kPass, typename L = LayoutTet, bool kRK4 = false>
 __global__ void __launch_bounds__(Tile<T, L>::LANES)
 stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
               const T* __restrict__ xi, uint8_t* __restrict__ pend,
@@ -93,6 +158,10 @@ stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
     const T alf = alive ? T(1) : T(0);
     T u[3];
     row_velocity<T, L>(row, hd[P0], hd[P0 + 1], hd[P0 + 2], u);
+    if constexpr (kRK4) {
+      static_assert(kPass == kWhole, "the RK4 stream has the whole pass only");
+      if (use_adv) rk4_velocity<T, L, TL>(tab, tile, r, tet, alive && tet >= 0, hd, dt, u);
+    }
     const T ux = u[0], uy = u[1], uz = u[2];
     T dx, dy, dz, vx, vy, vz;
     if (use_adv) {
@@ -144,11 +213,13 @@ stream_kernel(const T* __restrict__ tab, T* __restrict__ m,
 template <typename T, bool kPhilox>
 using StreamFn = decltype(&stream_kernel<T, kPhilox, kWhole>);
 
-// The instantiation of a (noise, pass) pair; nullptr for an unknown pass, and
-// under LayoutPk for any pass but the whole one.
-template <typename T, bool kPhilox, typename L>
+// The instantiation of a (noise, pass, integrator) triple; nullptr for an
+// unknown pass, and under LayoutPk or RK4 for any pass but the whole one.
+template <typename T, bool kPhilox, typename L, bool kRK4 = false>
 StreamFn<T, kPhilox> stream_instance(int pass) {
-  if constexpr (L::VERTEX) {
+  if constexpr (kRK4) {
+    return pass == kWhole ? stream_kernel<T, kPhilox, kWhole, L, true> : nullptr;
+  } else if constexpr (L::VERTEX) {
     return pass == kWhole ? stream_kernel<T, kPhilox, kWhole, L> : nullptr;
   } else {
     switch (pass) {
@@ -163,16 +234,18 @@ StreamFn<T, kPhilox> stream_instance(int pass) {
 template <typename T, typename L = LayoutTet>
 int launch_stream(const void* tab, void* m, const void* xi, void* pend, void* adm,
                   long long n, T dt, T sigma, int use_adv, int use_brown,
-                  int bounce_on, int esc_on, int n_hops, int noise_mode, int pass,
+                  int bounce_on, int esc_on, int n_hops, int noise_mode, int pass, int rk4,
                   PhiloxKey key, void* stream) {
   if (n <= 0) return 0;
   constexpr int lanes = Tile<T, L>::LANES;
   const unsigned blocks = static_cast<unsigned>((n + lanes - 1) / lanes);
-  // the noise source and the pass are template arguments, so the xi
-  // instantiation of the whole cycle is the kernel without any Philox or
-  // compaction code
-  auto kernel = noise_mode == 1 ? stream_instance<T, true, L>(pass)
-                                : stream_instance<T, false, L>(pass);
+  // the noise source, the pass and the integrator are template arguments, so
+  // the xi instantiation of the whole Euler cycle is the kernel without any
+  // Philox, compaction or RK4 code
+  auto kernel = rk4 ? (noise_mode == 1 ? stream_instance<T, true, L, true>(pass)
+                                       : stream_instance<T, false, L, true>(pass))
+                    : (noise_mode == 1 ? stream_instance<T, true, L>(pass)
+                                       : stream_instance<T, false, L>(pass));
   if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   kernel<<<blocks, lanes, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(tab), static_cast<T*>(m), static_cast<const T*>(xi),
@@ -186,43 +259,48 @@ int launch_stream(const void* tab, void* m, const void* xi, void* pend, void* ad
 extern "C" int cpf_stream_f32(const void* tab, void* m, const void* xi,
                               void* pend, void* adm, long long n, float dt, float sigma,
                               int use_adv, int use_brown, int bounce_on,
-                              int esc_on, int n_hops, int noise_mode, int pass, uint32_t k0,
-                              uint32_t k1, uint32_t k2, uint32_t k3, void* stream) {
+                              int esc_on, int n_hops, int noise_mode, int pass, int rk4,
+                              uint32_t k0, uint32_t k1, uint32_t k2, uint32_t k3,
+                              void* stream) {
   return cpf::launch_stream<float>(tab, m, xi, pend, adm, n, dt, sigma, use_adv,
-                                   use_brown, bounce_on, esc_on, n_hops, noise_mode, pass,
+                                   use_brown, bounce_on, esc_on, n_hops, noise_mode, pass, rk4,
                                    cpf::PhiloxKey{k0, k1, k2, k3}, stream);
 }
 
 extern "C" int cpf_stream_f64(const void* tab, void* m, const void* xi,
                               void* pend, void* adm, long long n, double dt, double sigma,
                               int use_adv, int use_brown, int bounce_on,
-                              int esc_on, int n_hops, int noise_mode, int pass, uint32_t k0,
-                              uint32_t k1, uint32_t k2, uint32_t k3, void* stream) {
+                              int esc_on, int n_hops, int noise_mode, int pass, int rk4,
+                              uint32_t k0, uint32_t k1, uint32_t k2, uint32_t k3,
+                              void* stream) {
   return cpf::launch_stream<double>(tab, m, xi, pend, adm, n, dt, sigma, use_adv,
-                                    use_brown, bounce_on, esc_on, n_hops, noise_mode, pass,
+                                    use_brown, bounce_on, esc_on, n_hops, noise_mode, pass, rk4,
                                     cpf::PhiloxKey{k0, k1, k2, k3}, stream);
 }
 
 // The VertexVelocity instantiations: tab [nt, 32] (padded), m [n, 40]; the
-// whole pass only.
+// whole pass only.  rk4 = 1 selects the RK4 instantiation (the whole pass,
+// either layout).
 extern "C" int cpf_stream_pk_f32(const void* tab, void* m, const void* xi,
                                  void* pend, void* adm, long long n, float dt, float sigma,
                                  int use_adv, int use_brown, int bounce_on,
-                                 int esc_on, int n_hops, int noise_mode, int pass, uint32_t k0,
-                                 uint32_t k1, uint32_t k2, uint32_t k3, void* stream) {
+                                 int esc_on, int n_hops, int noise_mode, int pass, int rk4,
+                                 uint32_t k0, uint32_t k1, uint32_t k2, uint32_t k3,
+                                 void* stream) {
   return cpf::launch_stream<float, cpf::LayoutPk>(
       tab, m, xi, pend, adm, n, dt, sigma, use_adv, use_brown, bounce_on, esc_on, n_hops,
-      noise_mode, pass, cpf::PhiloxKey{k0, k1, k2, k3}, stream);
+      noise_mode, pass, rk4, cpf::PhiloxKey{k0, k1, k2, k3}, stream);
 }
 
 extern "C" int cpf_stream_pk_f64(const void* tab, void* m, const void* xi,
                                  void* pend, void* adm, long long n, double dt, double sigma,
                                  int use_adv, int use_brown, int bounce_on,
-                                 int esc_on, int n_hops, int noise_mode, int pass, uint32_t k0,
-                                 uint32_t k1, uint32_t k2, uint32_t k3, void* stream) {
+                                 int esc_on, int n_hops, int noise_mode, int pass, int rk4,
+                                 uint32_t k0, uint32_t k1, uint32_t k2, uint32_t k3,
+                                 void* stream) {
   return cpf::launch_stream<double, cpf::LayoutPk>(
       tab, m, xi, pend, adm, n, dt, sigma, use_adv, use_brown, bounce_on, esc_on, n_hops,
-      noise_mode, pass, cpf::PhiloxKey{k0, k1, k2, k3}, stream);
+      noise_mode, pass, rk4, cpf::PhiloxKey{k0, k1, k2, k3}, stream);
 }
 
 extern "C" const char* cpf_error_string(int err) {

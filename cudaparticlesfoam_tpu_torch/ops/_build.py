@@ -121,8 +121,9 @@ def library() -> ctypes.CDLL:
     key = [i, u, u, u, u]     # pass + 4 Philox key words
     for suffix, fl in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
         for name, args in (
-            ("stream", [vp] * 5 + [ll, fl, fl, i, i, i, i, i, i, *key, vp]),
-            ("stream_pk", [vp] * 5 + [ll, fl, fl, i, i, i, i, i, i, *key, vp]),
+            # ..., noise mode, pass, the RK4 flag, the 4 key words, the stream
+            ("stream", [vp] * 5 + [ll, fl, fl, i, i, i, i, i, i, i, i, u, u, u, u, vp]),
+            ("stream_pk", [vp] * 5 + [ll, fl, fl, i, i, i, i, i, i, i, i, u, u, u, u, vp]),
             ("rare", [vp, vp, vp, vp, ll, i, i, i, i, vp]),
             ("rare_pk", [vp, vp, vp, vp, ll, i, i, i, i, vp]),
             ("convex_stream", [vp] * 6 + [ll, fl, fl, i, i, i, i, *key, vp]),

@@ -4,7 +4,10 @@
 * :func:`stream_cycle` -> ``stream_kernel`` (``csrc/stream.cu``): the
   TPU stream kernels A / hop H / B / B2 in their packed and transposed
   variants (``fused_pallas.py`` kernels 1-9), fused into one per-lane
-  kernel that loads neighbour rows itself.
+  kernel that loads neighbour rows itself; with ``rk4`` its RK4
+  instantiation, whose stage walks replace the XLA stage velocity
+  (``fused._stage_velocity`` and the RK4 branch of
+  ``_mega_cycle_aligned``).
 * :func:`rare_resolve` -> ``rare_kernel`` (``csrc/rare.cu``): the XLA rare
   stage (``fused._rare_stage(_packed)`` with ``_walk_mega`` and
   ``_reflect_mega``), in one wave of resident blocks that compact their
@@ -183,12 +186,13 @@ def _launch_stream(tab, m, xi_ptr, pend_ptr, adm_ptr, kw, mode, pass_, key, dev,
         tab.data_ptr(), m.data_ptr(), xi_ptr, pend_ptr, adm_ptr, m.shape[0], kw["dt"],
         kw["sigma"], int(kw["use_adv"]), int(kw["use_brown"]),
         int(kw.get("bounce_on", False)), int(kw.get("esc_on", False)),
-        kw.get("n_hops", 1), mode, pass_, *key, _stream_ptr(dev))
+        kw.get("n_hops", 1), mode, pass_, int(kw.get("rk4", False)), *key, _stream_ptr(dev))
     _raise_on(err, "stream_kernel")
 
 
 def stream_cycle(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
-                 bounce_on, esc_on, n_hops, noise_key=None, admit=None, ly=LAYOUT_TET):
+                 bounce_on, esc_on, n_hops, noise_key=None, admit=None, ly=LAYOUT_TET,
+                 rk4=False):
     """Stream section of one cycle (K1 + K2), in place on ``m``
     [n, ly.width] with ``tab`` = ``fused.row_table`` [nt, ly.tab_w];
     writes the rare-stage flags into ``pending`` [n] uint8.  With
@@ -196,16 +200,20 @@ def stream_cycle(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
     (Philox, module docstring) gives the noise.  ``admit`` [n] uint8 (from
     :func:`hop_admit`) makes it the apply stage of the compacted hop
     gather: a crosser whose flag is 0 skips its hop and goes pending
-    (``LAYOUT_TET`` only, as in the JAX package)."""
+    (``LAYOUT_TET`` only, as in the JAX package).  ``rk4``: the RK4
+    integrator (``stream_kernel<..., kRK4>``, both layouts, without
+    ``admit``); its launches are counted in ``.rk4_launches`` too."""
     if admit is not None and ly is not LAYOUT_TET:
         raise ValueError("the compacted hop gather is TetVelocity only")
+    if admit is not None and rk4:
+        raise ValueError("the RK4 stream has the whole pass only")
     n, dev = _check_tab_m(tab, m, ly.width, ly.tab_w)
     _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
     adm_ptr = _flags("admit", admit, n, dev)
     xi, xi_ptr, mode, key = _noise_args(xi, n, m, use_brown, noise_key)
     _check_hops(n_hops)
     kw = dict(dt=dt, sigma=sigma, use_adv=bool(use_adv), use_brown=bool(use_brown),
-              bounce_on=bool(bounce_on), esc_on=bool(esc_on), n_hops=int(n_hops))
+              bounce_on=bool(bounce_on), esc_on=bool(esc_on), n_hops=int(n_hops), rk4=bool(rk4))
     if dev.type == "cpu":
         stream_plain(tab, m, xi, pending, admit=admit, ly=ly, **kw)
         return
@@ -214,9 +222,12 @@ def stream_cycle(tab, m, xi, pending, *, dt, sigma, use_adv, use_brown,
     _launch_stream(tab, m, xi_ptr, pending.data_ptr(), adm_ptr, kw, mode,
                    PASS_WHOLE if admit is None else PASS_ADMITTED, key, dev, ly)
     stream_cycle.launches += 1
+    if rk4:
+        stream_cycle.rk4_launches += 1
 
 
 stream_cycle.launches = 0     # of any instantiation
+stream_cycle.rk4_launches = 0  # of the RK4 instantiations
 
 
 def stream_crossers(tab, m, xi, crossers, *, dt, sigma, use_adv, use_brown, noise_key=None):

@@ -29,7 +29,10 @@ pad is counted as what the function is given, not as waste:
   the 8-column head, the cached row of each lane whose row changed (it
   hopped) and the pending byte.  The other rows and the zero pad are left
   as they were, so they are not counted.  Pass "crossers" reads the same
-  but hops nowhere, and writes only the flag byte.
+  but hops nowhere, and writes only the flag byte.  Its RK4 instantiation
+  (``rk4``) reads on top one table row per hop of each stage walk
+  (``stage_rows``; ``fused.stream_plain(stage_walks=...)`` counts them);
+  the stage tests run on the cached row the lane already read.
 * ``convex_stream_kernel``: reads the mega row, xi, the admission byte and
   one cx row per interior crosser that loads its neighbour; writes the
   8-column head, the cx row of each lane that hopped, disp (3 columns) and
@@ -78,7 +81,10 @@ ADMIT_TILE = 8192        # lanes per block of hop_admit_kernel
 OPS = {"stream": 110, "stream_hop": 25, "convex": 110, "convex_hop": 70, "philox": 240,
        "macro_step": 45, "rare_lane": 60, "admit_group": 12,
        # the Pk blend: the weights at the current point (21) and 3 x 7
-       "pk_blend": 42}
+       "pk_blend": 42,
+       # an RK4 stage: its point (6), the hop-0 test (24), the velocity (Pk:
+       # another blend), and the final sum (4 a component, once a lane)
+       "rk4_stage": 30, "rk4_sum": 12}
 
 
 def _widths(layout):
@@ -139,16 +145,20 @@ def _noise_ops(noise, draws):
 
 
 def stream(n: int, elem: int, noise: str, pass_: str = "whole", hops: int = 0,
-           hopped: int = 0, layout: str = "tet") -> Traffic:
+           hopped: int = 0, layout: str = "tet", rk4: bool = False,
+           stage_rows: int = 0) -> Traffic:
     """``stream_kernel``: ``hops`` table rows loaded (summed over the inline
     hops; 0 in the crossers pass), ``hopped`` lanes whose cached row
     changed (written back).  ``layout`` "pk": the VertexVelocity
     instantiation (40-column mega, 32-column padded table rows, the whole
-    pass only)."""
+    pass only).  ``rk4``: the RK4 instantiation (the whole pass only),
+    whose three stage walks loaded ``stage_rows`` table rows in all."""
     _check(n, elem, noise, pass_, hopped)
     mega_w, row_w = _widths(layout)
-    if layout == "pk" and pass_ != "whole":
-        raise ValueError("the VertexVelocity stream has the whole pass only")
+    if stage_rows < 0 or (stage_rows and not rk4):
+        raise ValueError(f"stage_rows ({stage_rows}) must be >= 0, and 0 without rk4")
+    if (layout == "pk" or rk4) and pass_ != "whole":
+        raise ValueError("the VertexVelocity and RK4 streams have the whole pass only")
     if pass_ == "crossers" and hops:
         raise ValueError("the crossers pass does not hop")
     if hopped > hops:
@@ -159,6 +169,10 @@ def stream(n: int, elem: int, noise: str, pass_: str = "whole", hops: int = 0,
     written = n if pass_ == "crossers" else n * HEAD_W * elem + hopped * row_w * elem + n
     ops = n * OPS["stream"] + hops * OPS["stream_hop"] + _noise_ops(noise, n)
     ops += n * OPS["pk_blend"] if layout == "pk" else 0
+    if rk4:
+        read += stage_rows * row_w * elem
+        stage = OPS["rk4_stage"] + (OPS["pk_blend"] if layout == "pk" else 0)
+        ops += n * (3 * stage + OPS["rk4_sum"]) + stage_rows * OPS["stream_hop"]
     return Traffic(read, written, ops)
 
 

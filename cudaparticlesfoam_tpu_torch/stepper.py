@@ -13,7 +13,8 @@ crossing flags, ``hop_admit``, stream, rare), and unpacks.  With
 ``macro_cycles`` = k > 1 the bary engine runs k sub-steps at a time as
 one macro cycle (:func:`ops.fused.mega_macro`: k trips of the macro
 stream and rare kernels) and the remaining ``n_cycles % k`` one at a
-time.  PyTorch runs eagerly, so the loop is a Python loop of
+time.  ``integrator="rk4"`` runs the stream kernel's RK4 instantiation
+(per cycle, uncompacted).  PyTorch runs eagerly, so the loop is a Python loop of
 asynchronous launches with no host sync inside.
 """
 
@@ -37,9 +38,8 @@ from .state import ParticleState
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     """Per-run knobs, every field of the JAX package's ``StepConfig`` with
-    the same defaults and validation.  Settings that are not ported yet
-    raise ``NotImplementedError`` at :func:`run_cycles` (see
-    :func:`check_ported`)."""
+    the same defaults and validation; :func:`check_ported` refuses values
+    the engines cannot take."""
 
     dt: float = 1e-4
     diffusion_coeff: float = 5.7e-6
@@ -50,9 +50,9 @@ class StepConfig:
     max_hops: int = locate_ops.MAX_HOPS   # RTQuery.cu:42
     max_bounces: int = 10                 # RTQuery.cu:131
     engine: str = "auto"
-    # rare-stage round buffer and arena fractions: the kernels need no
-    # compaction, so these have no effect in the port (accepted so that a
-    # JAX configuration carries over unchanged)
+    # rare-stage and RK4 stage-walk round buffer and arena fractions: the
+    # kernels need no compaction, so these have no effect in the port
+    # (accepted so that a JAX configuration carries over unchanged)
     walk_capacity_frac: float = 0.125
     arena_lane_frac: float = 0.25
     locate_mode: str = "bary"
@@ -63,11 +63,16 @@ class StepConfig:
     brownian_rng: str = "threefry"
     inline_hops: int = 1
     inline_bounce: bool = True
+    # no effect in the port: the JAX package splits a cycle into lane ranges
+    # for its TPU (gather queue, table placement); the card runs the whole
+    # cycle, and a range would give the same result bit for bit
     cycle_chunks: int = 1
     hop_compact: int = 0
     hop_compact_frac: float = 0.5
     macro_cycles: int = 1
     escape_faces: bool = False
+    # any of ENGINE_IMPLS: the kernels on CUDA tensors, their plain versions
+    # on CPU tensors (equal bit for bit, so the JAX choices cannot differ)
     engine_impl: str = "auto"
     convex_bary_fix: bool = True
 
@@ -103,14 +108,12 @@ class StepConfig:
                 else "simple")
 
 
+# the JAX package's engine_impl values (its Pallas and jnp stream paths)
+ENGINE_IMPLS = ("auto", "jnp", "pallas", "pallas_packed")
+
+
 def check_ported(cfg: StepConfig) -> None:
-    """Raise ``NotImplementedError`` for a setting the port does not have
-    yet (naming the setting and its ROADMAP queue 1 item), and
-    ``ValueError`` for values the engines cannot take.  ``integrator="rk4"``
-    runs on the simple engine when that is asked for (``engine="simple"``,
-    or where ``resolved_engine`` picks it); on the cached engine its stage
-    velocities (``fused._stage_velocity``) are not ported."""
-    todo = []
+    """Raise ``ValueError`` for values the engines cannot take."""
     if cfg.engine not in ("auto", "cached", "simple"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
     if cfg.locate_mode not in ("bary", "convex"):
@@ -120,19 +123,11 @@ def check_ported(cfg: StepConfig) -> None:
     if cfg.velocity_interp not in (advect_ops.TET_VELOCITY, advect_ops.VERTEX_VELOCITY,
                                    advect_ops.CONSTANT_VELOCITY):
         raise ValueError(f"unknown velocity interpolation mode {cfg.velocity_interp!r}")
-    if cfg.integrator == "rk4" and cfg.resolved_engine() == "cached":
-        todo.append("integrator='rk4' on the cached engine (_stage_velocity, ROADMAP "
-                    "queue 1 item 8; engine='simple' runs it)")
     if cfg.brownian_rng not in ("threefry",) + fused.RBG_MODES:
         raise ValueError(f"unknown brownian_rng {cfg.brownian_rng!r}")
-    if cfg.cycle_chunks > 1:
-        todo.append("cycle_chunks>1 (ROADMAP queue 1 item 10)")
-    if cfg.engine_impl != "auto":
-        todo.append(f"engine_impl={cfg.engine_impl!r} (the port picks the "
-                    "kernel from the tensors' device; ROADMAP queue 1 item 10)")
-    if todo:
-        raise NotImplementedError(
-            "not ported to PyTorch/CUDA yet: " + "; ".join(todo))
+    if cfg.engine_impl not in ENGINE_IMPLS:
+        raise ValueError(f"unknown engine_impl {cfg.engine_impl!r}, expected one of "
+                         f"{ENGINE_IMPLS}")
     if not 0 <= cfg.inline_hops <= 8:
         raise ValueError(f"inline_hops must be in 0..8, got {cfg.inline_hops}")
 
@@ -247,7 +242,10 @@ def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
     is ignored (its compacted hop gather takes no layout) and
     ``macro_cycles`` > 1 runs cycle by cycle (a macro sub-step needs a
     velocity that is constant within a tet), so both give the plain run's
-    result."""
+    result.  So does ``integrator="rk4"`` on the cached engine (JAX runs
+    it on its jnp path, which has neither): the stream kernel's RK4
+    instantiation, whose stage walks run inside the kernel.
+    ``cycle_chunks`` has no effect (see :class:`StepConfig`)."""
     check_ported(cfg)
     dt = cfg.dt if dt is None else dt
     n = state.n_particles
@@ -259,10 +257,12 @@ def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
             state = cycle(mesh, state, cfg, dt, noise=None if noise is None else noise[i])
         return state
     pending = torch.empty(n, dtype=torch.uint8, device=state.device)
-    macro = cfg.locate_mode == "bary" and cfg.macro_cycles > 1 and ly is fused.LAYOUT_TET
+    macro = (cfg.locate_mode == "bary" and cfg.macro_cycles > 1 and ly is fused.LAYOUT_TET
+             and cfg.integrator == "euler")
     # the compacted stages' buffers, once for the run
     scratch = None
-    if (cfg.hop_compact == fused.HOP_GROUP and ly is fused.LAYOUT_TET) or macro:
+    if (cfg.hop_compact == fused.HOP_GROUP and ly is fused.LAYOUT_TET
+            and cfg.integrator == "euler") or macro:
         scratch = fused.compact_scratch(n, state.device)
     if cfg.locate_mode == "convex":
         tab = fused_convex.cx_table(mesh)

@@ -1,8 +1,7 @@
-"""PyTorch port: the StepConfig surface, the settings that are not ported
-yet (each message names its setting and ROADMAP item), the settings that
-run on the simple engine, suggest_tuning
-against the JAX package, and the kernel build's error when there is no
-CUDA toolkit."""
+"""PyTorch port: the StepConfig surface, the settings that were not ported
+until the cached engine took them (each runs and equals its counterpart),
+the settings that run on the simple engine, suggest_tuning against the JAX
+package, and the kernel build's error when there is no CUDA toolkit."""
 
 import dataclasses
 
@@ -38,16 +37,15 @@ def test_validation_mirrors_jax(kw):
     assert str(got.value) == str(want.value)
 
 
-# (setting, the text its message must carry: the setting and its ROADMAP
-# queue 1 item)
+# (setting, its counterpart): the settings that raised NotImplementedError
+# until the port had them; RK4 on the cached engine against the simple
+# engine's RK4, the knobs against the default run
 UNPORTED = [
-    (dict(integrator="rk4"), "integrator='rk4' on the cached engine (_stage_velocity, ROADMAP "
-     "queue 1 item 8; engine='simple' runs it)"),
+    (dict(integrator="rk4"), dict(integrator="rk4", engine="simple")),
     (dict(integrator="rk4", engine="cached", velocity_interp="VertexVelocity"),
-     "integrator='rk4' on the cached engine"),
-    (dict(cycle_chunks=2), "cycle_chunks>1 (ROADMAP queue 1 item 10)"),
-    (dict(engine_impl="jnp"), "engine_impl='jnp' (the port picks the kernel from the "
-     "tensors' device; ROADMAP queue 1 item 10)"),
+     dict(integrator="rk4", engine="simple", velocity_interp="VertexVelocity")),
+    (dict(cycle_chunks=2), dict()),
+    (dict(engine_impl="jnp"), dict()),
 ]
 
 # settings that go to the simple engine (stepper.cycle), by request or
@@ -78,18 +76,34 @@ def tiny():
     return mesh, st
 
 
-@pytest.mark.parametrize("kw,msg", UNPORTED, ids=_ids([kw for kw, _ in UNPORTED]))
-def test_unported_settings_raise(tiny, kw, msg):
+@pytest.mark.parametrize("kw,counterpart", UNPORTED, ids=_ids([kw for kw, _ in UNPORTED]))
+def test_unported_settings_raise(tiny, kw, counterpart):
+    """The settings that raised NotImplementedError until the port had them
+    (the test keeps the name it had then) run now, check_ported refuses
+    none of them, and each equals its counterpart: cached RK4 the simple
+    engine's RK4 (to float32 rounding); cycle_chunks and engine_impl, which
+    select nothing in the port, the default run bit for bit, under the
+    barycentric and the convex locator."""
     mesh, st = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP") as exc:
-        cpt.run_cycles(cpt.with_pk_rows(mesh), st, cpt.StepConfig(**kw), 1)
-    assert msg in str(exc.value)
-    # still refused under locate_mode convex on a mesh with the convex rows,
-    # except RK4, which the convex locator hands to the simple engine
-    if "integrator" not in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cpt.run_cycles(cpt.with_convex_rows(mesh), st,
-                           cpt.StepConfig(locate_mode="convex", **kw), 1)
+    mesh = cpt.with_pk_rows(cpt.with_convex_rows(mesh))
+    cfg = cpt.StepConfig(dt=0.05, diffusion_coeff=1e-3, **kw)
+    cpt.stepper.check_ported(cfg)
+    assert cfg.resolved_engine() == "cached"
+    out = cpt.run_cycles(mesh, st, cfg, 3)
+    want = cpt.run_cycles(mesh, st, cpt.StepConfig(dt=0.05, diffusion_coeff=1e-3,
+                                                   **counterpart), 3)
+    assert int(out.active.sum()) == 8 and out.step == 3
+    assert torch.equal(out.tet_id, want.tet_id) and torch.equal(out.active, want.active)
+    if "integrator" in kw:
+        np.testing.assert_allclose(out.pos.numpy(), want.pos.numpy(), atol=1e-6, rtol=0)
+        return
+    for f in ("pos", "vel"):
+        assert torch.equal(getattr(out, f), getattr(want, f)), f
+    convex = cpt.StepConfig(dt=0.05, diffusion_coeff=1e-3, locate_mode="convex")
+    out = cpt.run_cycles(mesh, st, dataclasses.replace(convex, **kw), 3)
+    want = cpt.run_cycles(mesh, st, convex, 3)
+    for f in ("pos", "vel", "tet_id", "active"):
+        assert torch.equal(getattr(out, f), getattr(want, f)), f
 
 
 @pytest.mark.parametrize("kw", SIMPLE, ids=_ids(SIMPLE))

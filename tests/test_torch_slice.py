@@ -139,9 +139,10 @@ def test_diagnostics_and_sub_cycling(box):
 def test_chip_smoke_rehearsal_runs_every_phase():
     """``chip_smoke.py --rehearse`` drives every phase at small sizes on the
     CPU through the plain versions: it must exit 2 (no device result), print
-    the table of the ten kernel entries (the eight of the north-star slice's
-    paths and the two of the uncoupled driver's, phase 8) with every key the
-    table carries, and no ``ok`` line."""
+    the table of the fourteen kernel entries (the eight of the north-star
+    slice's paths, the two of the uncoupled driver's, phase 8, and the four
+    of the rk4-tracers cell, phase 9) with every key the table carries, and
+    no ``ok`` line."""
     import json
     import subprocess
     import sys
@@ -157,9 +158,12 @@ def test_chip_smoke_rehearsal_runs_every_phase():
     names = [k["name"] for k in table["kernels"]]
     assert names == ["stream_kernel", "rare_kernel", "convex_stream_kernel",
                      "convex_rare_kernel", "hop_admit_kernel", "macro_stream_kernel",
-                     "stream_kernel<pk>", "rare_kernel<pk>", "stream_kernel", "rare_kernel"]
+                     "stream_kernel<pk>", "rare_kernel<pk>", "stream_kernel", "rare_kernel",
+                     "stream_kernel<rk4>", "rare_kernel", "stream_kernel<pk, rk4>",
+                     "rare_kernel<pk>"]
     assert [k["path"].startswith("uncoupled driver") for k in table["kernels"]] == \
-        [False] * 8 + [True] * 2
+        [False] * 8 + [True] * 2 + [False] * 4
+    assert all(k["path"].startswith("rk4-tracers") for k in table["kernels"][10:])
     for entry in table["kernels"]:
         assert {"path", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms", "bytes", "share", "copy_ms",
@@ -182,8 +186,8 @@ def test_chip_smoke_rehearsal_runs_every_phase():
             assert entry["share_of_latency"] == pytest.approx(
                 entry["latency_bound_ms"] / entry["ms"])
     latency = [line for line in lines if line.startswith("[latency]")]
-    assert len(latency) == 9 and "host loop (cpu rehearsal)" in latency[0]
-    for name in ("rare", "convex_rare", "rare_pk", "rare_tutorial"):
+    assert len(latency) == 13 and "host loop (cpu rehearsal)" in latency[0]
+    for name in ("rare", "convex_rare", "rare_pk", "rare_tutorial", "rare_rk4", "rare_pk_rk4"):
         assert any(f"| {name} lanes=" in line and "share_of_latency=" in line
                    and "pending_first_ms=" in line for line in latency), name
         assert any(f"| {name} by longest chain" in line and "ms_per_chain_step=" in line
@@ -192,8 +196,17 @@ def test_chip_smoke_rehearsal_runs_every_phase():
     for tag in ("[parity]", "[convex-parity]", "[noise]", "[admit]", "[compact]", "[macro]",
                 "[golden]", "[slice]", "[convex-slice]", "[macro-slice]", "[compact-slice]",
                 "[convex-compact-slice]", "[pk-parity]", "[pk-slice]", "[simple]", "[bound]",
-                "[driver-anchor]", "[driver-tutorial]", "[driver-cycle]"):
+                "[driver-anchor]", "[driver-tutorial]", "[driver-cycle]", "[rk4-parity]",
+                "[rk4-simple]", "[duct]", "[rk4-slice]"):
         assert any(line.startswith(tag) for line in lines), tag
+    # phase 9: RK4 kernel = plain in every case, the oracles, the cell
+    rk4 = [line for line in lines if line.startswith("[rk4-parity]")]
+    assert len(rk4) == 64 and all("stream_identical=1" in line and "rare_identical=1" in line
+                                  for line in rk4)
+    assert sum("cached_equals_simple=1" in line for line in lines) == 3   # 5d, and 9b x 2
+    assert sum(line.startswith("[duct]") for line in lines) == 4
+    assert sum("stream_identical=1 cycle_identical=1" in line for line in lines
+               if line.startswith("[rk4-slice]")) == 2
     # phase 8: the anchor through the driver, the CLI tutorial run, one cycle at its shape
     anchor = next(line for line in lines if line.startswith("[driver-anchor]"))
     assert ("tet_exact=1 active_exact=1" in anchor and "cycles=100" in anchor) or \

@@ -79,6 +79,13 @@ CASES = [
     # rare: flags + pending lanes' pos, vel, tet and 32-column row (39 columns) + new rows
     ("rare", dict(elem=4, pending=2, moved=1, layout="pk"), 10 + 2 * 156 + 128, 2 * 156),
     ("rare", dict(elem=8, pending=3, moved=2, layout="pk"), 10 + 3 * 312 + 2 * 256, 3 * 312),
+    # the RK4 instantiations: the Euler pass's bytes plus one table row per stage-walk hop
+    ("stream", dict(elem=4, noise="none", hops=2, hopped=2, rk4=True, stage_rows=5),
+     1280 + 2 * 80 + 5 * 80, 320 + 2 * 80 + 10),
+    ("stream", dict(elem=8, noise="xi", hops=1, hopped=1, layout="pk", rk4=True,
+                    stage_rows=3),
+     3200 + 240 + 256 + 3 * 256, 640 + 256 + 10),
+    ("stream", dict(elem=4, noise="philox", rk4=True), 1280, 330),
 ]
 
 
@@ -150,6 +157,10 @@ def test_operations_stay_far_below_bytes_at_the_slice():
     lambda: traffic.stream(N, 4, "xi", layout="pk", pass_="admitted"),
     lambda: traffic.stream(N, 4, "xi", layout="vertex"),
     lambda: traffic.rare(N, 4, pending=1, moved=0, layout="cx"),
+    lambda: traffic.stream(N, 4, "xi", pass_="crossers", rk4=True, stage_rows=2),
+    lambda: traffic.stream(N, 4, "xi", pass_="admitted", rk4=True),
+    lambda: traffic.stream(N, 4, "none", rk4=True, stage_rows=-1),
+    lambda: traffic.stream(N, 4, "none", stage_rows=2),
 ])
 def test_bad_arguments_raise(call):
     with pytest.raises(ValueError):
@@ -236,3 +247,18 @@ def test_permutation_is_one_cycle_through_every_entry():
     assert len(seen) == 1000 and int(state[0]) == 0
     with pytest.raises(ValueError):
         probe.chase_permutation(nxt.long(), 1, state)
+
+
+def test_rk4_stream_adds_stage_rows_and_their_operations():
+    """The RK4 stream's bytes are the Euler pass's plus 80 B (TET) or 128 B
+    (PK) per stage-walk row in float32, and its operations grow with the
+    three stages; at the north-star slice it stays bound by bytes."""
+    for layout, row in (("tet", 80), ("pk", 128)):
+        euler = traffic.stream(N, 4, "none", hops=3, hopped=2, layout=layout)
+        rk4 = traffic.stream(N, 4, "none", hops=3, hopped=2, layout=layout, rk4=True,
+                             stage_rows=7)
+        assert rk4.read - euler.read == 7 * row and rk4.written == euler.written
+        assert rk4.ops > euler.ops
+        big = traffic.stream(1_000_000, 4, "none", hops=60_000, hopped=60_000, layout=layout,
+                             rk4=True, stage_rows=150_000)
+        assert big.bound_by == "bytes"
