@@ -174,6 +174,38 @@ Phases, one line of numbers each, any failure exits non-zero:
    9e. (with the build) ptxas's registers, stack and spills of the eight
        RK4 instantiations, and every other kernel's line against the lines
        pinned from the build before RK4 (where nvcc is the pinned one).
+10. (runs after phase 8, before phase 6) the steady-flow solver
+   (models/{fv,simple,turbulence,functions}.py: torch ops, no kernel) and
+   the tutorial's Allrun on its field:
+   10a. SIMPLE on the card against the port on the CPU, float64, from one
+        state (the CPU's after 20 iterations; pitzDaily from its cold
+        start), 10 iterations each: the channel of tests/test_flow.py with
+        linearUpwind under Jacobi-CG (p_tol 1e-10) and AMG-CG, the 3-D duct
+        with limitedLinear under both, the channel under kOmegaSST, and
+        pitzDaily as it ships (kEpsilon, linearUpwind, AMG-CG): u, p, flux
+        and the closure's fields within 1e-9 of each field's largest
+        magnitude, the CG counts side by side (AMG-CG equal or within one,
+        Jacobi-CG within 1%), the card run twice (bit for bit or not is
+        printed); the 2-D channel under limitedLinear is printed, not
+        checked (its V-limiter follows the empty direction's rounding);
+   10b. tutorials/.../pitzDaily/Allrun through ``python -m
+        cudaparticlesfoam_tpu_torch`` in subprocesses, float32, in a copy of
+        the tutorial: blockmesh, dict deltaT 1.0, simple (500 iterations,
+        stopped by residualControl), dict deltaT 0.1, uncoupled at the
+        tutorial's settings; simple's field finite, max |U| < 50, written
+        inside [282, 382], U, p and phi read back, the streamline file
+        parses; then phase 8b's frame checks, the mean x moved downstream,
+        one stream and one rare launch a cycle; SIMPLE iterations, ms per
+        iteration on the device and the host, CG iterations per solve,
+        peak memory, and Advect ms/cycle beside 8b's on the shear field;
+   10c. one SIMPLE iteration at 10b's state (its U and p, 5 iterations in
+        process) split into momentum, pressure system, pressure solve
+        (CG iterations x one, and one V-cycle alone), corrections and the
+        kEpsilon step: device ms, the host's ms to issue, kernels and
+        launch calls (torch.profiler) and the kernels' busy ms.
+   The rehearsal runs 10a without pitzDaily, 10b with simple --iters 5
+   and the tracker at 2,000 particles, deltaT 0.01, and 10c after one
+   warm iteration.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -2257,19 +2289,36 @@ def phase_driver_tutorial(torch, dev, tmp, rehearse, gpu_line):
     subprocess (``python -m cudaparticlesfoam_tpu_torch uncoupled``), on
     the card in float32: 1e5 particles, dt 1e-4, deltaT 0.1 (1000 cycles),
     saveInterval 10 (101 frames); the rehearsal shrinks it to 2,000
-    particles and deltaT 0.01 on the CPU.  Returns (case dir, launches)."""
+    particles and deltaT 0.01 on the CPU.  Returns (case dir, launches,
+    the run's numbers)."""
+    shrink = dict(particles=2_000, delta_t=0.01) if rehearse else {}
+    case_dir = pitz_case(tmp, **shrink)
+    return (case_dir,) + tutorial_cli_run(torch, dev, case_dir, os.path.join(tmp, "frames"),
+                                          rehearse, gpu_line, "driver-tutorial",
+                                          "pitzDaily tutorial via the CLI")
+
+
+def cli(args, timeout=900):
+    """``python -m cudaparticlesfoam_tpu_torch *args`` in a subprocess from
+    the repo's root: (completed process, seconds)."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "cudaparticlesfoam_tpu_torch", *args], cwd=HERE,
+                         env=env, capture_output=True, text=True, timeout=timeout)
+    return res, time.perf_counter() - t0
+
+
+def tutorial_cli_run(torch, dev, case_dir, out, rehearse, gpu_line, tag, label, extra=None):
+    """``uncoupled`` through the CLI on ``case_dir`` and the frame checks of
+    phase 8b: every frame parses, in the last every lane active with a tet
+    >= 0, inside the pitzDaily bounds, KEs all zeros, no lane out of the
+    domain; on the card one stream and one rare launch a cycle.  Logs one
+    line (``extra(numbers)`` appended); returns (launches, numbers)."""
     import concurrent.futures as cf
     import xml.etree.ElementTree as ET
 
-    shrink = dict(particles=2_000, delta_t=0.01) if rehearse else {}
-    case_dir = pitz_case(tmp, **shrink)
-    out = os.path.join(tmp, "frames")
-    cmd = [sys.executable, "-m", "cudaparticlesfoam_tpu_torch", "uncoupled", case_dir,
-           "--out", out] + (["--device", "cpu"] if rehearse else [])
-    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
-    secs = time.perf_counter() - t0
+    cmd = ["uncoupled", case_dir, "--out", out] + (["--device", "cpu"] if rehearse else [])
+    res, secs = cli(cmd)
     need(res.returncode == 0, f"the CLI tutorial run failed: {res.stderr[-3000:]}")
     text = res.stdout
     n_cycles = int(re.search(r"nCycles: (\d+)", text).group(1))
@@ -2287,9 +2336,13 @@ def phase_driver_tutorial(torch, dev, tmp, rehearse, gpu_line):
     need(len(frames) == len(range(0, n_cycles, 10)) + 1 and frames[0] == "particle_0000.vtu",
          f"{len(frames)} frames for {n_cycles} cycles")
     need(all(s == (n_part, FRAME_ARRAYS) for s in summaries), "a frame does not parse")
-    root = ET.parse(os.path.join(out, frames[-1])).getroot()
-    arrays = {da.get("Name"): np.array(da.text.split(), dtype=float)
-              for da in root.iter("DataArray")}
+
+    def frame_arrays(name):
+        root = ET.parse(os.path.join(out, name)).getroot()
+        return {da.get("Name"): np.array(da.text.split(), dtype=float)
+                for da in root.iter("DataArray")}
+
+    arrays = frame_arrays(frames[-1])
     pos = arrays["Position"].reshape(-1, 3)
     tet, act = arrays["ParticleTetID"], arrays["ParticleType"] > 0
     bounds = (np.array([-0.0206, -0.0254, -0.0005]), np.array([0.29, 0.0254, 0.0005]))
@@ -2306,7 +2359,7 @@ def phase_driver_tutorial(torch, dev, tmp, rehearse, gpu_line):
     else:
         adv_ms, issue_ms = (phases["Advect"][0] / n_cycles * 1e3,
                             host_s["Advect"] / n_cycles * 1e3)
-    line = (f"[driver-tutorial] {gpu_line} | pitzDaily tutorial via the CLI: particles={n_part} "
+    line = (f"[{tag}] {gpu_line} | {label}: particles={n_part} "
             f"cycles={n_cycles} frames={len(frames)} ({frames_mb:.0f} MB, parsed in "
             f"{parse_s:.1f} s) active={int(act.sum())} active_tet_ge_0="
             f"{int((tet[act] >= 0).all())} inside_bounds={int(inside)} "
@@ -2323,16 +2376,22 @@ def phase_driver_tutorial(torch, dev, tmp, rehearse, gpu_line):
         line += (f" peak_device_GiB={dev_line.group(5)} launches={launches} "
                  f"stream_per_cycle={launches.get('stream_cycle', 0) / n_cycles:.3f} "
                  f"rare_per_cycle={launches.get('rare_resolve', 0) / n_cycles:.3f}")
-    log(line)
+    # the mean x of the active lanes, first written cycle against the last
+    first = frame_arrays(frames[1])
+    info = {"adv_ms": adv_ms, "issue_ms": issue_ms, "cycles": n_cycles, "command_s": secs,
+            "mean_x": (float(first["Position"].reshape(-1, 3)[first["ParticleType"] > 0,
+                                                                0].mean()),
+                       float(pos[act, 0].mean()))}
+    log(line + (extra(info) if extra else ""))
     need(act.all() and (tet[act] >= 0).all() and inside and out_of_domain == 0
          and ood == [0] and (arrays["KEs"] == 0).all() and np.isfinite(pos).all(),
-         "the tutorial run left the domain or broke the frame contract")
+         f"the {label} run left the domain or broke the frame contract")
     if dev.type == "cuda":
         need(dev_line is not None, "the CLI run printed no device line")
         need(launches == {"stream_cycle": n_cycles, "rare_resolve": n_cycles},
-             f"the tutorial run launched {launches}, not one stream and one rare kernel "
+             f"the {label} run launched {launches}, not one stream and one rare kernel "
              f"a cycle")
-    return case_dir, launches
+    return launches, info
 
 
 def phase_driver_cycle(torch, cpt, fused, fused_cuda, dev, case_dir, warm, errs, counts, rares,
@@ -2814,6 +2873,345 @@ def ptxas_lines(report):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the steady-flow solver (models/{fv,simple,turbulence,functions}.py)
+# ---------------------------------------------------------------------------
+
+FLOW_N0 = 20          # CPU iterations before the card and the CPU start from one state
+FLOW_ITERS = 10       # compared iterations
+FLOW_TOL = 1e-9       # float64, relative to each field's largest magnitude
+# the 10a cases (tests/torch_port_common.py FLOW_PARITY); limitedLinear runs on
+# the 3-D duct: on the 2-D channel JAX's V-limiter takes the min over
+# components, one of which is the empty direction's rounding noise, so the
+# run follows ulps (its line below is printed and not checked)
+FLOW_CARD_CASES = ("linearUpwind-cg", "linearUpwind", "limitedLinear-cg", "limitedLinear",
+                   "kOmegaSST")
+SIMPLE_ITERS_CAP = None   # --iters of 10b's simple; None: the tutorial's 500 and residualControl
+UNCHECKED_2D = ("not checked (2-D limitedLinear: the V-limiter follows the empty direction's "
+                "rounding noise)")
+
+
+def flow_common(torch):
+    """tests/torch_port_common.py (the flow cases and the SIMPLE loop of the
+    port's tests), without the one-thread cap it sets for pytest workers."""
+    threads = torch.get_num_threads()
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_port_common
+
+    torch.set_num_threads(threads)
+    return torch_port_common
+
+
+def moved_to(obj, dev):
+    """A dataclass of tensors with every tensor field on ``dev``."""
+    import torch
+
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(dev) for f in dataclasses.fields(obj)
+        if torch.is_tensor(getattr(obj, f.name))})
+
+
+def flow_setup(torch, case, pm, dev, solver, scheme, n_nonortho, p_tol, dtype):
+    from cudaparticlesfoam_tpu_torch.models import fv, simple, turbulence
+
+    m, st, ub, pb, nu, pin, _ = simple.load_flow_case(case, pm=pm, dtype=dtype, device=dev)
+    cfg = simple.SimpleConfig(nu=nu, pin_pressure=pin, div_scheme=scheme, p_solver=solver,
+                              n_nonortho=n_nonortho, p_tol=p_tol)
+    amg = fv.build_amg(m) if solver == "amg" else None
+    model = simple.turbulence_model(case)
+    cl = None if model == "laminar" else (model,) + tuple(turbulence.init_model(model, case, m))
+    return m, st, ub, pb, cfg, amg, cl
+
+
+def flow_fields(st, cl):
+    out = {k: getattr(st, k) for k in ("u", "p", "flux")}
+    if cl is not None:
+        out.update({k: getattr(cl[1], k) for k in ("k", "eps", "omega", "nut")
+                    if hasattr(cl[1], k)})
+    return out
+
+
+def phase_flow_parity(torch, dev, tmp, rehearse, gpu_line):
+    """Phase 10a: SIMPLE on the card against the port on the CPU, float64,
+    from one state (the CPU's after FLOW_N0 iterations; pitzDaily from its
+    cold start): FLOW_ITERS iterations each, the fields within FLOW_TOL of
+    each field's largest magnitude, the CG counts side by side (AMG-CG
+    equal or within one; Jacobi-CG within 1%), and the card run twice."""
+    from cudaparticlesfoam_tpu_torch.io import blockmesh
+    from cudaparticlesfoam_tpu_torch.models import simple, turbulence
+
+    common = flow_common(torch)
+    cpu = torch.device("cpu")
+    runs = [(name,) + common.FLOW_PARITY[name] + (FLOW_N0, True) for name in FLOW_CARD_CASES]
+    runs.append(("limitedLinear-2d", "channel", "amg", "limitedLinear", 0, 1e-7, FLOW_N0, False))
+    if not rehearse:
+        runs.append(("pitzDaily-kEpsilon", None, "amg", "linearUpwind", 0, 1e-7, 0, True))
+    made = {}
+    for name, flow, solver, scheme, nno, p_tol, n0, checked in runs:
+        t0 = time.perf_counter()
+        if flow is None:
+            case = PITZ
+        else:
+            case = made.get(flow) or common.make_flow_case(tmp, flow)
+            made[flow] = case
+        pm = blockmesh.generate(os.path.join(case, "system", "blockMeshDict"))
+        kw = dict(solver=solver, scheme=scheme, n_nonortho=nno, p_tol=p_tol,
+                  dtype=torch.float64)
+        m, st, ub, pb, cfg, amg, cl = flow_setup(torch, case, pm, cpu, **kw)
+        st, cl, _ = common.simple_steps(simple, turbulence, m, st, ub, pb, cfg, amg, cl, n0)
+        ref_st, ref_cl, ref_its = common.simple_steps(simple, turbulence, m, st, ub, pb, cfg, amg,
+                                                      cl, FLOW_ITERS)
+        dm, _, dub, dpb, dcfg, damg, dcl = flow_setup(torch, case, pm, dev, **kw)
+        dst = moved_to(st, dev)
+        if dcl is not None:
+            dcl = (dcl[0], moved_to(cl[1], dev)) + dcl[2:]
+        card = [common.simple_steps(simple, turbulence, dm, dst, dub, dpb, dcfg, damg, dcl,
+                                    FLOW_ITERS) for _ in range(2)]
+        want = flow_fields(ref_st, ref_cl)
+        errs = {}
+        for k, v in flow_fields(card[0][0], card[0][1]).items():
+            ref = want[k]
+            errs[k] = float((v.cpu() - ref).abs().max()) / max(float(ref.abs().max()), 1e-300)
+        again = flow_fields(card[1][0], card[1][1])
+        identical = all(bool(torch.equal(v, again[k]))
+                        for k, v in flow_fields(card[0][0], card[0][1]).items())
+        its = card[0][2]
+        diffs = [a - b for a, b in zip(its, ref_its)]
+        count_ok = all(abs(d) <= (1 if solver == "amg" else max(1, 0.01 * b))
+                       for d, b in zip(diffs, ref_its))
+        finite = all(bool(torch.isfinite(v).all()) for v in flow_fields(*card[0][:2]).values())
+        worst = max(errs.values())
+        log(f"[flow-parity] {gpu_line} | {name}: {m.n_cells} cells, {solver} {scheme} "
+            f"n_nonortho={nno} p_tol={p_tol:g}, float64, {n0}+{FLOW_ITERS} iterations: "
+            f"max_rel_err={worst:.3e} by field { {k: f'{v:.2e}' for k, v in errs.items()} } "
+            f"cg_card={its} cg_cpu={ref_its} cg_diff={diffs} second_card_run_identical="
+            f"{int(identical)} finite={int(finite)} "
+            f"{'checked' if checked else UNCHECKED_2D} "
+            f"s={time.perf_counter() - t0:.1f}")
+        need(finite, f"flow parity {name}: non-finite fields on the card")
+        if checked:
+            need(worst <= FLOW_TOL, f"flow parity {name}: card against CPU {worst:.3e}")
+            need(count_ok, f"flow parity {name}: CG counts {its} against {ref_its}")
+
+
+def read_vtk_polylines(path):
+    """(points, lines) of a legacy-VTK POLYDATA file (the streamLine
+    writer's): the POINTS block as [n, 3] and each LINES entry's ids."""
+    with open(path) as fh:
+        tokens = fh.read().split()
+    need(tokens[tokens.index("DATASET") + 1] == "POLYDATA", f"{path} is not POLYDATA")
+    i = tokens.index("POINTS")
+    n = int(tokens[i + 1])
+    pts = np.array(tokens[i + 3:i + 3 + 3 * n], dtype=float).reshape(n, 3)
+    j = tokens.index("LINES")
+    n_lines, k, lines = int(tokens[j + 1]), j + 3, []
+    for _ in range(n_lines):
+        cnt = int(tokens[k])
+        lines.append([int(x) for x in tokens[k + 1:k + 1 + cnt]])
+        k += 1 + cnt
+    return pts, lines
+
+
+def phase_flow_tutorial(torch, dev, tmp, rehearse, gpu_line, shear):
+    """Phase 10b: the tutorial's Allrun (tutorials/.../pitzDaily/Allrun)
+    through the port's CLI in subprocesses, float32, in a copy of the
+    repo's pitzDaily: blockmesh, dict deltaT 1.0, simple (500 iterations,
+    stopped by residualControl), dict deltaT 0.1, uncoupled at the
+    tutorial's settings; the rehearsal runs simple --iters 5 on the CPU and
+    the tracker at 2,000 particles, deltaT 0.01.  ``shear``: phase 8b's
+    numbers, for Advect on the shear field beside the solved one.  Returns
+    (case dir, written time)."""
+    import shutil
+
+    from cudaparticlesfoam_tpu_torch.io import foamfile, polymesh
+
+    case = os.path.join(tmp, "pitzDaily")
+    shutil.copytree(PITZ, case)
+    if rehearse:
+        path = os.path.join(case, "system", "cudaParticlesDict")
+        d = foamfile.read(path)
+        d.pop("FoamFile", None)
+        d["numParticles"] = 2_000
+        foamfile.write(path, d, obj_name="cudaParticlesDict")
+    dev_args = ["--device", "cpu"] if rehearse else []
+    iters = 5 if rehearse else SIMPLE_ITERS_CAP
+    control = os.path.join(case, "system", "controlDict")
+    steps = [("blockmesh", ["blockmesh", case]),
+             ("dict", ["dict", control, "-entry", "deltaT", "-set", "1.0"]),
+             ("simple", ["simple", case] + dev_args + (["--iters", str(iters)] if iters else []))]
+    out = {}
+    for name, args in steps:
+        res, secs = cli(args)
+        need(res.returncode == 0, f"Allrun step {name} failed: {res.stderr[-3000:]}")
+        out[name] = (res.stdout, secs)
+    text, simple_s = out["simple"]
+    conv = re.search(r"SIMPLE converged in (\d+) iterations \(initial residual ([\d.e+-]+)\)",
+                     text)
+    flow = re.search(r"#flow: SIMPLE (\d+) iterations: ([\d.]+) ms/iteration on the "
+                     r"(?:device, ([\d.]+) ms/iteration on the host|CPU).*?min/mean/max "
+                     r"(\d+)/([\d.]+)/(\d+)(?:; on (.*), peak device memory ([\d.]+) GiB)?", text)
+    need(flow is not None, "simple printed no #flow line")
+    n_iter = int(flow.group(1))
+    times = sorted(float(d) for d in os.listdir(case)
+                   if re.fullmatch(r"[\d.]+", d) and float(d) > 0
+                   and os.path.exists(os.path.join(case, d, "U")))
+    need(len(times) == 1, f"simple wrote the times {times}")
+    t_write = f"{times[0]:g}"
+    pm = polymesh.read_polymesh(os.path.join(case, "constant", "polyMesh"))
+    u = polymesh.read_field(os.path.join(case, t_write, "U"), n_cells=pm.n_cells)
+    p = polymesh.read_field(os.path.join(case, t_write, "p"), n_cells=pm.n_cells)
+    phi = polymesh.read_surface_field(os.path.join(case, t_write, "phi"),
+                                      [pt[0] for pt in pm.patches])
+    umax = float(np.linalg.norm(u, axis=1).max())
+    finite = bool(np.isfinite(u).all() and np.isfinite(p).all()
+                  and (phi is None or np.isfinite(phi).all()))
+    tracks = os.path.join(case, "postProcessing", "streamlines", t_write, "tracks.vtk")
+    need(os.path.exists(tracks), f"no streamline file {tracks}")
+    pts, lines = read_vtk_polylines(tracks)
+    phases = {m_.group(1): [float(x) for x in m_.group(2).split("\t") if x]
+              for m_ in re.finditer(r"^\t(Mesh|SIMPLE|IO|Streamlines)\t([\d.\t]+)$", text, re.M)}
+    simple_line = (
+        f"[flow-allrun] {gpu_line} | pitzDaily Allrun via the CLI, simple: "
+        f"iterations={n_iter} converged={int(conv is not None)}"
+        f"{f' (initial residual {conv.group(2)})' if conv else ''} iters_cap="
+        f"{iters if iters else 'none'} ms_per_iteration={flow.group(2)} "
+        f"host_ms_per_iteration={flow.group(3) or flow.group(2)} cg_per_solve_min_mean_max="
+        f"{flow.group(4)}/{flow.group(5)}/{flow.group(6)} peak_device_GiB={flow.group(8)} "
+        f"phases_s={ {k: v[0] for k, v in phases.items()} } simple_command_s={simple_s:.1f} "
+        f"written_time={t_write} max_U={umax:.3f} finite={int(finite)} "
+        f"U_p_phi_read={int(phi is not None)} streamlines={len(lines)} "
+        f"streamline_points={len(pts)}")
+    log(simple_line)
+    need(finite and umax < 50.0, f"simple's field: finite={finite}, max |U| {umax}")
+    need(282.0 <= times[0] <= 382.0, f"simple wrote at {t_write}, outside [282, 382]")
+    need(phi is not None and len(phi) == pm.n_faces, "phi does not read back")
+    need(len(lines) == 10 and all(len(ln) > 1 for ln in lines) and np.isfinite(pts).all(),
+         "the streamline file does not parse")
+    res, _ = cli(["dict", control, "-entry", "deltaT", "-set", "0.01" if rehearse else "0.1"])
+    need(res.returncode == 0, f"Allrun step dict failed: {res.stderr[-3000:]}")
+    _, tut = tutorial_cli_run(
+        torch, dev, case, os.path.join(tmp, "frames"), rehearse, gpu_line, "flow-allrun",
+        f"pitzDaily Allrun via the CLI, uncoupled on the solved U at {t_write}",
+        extra=lambda info: (f" mean_x_first_last={info['mean_x'][0]:.6f},"
+                            f"{info['mean_x'][1]:.6f} advect_ms_per_cycle_shear_field_8b="
+                            f"{shear['adv_ms']:.4f}"))
+    need(tut["mean_x"][1] > tut["mean_x"][0], f"the particles did not move downstream "
+         f"(mean x {tut['mean_x']})")
+    return case, t_write
+
+
+def profile_part(torch, dev, fn):
+    """(kernels, launch calls, kernel busy ms) of one call of ``fn`` under
+    torch.profiler; on the CPU (no CUDA activity) (None, None, None)."""
+    if dev.type != "cuda":
+        return None, None, None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    calls = [e for e in events if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                             "cuLaunchKernel", "cuLaunchKernelEx")]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return len(kernels), len(calls), busy
+
+
+def unmeasured(x, fmt="%s"):
+    return "not measured (CPU)" if x is None else fmt % x
+
+
+def measure_part(torch, dev, fn, reps=3):
+    """Median device ms (CUDA events; on the CPU the host clock after the
+    call), median host ms to issue (no synchronisation after the call), and
+    the profiler's kernels, launch calls and kernel busy ms of one call."""
+    fn()
+    timer, dev_ms, host_ms = Timer(torch, dev), [], []
+    for _ in range(reps):
+        timer.start()
+        h0 = time.perf_counter()
+        fn()
+        host_ms.append((time.perf_counter() - h0) * 1e3)
+        dev_ms.append(timer.stop())
+    kernels, calls, busy = profile_part(torch, dev, fn)
+    return {"ms": float(np.median(dev_ms)), "host_ms": float(np.median(host_ms)),
+            "kernels": kernels, "launch_calls": calls, "busy_ms": busy}
+
+
+def phase_flow_split(torch, dev, case, t_write, gpu_line, warm):
+    """Phase 10c: one SIMPLE iteration on pitzDaily, float32, split into its
+    stages, at 10b's state (U and p as written at ``t_write``, the closure
+    from 0/, then ``warm`` iterations in process): each part's device ms,
+    the host's ms to issue it, its kernels and launch calls
+    (torch.profiler) and the kernels' busy ms; the pressure solve as its CG
+    iterations x one, and one V-cycle alone.  Calls the package's stage
+    functions in simple_iteration's order; changes nothing in it."""
+    from cudaparticlesfoam_tpu_torch.models import fv, simple, turbulence
+
+    common = flow_common(torch)
+    m, st, ub, pb, nu, pin, _ = simple.load_flow_case(case, dtype=torch.float32, time_dir=t_write,
+                                                      device=dev)
+    num = simple.read_numerics(case)
+    cfg = simple.SimpleConfig(nu=nu, pin_pressure=pin, div_scheme=num["div_scheme"],
+                              n_nonortho=num["n_nonortho"], p_solver="amg")
+    amg = fv.build_amg(m)
+    model = simple.turbulence_model(case)
+    cl = (model,) + tuple(turbulence.init_model(model, case, m))
+    st, cl, _ = common.simple_steps(simple, turbulence, m, st, ub, pb, cfg, amg, cl, warm)
+    _, kes, ba, bb, wi = cl
+
+    nut_bd = turbulence.wall_nut_bd(m, wi, kes.nut, kes.k, cfg.nu)
+    mo = simple.momentum_predictor(m, st, ub, pb, cfg, nut=kes.nut, nut_bd=nut_bd)
+    rau, hbya, phi_hbya, rau_f, Ap, rhs = simple.pressure_system(m, mo, pb, cfg)
+    p_new, corr, _, its = simple.pressure_solve(m, Ap, rhs, st.p, rau_f, pb, cfg, amg)
+    levels = fv.amg_coarse_ops(m, amg, Ap)
+    new, _ = simple.correct(m, st, rau, hbya, phi_hbya, rau_f, p_new, corr, pb, cfg)
+    parts = {
+        "momentum (wall nut, assembly, Jacobi, residuals)": lambda: (
+            turbulence.wall_nut_bd(m, wi, kes.nut, kes.k, cfg.nu),
+            simple.momentum_predictor(m, st, ub, pb, cfg, nut=kes.nut, nut_bd=nut_bd)),
+        "pressure system (HbyA, flux, Laplacian)": lambda: simple.pressure_system(m, mo, pb,
+                                                                                  cfg),
+        "pressure solve (AMG-CG)": lambda: simple.pressure_solve(m, Ap, rhs, st.p, rau_f, pb,
+                                                                 cfg, amg),
+        "corrections": lambda: simple.correct(m, st, rau, hbya, phi_hbya, rau_f, p_new, corr,
+                                              pb, cfg),
+        f"{model} step": lambda: turbulence.model_step(model, m, kes, new.u, ub, new.flux, ba,
+                                                       bb, wi, cfg.nu),
+    }
+    def whole():
+        return common.simple_steps(simple, turbulence, m, st, ub, pb, cfg, amg, cl, 1)
+
+    extra = {
+        "coarse operators (in the solve, once)": lambda: fv.amg_coarse_ops(m, amg, Ap),
+        "one V-cycle": lambda: fv.amg_vcycle(m, amg, Ap, levels, rhs),
+        "whole iteration, again": whole,
+    }
+    out = {}
+    # the whole iteration first, before any profiler session, and again last
+    for name, fn in [("whole iteration", whole)] + list(parts.items()) + list(extra.items()):
+        r = measure_part(torch, dev, fn)
+        out[name] = r
+        per = (f" cg_iterations={its} ms_per_cg_iteration={r['ms'] / max(its, 1):.4f}"
+               if name.startswith("pressure solve") else "")
+        log(f"[flow-split] {gpu_line} | pitzDaily at t={t_write}, {m.n_cells} cells, float32, "
+            f"{name}: ms={r['ms']:.4f} host_issue_ms={r['host_ms']:.4f} "
+            f"kernels={unmeasured(r['kernels'])} launch_calls={unmeasured(r['launch_calls'])} "
+            f"kernel_busy_ms={unmeasured(r['busy_ms'], '%.4f')}{per}")
+    first, again = out["whole iteration"], out["whole iteration, again"]
+    sum_ms = sum(out[k]["ms"] for k in parts)
+    idle = (1.0 - first["busy_ms"] / first["ms"]) if first["busy_ms"] is not None else None
+    log(f"[flow-split] {gpu_line} | one SIMPLE iteration: parts_sum_ms={sum_ms:.4f} "
+        f"whole_ms={first['ms']:.4f} whole_again_ms={again['ms']:.4f} "
+        f"kernels_per_iteration={first['kernels']} "
+        f"device_idle_share={'%.3f' % idle if idle is not None else 'not measured'} "
+        f"cg_iterations={its}")
+    need(its > 0 and all(np.isfinite(r["ms"]) for r in out.values()), "the split did not run")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -2841,7 +3239,7 @@ def main():
         dev = torch.device("cpu")
         sizes = dict(parity=(6, 3072), stats=20_000, slice=(12, 8_000, 8), simple=3,
                      admit=(1, 3, 4, 15, 16, 17, 8155, 8192, 20_000), driver_warm=20, rk4=8,
-                     rk4_parity=1024)
+                     rk4_parity=1024, flow_warm=1)
         gpu_line = "cpu rehearsal"
         kind = "cpu"
     else:
@@ -2851,7 +3249,7 @@ def main():
         dev = torch.device("cuda", 0)
         sizes = dict(parity=(16, 65_536), stats=1_000_000, slice=(55, 1_000_000, 200), simple=5,
                      admit=(1, 3, 4, 15, 16, 17, 65_499, 65_536, 1_000_000, 4_000_001),
-                     driver_warm=100, rk4=100, rk4_parity=65_536)
+                     driver_warm=100, rk4=100, rk4_parity=65_536, flow_warm=5)
         kind = torch.cuda.get_device_name(0)
         gpu_line = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2921,10 +3319,16 @@ def main():
     # phase 8, the uncoupled driver (before phase 6, whose bounds take 8c's rows)
     with tempfile.TemporaryDirectory(prefix="cpf_driver_") as tmp:
         phase_driver_anchor(torch, fused, fused_cuda, dev, os.path.join(tmp, "anchor"), gpu_line)
-        case_dir, tut_launches = phase_driver_tutorial(
+        case_dir, tut_launches, tut = phase_driver_tutorial(
             torch, dev, os.path.join(tmp, "tutorial"), args.rehearse, gpu_line)
         times.update(phase_driver_cycle(torch, cpt, fused, fused_cuda, dev, case_dir,
                                         sizes["driver_warm"], errs, counts, rares, gpu_line))
+    # phase 10, the steady-flow solver and the tutorial's Allrun on its field
+    with tempfile.TemporaryDirectory(prefix="cpf_flow_") as tmp:
+        phase_flow_parity(torch, dev, os.path.join(tmp, "parity"), args.rehearse, gpu_line)
+        flow_case, t_write = phase_flow_tutorial(torch, dev, os.path.join(tmp, "allrun"),
+                                                 args.rehearse, gpu_line, tut)
+        phase_flow_split(torch, dev, flow_case, t_write, gpu_line, sizes["flow_warm"])
 
     # launches per sub-step of each kernel on its own path (3 timed runs)
     steps = 3 * sizes["slice"][2]

@@ -5,12 +5,13 @@ Replaces the reference's OpenFOAM executables and Allrun scripts:
 
     python -m cudaparticlesfoam_tpu_torch uncoupled <case>   # cudaParticlesUncoupledFoam
     python -m cudaparticlesfoam_tpu_torch blockmesh <case>   # blockMesh
+    python -m cudaparticlesfoam_tpu_torch simple <case>      # steady flow (simpleFoam)
     python -m cudaparticlesfoam_tpu_torch dict <file> -entry <key> [-set <value>]
 
-``uncoupled`` runs on the card unless ``--device cpu`` asks for the CPU
-(the kernels' plain versions); ``--f64`` runs in float64.  The JAX CLI's
-``replay``, ``coupled`` and ``simple`` are not ported yet (ROADMAP.md
-queue 1 items 11 and 12).
+``uncoupled`` and ``simple`` run on the card unless ``--device cpu`` asks
+for the CPU (the kernels' plain versions, torch ops on the CPU); ``--f64``
+runs in float64.  The JAX CLI's ``replay`` and ``coupled`` are not ported
+yet (ROADMAP.md queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -24,19 +25,27 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="cudaparticlesfoam_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("uncoupled", help="frozen-field particle tracking")
-    p.add_argument("case", help="OpenFOAM-style case directory")
-    p.add_argument("--out", default=None, help="output directory")
-    p.add_argument("--no-write", action="store_true", help="skip VTU output")
-    p.add_argument("--f64", action="store_true", help="run in float64 (parity mode)")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; 'cpu' runs the plain versions)")
+    def add_case_cmd(name, help_):
+        p = sub.add_parser(name, help=help_)
+        p.add_argument("case", help="OpenFOAM-style case directory")
+        p.add_argument("--out", default=None, help="output directory")
+        p.add_argument("--no-write", action="store_true", help="skip VTU output")
+        p.add_argument("--f64", action="store_true", help="run in float64 (parity mode)")
+        p.add_argument("--device", default="cuda",
+                       help="torch device (default cuda; 'cpu' runs the plain versions)")
+        return p
+
+    p = add_case_cmd("uncoupled", "frozen-field particle tracking")
     p.add_argument("--profile", default=None, help="write a torch.profiler trace here")
     p.add_argument("--devices", type=int, default=None,
                    help="particle devices; more than one is not ported yet")
     p.add_argument("--strategy", default="auto",
                    choices=("auto", "single", "dp", "partitioned"),
                    help="multi-device strategy; only auto/single are ported")
+
+    # --out and --no-write are accepted and unused, as in the JAX CLI
+    p = add_case_cmd("simple", "steady incompressible flow (SIMPLE)")
+    p.add_argument("--iters", type=int, default=None)
 
     p = sub.add_parser("blockmesh", help="generate constant/polyMesh from blockMeshDict")
     p.add_argument("case")
@@ -76,13 +85,20 @@ def main(argv=None):
         print(f"wrote {pm.n_cells} cells to {out}")
         return 0
 
+    dtype = "float64" if args.f64 else None
+    if args.cmd == "simple":
+        from .models import simple
+
+        simple.run(args.case, n_iters=args.iters, dtype=dtype, device=args.device)
+        return 0
+
     from .models import uncoupled
 
     uncoupled.run(
         args.case,
         out_dir=args.out,
         write_output=not args.no_write,
-        dtype="float64" if args.f64 else None,
+        dtype=dtype,
         profile_dir=args.profile,
         devices=args.devices,
         strategy=args.strategy,

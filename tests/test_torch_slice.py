@@ -142,7 +142,8 @@ def test_chip_smoke_rehearsal_runs_every_phase():
     the table of the fourteen kernel entries (the eight of the north-star
     slice's paths, the two of the uncoupled driver's, phase 8, and the four
     of the rk4-tracers cell, phase 9) with every key the table carries, and
-    no ``ok`` line."""
+    no ``ok`` line; phase 10 (the steady-flow solver, no kernel of its own)
+    prints its parity, Allrun and split lines."""
     import json
     import subprocess
     import sys
@@ -197,7 +198,8 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                 "[golden]", "[slice]", "[convex-slice]", "[macro-slice]", "[compact-slice]",
                 "[convex-compact-slice]", "[pk-parity]", "[pk-slice]", "[simple]", "[bound]",
                 "[driver-anchor]", "[driver-tutorial]", "[driver-cycle]", "[rk4-parity]",
-                "[rk4-simple]", "[duct]", "[rk4-slice]"):
+                "[rk4-simple]", "[duct]", "[rk4-slice]", "[flow-parity]", "[flow-allrun]",
+                "[flow-split]"):
         assert any(line.startswith(tag) for line in lines), tag
     # phase 9: RK4 kernel = plain in every case, the oracles, the cell
     rk4 = [line for line in lines if line.startswith("[rk4-parity]")]
@@ -216,3 +218,16 @@ def test_chip_smoke_rehearsal_runs_every_phase():
     assert any("stream_identical=1" in line and "cycle_identical=1" in line
                for line in lines if line.startswith("[driver-cycle]"))
     assert any("| stream_tutorial lanes=" in line for line in lines if line.startswith("[bound]"))
+    # phase 10: SIMPLE card = CPU (here both the CPU), the Allrun chain on the
+    # solved field, one SIMPLE iteration split into its stages
+    parity = [line for line in lines if line.startswith("[flow-parity]")]
+    assert len(parity) == 6 and sum("finite=1 checked s=" in line for line in parity) == 5
+    assert all("max_rel_err=0.000e+00" in line and "second_card_run_identical=1" in line
+               for line in parity)
+    allrun = [line for line in lines if line.startswith("[flow-allrun]")]
+    assert len(allrun) == 2 and "iterations=5 " in allrun[0] and "iters_cap=5 " in allrun[0]
+    assert "written_time=282 " in allrun[0] and "streamlines=10 " in allrun[0]
+    assert "frames=11 " in allrun[1] and "out_of_domain=0 " in allrun[1]
+    assert "mean_x_first_last=" in allrun[1]
+    split = [line for line in lines if line.startswith("[flow-split]")]
+    assert len(split) == 10 and "whole_ms=" in split[-1] and "cg_iterations=" in split[-1]
