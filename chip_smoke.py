@@ -206,6 +206,46 @@ Phases, one line of numbers each, any failure exits non-zero:
    The rehearsal runs 10a without pitzDaily, 10b with simple --iters 5
    and the tracker at 2,000 particles, deltaT 0.01, and 10c after one
    warm iteration.
+11. (runs after phase 10, before phase 6, whose bounds and latency lines
+   take 11c's rows) the coupled solver (models/{pimple,coupled,mrf,
+   fvoptions,dynamicmesh,motionsolver}.py: torch ops, no kernel) and the
+   TJunction through the kernels on a field that changes every step:
+   11a. PIMPLE (FlowSolver.from_case + advance) on the card against the
+        port on the CPU, float64, the card run twice: the shrunk TJunction
+        of tests/test_coupled_e2e.py (kEpsilon, AMG-CG, the p0 ramps, 5
+        steps at its adjustable dt), tests/test_mrf.py's spun box (one
+        step) and tests/test_fvoptions.py's meanVelocityForce channel (5
+        steps, grad_p too): fields within 1e-9, AMG-CG counts equal;
+   11b. the dynamic mesh: refresh_geometry on the card = on the CPU = a
+        rebuild from the moved points (float64, 1e-12, every row table) on
+        a 16^3 cube moved by a solidBody rotation and by a velocityLaplacian
+        step; stream_kernel and rare_kernel on the rotated float32 mesh
+        against their plain versions at 65,536 and 65,499 lanes (phase 3's
+        tolerances); tests/test_dynamicmesh.py's oscillating box through
+        run_coupled, card against CPU, float64, the same replayed noise;
+   11c. tutorials/.../TJunction/Allrun (blockmesh -> coupled) through the
+        CLI in subprocesses at the tutorial's width (248,000 cells, 2.98M
+        tets, 4e6 particles, dt 1e-4, float32, kEpsilon, probes,
+        scalarTransport, the p0 ramps) with three cuts: --steps 3, the
+        particle window opened at 0, saveInterval 20; per Eulerian step
+        dt_e, cycles, flow ms (device, host), CG iterations per corrector,
+        continuity, the velocity refresh's ms, Advect ms/cycle (device,
+        issue), the frames' s; the init, launches (one stream and one rare
+        a cycle), peak memory, every active lane in the domain, the phase
+        within 240 s; then in process the state after step 1 and one
+        cycle through stream_kernel and rare_kernel against their plain
+        versions, with each kernel's time for phase 6; after 11d, steps 2
+        and 3 in process with their Advect traced: each chunk of cycles'
+        device and issue ms, and the device's kernels of each interval by
+        name (torch.profiler), copies included;
+   11d. one PIMPLE step on the TJunction at that state split into its
+        stages (momentum predictor; each corrector's pressure system,
+        pressure solve and correction; kEpsilon; Courant), as 10c splits
+        a SIMPLE iteration; the whole step timed 5 times in each of two
+        runs, its spread and the idle share at the fastest, median and
+        slowest sample.
+   The rehearsal runs 11a as is, 11b on a 6^3 cube at 3,072 lanes and 11c
+   on the shrunk TJunction with 2,000 particles on the CPU.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -1939,7 +1979,7 @@ def copy_ms(torch, dev, timer, nbytes, reps=20):
 
 # bound by a launch's latency, not by bytes
 SMALL = ("hop_admit", "rare", "convex_rare", "rare_pk", "rare_tutorial", "rare_rk4",
-         "rare_pk_rk4")
+         "rare_pk_rk4", "rare_tjunction")
 
 
 def phase_bounds(torch, traffic, dev, counts, times, per_cycle, floor, gpu_line):
@@ -3138,7 +3178,7 @@ def measure_part(torch, dev, fn, reps=3):
         dev_ms.append(timer.stop())
     kernels, calls, busy = profile_part(torch, dev, fn)
     return {"ms": float(np.median(dev_ms)), "host_ms": float(np.median(host_ms)),
-            "kernels": kernels, "launch_calls": calls, "busy_ms": busy}
+            "kernels": kernels, "launch_calls": calls, "busy_ms": busy, "samples_ms": dev_ms}
 
 
 def phase_flow_split(torch, dev, case, t_write, gpu_line, warm):
@@ -3212,6 +3252,598 @@ def phase_flow_split(torch, dev, case, t_write, gpu_line, warm):
     need(its > 0 and all(np.isfinite(r["ms"]) for r in out.values()), "the split did not run")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 11: the coupled solver (models/{pimple,coupled,mrf,fvoptions,
+# dynamicmesh,motionsolver}.py: torch ops, no kernel) and the TJunction
+# through the kernels on a field that changes every step
+# ---------------------------------------------------------------------------
+
+# the phases whose kernel-against-plain comparisons feed each entry's max_abs_err
+ERR_PHASES = {
+    "stream": "3, 3c, 3d, 5, 5c, 11b", "rare": "3, 5, 11b",
+    "convex_stream": "3b, 3c, 3d, 5b, 5c",
+    "convex_rare": "3b, 5b", "hop_admit": "3d, 5c", "macro": "3e, 5c", "stream_pk": "3f, 5d",
+    "rare_pk": "3f, 5d", "stream_tutorial": "8c", "rare_tutorial": "8c",
+    "stream_rk4": "9d", "rare_rk4": "9d", "stream_pk_rk4": "9d", "rare_pk_rk4": "9d",
+    "stream_tjunction": "11c", "rare_tjunction": "11c"}
+TJUNC = os.path.join(HERE, "tutorials", "incompressible", "cudaParticlesPimpleFoam", "TJunction")
+TJUNC_PATH = "coupled driver (TJunction, 248,000 cells, 4e6 particles, 3 Eulerian steps)"
+PIMPLE_TOL = 1e-9         # float64 card against CPU, relative to each field's largest magnitude
+PIMPLE_STEPS = 5
+TJ_STEPS = 3              # cut (i): JAX's own reference-scale check ran 3 steps
+TJ_SAVE_INTERVAL = 20     # cut (iii): at most 3 frames of 4e6 particles
+TJ_BOUND_S = 240          # 11c's wall time on the card
+WHOLE_REPS = 5            # 11d: timed samples of a whole PIMPLE step in each of its two runs
+WARM_FILLS = 64           # 11c's Advect trace: device events for the profiler to drop
+
+
+def pimple_fields(flow):
+    out = {k: getattr(flow.state, k) for k in ("u", "p", "flux")}
+    if flow.kes is not None:
+        out.update({k: getattr(flow.kes, k) for k in ("k", "eps", "omega")
+                    if hasattr(flow.kes, k)})
+    if flow.fvo is not None and flow.fvo.has_mvf:
+        out["grad_p"] = flow.fvo.grad_p
+    return out
+
+
+def phase_pimple_parity(torch, dev, tmp, gpu_line):
+    """Phase 11a: the PIMPLE solver (FlowSolver.from_case + advance) on the
+    card against the port on the CPU, float64, three cases: the shrunk
+    TJunction (kEpsilon, AMG-CG, the p0 ramps, PIMPLE_STEPS steps at the
+    case's adjustable dt), tests/test_mrf.py's spun box (MRF, one step) and
+    tests/test_fvoptions.py's meanVelocityForce channel (PIMPLE_STEPS
+    steps, grad_p compared too); the fields within PIMPLE_TOL of each
+    field's largest magnitude, the AMG-CG counts equal, the card run twice
+    (bit for bit or not is printed: index_add_ sums with atomics)."""
+    from cudaparticlesfoam_tpu_torch.config import ControlConfig
+    from cudaparticlesfoam_tpu_torch.io import polymesh
+    from cudaparticlesfoam_tpu_torch.models import pimple
+
+    common = flow_common(torch)
+    cpu = torch.device("cpu")
+    tj = common.shrink_tjunction(os.path.join(tmp, "tj"))
+    common.write_polymesh_of(tj)
+    cases = (("TJunction-kEpsilon", tj, None, PIMPLE_STEPS),
+             ("MRF-box", common.make_mrf_case(os.path.join(tmp, "mrf")), 0.01, 1),
+             ("meanVelocityForce-channel", common.make_mvf_channel_case(os.path.join(tmp, "mvf")),
+              0.02, PIMPLE_STEPS))
+    for name, case, dt, n_steps in cases:
+        t0 = time.perf_counter()
+        pm_of = lambda: polymesh.read_polymesh(os.path.join(case, "constant", "polyMesh"))  # noqa
+        quiet = lambda *a: None  # noqa: E731
+        solvers = [pimple.FlowSolver.from_case(common.FakeCase(case, pm_of()), log=quiet,
+                                               dtype=torch.float64, device=d)
+                   for d in (cpu, dev, dev)]
+        ctrl = ControlConfig.from_case(case)
+        its = [[], [], []]
+        dts = []
+        for _ in range(n_steps):
+            dt_e = dt if dt is not None else solvers[0].stable_dt(ctrl)
+            dts.append(dt_e)
+            for i, s in enumerate(solvers):
+                its[i] += s.advance(dt_e)["p_iters"]
+        want = pimple_fields(solvers[0])
+        got, again = pimple_fields(solvers[1]), pimple_fields(solvers[2])
+        errs = {k: float((v.cpu() - want[k]).abs().max()) / max(float(want[k].abs().max()),
+                                                               1e-300)
+                for k, v in got.items()}
+        identical = all(bool(torch.equal(v, again[k])) for k, v in got.items())
+        finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+        worst = max(errs.values())
+        log(f"[pimple-parity] {gpu_line} | {name}: {solvers[0].m.n_cells} cells, "
+            f"{solvers[0].cfg.p_solver} {solvers[0].cfg.div_scheme} {solvers[0].turb_model} "
+            f"mrf={int(solvers[0].mrf is not None)} fvOptions={int(solvers[0].fvo is not None)}, "
+            f"float64, {n_steps} steps dt={[f'{x:.4g}' for x in dts]}: max_rel_err={worst:.3e} "
+            f"by field { {k: f'{v:.2e}' for k, v in errs.items()} } cg_card={its[1]} "
+            f"cg_cpu={its[0]} cg_equal={int(its[1] == its[0])} second_card_run_identical="
+            f"{int(identical)} finite={int(finite)} s={time.perf_counter() - t0:.1f}")
+        need(finite and worst <= PIMPLE_TOL, f"pimple parity {name}: card against CPU {worst:.3e}")
+        need(its[1] == its[0], f"pimple parity {name}: AMG-CG counts {its[1]} against {its[0]}")
+        if name.startswith("meanVelocity"):
+            need(float(want["grad_p"]) != 0.0, "the meanVelocityForce controller did not act")
+
+
+def tet_payload_of(case, dtype):
+    """(host payload, tet -> cell) of a case's polyMesh, and the PolyMesh."""
+    from cudaparticlesfoam_tpu_torch.io import polymesh
+
+    pm = polymesh.read_polymesh(os.path.join(case, "constant", "polyMesh"))
+    host, tet_cell = polymesh.mesh_host_from_polymesh(pm, u_cells=None, dtype=dtype)
+    return host, tet_cell, pm
+
+
+def phase_dynamic_mesh(torch, cpt, fused, fused_cuda, tmesh, dev, tmp, nside, n, errs,
+                       gpu_line):
+    """Phase 11b: refresh_geometry on the card = on the CPU = a rebuild from
+    the moved points (float64, within 1e-12; every row table: tet_row,
+    tet_row_pk32, tet_row_cx, tet_row_cxe), on an nside^3 cube moved by a
+    solidBody rotation and by a velocityLaplacian step; then stream_kernel
+    and rare_kernel on the rotated float32 mesh against their plain
+    versions at n and n - RAGGED lanes (phase 3's tolerances); then
+    tests/test_dynamicmesh.py's oscillating box through run_coupled on the
+    card against the CPU, float64, the same replayed noise."""
+    import copy
+
+    from cudaparticlesfoam_tpu_torch.models import coupled
+    from cudaparticlesfoam_tpu_torch.models import dynamicmesh as dyn
+
+    common = flow_common(torch)
+    cpu = torch.device("cpu")
+    case = common.refresh_box_case(tmp, nside)
+    host, tet_cell, pm = tet_payload_of(case, np.float64)
+    motions = (("rotatingMotion", dyn.SolidBodyMotion(kind="rotatingMotion", omega=0.5,
+                                                      origin=(0.5, 0.5, 0.5)), 0.3, 0.3),
+               ("velocityLaplacian", dyn.read_dynamic_mesh(case), 0.05, 0.05))
+    keys = ("points", "tet_a", "tet_tinv", "tet_face_n", "tet_face_d", "tet_row", "tet_row_pk32",
+            "tet_row_cx", "tet_row_cxe", "bounds_lo", "bounds_hi")
+    verts_rot = None
+    for name, motion, t, dt in motions:
+        dm = dyn.DynamicMesh(motion, copy.deepcopy(pm), dtype=torch.float64, device=cpu)
+        m_new, _, _ = dm.update(t, dt)
+        verts = dm.tet_vertices(m_new)
+        verts_rot = verts if verts_rot is None else verts_rot
+        meshes = [cpt.with_pk_rows(cpt.with_convex_rows(tmesh.host_to_device(host, d)))
+                  for d in (cpu, dev)]
+        moved = [tmesh.refresh_geometry(mm, verts) for mm in meshes]
+        rebuilt = cpt.with_pk_rows(cpt.with_convex_rows(tmesh.host_to_device(
+            tmesh.from_arrays_host(verts, host["tets"], tet_vel=host["tet_vel"],
+                                   vert_vel=host["vert_vel"], dtype=np.float64), cpu)))
+        card_cpu = max(float((getattr(moved[1], k).cpu() - getattr(moved[0], k)).abs().max())
+                       for k in keys)
+        cpu_rebuild = max(float((getattr(moved[0], k) - getattr(rebuilt, k)).abs().max())
+                          for k in keys)
+        same_topology = bool(torch.equal(moved[1].tet_nbr.cpu(), rebuilt.tet_nbr))
+        log(f"[dyn-refresh] {gpu_line} | {name} on a {nside}^3 cube ({host['n_tets']} tets, "
+            f"float64): card_vs_cpu_max_abs={card_cpu:.3e} cpu_vs_rebuild_max_abs="
+            f"{cpu_rebuild:.3e} topology_unchanged={int(same_topology)} "
+            f"max_point_shift={float(np.abs(verts - host['points']).max()):.4f}")
+        need(card_cpu <= 1e-12 and cpu_rebuild <= 1e-12 and same_topology,
+             f"refresh_geometry ({name}) differs from the CPU or from a rebuild")
+
+    # the kernels on the refreshed (rotated) float32 mesh
+    host32, _, _ = tet_payload_of(case, np.float32)
+    mesh = tmesh.refresh_geometry(tmesh.host_to_device(host32, dev), verts_rot)
+    # a solid-body swirl about the rotated cube's axis, at the tet centroids
+    cen = mesh.points[mesh.tets.long()].mean(dim=1)
+    axis = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=dev).expand_as(cen)
+    mesh = cpt.replace_velocity(mesh, tet_vel=2.0 * torch.linalg.cross(axis, cen - 0.5))
+    # seeds inside the cube, rotated with it (none falls outside the mesh)
+    rng = np.random.default_rng(11)
+    rot, t_rot = motions[0][1], motions[0][2]
+    pos = torch.as_tensor(rot.transform(rng.uniform(0.02, 0.98, (n, 3)), t_rot),
+                          dtype=torch.float32, device=dev)
+    tet = cpt.locate_seeds(mesh, cpt.build_grid_locator(mesh), pos)
+    need(bool((tet >= 0).all()), "a seed in the rotated cube was not located")
+    n_in = n
+    vel = torch.as_tensor(rng.normal(size=(n_in, 3)), dtype=torch.float32, device=dev)
+    act = torch.ones(n_in, dtype=torch.bool, device=dev)
+    xi = torch.as_tensor(rng.standard_normal((n_in, 3)), dtype=torch.float32, device=dev)
+    cfg = cpt.StepConfig(dt=0.02, diffusion_coeff=5e-3, inline_hops=1)
+    sa, ra = stream_args(cfg, cfg.dt, torch.float32, fused), rare_args(cfg)
+    for nn in (n, n - RAGGED):
+        m0 = fused.pack_state(mesh, pos[:nn], vel[:nn], tet[:nn], act[:nn])
+        mk, mp = m0.clone(), m0.clone()
+        pk = torch.empty(nn, dtype=torch.uint8, device=dev)
+        pp = torch.empty_like(pk)
+        fused_cuda.stream_cycle(mesh.tet_row, mk, xi[:nn], pk, **sa)
+        fused.stream_plain(mesh.tet_row, mp, xi[:nn], pp, **sa)
+        same_s, err_s = compare(torch, mk, mp, pk, pp)
+        fused_cuda.rare_resolve(mesh.tet_row, mk, pk, mesh.bd_escape, **ra)
+        fused.rare_plain(mesh.tet_row, mp, pp, mesh.bd_escape, **ra)
+        same_r, err_r = compare(torch, mk, mp)
+        same_r = same_r and bitwise_equal(torch, mk, mp)
+        log(f"[dyn-kernels] {gpu_line} | refreshed (rotated) {nside}^3 cube, float32, lanes={nn} "
+            f"pending={int(pp.sum())} stream_identical={int(same_s)} stream_max_abs_err="
+            f"{err_s:.3e} rare_identical={int(same_r)} rare_max_abs_err={err_r:.3e}")
+        need(int(pp.sum()) > 0, "the refreshed-mesh case has no pending lanes")
+        need(same_s and err_s <= POS_TOL_F32, f"stream_kernel != stream_plain on the refreshed "
+             f"mesh (lanes={nn})")
+        need(same_r and err_r <= POS_TOL_F32, f"rare_kernel != rare_plain on the refreshed mesh "
+             f"(lanes={nn})")
+        errs["stream"] = max(errs["stream"], err_s)
+        errs["rare"] = max(errs["rare"], err_r)
+
+    # the oscillating box through the kernels, card against CPU
+    box = common.make_oscillating_case(os.path.join(tmp, "osc"), n_particles=2000)
+    noise = np.random.default_rng(12).standard_normal((64, 2000, 3))
+    draw = fused._brownian_noise
+    runs = {}
+    try:
+        for d in (cpu, dev):
+            fused._brownian_noise = (lambda seed, step, nn, dtype, device, mode="threefry":
+                                     torch.as_tensor(noise[step], dtype=dtype, device=device))
+            for name in COUNTED:
+                getattr(fused_cuda, name).launches = 0
+            t0 = time.perf_counter()
+            case_, st, stats = coupled.run_coupled(box, n_steps=5, dtype=np.float64,
+                                                   flow_dtype=torch.float64,
+                                                   write_output=False, device=d,
+                                                   log=lambda *a: None)
+            got = {name: getattr(fused_cuda, name).launches for name in COUNTED}
+            runs[d.type] = (case_, st, stats, got, time.perf_counter() - t0)
+    finally:
+        fused._brownian_noise = draw
+    (ccase, cst, cstats, _, _), (kcase, kst, kstats, got, secs) = runs["cpu"], runs[dev.type]
+    err = float((kst.pos.cpu() - cst.pos).abs().max())
+    tet_ok = bool(torch.equal(kst.tet_id.cpu(), cst.tet_id))
+    act_ok = bool(torch.equal(kst.active.cpu(), cst.active))
+    shift = float(kcase.tet_mesh.bounds_lo[0])
+    ran = {k: v for k, v in got.items() if v}
+    log(f"[dyn-coupled] {gpu_line} | oscillating box (tests/test_dynamicmesh.py), 2000 "
+        f"particles, float64, 5 steps, {kstats['cycles']} cycles, card against CPU: "
+        f"max_abs_err={err:.3e} tet_exact={int(tet_ok)} active_exact={int(act_ok)} "
+        f"active_in_domain={int(kstats['active_in_domain'])} bounds_lo_x={shift:.6f} "
+        f"(0.2 sin(6.283 t) = {0.2 * np.sin(6.283 * kstats['time']):.6f}) launches={ran} "
+        f"geometry_ms_per_step={[round(s['geometry_ms'], 3) for s in kstats['steps']]} "
+        f"run_s={secs:.1f}")
+    need(tet_ok and act_ok and err <= POS_TOL_GOLDEN and kstats["active_in_domain"],
+         "the oscillating box on the card differs from the CPU run")
+    need_launches(dev, got, {"stream_cycle": kstats["cycles"], "rare_resolve": kstats["cycles"]},
+                  "oscillating box")
+
+
+def tjunction_case(torch, dst, rehearse):
+    """A copy of the repo's TJunction with the phase's cuts: the particle
+    window opened at t = 0 (cut ii; the tutorial opens it at 0.5) and
+    saveInterval TJ_SAVE_INTERVAL (cut iii); the rehearsal shrinks it as
+    tests/test_coupled_e2e.py does, with 2,000 particles."""
+    import shutil
+
+    from cudaparticlesfoam_tpu_torch.io import foamfile
+
+    if rehearse:
+        return flow_common(torch).shrink_tjunction(dst, num_particles=2_000,
+                                                   save_interval=TJ_SAVE_INTERVAL)
+    case = os.path.join(dst, "TJunction")
+    shutil.copytree(TJUNC, case)
+    path = os.path.join(case, "system", "cudaParticlesDict")
+    d = foamfile.read(path)
+    d.pop("FoamFile", None)
+    d.update(startTime=0.0, saveInterval=TJ_SAVE_INTERVAL)
+    foamfile.write(path, d, obj_name="cudaParticlesDict")
+    return case
+
+
+STEP_RE = re.compile(
+    r"#coupled: step (\d+) t=(\S+) dt_e=(\S+) cycles=(\d+) flow_ms=([\d.]+) "
+    r"flow_host_ms=([\d.]+) cg_iterations=(\[[\d, ]*\]) continuity=(\S+) geometry_ms=([\d.]+) "
+    r"refresh_ms=([\d.]+) advect_ms_per_cycle=([\d.]+) advect_issue_ms_per_cycle=([\d.]+) "
+    r"frames_s=([\d.]+)")
+
+
+def phase_tjunction(torch, dev, tmp, rehearse, gpu_line):
+    """Phase 11c: the TJunction's Allrun (blockmesh -> coupled) through the
+    CLI in subprocesses, float32, at the tutorial's width (248,000 cells,
+    2.98M tets, 4e6 particles, dt 1e-4, its seeding box and diffusion
+    coefficient, kEpsilon, probes, scalarTransport, the p0 ramps) with three
+    cuts: --steps TJ_STEPS, the particle window opened at 0, saveInterval
+    TJ_SAVE_INTERVAL.  Prints each Eulerian step's numbers, the init, the
+    launches and peak memory the driver logs, checks the frames and that
+    every active lane is in the domain.  Returns (case dir, launches,
+    numbers)."""
+    t_phase = time.perf_counter()
+    case = tjunction_case(torch, tmp, rehearse)
+    out = os.path.join(tmp, "tj_frames")
+    res, mesh_s = cli(["blockmesh", case])
+    need(res.returncode == 0, f"TJunction blockmesh failed: {res.stderr[-3000:]}")
+    cmd = ["coupled", case, "--steps", str(TJ_STEPS), "--out", out]
+    res, secs = cli(cmd + (["--device", "cpu"] if rehearse else []), timeout=1000)
+    need(res.returncode == 0, f"the TJunction coupled run failed: {res.stderr[-3000:]}")
+    text = res.stdout
+    steps = [m.groups() for m in STEP_RE.finditer(text)]
+    need(len(steps) == TJ_STEPS, f"the coupled run printed {len(steps)} step lines")
+    init = re.search(r"#coupled: init: (.*)", text).group(1)
+    tets = re.search(r"#adv: tet mesh: (\d+) tets, (\d+) verts, (\d+) boundary tris "
+                     r"\(([\d.]+) ms\)", text)
+    dev_line = re.search(r"#coupled: on (.*): kernel launches (\{.*\}); peak device memory "
+                         r"([\d.]+) GiB", text)
+    domain = re.search(r"#coupled: (\d+) of (\d+) lanes active, every active lane in the "
+                       r"domain: (\d)", text)
+    frames = sorted(f for f in os.listdir(out) if f.endswith(".vtu"))
+    frames_gb = sum(os.path.getsize(os.path.join(out, f)) for f in frames) / 1e9
+    cycles = sum(int(s[3]) for s in steps)
+    for s in steps:
+        log(f"[tj-step] {gpu_line} | step {s[0]} t={s[1]} dt_e={s[2]} cycles={s[3]} "
+            f"flow_ms={s[4]} (device) flow_host_ms={s[5]} cg_iterations_per_corrector={s[6]} "
+            f"continuity={s[7]} velocity_refresh_ms={s[9]} advect_ms_per_cycle={s[10]} "
+            f"(device) advect_issue_ms_per_cycle={s[11]} frames_s={s[12]}")
+    launches = json.loads(dev_line.group(2).replace("'", '"')) if dev_line else {}
+    phase_s = time.perf_counter() - t_phase
+    log(f"[tj-run] {gpu_line} | TJunction Allrun via the CLI: cuts (i) --steps {TJ_STEPS}, "
+        f"(ii) particle startTime 0, (iii) saveInterval {TJ_SAVE_INTERVAL}; tets="
+        f"{tets.group(1)} init: {init} tet_mesh_ms={tets.group(4)} blockmesh_s={mesh_s:.1f} "
+        f"coupled_command_s={secs:.1f} cycles={cycles} frames={len(frames)} ({frames_gb:.2f} GB) "
+        f"launches={launches} peak_device_GiB={dev_line.group(3) if dev_line else 'n/a (cpu)'} "
+        f"active={domain.group(1)} of {domain.group(2)} all_active_in_domain={domain.group(3)} "
+        f"phase_s={phase_s:.1f} (bound {TJ_BOUND_S} s on the card)")
+    need(domain.group(3) == "1" and domain.group(1) == domain.group(2),
+         "the TJunction run lost lanes or left the domain")
+    need(len(frames) >= 2 and frames[0] == "particle_0000.vtu", f"frames {frames}")
+    for f in frames:
+        os.remove(os.path.join(out, f))
+    if dev.type == "cuda":
+        need(dev_line is not None, "the coupled run printed no device line")
+        need(launches == {"stream_cycle": cycles, "rare_resolve": cycles},
+             f"the TJunction run launched {launches}, not one stream and one rare kernel a "
+             f"cycle ({cycles} cycles)")
+        need(phase_s <= TJ_BOUND_S, f"phase 11c took {phase_s:.0f} s")
+    return case, launches, {"cycles": cycles, "steps": steps}
+
+
+def tjunction_after_step1(torch, dev, case):
+    """The TJunction loaded in process (the tet mesh from the CLI run's
+    cache), float32, its flow solver and particles after Eulerian step 1
+    (flow step, velocity refresh, the interval's cycles): (case, flow,
+    state, step config, the next sub-step's number)."""
+    from cudaparticlesfoam_tpu_torch.models import case as caselib
+    from cudaparticlesfoam_tpu_torch.models import coupled, pimple
+
+    quiet = lambda *a: None  # noqa: E731
+    tcase, cfg = coupled._load(case, None, quiet, dev)
+    flow = pimple.FlowSolver.from_case(tcase, log=quiet, device=dev)
+    st = caselib.init_particles(tcase, log=quiet)
+    dt_e = flow.stable_dt(tcase.control)
+    flow.advance(dt_e)
+    tcase.update_velocity(flow.cell_velocity())
+    st, step0 = coupled._advance_interval(tcase, st, cfg, tcase.particles, dt_e, 0, None, None,
+                                          quiet)
+    return tcase, flow, st, cfg, step0
+
+
+def short_kernel_name(name):
+    name = re.sub(r"^void ", "", name.replace("(anonymous namespace)::", ""))
+    return name.split("(")[0][:80]
+
+
+def device_kernels(torch, prof):
+    """The device activity of a profile by kernel name: {name: (count,
+    busy ms)}, copies and fills included, largest busy ms first."""
+    from torch.autograd import DeviceType
+
+    agg = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            c, ms = agg.get(e.name, (0, 0.0))
+            agg[e.name] = (c + 1, ms + e.time_range.elapsed_us() / 1e3)
+    return dict(sorted(agg.items(), key=lambda kv: -kv[1][1]))
+
+
+def phase_tjunction_trace(torch, dev, tcase, flow, st, cfg, step0, tmp, gpu_line):
+    """Phase 11c, the run's Advect traced: Eulerian steps 2 and 3 of the
+    TJunction in process as run_coupled takes them (flow step, velocity
+    refresh, the interval through coupled._advance_interval with frames
+    through the async writer on the run's saveInterval schedule).  For each
+    chunk of cycles (one run_cycles call) its cycles, device ms (CUDA
+    events) and host ms to issue; for each step's interval, under
+    torch.profiler, the device's kernels by name with their count and busy
+    ms, copies and fills included, and how much of the busy time the stream
+    and rare kernels take."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cudaparticlesfoam_tpu_torch.io import vtu
+    from cudaparticlesfoam_tpu_torch.models import coupled
+
+    from cudaparticlesfoam_tpu_torch.ops import fused_cuda
+
+    cuda = dev.type == "cuda"
+    quiet = lambda *a: None  # noqa: E731
+    out = os.path.join(tmp, "tj_trace_frames")
+    chunks = []
+    inner = coupled.run_cycles
+
+    def traced(mesh, state, cfg_, n_cycles, dt):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
+        if ev:
+            ev[0].record()
+        h0 = time.perf_counter()
+        res = inner(mesh, state, cfg_, n_cycles, dt)
+        host_ms = (time.perf_counter() - h0) * 1e3
+        if ev:
+            ev[1].record()
+        chunks.append((n_cycles, ev, host_ms))
+        return res
+
+    writer = vtu.AsyncVTUWriter()
+    coupled.run_cycles = traced
+    try:
+        for k in (2, 3):
+            dt_e = flow.stable_dt(tcase.control)
+            flow.advance(dt_e)
+            tcase.update_velocity(flow.cell_velocity())
+            chunks.clear()
+            first = step0
+            acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+            launched = fused_cuda.stream_cycle.launches
+            with profile(activities=acts) as prof:
+                if cuda:
+                    # the profiler drops the first device events after it
+                    # starts: let int16 fills (no Advect op makes one) take them
+                    warm = torch.empty(1, dtype=torch.int16, device=dev)
+                    for _ in range(WARM_FILLS):
+                        warm.fill_(0)
+                    torch.cuda.synchronize(dev)
+                st, step0 = coupled._advance_interval(tcase, st, cfg, tcase.particles, dt_e,
+                                                      step0, out, writer, quiet)
+                if cuda:
+                    torch.cuda.synchronize(dev)
+            launched = fused_cuda.stream_cycle.launches - launched
+            frames = [s for s in range(first, step0) if s % tcase.particles.save_interval == 0]
+            rows = [(n_c, ev[0].elapsed_time(ev[1]) if ev else host, host)
+                    for n_c, ev, host in chunks]
+            cycles = step0 - first
+            dev_ms = sum(r[1] for r in rows)
+            host_ms = sum(r[2] for r in rows)
+            log(f"[tj-advect] {gpu_line} | step {k} dt_e={dt_e:g} cycles={cycles} "
+                f"frames_at_sub_steps={frames} chunks(cycles, device_ms, issue_ms)="
+                f"{[(n_c, round(d, 4), round(h, 4)) for n_c, d, h in rows]} "
+                f"advect_ms_per_cycle={dev_ms / cycles:.4f} (device, the chunks' events) "
+                f"advect_issue_ms_per_cycle={host_ms / cycles:.4f}")
+            if not cuda:
+                log(f"[tj-advect] step {k} device kernels: not measured (CPU)")
+                continue
+            kern = device_kernels(torch, prof)
+            kern = {n: v for n, v in kern.items() if "FillFunctor<short>" not in n}
+            busy = sum(ms for _, ms in kern.values())
+            ours = {n: v for n, v in kern.items() if "stream_kernel" in n or "rare_kernel" in n}
+            seen = sum(c for n, (c, _) in ours.items() if "stream_kernel" in n)
+            ours_ms = sum(ms for _, ms in ours.values())
+            copies = sum(ms for n, (_, ms) in kern.items() if n.startswith("Memcpy"))
+            top = "; ".join(f"{short_kernel_name(n)}: {c} x, {ms:.3f} ms"
+                            for n, (c, ms) in list(kern.items())[:12])
+            log(f"[tj-advect] {gpu_line} | step {k} the interval's device activity: "
+                f"stream_kernels_profiled={seen} of {launched} launched busy_ms={busy:.3f} "
+                f"stream_and_rare_kernels_ms={ours_ms:.3f} copies_ms={copies:.3f} "
+                f"other_kernels_ms={busy - ours_ms - copies:.3f} kinds={len(kern)} | {top}")
+    finally:
+        coupled.run_cycles = inner
+        writer.close()
+    for f in os.listdir(out) if os.path.isdir(out) else ():
+        os.remove(os.path.join(out, f))
+
+
+def phase_tjunction_cycle(torch, fused, fused_cuda, dev, tcase, st, cfg, errs, counts, rares,
+                          gpu_line):
+    """Phase 11c, the kernels at the TJunction's shape: from the state after
+    step 1, one cycle through stream_kernel and rare_kernel against their
+    plain versions (tet/active/pending identical, pos/vel within 1e-5), the
+    hop and pending shares, each kernel's device time (graph replay) and its
+    plain version's, for phase 6's bounds and latency rows."""
+    mesh, n, dt = tcase.tet_mesh, st.n_particles, cfg.dt
+    m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active)
+    xi = fused._brownian_noise(st.seed, st.step, n, m0.dtype, dev)
+    sa, ra = stream_args(cfg, dt, m0.dtype, fused), rare_args(cfg)
+    mk, mp = m0.clone(), m0.clone()
+    pk = torch.empty(n, dtype=torch.uint8, device=dev)
+    pp = torch.empty_like(pk)
+    fused_cuda.stream_cycle(mesh.tet_row, mk, xi, pk, **sa)
+    fused.stream_plain(mesh.tet_row, mp, xi, pp, **sa)
+    same_s, err_s = compare(torch, mk, mp, pk, pp)
+    m1, p1 = mp.clone(), pp.clone()
+    hops = rows_changed(torch, m0, mk, 20)
+    fused_cuda.rare_resolve(mesh.tet_row, mk, pk, mesh.bd_escape, **ra)
+    fused.rare_plain(mesh.tet_row, mp, pp, mesh.bd_escape, **ra)
+    same, err = compare(torch, mk, mp)
+    pending = int(p1.sum())
+    n_el = m0.element_size()
+    counts["stream_tjunction"] = ("stream", dict(n=n, elem=n_el, noise="xi", hops=hops,
+                                                 hopped=hops))
+    counts["rare_tjunction"] = ("rare", dict(n=n, elem=n_el, pending=pending,
+                                             moved=moved(torch, m1, mk)))
+    log(f"[tj-cycle] TJunction shape after step 1: lanes={n} tets={mesh.n_tets} "
+        f"inline_hops={cfg.inline_hops} inline_bounce={int(cfg.inline_bounce)} "
+        f"hop_share={hops / n:.4f} pending={pending} pending_share={pending / n:.5f} "
+        f"stream_identical={int(same_s)} stream_max_abs_err={err_s:.3e} "
+        f"cycle_identical={int(same)} cycle_max_abs_err={err:.3e}")
+    need(same_s and same and max(err, err_s) <= POS_TOL_F32, "the TJunction cycle: kernel != plain")
+    errs["stream_tjunction"], errs["rare_tjunction"] = err_s, err
+    work, pend = m0.clone(), pk.clone()
+
+    def restore_stream():
+        work.copy_(m0)
+
+    def restore_rare():
+        work.copy_(m1)
+        pend.copy_(p1)
+
+    timer = Timer(torch, dev)
+    times = {}
+    for key, fn, plain, restore in (
+        ("stream_tjunction", lambda: fused_cuda.stream_cycle(mesh.tet_row, work, xi, pend, **sa),
+         lambda: fused.stream_plain(mesh.tet_row, work, xi, pend, **sa), restore_stream),
+        ("rare_tjunction",
+         lambda: fused_cuda.rare_resolve(mesh.tet_row, work, pend, mesh.bd_escape, **ra),
+         lambda: fused.rare_plain(mesh.tet_row, work, pend, mesh.bd_escape, **ra),
+         restore_rare),
+    ):
+        times[key] = rare_row(torch, timer, fn, plain, restore)
+        t = times[key]
+        log(f"[tj-cycle] {gpu_line} | {key}_kernel_ms={t[0]:.5f} (device: {BATCH} calls "
+            f"replayed from a graph, restore subtracted) one_call_at_a_time_ms=({t[2][1]:.4f}, "
+            f"{t[2][2]:.4f}) {key}_plain_ms={t[1]:.4f} ({t[2][0]:.4f}, {t[2][3]:.4f}) lanes={n}")
+    rares.add("rare_tjunction", bary_rare_case(torch, fused, fused_cuda, mesh.tet_row, mesh, m1,
+                                               p1, ra, fused.LAYOUT_TET, "cpf_rare_f32"))
+    return times
+
+
+def phase_pimple_split(torch, dev, tcase, flow, gpu_line):
+    """Phase 11d: one PIMPLE step on the TJunction, float32, at the state
+    after step 1, split into its stages (the package's own stage
+    functions, in pimple_step's order): momentum predictor, each PISO
+    corrector's pressure system / pressure solve (AMG-CG) / correction, the
+    kEpsilon step and the Courant number; each part's device ms, the host's
+    ms to issue it, its kernels and launch calls (torch.profiler) and the
+    kernels' busy ms.  Item F's PIMPLE workload."""
+    from cudaparticlesfoam_tpu_torch.models import pimple, turbulence
+
+    m, cfg, st = flow.m, flow.cfg, flow.state
+    dt_e = flow.stable_dt(tcase.control)
+    ddt = m.vol / torch.as_tensor(dt_e, dtype=m.dtype, device=m.device)
+    kes = flow.kes
+    nut_bd = turbulence.wall_nut_bd(m, flow.wi, kes.nut, kes.k, cfg.nu)
+    nu_f = pimple.face_viscosity(m, cfg, kes.nut, nut_bd)
+    mo = pimple.momentum_predictor(m, st, flow.u_bcs, flow.p_bcs, cfg, ddt, st.u, nu_f)
+    parts = {"momentum predictor": lambda: pimple.momentum_predictor(
+        m, st, flow.u_bcs, flow.p_bcs, cfg, ddt, st.u, nu_f)}
+    p, u_corr, its = st.p, mo.u_star, []
+    for c in range(cfg.n_correctors):
+        hbya, phi_hbya, rhs = pimple.pressure_system(m, mo, u_corr)
+        p_in = p
+        p, corr, _, it = pimple.pressure_solve(m, mo, rhs, p_in, flow.p_bcs, cfg, flow.amg)
+        its += it
+        parts[f"corrector {c + 1}: pressure system"] = (
+            lambda u=u_corr: pimple.pressure_system(m, mo, u))
+        parts[f"corrector {c + 1}: pressure solve (AMG-CG, {it} iterations)"] = (
+            lambda r=rhs, q=p_in: pimple.pressure_solve(m, mo, r, q, flow.p_bcs, cfg, flow.amg))
+        parts[f"corrector {c + 1}: correction"] = (
+            lambda h=hbya, f=phi_hbya, q=p, k=corr: pimple.correct(m, mo, h, f, q, k, flow.p_bcs))
+        flux, u_corr, _ = pimple.correct(m, mo, hbya, phi_hbya, p, corr, flow.p_bcs)
+    new_u, new_flux = u_corr, flux
+    parts[f"{flow.turb_model} step"] = lambda: turbulence.model_step(
+        flow.turb_model, m, kes, new_u, flow.u_bcs, new_flux, flow.k_bcs, flow.e_bcs, flow.wi,
+        cfg.nu, dt=dt_e)
+    parts["Courant number (stable_dt)"] = lambda: flow.stable_dt(tcase.control)
+
+    def whole():
+        s, _ = pimple.pimple_step(m, st, flow.u_bcs, flow.p_bcs, cfg, dt_e, nut=kes.nut,
+                                  amg=flow.amg, nut_bd=nut_bd)
+        turbulence.model_step(flow.turb_model, m, kes, s.u, flow.u_bcs, s.flux, flow.k_bcs,
+                              flow.e_bcs, flow.wi, cfg.nu, dt=dt_e)
+        return flow.stable_dt(tcase.control)
+
+    out = {}
+    for name, fn in [("whole step", whole)] + list(parts.items()) + [("whole step, again",
+                                                                      whole)]:
+        r = measure_part(torch, dev, fn, reps=WHOLE_REPS if name.startswith("whole") else 3)
+        out[name] = r
+        log(f"[pimple-split] {gpu_line} | TJunction at t={flow.time:g}, {m.n_cells} cells, "
+            f"float32, {name}: ms={r['ms']:.4f} host_issue_ms={r['host_ms']:.4f} "
+            f"kernels={unmeasured(r['kernels'])} launch_calls={unmeasured(r['launch_calls'])} "
+            f"kernel_busy_ms={unmeasured(r['busy_ms'], '%.4f')}")
+    first, again = out["whole step"], out["whole step, again"]
+    sum_ms = sum(out[k]["ms"] for k in parts)
+    # the whole step's spread: every timed sample of both runs, and the idle
+    # share at the fastest, the median and the slowest of them (the kernels'
+    # busy ms of the profiled call of each run)
+    samples = sorted(first["samples_ms"] + again["samples_ms"])
+    med = float(np.median(samples))
+    if first["busy_ms"] is not None:
+        busy = (first["busy_ms"] + again["busy_ms"]) / 2
+        idle = "%.3f (at the median; %.3f at the fastest, %.3f at the slowest)" % (
+            1.0 - busy / med, 1.0 - busy / samples[0], 1.0 - busy / samples[-1])
+    else:
+        idle = "not measured"
+    log(f"[pimple-split] {gpu_line} | one PIMPLE step (+ {flow.turb_model}, Courant): "
+        f"parts_sum_ms={sum_ms:.4f} whole_ms={med:.4f} (median of {len(samples)}) "
+        f"whole_ms_min_max=({samples[0]:.4f}, {samples[-1]:.4f}) "
+        f"whole_ms_samples={[round(x, 4) for x in samples]} "
+        f"kernels_per_step={first['kernels']} launch_calls_per_step={first['launch_calls']} "
+        f"device_idle_share={idle} cg_iterations={its}")
+    need(all(i > 0 for i in its) and all(np.isfinite(r["ms"]) for r in out.values()),
+         "the PIMPLE split did not run")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -3239,7 +3871,7 @@ def main():
         dev = torch.device("cpu")
         sizes = dict(parity=(6, 3072), stats=20_000, slice=(12, 8_000, 8), simple=3,
                      admit=(1, 3, 4, 15, 16, 17, 8155, 8192, 20_000), driver_warm=20, rk4=8,
-                     rk4_parity=1024, flow_warm=1)
+                     rk4_parity=1024, flow_warm=1, dyn=(6, 3072))
         gpu_line = "cpu rehearsal"
         kind = "cpu"
     else:
@@ -3249,7 +3881,8 @@ def main():
         dev = torch.device("cuda", 0)
         sizes = dict(parity=(16, 65_536), stats=1_000_000, slice=(55, 1_000_000, 200), simple=5,
                      admit=(1, 3, 4, 15, 16, 17, 65_499, 65_536, 1_000_000, 4_000_001),
-                     driver_warm=100, rk4=100, rk4_parity=65_536, flow_warm=5)
+                     driver_warm=100, rk4=100, rk4_parity=65_536, flow_warm=5,
+                     dyn=(16, 65_536))
         kind = torch.cuda.get_device_name(0)
         gpu_line = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3329,6 +3962,20 @@ def main():
         flow_case, t_write = phase_flow_tutorial(torch, dev, os.path.join(tmp, "allrun"),
                                                  args.rehearse, gpu_line, tut)
         phase_flow_split(torch, dev, flow_case, t_write, gpu_line, sizes["flow_warm"])
+    # phase 11, the coupled solver and the TJunction through the kernels
+    errs.update(stream_tjunction=0.0, rare_tjunction=0.0)
+    with tempfile.TemporaryDirectory(prefix="cpf_coupled_") as tmp:
+        phase_pimple_parity(torch, dev, os.path.join(tmp, "parity"), gpu_line)
+        phase_dynamic_mesh(torch, cpt, fused, fused_cuda, tmesh, dev, os.path.join(tmp, "dyn"),
+                           *sizes["dyn"], errs, gpu_line)
+        tj_case, tj_launches, tj = phase_tjunction(torch, dev, os.path.join(tmp, "tj"),
+                                                   args.rehearse, gpu_line)
+        tcase, tflow, tst, tcfg, tstep = tjunction_after_step1(torch, dev, tj_case)
+        times.update(phase_tjunction_cycle(torch, fused, fused_cuda, dev, tcase, tst, tcfg, errs,
+                                           counts, rares, gpu_line))
+        phase_pimple_split(torch, dev, tcase, tflow, gpu_line)
+        phase_tjunction_trace(torch, dev, tcase, tflow, tst, tcfg, tstep, tmp, gpu_line)
+        del tcase, tflow, tst
 
     # launches per sub-step of each kernel on its own path (3 timed runs)
     steps = 3 * sizes["slice"][2]
@@ -3341,6 +3988,8 @@ def main():
         "stream_pk": pk_launches["stream_pk"] / steps, "rare_pk": pk_launches["rare_pk"] / steps}
     # the tutorial run of phase 8b: one stream and one rare launch a cycle (checked there)
     per_cycle["stream_tutorial"] = per_cycle["rare_tutorial"] = 1.0
+    # the TJunction run of phase 11c: one stream and one rare launch a cycle (checked there)
+    per_cycle["stream_tjunction"] = per_cycle["rare_tjunction"] = 1.0
     # the rk4-tracers cell of phase 9d: one RK4 stream and one rare launch a cycle
     for name in rk4_launches:
         per_cycle[name] = rk4_launches[name] / sizes["rk4"]
@@ -3366,7 +4015,7 @@ def main():
         phase_parent(traffic, rares, latency, gpu_line)
 
     def entry(name, key, source, replaces, n_launches, err, path="north-star slice", **extra):
-        return {"name": name, "path": path, "route": "cuda",
+        return {"name": name, "path": path, "phases": ERR_PHASES[key], "route": "cuda",
                 "source": f"cudaparticlesfoam_tpu_torch/csrc/{source}",
                 "replaces": f"cudaparticlesfoam_tpu/ops/{replaces}",
                 "launches": n_launches, "max_abs_err": err, "ms": times[key][0],
@@ -3411,6 +4060,12 @@ def main():
         entry("rare_kernel<pk>", "rare_pk_rk4", "rare.cu", "fused.py:836",
               rk4_launches["rare_pk_rk4"], errs["rare_pk_rk4"],
               path=RK4_PATH + ", VertexVelocity"),
+        # phase 11c: the coupled driver on the TJunction (launches from the CLI
+        # run, times and errors from the cycle after step 1)
+        entry("stream_kernel", "stream_tjunction", "stream.cu", "fused_pallas.py:319",
+              tj_launches.get("stream_cycle", 0), errs["stream_tjunction"], path=TJUNC_PATH),
+        entry("rare_kernel", "rare_tjunction", "rare.cu", "fused.py:921",
+              tj_launches.get("rare_resolve", 0), errs["rare_tjunction"], path=TJUNC_PATH),
     ]}
     log(gpu_line)
     log(json.dumps(table))

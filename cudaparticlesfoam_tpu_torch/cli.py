@@ -4,14 +4,19 @@
 Replaces the reference's OpenFOAM executables and Allrun scripts:
 
     python -m cudaparticlesfoam_tpu_torch uncoupled <case>   # cudaParticlesUncoupledFoam
+    python -m cudaparticlesfoam_tpu_torch coupled <case>     # cudaParticlesPimpleFoam
+    python -m cudaparticlesfoam_tpu_torch replay <case>      # particles over recorded U
     python -m cudaparticlesfoam_tpu_torch blockmesh <case>   # blockMesh
     python -m cudaparticlesfoam_tpu_torch simple <case>      # steady flow (simpleFoam)
     python -m cudaparticlesfoam_tpu_torch dict <file> -entry <key> [-set <value>]
 
-``uncoupled`` and ``simple`` run on the card unless ``--device cpu`` asks
-for the CPU (the kernels' plain versions, torch ops on the CPU); ``--f64``
-runs in float64.  The JAX CLI's ``replay`` and ``coupled`` are not ported
-yet (ROADMAP.md queue 1 item 12).
+``uncoupled``, ``coupled``, ``replay`` and ``simple`` run on the card
+unless ``--device cpu`` asks for the CPU (the kernels' plain versions,
+torch ops on the CPU); ``--f64`` runs in float64 (``coupled`` solves its
+flow in float32 all the same, as the JAX package does).  A multi-device
+request (``--devices N>1``, a ``--strategy`` other than auto/single,
+``--flow-devices N>1``) raises: the multi-device strategies are not
+ported yet (ROADMAP.md queue 1 items 13a and 13c).
 """
 
 from __future__ import annotations
@@ -35,13 +40,23 @@ def main(argv=None):
                        help="torch device (default cuda; 'cpu' runs the plain versions)")
         return p
 
+    def add_particle_parallel(p):
+        p.add_argument("--devices", type=int, default=None,
+                       help="particle devices; more than one is not ported yet")
+        p.add_argument("--strategy", default="auto",
+                       choices=("auto", "single", "dp", "partitioned"),
+                       help="multi-device strategy; only auto/single are ported")
+
     p = add_case_cmd("uncoupled", "frozen-field particle tracking")
     p.add_argument("--profile", default=None, help="write a torch.profiler trace here")
-    p.add_argument("--devices", type=int, default=None,
-                   help="particle devices; more than one is not ported yet")
-    p.add_argument("--strategy", default="auto",
-                   choices=("auto", "single", "dp", "partitioned"),
-                   help="multi-device strategy; only auto/single are ported")
+    add_particle_parallel(p)
+    p = add_case_cmd("replay", "particle tracking over recorded U snapshots")
+    add_particle_parallel(p)
+    p = add_case_cmd("coupled", "PIMPLE flow + particle tracking")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--flow-devices", type=int, default=None,
+                   help="domain-decomposed flow devices; more than one is not ported yet")
+    add_particle_parallel(p)
 
     # --out and --no-write are accepted and unused, as in the JAX CLI
     p = add_case_cmd("simple", "steady incompressible flow (SIMPLE)")
@@ -90,6 +105,21 @@ def main(argv=None):
         from .models import simple
 
         simple.run(args.case, n_iters=args.iters, dtype=dtype, device=args.device)
+        return 0
+
+    if args.cmd == "replay":
+        from .models import coupled
+
+        coupled.run_replay(args.case, out_dir=args.out, write_output=not args.no_write,
+                           dtype=dtype, devices=args.devices, strategy=args.strategy,
+                           device=args.device)
+        return 0
+    if args.cmd == "coupled":
+        from .models import coupled
+
+        coupled.run_coupled(args.case, out_dir=args.out, write_output=not args.no_write,
+                            dtype=dtype, n_steps=args.steps, flow_devices=args.flow_devices,
+                            devices=args.devices, strategy=args.strategy, device=args.device)
         return 0
 
     from .models import uncoupled

@@ -5,7 +5,9 @@ so a parity check builds one payload and uploads it to each.  Nothing here
 imports jax: a JAX ``TetMesh`` is passed in as ``mesh_payload(jax_mesh)``,
 which only reads its fields through ``numpy.asarray``.  The flow solvers'
 objects (``FvMesh``, ``BoundaryCoeffs``, ``FlowState``, the turbulence
-states, ``WallInfo``, ``AmgHierarchy``) come across the same way: each
+states, ``WallInfo``, ``AmgHierarchy``, ``MRFZones``, ``FvOptions`` with
+its ``grad_p`` / ``dgrad`` state, and a ``DynamicMesh`` with its motion
+and the geometry it carries from step to step) come across the same way: each
 ``to_*`` reads the fields of the object it is given with
 ``numpy.asarray``, so a JAX object, or anything with those attributes,
 starts the port from the same values (floats keep their dtype, index
@@ -21,7 +23,7 @@ import torch
 
 from .dtypes import canonical_device
 from .mesh import ARRAY_FIELDS, META_FIELDS, OPTIONAL_FIELDS, TetMesh, host_to_device
-from .models import fv, simple, turbulence
+from .models import dynamicmesh, fv, fvoptions, motionsolver, mrf, simple, turbulence
 from .state import ParticleState, make_state
 
 
@@ -118,3 +120,50 @@ def to_amg(h_like, device=None) -> fv.AmgHierarchy:
     h = _fields(h_like, fv.AmgHierarchy, canonical_device(device),
                 index=("aggs", "owners", "neighs", "f2cf"), meta=("sizes",))
     return dataclasses.replace(h, sizes=tuple(int(x) for x in h_like.sizes))
+
+
+def to_mrf(z_like, device=None) -> mrf.MRFZones:
+    return _fields(z_like, mrf.MRFZones, canonical_device(device))
+
+
+def to_fvoptions(fvo_like, device=None) -> fvoptions.FvOptions:
+    """The port's :class:`~.models.fvoptions.FvOptions`, the controller's
+    state (``grad_p``, ``dgrad``) included."""
+    out = _fields(fvo_like, fvoptions.FvOptions, canonical_device(device), meta=("has_mvf",))
+    return dataclasses.replace(out, has_mvf=bool(fvo_like.has_mvf))
+
+
+def to_motion(motion_like):
+    """The port's motion description (solid body, multi solid body or
+    Laplacian motion solver) of an object with the same fields."""
+    name = type(motion_like).__name__
+    if name == "MultiSolidBodyMotion":
+        return dynamicmesh.MultiSolidBodyMotion(
+            zones=tuple((str(z), to_motion(sb)) for z, sb in motion_like.zones))
+    if name == "MotionSolverMotion":
+        return motionsolver.MotionSolverMotion(
+            kind=motion_like.kind, component=motion_like.component,
+            diffusivity=motion_like.diffusivity,
+            bcs=tuple((str(p), motionsolver.PointBC(b.btype, tuple(b.value), b.omega))
+                      for p, b in motion_like.bcs))
+    return dynamicmesh.SolidBodyMotion(**{f.name: getattr(motion_like, f.name)
+                                          for f in dataclasses.fields(
+                                              dynamicmesh.SolidBodyMotion)})
+
+
+def to_dynamic_mesh(dm_like, pm, dtype=None, device=None) -> dynamicmesh.DynamicMesh:
+    """The port's :class:`~.models.dynamicmesh.DynamicMesh` on ``pm`` (a
+    port PolyMesh whose points are the other object's current points) with
+    the other object's motion, initial points and the state it carries
+    between steps: the previous face centres and areas, and a Laplacian
+    solver's current points and cached cell diffusivity."""
+    dm = dynamicmesh.DynamicMesh(to_motion(dm_like.motion), pm, dtype=dtype, device=device)
+    dm.points0 = np.array(dm_like.points0, dtype=np.float64)
+    if dm_like._cf_old is not None:
+        dm._cf_old = tuple(np.array(x, dtype=np.float64) for x in dm_like._cf_old)
+    if dm_like._lap is not None:
+        dm._lap.points0 = np.array(dm_like._lap.points0, dtype=np.float64)
+        dm._lap._pts = np.array(dm_like._lap._pts, dtype=np.float64)
+        if dm_like._lap._gamma_cells is not None:
+            dm._lap._gamma_cells = np.array(dm_like._lap._gamma_cells, dtype=np.float64)
+    return dm

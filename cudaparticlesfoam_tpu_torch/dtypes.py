@@ -46,3 +46,16 @@ def canonical_device(device=None) -> torch.device:
     """None = the card (``"cuda"``, never a quiet fall back to the CPU);
     anything else as given (``"cpu"``, ``"cuda:1"``, ``torch.device``)."""
     return torch.device("cuda" if device is None else device)
+
+
+def run_device(device=None) -> torch.device:
+    """The device of a driver run (:func:`canonical_device`): on a CUDA
+    device it raises where torch has no usable CUDA, and resets the peak
+    memory counter the run reports."""
+    device = canonical_device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"no usable CUDA device for device={str(device)!r} (this "
+                               "torch has none); pass device='cpu' (CLI: --device cpu)")
+        torch.cuda.reset_peak_memory_stats(device)
+    return device

@@ -517,6 +517,75 @@ def set_boundary_escape(mesh: TetMesh, escape_patch_ids) -> TetMesh:
     return _with_host(mesh, updates)
 
 
+def _inv3_torch(m):
+    """:func:`_inv3` on tensors (the same adjugate formula, elementwise
+    only), for the geometry refresh on the mesh's device."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    A = e * i - f * h
+    B = c * h - b * i
+    C = b * f - c * e
+    D = f * g - d * i
+    E = a * i - c * g
+    F = c * d - a * f
+    G = d * h - e * g
+    H = b * g - a * h
+    I = a * e - b * d  # noqa: E741
+    det = a * A + b * D + c * G
+    inv = torch.stack([torch.stack([A, B, C], dim=-1), torch.stack([D, E, F], dim=-1),
+                       torch.stack([G, H, I], dim=-1)], dim=-2)
+    return inv / det[..., None, None]
+
+
+def refresh_geometry(mesh: TetMesh, new_points) -> TetMesh:
+    """Recompute the geometric tables for MOVED vertices (same topology;
+    JAX ``mesh.refresh_geometry``).
+
+    The moving-mesh path (``mesh.controlledUpdate()``,
+    ``cudaParticlesPimpleFoam.C:147``): tets, faces and neighbour codes are
+    unchanged, so only A, Tinv, the face planes, the geometry columns of
+    every row table the mesh holds (``tet_row`` 0:12, ``tet_row_pk32`` 0:12,
+    ``tet_row_cx`` / ``tet_row_cxe`` 0:16) and the bounds are recomputed, on
+    the mesh's device, from ``new_points`` (cast to the mesh's dtype first,
+    as JAX does).  The host payload takes the new tables too (one copy
+    back), so that a later :func:`replace_velocity` starts from them."""
+    pts = torch.as_tensor(np.asarray(new_points) if not torch.is_tensor(new_points)
+                          else new_points, dtype=mesh.dtype, device=mesh.device)
+    tets = mesh.tets.long()
+    nt = mesh.n_tets
+    a = pts[tets[:, 0]]
+    m3 = torch.stack([pts[tets[:, 1]] - a, pts[tets[:, 2]] - a, pts[tets[:, 3]] - a], dim=-1)
+    tinv = _inv3_torch(m3)
+    slot_pts = pts[tets[:, torch.as_tensor(FACE_SLOTS, device=mesh.device)]]   # [nt, 4, 3, 3]
+    p0, p1, p2 = slot_pts[:, :, 0], slot_pts[:, :, 1], slot_pts[:, :, 2]
+    n = torch.linalg.cross(p1 - p0, p2 - p0)
+    n = n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+    # the host build's sequential dot
+    dpl = n[..., 0] * p0[..., 0] + n[..., 1] * p0[..., 1] + n[..., 2] * p0[..., 2]
+    geo = torch.cat([a, tinv.reshape(nt, 9)], dim=1)
+    kw = {"points": pts, "tet_a": a, "tet_tinv": tinv, "tet_face_n": n, "tet_face_d": dpl,
+          "bounds_lo": pts.min(dim=0).values, "bounds_hi": pts.max(dim=0).values}
+    row = mesh.tet_row.clone()
+    row[:, 0:12] = geo
+    kw["tet_row"] = row
+    if mesh.tet_row_pk32 is not None:
+        pk = mesh.tet_row_pk32.clone()
+        pk[:, 0:12] = geo
+        kw["tet_row_pk32"], kw["tet_row_pk"] = pk, pk[:, :PK_ROW_W]
+    planes = torch.cat([n.reshape(nt, 12), dpl], dim=1)
+    for name in ("tet_row_cx", "tet_row_cxe"):
+        if getattr(mesh, name) is not None:
+            t = getattr(mesh, name).clone()
+            t[:, 0:16] = planes
+            kw[name] = t
+    host = dict(mesh.host)
+    for k, v in kw.items():
+        if k in host:
+            host[k] = v.detach().cpu().numpy()
+    return dataclasses.replace(mesh, host=host, **kw)
+
+
 def with_convex_rows(mesh: TetMesh) -> TetMesh:
     """Attach the ConvexPoly row tables ``tet_row_cx`` and ``tet_row_cxe``
     (module docstring; JAX ``mesh.with_convex_rows``), built on the host

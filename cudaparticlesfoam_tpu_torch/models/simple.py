@@ -32,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from ..dtypes import canonical_device, canonical_float
+from ..dtypes import canonical_device, canonical_float, run_device
 from ..io import foamfile, polymesh
 from . import fv
 
@@ -511,13 +511,8 @@ def run(case_dir: str, n_iters: int | None = None, log=print, dtype=None, device
     from ..config import ControlConfig, ParticlesConfig
     from ..utils.profiling import PhaseTimer
 
-    device = canonical_device(device)
+    device = run_device(device)
     cuda = device.type == "cuda"
-    if cuda:
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"no usable CUDA device for device={str(device)!r} (this "
-                               "torch has none); pass device='cpu' (CLI: --device cpu)")
-        torch.cuda.reset_peak_memory_stats(device)
     timer = PhaseTimer(device)
     ctrl = ControlConfig.from_case(case_dir)
     pm = None

@@ -22,7 +22,7 @@ import time
 
 import torch
 
-from ..dtypes import canonical_device
+from ..dtypes import run_device
 from ..io import vtu
 from ..ops import advect as advect_ops
 from ..stepper import n_cycles_for, run_cycles, suggest_tuning
@@ -33,6 +33,22 @@ from . import case as caselib
 _KERNEL_WRAPPERS = ("stream_cycle", "stream_crossers", "hop_admit", "macro_stream",
                     "macro_crossers", "rare_resolve", "convex_stream_cycle",
                     "convex_stream_crossers", "convex_rare_resolve")
+
+
+def check_single_device(devices=None, strategy="auto", flow_devices=None) -> None:
+    """Raise ``NotImplementedError`` for a multi-device request (never a
+    quiet single-device run): more than one particle device or a strategy
+    other than auto/single (item 13a), more than one flow device (item
+    13c)."""
+    if (devices is not None and devices > 1) or strategy not in ("auto", "single"):
+        raise NotImplementedError(
+            f"devices={devices!r}, strategy={strategy!r}: the multi-device particle strategies "
+            "(particle DP, spatial partitioning) are not ported to PyTorch/CUDA yet "
+            "(ROADMAP.md queue 1 item 13a); run on one device (strategy 'auto' or 'single')")
+    if flow_devices is not None and flow_devices > 1:
+        raise NotImplementedError(
+            f"flow_devices={flow_devices!r}: the domain-decomposed flow solve is not ported "
+            "to PyTorch/CUDA yet (ROADMAP.md queue 1 item 13c); run the flow on one device")
 
 
 def write_schedule(n_cycles: int, save_interval: int):
@@ -76,18 +92,9 @@ def run(
     multi-device strategy, raises ``NotImplementedError`` (never a quiet
     single-device run).
     """
-    if (devices is not None and devices > 1) or strategy not in ("auto", "single"):
-        raise NotImplementedError(
-            f"devices={devices!r}, strategy={strategy!r}: the multi-device strategies "
-            "(particle DP, spatial partitioning) are not ported to PyTorch/CUDA yet "
-            "(ROADMAP.md queue 1 item 13); run on one device (strategy 'auto' or 'single')")
-    device = canonical_device(device)
+    check_single_device(devices, strategy)
+    device = run_device(device)
     cuda = device.type == "cuda"
-    if cuda:
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"no usable CUDA device for device={str(device)!r} (this "
-                               "torch has none); pass device='cpu' (CLI: --device cpu)")
-        torch.cuda.reset_peak_memory_stats(device)
     timer = PhaseTimer(device)
     with timer.phase("Init"):
         case = caselib.load_case(case_dir, dtype=dtype, log=log, device=device)

@@ -486,8 +486,10 @@ def test_entry_points_default_to_the_card(cases):
 
 def test_models_import_neither_jax_nor_the_jax_package():
     mods = ", ".join(f"cudaparticlesfoam_tpu_torch.models.{m}"
-                     for m in ("fv", "simple", "turbulence", "functions"))
-    code = (f"import sys, {mods}, cudaparticlesfoam_tpu_torch.convert; "
+                     for m in ("fv", "simple", "turbulence", "functions", "pimple", "coupled",
+                               "mrf", "fvoptions", "dynamicmesh", "motionsolver"))
+    code = (f"import sys, {mods}, cudaparticlesfoam_tpu_torch.convert, "
+            "cudaparticlesfoam_tpu_torch.io.checkpoint; "
             "print(sorted(m for m in ('jax', 'triton', 'cudaparticlesfoam_tpu') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -127,7 +127,11 @@ def test_locate_seeds_matches_jax():
 def test_import_pulls_in_neither_jax_nor_triton():
     code = ("import sys, cudaparticlesfoam_tpu_torch, cudaparticlesfoam_tpu_torch.ops.fused_cuda, "
             "cudaparticlesfoam_tpu_torch.convert, cudaparticlesfoam_tpu_torch.cli, "
-            "cudaparticlesfoam_tpu_torch.models.uncoupled, cudaparticlesfoam_tpu_torch.io.native; "
+            "cudaparticlesfoam_tpu_torch.models.uncoupled, cudaparticlesfoam_tpu_torch.io.native, "
+            "cudaparticlesfoam_tpu_torch.models.coupled, "
+            "cudaparticlesfoam_tpu_torch.models.pimple, "
+            "cudaparticlesfoam_tpu_torch.models.dynamicmesh, "
+            "cudaparticlesfoam_tpu_torch.io.checkpoint; "
             "print(sorted(m for m in ('jax', 'triton', 'cudaparticlesfoam_tpu') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -139,11 +139,13 @@ def test_diagnostics_and_sub_cycling(box):
 def test_chip_smoke_rehearsal_runs_every_phase():
     """``chip_smoke.py --rehearse`` drives every phase at small sizes on the
     CPU through the plain versions: it must exit 2 (no device result), print
-    the table of the fourteen kernel entries (the eight of the north-star
-    slice's paths, the two of the uncoupled driver's, phase 8, and the four
-    of the rk4-tracers cell, phase 9) with every key the table carries, and
-    no ``ok`` line; phase 10 (the steady-flow solver, no kernel of its own)
-    prints its parity, Allrun and split lines."""
+    the table of the sixteen kernel entries (the eight of the north-star
+    slice's paths, the two of the uncoupled driver's, phase 8, the four of
+    the rk4-tracers cell, phase 9, and the two of the coupled driver on the
+    TJunction, phase 11) with every key the table carries, and no ``ok``
+    line; phase 10 (the steady-flow solver, no kernel of its own) prints its
+    parity, Allrun and split lines; phase 11 (the coupled solver) its
+    PIMPLE parity, dynamic-mesh, TJunction and split lines."""
     import json
     import subprocess
     import sys
@@ -161,15 +163,20 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                      "convex_rare_kernel", "hop_admit_kernel", "macro_stream_kernel",
                      "stream_kernel<pk>", "rare_kernel<pk>", "stream_kernel", "rare_kernel",
                      "stream_kernel<rk4>", "rare_kernel", "stream_kernel<pk, rk4>",
-                     "rare_kernel<pk>"]
+                     "rare_kernel<pk>", "stream_kernel", "rare_kernel"]
     assert [k["path"].startswith("uncoupled driver") for k in table["kernels"]] == \
-        [False] * 8 + [True] * 2 + [False] * 4
-    assert all(k["path"].startswith("rk4-tracers") for k in table["kernels"][10:])
+        [False] * 8 + [True] * 2 + [False] * 6
+    assert all(k["path"].startswith("rk4-tracers") for k in table["kernels"][10:14])
+    assert all(k["path"].startswith("coupled driver (TJunction") for k in table["kernels"][14:])
     for entry in table["kernels"]:
-        assert {"path", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "bytes", "share", "copy_ms",
+        assert {"path", "phases", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "share", "copy_ms",
                 "launches_per_cycle"} <= set(entry), entry["name"]
-        assert entry["library_ms"] is None and entry["max_abs_err"] == 0.0
+        assert entry["library_ms"] is None
+        # both sides are the plain version here: any difference is a fault of the rehearsal
+        assert entry["max_abs_err"] == 0.0, (
+            f"{entry['name']} on the path {entry['path']!r} (phases {entry['phases']}): "
+            f"max_abs_err {entry['max_abs_err']!r}")
         assert os.path.exists(os.path.join(root, entry["source"]))
     floors = {k["name"] for k in table["kernels"] if "launch_floor_ms" in k}
     assert floors == {"rare_kernel", "convex_rare_kernel", "hop_admit_kernel", "rare_kernel<pk>"}
@@ -187,8 +194,9 @@ def test_chip_smoke_rehearsal_runs_every_phase():
             assert entry["share_of_latency"] == pytest.approx(
                 entry["latency_bound_ms"] / entry["ms"])
     latency = [line for line in lines if line.startswith("[latency]")]
-    assert len(latency) == 13 and "host loop (cpu rehearsal)" in latency[0]
-    for name in ("rare", "convex_rare", "rare_pk", "rare_tutorial", "rare_rk4", "rare_pk_rk4"):
+    assert len(latency) == 15 and "host loop (cpu rehearsal)" in latency[0]
+    for name in ("rare", "convex_rare", "rare_pk", "rare_tutorial", "rare_rk4", "rare_pk_rk4",
+                 "rare_tjunction"):
         assert any(f"| {name} lanes=" in line and "share_of_latency=" in line
                    and "pending_first_ms=" in line for line in latency), name
         assert any(f"| {name} by longest chain" in line and "ms_per_chain_step=" in line
@@ -199,7 +207,9 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                 "[convex-compact-slice]", "[pk-parity]", "[pk-slice]", "[simple]", "[bound]",
                 "[driver-anchor]", "[driver-tutorial]", "[driver-cycle]", "[rk4-parity]",
                 "[rk4-simple]", "[duct]", "[rk4-slice]", "[flow-parity]", "[flow-allrun]",
-                "[flow-split]"):
+                "[flow-split]", "[pimple-parity]", "[dyn-refresh]", "[dyn-kernels]",
+                "[dyn-coupled]", "[tj-step]", "[tj-run]", "[tj-cycle]", "[pimple-split]",
+                "[tj-advect]"):
         assert any(line.startswith(tag) for line in lines), tag
     # phase 9: RK4 kernel = plain in every case, the oracles, the cell
     rk4 = [line for line in lines if line.startswith("[rk4-parity]")]
@@ -231,3 +241,34 @@ def test_chip_smoke_rehearsal_runs_every_phase():
     assert "mean_x_first_last=" in allrun[1]
     split = [line for line in lines if line.startswith("[flow-split]")]
     assert len(split) == 10 and "whole_ms=" in split[-1] and "cg_iterations=" in split[-1]
+    # phase 11: PIMPLE card = CPU (here both the CPU), the dynamic mesh, the
+    # TJunction through the CLI and its kernels' cycle, one PIMPLE step split
+    pimple = [line for line in lines if line.startswith("[pimple-parity]")]
+    assert len(pimple) == 3 and all("max_rel_err=0.000e+00" in line and "cg_equal=1" in line
+                                    and "second_card_run_identical=1" in line for line in pimple)
+    assert "kEpsilon mrf=0 fvOptions=0" in pimple[0] and "mrf=1" in pimple[1]
+    assert "fvOptions=1" in pimple[2] and "'grad_p'" in pimple[2]
+    refresh = [line for line in lines if line.startswith("[dyn-refresh]")]
+    assert len(refresh) == 2 and all("card_vs_cpu_max_abs=0.000e+00" in line
+                                     and "topology_unchanged=1" in line for line in refresh)
+    dyn = [line for line in lines if line.startswith("[dyn-kernels]")]
+    assert len(dyn) == 2 and all("stream_identical=1" in line and "rare_identical=1" in line
+                                 for line in dyn)
+    coupled = next(line for line in lines if line.startswith("[dyn-coupled]"))
+    assert "tet_exact=1 active_exact=1 active_in_domain=1" in coupled
+    assert "max_abs_err=0.000e+00" in coupled
+    steps = [line for line in lines if line.startswith("[tj-step]")]
+    assert len(steps) == 3 and all("cg_iterations_per_corrector=[" in line for line in steps)
+    run = next(line for line in lines if line.startswith("[tj-run]"))
+    assert "all_active_in_domain=1" in run and "active=2000 of 2000" in run
+    assert any("stream_identical=1" in line and "cycle_identical=1" in line
+               for line in lines if line.startswith("[tj-cycle]"))
+    assert any("| stream_tjunction lanes=" in line for line in lines if line.startswith("[bound]"))
+    psplit = [line for line in lines if line.startswith("[pimple-split]")]
+    assert len(psplit) == 12 and "whole_ms=" in psplit[-1] and "cg_iterations=[" in psplit[-1]
+    assert "(median of 10)" in psplit[-1] and "whole_ms_min_max=(" in psplit[-1]
+    # steps 2 and 3 in process, their Advect chunk by chunk (a frame at sub-step 20 in step 2)
+    advect = [line for line in lines if line.startswith("[tj-advect]")]
+    assert len(advect) == 4 and "step 2 " in advect[0] and "step 3 " in advect[2]
+    assert "frames_at_sub_steps=[20]" in advect[0] and "frames_at_sub_steps=[]" in advect[2]
+    assert all("chunks(cycles, device_ms, issue_ms)=[(" in advect[i] for i in (0, 2))
