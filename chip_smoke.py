@@ -246,6 +246,42 @@ Phases, one line of numbers each, any failure exits non-zero:
         slowest sample.
    The rehearsal runs 11a as is, 11b on a 6^3 cube at 3,072 lanes and 11c
    on the shrunk TJunction with 2,000 particles on the CPU.
+12. (runs after phase 11, before phase 6, whose bounds and latency lines
+   take its rows) the multi-device particle strategies (parallel/: one
+   process, 4 shards on the visible card) and rare_kernel<T, L, kRemote>:
+   12a. rare_kernel<remote> against rare_plain(remote=) on shard 1 of the
+        16^3 box (the swirl field) partitioned into 4 slabs: TET and PK,
+        float32 and float64, 65,536 and 65,499 lanes, the settle call
+        (arrivals kicked about two cells from their tets' centroids) and the
+        cycle call (after stream_kernel with bounce_on=False, esc_on=False),
+        the six pending patterns of phase 3; bit for bit, one launch a call,
+        lanes paused by the walk and after a bounce (both counted, > 0);
+   12b. the north-star slice at full width (phase 5's mesh, seeds and
+        tuning): ParticleEngine("dp", 4 shards) under threefry and under
+        rbg_kernel, 10 warm-up + 3 x 200 timed cycles, launches, peak
+        memory, the kernels' busy time (torch.profiler, 20 cycles) and the
+        idle share, one shard's stream and rare kernels against their plain
+        versions and timed; gate: threefry = the single-device run of the
+        padded state, rbg_kernel = each shard's slice run with its lane
+        offset, bit for bit, after 20 cycles.  Then the partitioned strategy
+        through parallel/partition.py (distribute_particles with slack 1.25,
+        MegaShards and make_partitioned_runner with cap_out_frac 0.125:
+        bench.py's partitioned-1shard), S = 1 and S = 4, timed the same way
+        with the host's issue time, launches per cycle by wrapper, migrated and
+        deferred lanes per cycle; gates: every lane resident, in the domain,
+        and after 20 cycles tet/active identical and pos within 1e-5 of the
+        single-device run under brownian_rng="rbg"; rare_kernel<remote>'s
+        time on a shard's real call; then the same at S = 4 under
+        VertexVelocity for rare_kernel<pk, remote>;
+   12c. uncoupled.run in process on the shipped pitzDaily (1e5 particles,
+        1000 cycles, float64, useBrownianMotion 0, the shear field) single,
+        dp and partitioned with 4 shards: tet/active identical, pos within
+        1e-9; then ``uncoupled <case> --devices 4 --strategy partitioned
+        --no-write`` through the CLI (float32): its engine line, launches,
+        Advect ms/cycle and wall time.
+   The rehearsal runs 12a at 1,024 lanes with two pending patterns, 12b on
+   phase 5's rehearsal slice with 2 warm-up and 4-cycle gates, 12c at 200
+   particles.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -366,11 +402,11 @@ def pend_pattern(torch, name, real):
     return p
 
 
-def rare_patterns(torch, counter, kernel, plain, m, real, tag):
+def rare_patterns(torch, counter, kernel, plain, m, real, tag, patterns=PATTERNS):
     """The rare kernel ``kernel(m, pend)`` against ``plain(m, pend)`` on
-    every pattern of PATTERNS: the whole mega identical bit for bit, one
-    launch a call.  Returns the launches made."""
-    for name in PATTERNS:
+    every pattern of ``patterns`` (default PATTERNS): the whole mega
+    identical bit for bit, one launch a call.  Returns the launches made."""
+    for name in patterns:
         pend = pend_pattern(torch, name, real)
         mk, mp = m.clone(), m.clone()
         before = counter.launches
@@ -380,7 +416,7 @@ def rare_patterns(torch, counter, kernel, plain, m, real, tag):
         need(bitwise_equal(torch, mk, mp), f"{tag} pending={name}: kernel != plain")
         if m.device.type == "cuda":
             need(launched == 1, f"{tag} pending={name}: {launched} launches for one call")
-    return len(PATTERNS)
+    return len(patterns)
 
 
 def box_payload(tmesh, nside, dtype, vel_fn):
@@ -782,7 +818,9 @@ class RareCase:
     after the stream kernel, its pending flags, and disp for the convex
     kernel), each pending lane's chain (``rare_chain``), the wrapper's call
     ``run(m, pend, disp)`` and the bare C call ``c_call(fn, m, pend, disp,
-    stream)`` of the kernel's entry ``entry`` in any build of the library."""
+    stream)`` of the kernel's entry ``entry`` in any build of the library.
+    A case whose entry is None (the remote instantiations, which an earlier
+    build lacks) takes no A/B."""
     m1: object
     p1: object
     d1: object
@@ -819,7 +857,7 @@ class RareStudy:
             chain_max=cmax, real_ms=real_ms, pending_first_ms=first_ms, sweep=sweep,
             ms_per_chain_step=per_step, ms_at_chain_0=at_zero,
             parent=parent_ab(torch, timer, self.dev, name, case, *self.parent)
-            if self.parent else None)
+            if self.parent and case.entry else None)
 
 
 def rare_row(torch, timer, fn, plain, restore):
@@ -1979,7 +2017,7 @@ def copy_ms(torch, dev, timer, nbytes, reps=20):
 
 # bound by a launch's latency, not by bytes
 SMALL = ("hop_admit", "rare", "convex_rare", "rare_pk", "rare_tutorial", "rare_rk4",
-         "rare_pk_rk4", "rare_tjunction")
+         "rare_pk_rk4", "rare_tjunction", "rare_dp", "rare_remote", "rare_pk_remote")
 
 
 def phase_bounds(torch, traffic, dev, counts, times, per_cycle, floor, gpu_line):
@@ -2213,8 +2251,11 @@ def parent_ab(torch, timer, dev, name, case, plib, mine):
 def phase_parent(traffic, rares, latency, gpu_line):
     """Phase 7 (``--parent DIR``, a checkout of another commit): its rare
     kernels against this tree's, from the readings ``parent_ab`` took in
-    the slice phases, each share of the latency bound of phase 6."""
+    the slice phases, each share of the latency bound of phase 6.  The
+    remote instantiations have no counterpart there and take no A/B."""
     for name, r in rares.rows.items():
+        if r["parent"] is None:
+            continue
         res = dict(r["parent"])
         enqueue = res.pop("enqueue")
         bound = latency[name]["latency_bound_ms"]
@@ -2856,8 +2897,10 @@ def register_report(_build, lines):
     instantiation of stream_kernel, and every other kernel's line against
     PINNED_PTXAS (compared where this build's nvcc is the pinned one)."""
     rk4 = [line for line in lines if "rk4" in line.split(":")[0]]
-    rest = sorted(line for line in lines if line not in rk4)
-    for line in rk4:
+    # the partitioned shard's rare_kernel<T, L, kRemote> (phase 12), new too
+    remote = [line for line in lines if "remote" in line.split(":")[0]]
+    rest = sorted(line for line in lines if line not in rk4 and line not in remote)
+    for line in rk4 + remote:
         log(f"[registers] {line}")
     if not lines:
         log("[registers] unchanged_against_pinned=skipped: the library was built before "
@@ -2870,10 +2913,12 @@ def register_report(_build, lines):
             f"{PINNED_NVCC!r} ({out.strip()!r})")
         return
     changed = sorted(set(PINNED_PTXAS) ^ set(rest))
-    log(f"[registers] rk4_instantiations={len(rk4)} other_kernels={len(rest)} "
-        f"unchanged_against_pinned={int(not changed)} (nvcc {PINNED_NVCC})")
-    need(len(rk4) == 8 and not changed,
-         f"ptxas lines differ from the pinned ones: {changed}, or not 8 RK4 lines: {rk4}")
+    log(f"[registers] rk4_instantiations={len(rk4)} remote_instantiations={len(remote)} "
+        f"other_kernels={len(rest)} unchanged_against_pinned={int(not changed)} "
+        f"(nvcc {PINNED_NVCC})")
+    need(len(rk4) == 8 and len(remote) == 4 and not changed,
+         f"ptxas lines differ from the pinned ones: {changed}, or not 8 RK4 lines: {rk4}, "
+         f"or not 4 remote lines: {remote}")
 
 
 def ptxas_lines(report):
@@ -2894,7 +2939,8 @@ def ptxas_lines(report):
             elif targs.startswith("I"):
                 args = [{"d": "double", "f": "float"}[targs[1]]]
                 flags = re.findall(r"L[bi](\d+)E", targs.split("EE", 1)[0] + "E")
-                if flags and flags[0] == "1":
+                remote = base == "rare_kernel" and bool(flags) and flags[0] == "1"
+                if flags and flags[0] == "1" and not remote:
                     args.append("philox")
                 if len(flags) > 1 and flags[1] != "0":
                     args.append(("", "crossers", "admitted")[int(flags[1])])
@@ -2902,6 +2948,8 @@ def ptxas_lines(report):
                     args.append("pk")
                 if len(flags) > 2 and flags[2] == "1":
                     args.append("rk4")
+                if remote:
+                    args.append("remote")
                 name = f"{base}<{', '.join(args)}>"
         elif name and "bytes stack frame" in line:
             stack = line.split("bytes stack frame")[0].split()[-1]
@@ -3266,7 +3314,8 @@ ERR_PHASES = {
     "convex_rare": "3b, 5b", "hop_admit": "3d, 5c", "macro": "3e, 5c", "stream_pk": "3f, 5d",
     "rare_pk": "3f, 5d", "stream_tutorial": "8c", "rare_tutorial": "8c",
     "stream_rk4": "9d", "rare_rk4": "9d", "stream_pk_rk4": "9d", "rare_pk_rk4": "9d",
-    "stream_tjunction": "11c", "rare_tjunction": "11c"}
+    "stream_tjunction": "11c", "rare_tjunction": "11c", "stream_dp": "12b", "rare_dp": "12b",
+    "rare_remote": "12a, 12b", "rare_pk_remote": "12a, 12b"}
 TJUNC = os.path.join(HERE, "tutorials", "incompressible", "cudaParticlesPimpleFoam", "TJunction")
 TJUNC_PATH = "coupled driver (TJunction, 248,000 cells, 4e6 particles, 3 Eulerian steps)"
 PIMPLE_TOL = 1e-9         # float64 card against CPU, relative to each field's largest magnitude
@@ -3647,6 +3696,9 @@ def phase_tjunction_trace(torch, dev, tcase, flow, st, cfg, step0, tmp, gpu_line
 
     writer = vtu.AsyncVTUWriter()
     coupled.run_cycles = traced
+    # the lines are printed once the writer's thread, which prints each
+    # frame it writes, has finished: a line printed beside it can be split
+    held = []
     try:
         for k in (2, 3):
             dt_e = flow.stable_dt(tcase.control)
@@ -3675,13 +3727,13 @@ def phase_tjunction_trace(torch, dev, tcase, flow, st, cfg, step0, tmp, gpu_line
             cycles = step0 - first
             dev_ms = sum(r[1] for r in rows)
             host_ms = sum(r[2] for r in rows)
-            log(f"[tj-advect] {gpu_line} | step {k} dt_e={dt_e:g} cycles={cycles} "
+            held.append(f"[tj-advect] {gpu_line} | step {k} dt_e={dt_e:g} cycles={cycles} "
                 f"frames_at_sub_steps={frames} chunks(cycles, device_ms, issue_ms)="
                 f"{[(n_c, round(d, 4), round(h, 4)) for n_c, d, h in rows]} "
                 f"advect_ms_per_cycle={dev_ms / cycles:.4f} (device, the chunks' events) "
                 f"advect_issue_ms_per_cycle={host_ms / cycles:.4f}")
             if not cuda:
-                log(f"[tj-advect] step {k} device kernels: not measured (CPU)")
+                held.append(f"[tj-advect] step {k} device kernels: not measured (CPU)")
                 continue
             kern = device_kernels(torch, prof)
             kern = {n: v for n, v in kern.items() if "FillFunctor<short>" not in n}
@@ -3692,13 +3744,15 @@ def phase_tjunction_trace(torch, dev, tcase, flow, st, cfg, step0, tmp, gpu_line
             copies = sum(ms for n, (_, ms) in kern.items() if n.startswith("Memcpy"))
             top = "; ".join(f"{short_kernel_name(n)}: {c} x, {ms:.3f} ms"
                             for n, (c, ms) in list(kern.items())[:12])
-            log(f"[tj-advect] {gpu_line} | step {k} the interval's device activity: "
+            held.append(f"[tj-advect] {gpu_line} | step {k} the interval's device activity: "
                 f"stream_kernels_profiled={seen} of {launched} launched busy_ms={busy:.3f} "
                 f"stream_and_rare_kernels_ms={ours_ms:.3f} copies_ms={copies:.3f} "
                 f"other_kernels_ms={busy - ours_ms - copies:.3f} kinds={len(kern)} | {top}")
     finally:
         coupled.run_cycles = inner
         writer.close()
+    for line in held:
+        log(line)
     for f in os.listdir(out) if os.path.isdir(out) else ():
         os.remove(os.path.join(out, f))
 
@@ -3844,6 +3898,560 @@ def phase_pimple_split(torch, dev, tcase, flow, gpu_line):
          "the PIMPLE split did not run")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the multi-device particle strategies (parallel/{sharding,auto,
+# partition}.py) and rare_kernel<T, L, kRemote>, the partitioned shard's rare
+# stage
+# ---------------------------------------------------------------------------
+
+PART_SHARDS = 4           # 12a's slabs, 12b's and 12c's shards
+PART_SLACK = 1.25         # bench.py:261-297's partitioned-1shard
+PART_CAP_OUT = 0.125
+PART_PATH = "north-star, partitioned"
+DP_PATH = "north-star, DP 4 shards"
+DRIVER_TOL = 1e-9         # 12c, float64
+POS_TOL_PART = 1e-5       # 12b against the single-device "rbg" run, float32
+
+
+def remote_case(torch, fused, pm, s, n, dtype, ly, seed, dev):
+    """Shard ``s``'s mega of ``n`` lanes on random tets of its slab, each at
+    its tet's centroid plus a kick of about two cells (arrivals to settle:
+    many outside their tet, some past a wall or in another slab), random
+    velocities, 2% inactive."""
+    rng = np.random.default_rng(seed)
+    per = pm.tets_per_shard
+    tab = pm.tet_row[s]
+    tl = torch.as_tensor(rng.integers(0, per, n), device=dev)
+    rows = tab[tl].double()
+    a, tinv = rows[:, 0:3], rows[:, 3:12].reshape(n, 3, 3)
+    cen = a + torch.linalg.solve(tinv, torch.full((n, 3), 0.25, dtype=torch.float64,
+                                                  device=dev))
+    pos = cen + torch.as_tensor(rng.normal(scale=2.0, size=(n, 3)), device=dev)
+    m = torch.zeros((n, ly.width), dtype=dtype, device=dev)
+    m[:, 0:3] = pos.to(dtype)
+    m[:, 3:6] = torch.as_tensor(rng.normal(size=(n, 3)), dtype=dtype, device=dev)
+    m[:, 6] = tl.to(dtype)
+    m[:, 7] = torch.as_tensor(rng.uniform(size=n) > 0.02, dtype=dtype, device=dev)
+    m[:, 8:8 + tab.shape[1]] = tab[tl]
+    return m
+
+
+def pause_counts(torch, m_in, m_out, per):
+    """(lanes paused by the walk, lanes paused after a bounce): a paused
+    lane holds the sentinel tet below -per; a bounce changed its velocity."""
+    paused = m_out[:, 6] < -per
+    bounced = (m_out[:, 3:6] != m_in[:, 3:6]).any(dim=1)
+    return int((paused & ~bounced).sum()), int((paused & bounced).sum())
+
+
+def phase_remote_parity(torch, cpt, fused, fused_cuda, tmesh, convert, partition, dev, nside,
+                        n, errs, rehearse):
+    """Phase 12a: rare_kernel<T, L, kRemote> against rare_plain(remote=) on
+    a box partitioned into 4 slabs: the settle call and the cycle call
+    (after stream_kernel with bounce_on=False, esc_on=False, as the shard
+    cycle runs it) on shard 1, TET and PK, float32 and float64, both lane
+    counts, the six pending patterns; bit for bit, one launch a call,
+    lanes pausing by the walk and by a bounce."""
+    patterns = PATTERNS[:2] if rehearse else PATTERNS
+    n = n // 3 if rehearse else n
+    t0 = time.perf_counter()
+    for dtype, layout in itertools.product((torch.float32, torch.float64), ("tet", "pk")):
+        npdt = np.float32 if dtype == torch.float32 else np.float64
+        mesh = convert.to_mesh(box_payload(tmesh, nside, npdt, swirl(nside)), dev)
+        if layout == "pk":
+            mesh = cpt.with_pk_rows(mesh)
+        ly = fused.LAYOUT_PK if layout == "pk" else fused.LAYOUT_TET
+        pm = partition.partition_mesh(mesh, PART_SHARDS, layout=layout)
+        s, per = 1, pm.tets_per_shard
+        tab, esc = pm.tet_row[s], pm.bd_escape[s]
+        ra = dict(max_hops=50, max_bounces=10, reflect_wall=True, ly=ly,
+                  remote=(esc.shape[0], per))
+        cfg = cpt.StepConfig(dt=0.9, diffusion_coeff=5e-3, inline_hops=4,
+                             velocity_interp="VertexVelocity" if layout == "pk"
+                             else "TetVelocity")
+        sa = dict(stream_args(cfg, cfg.dt, dtype, fused), bounce_on=False, esc_on=False, ly=ly)
+        key = f"rare_{'pk_' if layout == 'pk' else ''}remote"
+        for nn in (n, n - RAGGED):
+            m0 = remote_case(torch, fused, pm, s, nn, dtype, ly, nn + per, dev)
+            xi = torch.as_tensor(np.random.default_rng(nn).standard_normal((nn, 3)), dtype=dtype,
+                                 device=dev)
+            walk = bounce = 0
+            for call in ("settle", "cycle"):
+                m = m0.clone()
+                if call == "settle":
+                    pend = partition.settle_flags(m).to(torch.uint8)
+                else:
+                    pend = torch.empty(nn, dtype=torch.uint8, device=dev)
+                    fused_cuda.stream_cycle(tab, m, xi, pend, **sa)
+                mk, mp = m.clone(), m.clone()
+                fused_cuda.rare_resolve(tab, mk, pend, esc, **ra)
+                fused.rare_plain(tab, mp, pend, esc, **ra)
+                same, err = compare(torch, mk, mp)
+                need(same and bitwise_equal(torch, mk, mp),
+                     f"rare_kernel<{layout}, remote> != rare_plain ({call}, lanes={nn}, {dtype})")
+                w, b = pause_counts(torch, m, mp, per)
+                walk, bounce = walk + w, bounce + b
+                tag = f"rare_kernel<{layout}, remote> ({call}, lanes={nn}, {dtype})"
+                rare_patterns(torch, fused_cuda.rare_resolve,
+                              lambda mm, q: fused_cuda.rare_resolve(tab, mm, q, esc, **ra),
+                              lambda mm, q: fused.rare_plain(tab, mm, q, esc, **ra), m, pend, tag,
+                              patterns)
+                errs[key] = max(errs[key], err)
+                log(f"[remote] layout={layout} dtype={str(dtype)[6:]} lanes={nn} call={call} "
+                    f"pending={int(pend.sum())} paused_by_walk={w} paused_after_bounce={b} "
+                    f"identical=1 max_abs_err={err:.3e} patterns_identical=1 "
+                    f"({','.join(patterns)})")
+            need(walk > 0 and bounce > 0,
+                 f"rare_kernel<{layout}, remote> (lanes={nn}, {dtype}): {walk} lanes paused by "
+                 f"the walk, {bounce} after a bounce; both must be > 0")
+    log(f"[remote] 12a done in {time.perf_counter() - t0:.1f} s")
+
+
+def engine_counts(fused_cuda):
+    out = {name: getattr(fused_cuda, name).launches for name in COUNTED}
+    out["rare_resolve_remote"] = fused_cuda.rare_resolve.remote_launches
+    return {k: v for k, v in out.items() if v}
+
+
+def reset_counts(fused_cuda):
+    for name in COUNTED:
+        getattr(fused_cuda, name).launches = 0
+    fused_cuda.rare_resolve.remote_launches = 0
+
+
+def profile_engine(torch, dev, eng, dt, n=20):
+    """(the device's busy ms a cycle, kernels and copies included, and the
+    eight busiest device activities with their count and ms a cycle) of
+    ``n`` cycles of ``eng.advance`` under torch.profiler; None on the CPU."""
+    if dev.type != "cuda":
+        return None, None
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.advance(n, dt)
+        torch.cuda.synchronize(dev)
+    agg = device_kernels(torch, prof)
+    busy = sum(ms for _, ms in agg.values()) / n
+    top = {short_kernel_name(k): (c / n, round(ms / n, 4)) for k, (c, ms) in list(agg.items())[:8]}
+    return busy, top
+
+
+def timed_engine(torch, fused_cuda, dev, eng, dt, n_cycles, warm):
+    """(ms/cycle of 3 runs, host issue ms/cycle of each, launches by wrapper
+    of the 3 runs, the partitioned engine's settle rounds in them, peak
+    bytes, the device's busy ms a cycle and its busiest activities in a
+    profiled 20-cycle run) of ``eng.advance``, after ``warm`` cycles; the
+    counts are set to 0 just before the timed runs."""
+    eng.advance(warm, dt)
+    timer = Timer(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(fused_cuda)
+    rounds0 = getattr(eng, "_settle_rounds", 0)
+    ms, host = [], []
+    for _ in range(3):
+        timer.start()
+        h0 = time.perf_counter()
+        eng.advance(n_cycles, dt)
+        host.append((time.perf_counter() - h0) * 1e3 / n_cycles)
+        ms.append(timer.stop() / n_cycles)
+    launches = engine_counts(fused_cuda)
+    rounds = getattr(eng, "_settle_rounds", 0) - rounds0
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    return (ms, host, launches, rounds, peak) + profile_engine(torch, dev, eng, dt)
+
+
+def idle_share(busy, ms):
+    return None if busy is None else 1.0 - busy / float(np.median(ms))
+
+
+def same_state(torch, a, b):
+    return all(bitwise_equal(torch, getattr(a, f), getattr(b, f)) for f in ("pos", "vel")) and \
+        bool(torch.equal(a.tet_id, b.tet_id) and torch.equal(a.active, b.active))
+
+
+def shard_cycle_times(torch, fused, fused_cuda, timer, run, xi, cfg, dt, errs):
+    """Device ms of stream_kernel and rare_kernel, and their plain
+    versions', on one data-parallel shard's packed state (its next cycle,
+    noise ``xi``), each held against its plain version (``errs``), with
+    the counts for their bounds."""
+    mesh, m0, n = run.mesh, run.m.clone(), run.m.shape[0]
+    sa = stream_args(cfg, dt, m0.dtype, fused)
+    ra = rare_args(cfg)
+    pk = torch.empty(n, dtype=torch.uint8, device=m0.device)
+    pp = torch.empty_like(pk)
+    m1, mp = m0.clone(), m0.clone()
+    fused_cuda.stream_cycle(mesh.tet_row, m1, xi, pk, **sa)
+    fused.stream_plain(mesh.tet_row, mp, xi, pp, **sa)
+    same_s, err_s = compare(torch, m1, mp, pk, pp)
+    p1 = pk.clone()
+    hops = rows_changed(torch, m0, m1, 20)
+    mr, mrp = m1.clone(), m1.clone()
+    fused_cuda.rare_resolve(mesh.tet_row, mr, p1, mesh.bd_escape, **ra)
+    fused.rare_plain(mesh.tet_row, mrp, p1, mesh.bd_escape, **ra)
+    same_r, err_r = compare(torch, mr, mrp)
+    need(same_s and err_s <= POS_TOL_F32 and same_r and bitwise_equal(torch, mr, mrp),
+         "a data-parallel shard's kernels != their plain versions")
+    errs["stream_dp"] = max(errs["stream_dp"], err_s)
+    errs["rare_dp"] = max(errs["rare_dp"], err_r)
+    work, pend = m0.clone(), pk.clone()
+
+    def restore_stream():
+        work.copy_(m0)
+
+    def restore_rare():
+        work.copy_(m1)
+        pend.copy_(p1)
+
+    times = {"stream_dp": kernel_vs_plain_ms(
+        timer, lambda: fused_cuda.stream_cycle(mesh.tet_row, work, xi, pend, **sa),
+        lambda: fused.stream_plain(mesh.tet_row, work, xi, pend, **sa), restore_stream),
+        "rare_dp": rare_row(
+        torch, timer, lambda: fused_cuda.rare_resolve(mesh.tet_row, work, pend, mesh.bd_escape,
+                                                      **ra),
+        lambda: fused.rare_plain(mesh.tet_row, work, pend, mesh.bd_escape, **ra), restore_rare)}
+    el = m0.element_size()
+    counts = {"stream_dp": ("stream", dict(n=n, elem=el, noise="xi", hops=hops, hopped=hops)),
+              "rare_dp": ("rare", dict(n=n, elem=el, pending=int(p1.sum()),
+                                       moved=moved(torch, m1, mr)))}
+    case = bary_rare_case(torch, fused, fused_cuda, mesh.tet_row, mesh, m1, p1, ra,
+                          fused.LAYOUT_TET, "cpf_rare_f32")
+    return times, counts, case
+
+
+def phase_dp(torch, cpt, fused, fused_cuda, sharding, auto, dev, slice_setup, n_cycles, warm,
+             gate, errs, counts, rares, gpu_line):
+    """Phase 12b, part 1: particle data parallelism with 4 shards on the
+    north-star slice, under threefry and under rbg_kernel: ``warm`` cycles,
+    3 x ``n_cycles`` timed, and a ``gate``-cycle run against its
+    single-device reference."""
+    mesh, st0, n_in, bcfg = slice_setup
+    times, launches = {}, {}
+    for mode in ("threefry", "rbg_kernel"):
+        cfg = dataclasses.replace(bcfg, brownian_rng=mode)
+        eng = auto.ParticleEngine(mesh, st0, cfg, devices=PART_SHARDS, strategy="dp", log=log)
+        ms, host, la, _, peak, busy, top = timed_engine(torch, fused_cuda, dev, eng, cfg.dt,
+                                                        n_cycles, warm)
+        st = eng.snapshot()
+        med = float(np.median(ms))
+        log(f"[dp] {gpu_line} | brownian_rng={mode} shards={PART_SHARDS} "
+            f"placement=[{sharding.placement(eng.devices)}] ms_per_cycle="
+            f"{['%.4f' % x for x in ms]} median={med:.4f} particle_steps_per_s="
+            f"{st0.n_particles / (med * 1e-3):.4e} host_issue_ms_per_cycle="
+            f"{['%.4f' % x for x in host]} launches={la} max_memory_allocated={peak} "
+            f"device_busy_ms_per_cycle={unmeasured(busy, '%.4f')} idle_share="
+            f"{unmeasured(idle_share(busy, ms), '%.3f')} busiest_per_cycle={top}")
+        domain_check(torch, cpt, mesh, st, n_in, f"dp-{mode}")
+        if dev.type == "cuda":
+            want = 3 * n_cycles * PART_SHARDS
+            need(la.get("stream_cycle") == want and la.get("rare_resolve") == want,
+                 f"dp {mode}: launches {la}, not {want} stream and rare")
+        if mode == "threefry":
+            launches = {"stream_dp": la.get("stream_cycle", 0),
+                        "rare_dp": la.get("rare_resolve", 0)}
+            # one shard's kernels at this path's shape, on its real next cycle
+            run = eng._dp.runs[0]
+            xi = fused._brownian_noise(run.seed, run.step, eng._dp.n_total, run.m.dtype,
+                                       dev)[:run.m.shape[0]].contiguous()
+            t, c, case = shard_cycle_times(torch, fused, fused_cuda, Timer(torch, dev), run, xi,
+                                           cfg, cfg.dt, errs)
+            times.update(t)
+            counts.update(c)
+            rares.add("rare_dp", case)
+            log(f"[dp] {gpu_line} | one shard ({run.m.shape[0]} lanes): stream_kernel_ms="
+                f"{t['stream_dp'][0]:.4f} plain_ms={t['stream_dp'][1]:.4f} rare_kernel_ms="
+                f"{t['rare_dp'][0]:.5f} (graph replay) plain_ms={t['rare_dp'][1]:.4f} "
+                f"pending={c['rare_dp'][1]['pending']}")
+        del eng
+        # the gate: threefry = the single-device run of the padded state; under
+        # rbg_kernel each shard = a single-device run of its slice with its offset
+        eng = auto.ParticleEngine(mesh, st0, cfg, devices=PART_SHARDS, strategy="dp",
+                                  log=lambda *a: None)
+        eng.advance(gate, cfg.dt)
+        got = eng._dp.states()
+        if mode == "threefry":
+            ref = cpt.run_cycles(mesh, sharding.pad_particles(st0, PART_SHARDS), cfg,
+                                 gate)
+            ok = same_state(torch, type("St", (), {f: torch.cat([getattr(g, f) for g in got])
+                                                   for f in ("pos", "vel", "tet_id",
+                                                             "active")}), ref)
+        else:
+            n_pad = got[0].n_particles + (-got[0].n_particles) % fused._PACK_LANES
+            shards = sharding.shard_state(st0, eng.devices)
+            ok = all(same_state(torch, g, cpt.run_cycles(mesh, sh, cfg, gate,
+                                                         lane_offset0=s * n_pad))
+                     for s, (g, sh) in enumerate(zip(got, shards)))
+        log(f"[dp] brownian_rng={mode} {gate} cycles: "
+            + ("= the single-device run of the padded state" if mode == "threefry" else
+               "each shard = a single-device run of its slice with lane offset s * n_pad")
+            + f", bit for bit: {int(ok)}")
+        need(ok, f"dp {mode} differs from its single-device reference")
+        del eng, got
+    return launches, times
+
+
+def remote_cycle_case(torch, fused, fused_cuda, partition, mega, s, dt):
+    """Shard ``s``'s second rare call of its next cycle, as
+    MegaShards.cycles makes it: (mega after the settle call and the stream
+    kernel, its pending flags, the context)."""
+    ctx = mega.ctxs[s]
+    m = mega.m[s].clone()
+    pend = torch.empty(m.shape[0], dtype=torch.uint8, device=m.device)
+    noise = partition._pid_noise(mega.seed, mega.step, mega.pid[s], mega.cfg, m.dtype)
+    partition._settle(ctx, m, pend)
+    fused_cuda.stream_cycle(ctx.tab, m, noise if mega.cfg.use_brownian else None, pend,
+                            bounce_on=False, esc_on=False, n_hops=ctx.cfg.inline_hops,
+                            ly=ctx.ly, **fused.stream_kwargs(ctx.cfg, dt, m.dtype))
+    return m, pend, ctx
+
+
+def remote_times(torch, fused, fused_cuda, partition, mega, dt, key, layout, counts, rares,
+                 errs):
+    """rare_kernel<remote>'s device ms against rare_plain(remote=) on shard
+    1's real second call of the next cycle, with its counts and rare study."""
+    m1, p1, ctx = remote_cycle_case(torch, fused, fused_cuda, partition, mega, 1, dt)
+    work, pend = m1.clone(), p1.clone()
+
+    def restore():
+        work.copy_(m1)
+        pend.copy_(p1)
+
+    t = rare_row(torch, Timer(torch, m1.device),
+                 lambda: fused_cuda.rare_resolve(ctx.tab, work, pend, ctx.bd_esc, **ctx.rare),
+                 lambda: fused.rare_plain(ctx.tab, work, pend, ctx.bd_esc, **ctx.rare), restore)
+    mk, mp = m1.clone(), m1.clone()
+    fused_cuda.rare_resolve(ctx.tab, mk, p1, ctx.bd_esc, **ctx.rare)
+    fused.rare_plain(ctx.tab, mp, p1, ctx.bd_esc, **ctx.rare)
+    same, err = compare(torch, mk, mp)
+    need(same and bitwise_equal(torch, mk, mp), f"{key} != rare_plain(remote=) at the path's shape")
+    errs[key] = max(errs[key], err)
+    counts[key] = ("rare", dict(n=m1.shape[0], elem=m1.element_size(), pending=int(p1.sum()),
+                                moved=moved(torch, m1, mk), layout=layout))
+    rem = dict(ctx.rare)
+    rares.add(key, RareCase(
+        m1, p1, None, fused.rare_chain(ctx.tab, m1, p1, ctx.bd_esc, **rem),
+        lambda m, p, d: fused_cuda.rare_resolve(ctx.tab, m, p, ctx.bd_esc, **rem), None, None))
+    return t, int(p1.sum()), pause_counts(torch, m1, mp, mega.pm.tets_per_shard)
+
+
+class PartitionedRun:
+    """The partitioned strategy at bench.py's partitioned-1shard settings
+    (slack 1.25, cap_out_frac 0.125, ``bench.py:261-297``), driven through
+    parallel/partition.py: partition_mesh, distribute_particles(slack=),
+    shard_arrays, and the resident MegaShards (cap_out_frac=) across
+    ``advance`` calls, as ParticleEngine keeps them; ``snapshot`` settles
+    and collects as the engine does."""
+
+    def __init__(self, torch, cpt, partition, sharding, mesh, st, cfg, S, layout):
+        self.torch, self.cpt, self.partition, self.cfg = torch, cpt, partition, cfg
+        self.n, self.device, self.dtype = st.n_particles, st.device, st.dtype
+        self.devices = sharding.make_device_mesh(S, st.device)
+        pm = partition.partition_mesh(mesh, S, layout=layout)
+        sp = partition.distribute_particles(pm, st.pos, st.vel, st.tet_id, st.active,
+                                            seed=st.seed, slack=PART_SLACK, step=st.step)
+        self.pm, sp = partition.shard_arrays(pm, sp, self.devices)
+        self.capacity = sp.capacity
+        self._mega = partition.MegaShards(self.pm, cfg, self.devices, sp, PART_CAP_OUT)
+        self.migrated = self.deferred = self._settle_rounds = 0
+
+    def advance(self, n_cycles, dt):
+        stats = self._mega.cycles(n_cycles, dt)
+        self.migrated = self.migrated + stats["migrated"]
+        self.deferred = self.deferred + stats["deferred"]
+        self._settle_rounds += stats["settle_rounds"]
+
+    def snapshot(self):
+        return settled_state(self.torch, self.cpt, self.partition, self.pm, self.cfg,
+                             self.devices, self._mega.decode(), self.n, self.device, self.dtype)
+
+
+def settled_state(torch, cpt, partition, pm, cfg, devices, sp, n, dev, dtype):
+    """The slot arrays ``sp`` after the settle step, gathered into a
+    ParticleState in the original order (ParticleEngine.snapshot)."""
+    settled, _ = partition.make_settle_step(pm, cfg, devices)(pm, sp, 0.0)
+    pos, vel, tet, act = partition.collect_particles(pm, settled, n)
+    return cpt.ParticleState(
+        pos=torch.as_tensor(pos, dtype=dtype, device=dev),
+        vel=torch.as_tensor(vel, dtype=dtype, device=dev),
+        disp=torch.zeros((n, 3), dtype=dtype, device=dev),
+        tet_id=torch.as_tensor(tet, device=dev), active=torch.as_tensor(act, device=dev),
+        seed=sp.seed, step=sp.step)
+
+
+def phase_partitioned(torch, cpt, fused, fused_cuda, tmesh, partition, sharding, dev, nside,
+                      slice_setup, n_cycles, warm, gate, errs, counts, rares, gpu_line):
+    """Phase 12b, part 2: the partitioned strategy on the north-star slice
+    at bench.py's partitioned-1shard settings, S = 1 then S = 4: the
+    resident MegaShards timed (``warm``, 3 x ``n_cycles``), and a
+    ``gate``-cycle make_partitioned_runner run against the single-device
+    run under "rbg"; then under VertexVelocity at S = 4 (the Pk remote
+    kernel's run)."""
+    mesh, st0, n_in, bcfg = slice_setup
+    n = st0.n_particles
+    times, launches = {}, {}
+    rbg = dataclasses.replace(bcfg, brownian_rng="rbg")
+    ref = cpt.run_cycles(mesh, st0, rbg, gate)
+    for S in (1, PART_SHARDS):
+        t0 = time.perf_counter()
+        eng = PartitionedRun(torch, cpt, partition, sharding, mesh, st0, bcfg, S, "tet")
+        setup_s = time.perf_counter() - t0
+        ms, host, la, rounds, peak, busy, top = timed_engine(torch, fused_cuda, dev, eng,
+                                                             bcfg.dt, n_cycles, warm)
+        n_run = 3 * n_cycles + warm + (20 if dev.type == "cuda" else 0)
+        per_cycle = {k: v / (3 * n_cycles) for k, v in la.items()}
+        resident = sum(int(r.sum()) for r in eng._mega.res)
+        st = eng.snapshot()
+        med = float(np.median(ms))
+        log(f"[part] {gpu_line} | shards={S} placement=[{sharding.placement(eng.devices)}] "
+            f"capacity={eng.capacity} slack={PART_SLACK} cap_out_frac={PART_CAP_OUT} "
+            f"setup_s={setup_s:.2f} ms_per_cycle={['%.4f' % x for x in ms]} median={med:.4f} "
+            f"particle_steps_per_s={n / (med * 1e-3):.4e} host_issue_ms_per_cycle="
+            f"{['%.4f' % x for x in host]} launches_per_cycle={per_cycle} "
+            f"migrated_per_cycle={int(eng.migrated) / n_run:.1f} "
+            f"deferred_per_cycle={int(eng.deferred) / n_run:.1f} "
+            f"settle_rounds_per_cycle={rounds / (3 * n_cycles):.3f} "
+            f"max_memory_allocated={peak} device_busy_ms_per_cycle={unmeasured(busy, '%.4f')} "
+            f"idle_share={unmeasured(idle_share(busy, ms), '%.3f')} resident={resident} "
+            f"busiest_per_cycle={top}")
+        need(resident == n, f"partitioned S={S}: {resident} lanes resident, not {n}")
+        domain_check(torch, cpt, mesh, st, n_in, f"part-{S}")
+        if dev.type == "cuda":
+            # a settle and a cycle call a shard each cycle, one more settle a round
+            need(la.get("stream_cycle") == 3 * n_cycles * S
+                 and la.get("rare_resolve_remote") == (2 * 3 * n_cycles + rounds) * S,
+                 f"partitioned S={S}: launches {la}, settle rounds {rounds}")
+        if S == PART_SHARDS:
+            launches["rare_remote"] = la.get("rare_resolve_remote", 0)
+            t, pend, (w, b) = remote_times(torch, fused, fused_cuda, partition, eng._mega,
+                                           bcfg.dt, "rare_remote", "tet", counts, rares, errs)
+            times["rare_remote"] = t
+            log(f"[part] {gpu_line} | rare_kernel<remote> on shard 1's second call "
+                f"({eng._mega.m[1].shape[0]} slots, {pend} pending, {w} paused by the walk, "
+                f"{b} after a bounce): kernel_ms={t[0]:.5f} (graph replay) plain_ms={t[1]:.4f}")
+        del eng, st
+        # the gate: ``gate`` cycles of make_partitioned_runner against the
+        # single-device run under "rbg"
+        devs = sharding.make_device_mesh(S, dev)
+        pm = partition.partition_mesh(mesh, S, layout="tet")
+        sp = partition.distribute_particles(pm, st0.pos, st0.vel, st0.tet_id, st0.active,
+                                            seed=st0.seed, slack=PART_SLACK, step=st0.step)
+        pm, sp = partition.shard_arrays(pm, sp, devs)
+        run = partition.make_partitioned_runner(pm, bcfg, devs, gate, cap_out_frac=PART_CAP_OUT)
+        sp, stats = run(pm, sp, bcfg.dt)
+        got = settled_state(torch, cpt, partition, pm, bcfg, devs, sp, n, dev, st0.dtype)
+        tet_ok = bool(torch.equal(got.tet_id, ref.tet_id))
+        act_ok = bool(torch.equal(got.active, ref.active))
+        err = float((got.pos - ref.pos).abs().max())
+        log(f"[part] shards={S} {gate} cycles against the single-device run under "
+            f"brownian_rng=rbg: tet_identical={int(tet_ok)} active_identical={int(act_ok)} "
+            f"pos_max_abs_err={err:.3e} (bound {POS_TOL_PART}) migrated="
+            f"{int(stats['migrated'])} settle_rounds={stats['settle_rounds']}")
+        need(tet_ok and act_ok and err <= POS_TOL_PART,
+             f"partitioned S={S} differs from the single-device rbg run")
+        del pm, sp, got
+    del ref
+    # VertexVelocity: the Pk remote kernel on its path
+    pts, _, _ = tmesh.box_points_tets(nside, nside, nside)
+    pmesh = cpt.with_pk_rows(cpt.replace_velocity(mesh, vert_vel=vortex(nside)(pts)))
+    pcfg = dataclasses.replace(bcfg, velocity_interp="VertexVelocity")
+    eng = PartitionedRun(torch, cpt, partition, sharding, pmesh, st0, pcfg, PART_SHARDS, "pk")
+    eng.advance(warm, pcfg.dt)
+    reset_counts(fused_cuda)
+    rounds0 = eng._settle_rounds
+    timer = Timer(torch, dev)
+    timer.start()
+    eng.advance(n_cycles, pcfg.dt)
+    ms = timer.stop() / n_cycles
+    la = engine_counts(fused_cuda)
+    rounds = eng._settle_rounds - rounds0
+    launches["rare_pk_remote"] = la.get("rare_resolve_remote", 0)
+    t, pend, (w, b) = remote_times(torch, fused, fused_cuda, partition, eng._mega, pcfg.dt,
+                                   "rare_pk_remote", "pk", counts, rares, errs)
+    times["rare_pk_remote"] = t
+    st = eng.snapshot()
+    log(f"[part-pk] {gpu_line} | shards={PART_SHARDS} VertexVelocity ms_per_cycle={ms:.4f} "
+        f"launches={la} settle_rounds={rounds} migrated={int(eng.migrated)} "
+        f"rare_kernel<pk, remote> on "
+        f"shard 1 ({pend} pending, {w} paused by the walk, {b} after a bounce): "
+        f"kernel_ms={t[0]:.5f} plain_ms={t[1]:.4f}")
+    domain_check(torch, cpt, pmesh, st, n_in, "part-pk")
+    if dev.type == "cuda":
+        need(la.get("rare_resolve_remote") == (2 * n_cycles + rounds) * PART_SHARDS,
+             f"partitioned pk: launches {la}, settle rounds {rounds}")
+    del eng, pmesh, st
+    return launches, times
+
+
+def phase_drivers_parallel(torch, dev, tmp, rehearse, gpu_line):
+    """Phase 12c: the uncoupled driver with the strategies: in process on
+    the shipped pitzDaily (1e5 particles, 1000 cycles, float64, no Brownian
+    term) single / dp / partitioned with 4 shards, tet and active identical
+    and pos within 1e-9; then the CLI with --devices 4 --strategy
+    partitioned --no-write (float32)."""
+    from cudaparticlesfoam_tpu_torch.io import foamfile
+    from cudaparticlesfoam_tpu_torch.models import uncoupled
+
+    particles, delta_t = (200, 0.002) if rehearse else (None, None)
+    case = pitz_case(tmp, particles, delta_t)
+    path = os.path.join(case, "system", "cudaParticlesDict")
+    d = foamfile.read(path)
+    d.pop("FoamFile", None)
+    d["useBrownianMotion"] = 0
+    foamfile.write(path, d, obj_name="cudaParticlesDict")
+    runs = {}
+    for strat, devices in (("single", None), ("dp", PART_SHARDS),
+                           ("partitioned", PART_SHARDS)):
+        t0 = time.perf_counter()
+        _, st, stats = uncoupled.run(case, write_output=False, dtype="float64", device=dev,
+                                     devices=devices, strategy="auto" if devices is None
+                                     else strat, log=lambda *a: None)
+        runs[strat] = st
+        la = {k: v for k, v in stats.get("launches", {}).items() if v}
+        log(f"[drivers] {gpu_line} | uncoupled.run {strat} float64 particles={st.n_particles} "
+            f"cycles={stats['cycles']} wall_s={stats['wall_s']:.3f} "
+            f"advect_s={stats['phases'].get('Advect', 0.0):.3f} launches={la} "
+            f"migration={stats.get('migration')} command_s={time.perf_counter() - t0:.1f}")
+    ref = runs["single"]
+    for strat in ("dp", "partitioned"):
+        st = runs[strat]
+        tet_ok = bool(torch.equal(st.tet_id, ref.tet_id))
+        act_ok = bool(torch.equal(st.active, ref.active))
+        err = float((st.pos - ref.pos).abs().max())
+        log(f"[drivers] {strat} against single: tet_identical={int(tet_ok)} "
+            f"active_identical={int(act_ok)} pos_max_abs_err={err:.3e} (bound {DRIVER_TOL})")
+        need(tet_ok and act_ok and err <= DRIVER_TOL, f"the {strat} driver run parts from single")
+    cmd = ["uncoupled", case, "--devices", str(PART_SHARDS), "--strategy", "partitioned",
+           "--no-write"] + (["--device", "cpu"] if rehearse else [])
+    res, secs = cli(cmd)
+    need(res.returncode == 0, f"the partitioned CLI run failed: {res.stderr[-3000:]}")
+    text = res.stdout
+    eng = re.search(r"#adv: engine strategy=(\w+) devices=\[([^\]]*)\]", text)
+    runtime = re.search(r"Simulation RunTime=([\d.]+) ms \(([\d.]+)M particle-steps/s\)", text)
+    dev_line = re.search(r"#adv: on (.*): Advect ([\d.]+) ms/cycle on the device, ([\d.]+) "
+                         r"ms/cycle to issue; kernel launches (\{.*\}); peak device memory "
+                         r"([\d.]+) GiB", text)
+    n_cycles = int(re.search(r"nCycles: (\d+)", text).group(1))
+    ood = [int(x) for x in re.findall(r"Out-of-domain particles\(-tetID\) = (\d+)", text)]
+    launches = json.loads(dev_line.group(4).replace("'", '"')) if dev_line else {}
+    name, where = (eng.group(1), eng.group(2)) if eng else (None, "")
+    log(f"[drivers] {gpu_line} | CLI uncoupled --devices {PART_SHARDS} --strategy partitioned "
+        f"--no-write: engine={name} placement=[{where}] "
+        f"cycles={n_cycles} runtime_ms={runtime.group(1) if runtime else None} "
+        f"advect_ms_per_cycle={dev_line.group(2) if dev_line else 'not measured (CPU)'} "
+        f"host_issue_ms_per_cycle={dev_line.group(3) if dev_line else 'not measured (CPU)'} "
+        f"launches={launches} out_of_domain={ood} command_s={secs:.1f}")
+    need(eng is not None and eng.group(1) == "partitioned", "the CLI ran no partitioned engine")
+    if dev.type == "cuda":
+        need(eng.group(2) == f"cuda:0 x{PART_SHARDS}" or torch.cuda.device_count() > 1,
+             f"placement {eng.group(2)!r}")
+        # one stream launch a shard a cycle, and a shard's one more for the
+        # final snapshot's settle step (a cycle without displacement)
+        need(launches.get("stream_cycle") == (n_cycles + 1) * PART_SHARDS
+             and launches.get("rare_resolve_remote", 0) >= 2 * (n_cycles + 1) * PART_SHARDS,
+             f"the partitioned CLI run launched {launches}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -3871,7 +4479,7 @@ def main():
         dev = torch.device("cpu")
         sizes = dict(parity=(6, 3072), stats=20_000, slice=(12, 8_000, 8), simple=3,
                      admit=(1, 3, 4, 15, 16, 17, 8155, 8192, 20_000), driver_warm=20, rk4=8,
-                     rk4_parity=1024, flow_warm=1, dyn=(6, 3072))
+                     rk4_parity=1024, flow_warm=1, dyn=(6, 3072), part=(2, 4))
         gpu_line = "cpu rehearsal"
         kind = "cpu"
     else:
@@ -3882,7 +4490,7 @@ def main():
         sizes = dict(parity=(16, 65_536), stats=1_000_000, slice=(55, 1_000_000, 200), simple=5,
                      admit=(1, 3, 4, 15, 16, 17, 65_499, 65_536, 1_000_000, 4_000_001),
                      driver_warm=100, rk4=100, rk4_parity=65_536, flow_warm=5,
-                     dyn=(16, 65_536))
+                     dyn=(16, 65_536), part=(10, 20))
         kind = torch.cuda.get_device_name(0)
         gpu_line = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3977,6 +4585,25 @@ def main():
         phase_tjunction_trace(torch, dev, tcase, tflow, tst, tcfg, tstep, tmp, gpu_line)
         del tcase, tflow, tst
 
+    # phase 12, the multi-device particle strategies and rare_kernel<remote>
+    from cudaparticlesfoam_tpu_torch.parallel import auto, partition, sharding
+
+    errs.update(stream_dp=0.0, rare_dp=0.0, rare_remote=0.0, rare_pk_remote=0.0)
+    t12 = time.perf_counter()
+    phase_remote_parity(torch, cpt, fused, fused_cuda, tmesh, convert, partition, dev, nside, n,
+                        errs, args.rehearse)
+    dp_launches, dp_times = phase_dp(torch, cpt, fused, fused_cuda, sharding, auto, dev,
+                                     slice_setup, sizes["slice"][2], *sizes["part"], errs,
+                                     counts, rares, gpu_line)
+    times.update(dp_times)
+    part_launches, part_times = phase_partitioned(
+        torch, cpt, fused, fused_cuda, tmesh, partition, sharding, dev, sizes["slice"][0],
+        slice_setup, sizes["slice"][2], *sizes["part"], errs, counts, rares, gpu_line)
+    times.update(part_times)
+    with tempfile.TemporaryDirectory(prefix="cpf_parallel_") as tmp:
+        phase_drivers_parallel(torch, dev, tmp, args.rehearse, gpu_line)
+    log(f"[parallel] phase 12 took {time.perf_counter() - t12:.1f} s")
+
     # launches per sub-step of each kernel on its own path (3 timed runs)
     steps = 3 * sizes["slice"][2]
     per_cycle = {
@@ -3993,6 +4620,11 @@ def main():
     # the rk4-tracers cell of phase 9d: one RK4 stream and one rare launch a cycle
     for name in rk4_launches:
         per_cycle[name] = rk4_launches[name] / sizes["rk4"]
+    # phase 12: per sub-step of the whole run, all shards (S each on the DP
+    # path, two remote rare calls a shard on the partitioned one)
+    for name, v in list(dp_launches.items()) + [("rare_remote", part_launches["rare_remote"])]:
+        per_cycle[name] = v / steps
+    per_cycle["rare_pk_remote"] = part_launches["rare_pk_remote"] / sizes["slice"][2]
     for a, b in (("stream_philox", "stream"), ("convex_stream_xi", "convex_stream"),
                  ("macro_philox", "macro"), ("stream_pk_philox", "stream_pk")):
         per_cycle[a] = per_cycle[b]
@@ -4066,6 +4698,17 @@ def main():
               tj_launches.get("stream_cycle", 0), errs["stream_tjunction"], path=TJUNC_PATH),
         entry("rare_kernel", "rare_tjunction", "rare.cu", "fused.py:921",
               tj_launches.get("rare_resolve", 0), errs["rare_tjunction"], path=TJUNC_PATH),
+        # phase 12: data parallelism (each shard's kernels), and the partitioned
+        # shard's rare stage (the XLA rare stage with _make_run_lanes_remote)
+        entry("stream_kernel", "stream_dp", "stream.cu", "fused_pallas.py:319",
+              dp_launches["stream_dp"], errs["stream_dp"], path=DP_PATH),
+        entry("rare_kernel", "rare_dp", "rare.cu", "fused.py:921", dp_launches["rare_dp"],
+              errs["rare_dp"], path=DP_PATH),
+        entry("rare_kernel<remote>", "rare_remote", "rare.cu", "fused.py:393",
+              part_launches["rare_remote"], errs["rare_remote"], path=PART_PATH),
+        entry("rare_kernel<pk, remote>", "rare_pk_remote", "rare.cu", "fused.py:393",
+              part_launches["rare_pk_remote"], errs["rare_pk_remote"],
+              path=PART_PATH + ", VertexVelocity"),
     ]}
     log(gpu_line)
     log(json.dumps(table))

@@ -13,10 +13,12 @@ Replaces the reference's OpenFOAM executables and Allrun scripts:
 ``uncoupled``, ``coupled``, ``replay`` and ``simple`` run on the card
 unless ``--device cpu`` asks for the CPU (the kernels' plain versions,
 torch ops on the CPU); ``--f64`` runs in float64 (``coupled`` solves its
-flow in float32 all the same, as the JAX package does).  A multi-device
-request (``--devices N>1``, a ``--strategy`` other than auto/single,
-``--flow-devices N>1``) raises: the multi-device strategies are not
-ported yet (ROADMAP.md queue 1 items 13a and 13c).
+flow in float32 all the same, as the JAX package does).  ``--devices N``
+and ``--strategy dp|partitioned`` run the particles on N shards
+(``parallel/``; on the card the shards share the visible cards in turn,
+on ``--device cpu`` they all run on the CPU).  ``--flow-devices N>1``
+raises: the domain-decomposed flow solve is not ported yet (ROADMAP.md
+queue 1 item 13c).
 """
 
 from __future__ import annotations
@@ -42,10 +44,13 @@ def main(argv=None):
 
     def add_particle_parallel(p):
         p.add_argument("--devices", type=int, default=None,
-                       help="particle devices; more than one is not ported yet")
+                       help="particle shards (default one per visible card); more shards "
+                            "than cards share them in turn")
         p.add_argument("--strategy", default="auto",
                        choices=("auto", "single", "dp", "partitioned"),
-                       help="multi-device strategy; only auto/single are ported")
+                       help="multi-device strategy: particle data parallelism (dp), the "
+                            "slab-partitioned mesh (partitioned), or chosen from the memory "
+                            "model (auto)")
 
     p = add_case_cmd("uncoupled", "frozen-field particle tracking")
     p.add_argument("--profile", default=None, help="write a torch.profiler trace here")

@@ -167,3 +167,52 @@ def to_dynamic_mesh(dm_like, pm, dtype=None, device=None) -> dynamicmesh.Dynamic
         if dm_like._lap._gamma_cells is not None:
             dm._lap._gamma_cells = np.array(dm_like._lap._gamma_cells, dtype=np.float64)
     return dm
+
+
+def to_partitioned_mesh(pm_like, device=None):
+    """The port's ``parallel.partition.PartitionedMesh`` of an object with
+    the JAX ``PartitionedMesh``'s fields ([S, per, w] rows, [S, per, 4]
+    codes, the permutations, ``bd_escape``), every shard on ``device``
+    (default the card).  JAX's 29-column Pk rows are padded to the port's
+    32 (the kernels' ``tet_row_pk32`` layout, codes at 24:28)."""
+    from .parallel import partition
+
+    dev = canonical_device(device)
+    rows = np.array(pm_like.tet_row)
+    layout = {20: "tet", 29: "pk", 24: "cx"}[rows.shape[-1]]
+    if layout == "pk":
+        rows = np.concatenate([rows, np.zeros(rows.shape[:2] + (3,), rows.dtype)], axis=2)
+    S = int(pm_like.n_shards)
+    esc = torch.as_tensor(np.array(pm_like.bd_escape), device=dev)
+    return partition.PartitionedMesh(
+        tet_row=[torch.as_tensor(r, device=dev) for r in rows],
+        tet_nbr=[torch.as_tensor(r.astype(np.int32), device=dev)
+                 for r in np.array(pm_like.tet_nbr)],
+        perm=torch.as_tensor(np.array(pm_like.perm).astype(np.int64), device=dev),
+        inv_perm=torch.as_tensor(np.array(pm_like.inv_perm).astype(np.int64), device=dev),
+        bd_escape=[esc] * S, n_shards=S, tets_per_shard=int(pm_like.tets_per_shard),
+        n_tets=int(pm_like.n_tets), layout=layout)
+
+
+def to_sharded_particles(sp_like, seed=None, device=None):
+    """The port's ``parallel.partition.ShardedParticles`` of an object with
+    the JAX ``ShardedParticles``' fields ([S, C, ...] slots), on ``device``
+    (default the card).  ``seed`` defaults to the one of the JAX key
+    (``PRNGKey(seed)`` = (seed >> 32, seed & 0xffffffff))."""
+    from .parallel import partition
+
+    dev = canonical_device(device)
+    if seed is None:
+        k = np.array(sp_like.rng_key).astype(np.uint64).reshape(-1)
+        seed = int(k[0]) << 32 | int(k[1])
+
+    def split(x, dtype=None):
+        a = np.array(x)
+        return [torch.as_tensor(r if dtype is None else r.astype(dtype), device=dev) for r in a]
+
+    return partition.ShardedParticles(
+        pos=split(sp_like.pos), vel=split(sp_like.vel), disp=split(sp_like.disp),
+        tet=split(sp_like.tet, np.int32), active=split(sp_like.active),
+        resident=split(sp_like.resident), pid=split(sp_like.pid, np.int32), seed=int(seed),
+        step=int(np.array(sp_like.step)), n_shards=int(sp_like.n_shards),
+        capacity=int(sp_like.capacity))

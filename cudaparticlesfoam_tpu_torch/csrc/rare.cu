@@ -30,21 +30,40 @@
 // out, each table row of the walk in through the read-only path.  Each
 // lane is still resolved by one thread with the same arithmetic, so the
 // result is bit for bit that of the plain version.
+//
+// kRemote: the partitioned mesh's form (cudaparticlesfoam_tpu/parallel/
+// partition.py:_make_run_lanes_remote, 392-443, and _reflect_mega's
+// remote=(R0, per) branch, ops/fused.py:418-424).  A shard's table holds its
+// slab of rows, in-shard neighbours as local ids and a tet g of another shard
+// as the code -(R0 + 1 + g), R0 the boundary face count.  A lane whose walk
+// exits through such a code, or whose re-walk after a bounce meets one (the
+// test comes before the escape test), pauses: its tet becomes the sentinel
+// -(per + g + 1) for migration, its point the one reached so far.  The
+// instantiations with kRemote = false compile the code above unchanged.
 #include "pending.cuh"
 #include "walk.cuh"
 
 namespace cpf {
 
+// The migration sentinel of a lane paused at the remote code `code`.
+__device__ __forceinline__ int remote_sentinel(int code, int R0, int per) {
+  return -(per + (-code - R0 - 1) + 1);
+}
+
 // _reflect_mega for one lane that the walk left at `*tet` (< 0 = wall hit).
-template <typename T, typename L>
+template <typename T, typename L, bool kRemote>
 __device__ void reflect(const T* __restrict__ tab, T* row, T* p, T* v,
                         int* tet, int slot, const uint8_t* __restrict__ bd_escape,
-                        int nbd, int max_bounces) {
+                        int nbd, int max_bounces, int R0, int per) {
   if (*tet >= 0) return;
   *tet = -(*tet + 1);  // the exit tet, whose row is cached
   int s = slot;
   for (int b = 0; b < max_bounces; ++b) {
     const int code_nbr = code_of<T, L>(row, s);
+    if (kRemote && code_nbr < -R0) {  // mid-bounce remote crossing: pause
+      *tet = remote_sentinel(code_nbr, R0, per);
+      return;
+    }
     if (code_nbr < 0 && nbd > 0) {
       int bd = -code_nbr - 1;
       bd = bd < nbd - 1 ? bd : nbd - 1;
@@ -80,12 +99,12 @@ __device__ void reflect(const T* __restrict__ tab, T* row, T* p, T* v,
   }
 }
 
-template <typename T, typename L>
+template <typename T, typename L, bool kRemote>
 __global__ void __launch_bounds__(THREADS)
 rare_kernel(const T* __restrict__ tab, T* __restrict__ m,
             const uint8_t* __restrict__ pend,
             const uint8_t* __restrict__ bd_escape, long long n, int nbd,
-            int max_hops, int max_bounces, int reflect_wall) {
+            int max_hops, int max_bounces, int reflect_wall, int R0, int per) {
   for_each_pending(pend, n, [&](long long i) {
     T* me = m + i * L::WIDTH;
     T head[ROW];
@@ -97,7 +116,17 @@ rare_kernel(const T* __restrict__ tab, T* __restrict__ m,
     load_vec<T, L::ROW_W>(me + ROW, row);
     int slot;
     walk<T, L>(tab, row, &tet, &slot, p[0], p[1], p[2], max_hops);
-    if (reflect_wall) reflect<T, L>(tab, row, p, v, &tet, slot, bd_escape, nbd, max_bounces);
+    bool paused = false;
+    if (kRemote && tet < 0) {  // the walk left the slab through a remote code
+      const int exit_code = code_of<T, L>(row, slot);
+      if (exit_code < -R0) {
+        tet = remote_sentinel(exit_code, R0, per);
+        paused = true;
+      }
+    }
+    if (reflect_wall && !paused) {
+      reflect<T, L, kRemote>(tab, row, p, v, &tet, slot, bd_escape, nbd, max_bounces, R0, per);
+    }
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
       head[P0 + k] = p[k];
@@ -111,24 +140,24 @@ rare_kernel(const T* __restrict__ tab, T* __restrict__ m,
 
 // The grid of one instantiation over n lanes (pending.cuh), its resident
 // block count cached per device.
-template <typename T, typename L>
+template <typename T, typename L, bool kRemote>
 cudaError_t rare_grid(long long n, int* blocks) {
   static int cache[MAX_DEVICES] = {};
-  return pending_grid(rare_kernel<T, L>, n, cache, blocks);
+  return pending_grid(rare_kernel<T, L, kRemote>, n, cache, blocks);
 }
 
-template <typename T, typename L = LayoutTet>
+template <typename T, typename L = LayoutTet, bool kRemote = false>
 int launch_rare(const void* tab, void* m, const void* pend,
                 const void* bd_escape, long long n, int nbd, int max_hops,
-                int max_bounces, int reflect_wall, void* stream) {
+                int max_bounces, int reflect_wall, void* stream, int R0 = 0, int per = 0) {
   if (n <= 0) return 0;
   int blocks = 0;
-  const cudaError_t err = rare_grid<T, L>(n, &blocks);
+  const cudaError_t err = rare_grid<T, L, kRemote>(n, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rare_kernel<T, L><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  rare_kernel<T, L, kRemote><<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(tab), static_cast<T*>(m),
       static_cast<const uint8_t*>(pend), static_cast<const uint8_t*>(bd_escape),
-      n, nbd, max_hops, max_bounces, reflect_wall);
+      n, nbd, max_hops, max_bounces, reflect_wall, R0, per);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -136,7 +165,7 @@ int launch_rare(const void* tab, void* m, const void* pend,
 template <typename T, typename L>
 int grid_or_error(long long n) {
   int blocks = 0;
-  const cudaError_t err = rare_grid<T, L>(n, &blocks);
+  const cudaError_t err = rare_grid<T, L, false>(n, &blocks);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
@@ -179,3 +208,17 @@ extern "C" int cpf_rare_grid_f32(long long n) { return cpf::grid_or_error<float,
 extern "C" int cpf_rare_grid_f64(long long n) { return cpf::grid_or_error<double, cpf::LayoutTet>(n); }
 extern "C" int cpf_rare_grid_pk_f32(long long n) { return cpf::grid_or_error<float, cpf::LayoutPk>(n); }
 extern "C" int cpf_rare_grid_pk_f64(long long n) { return cpf::grid_or_error<double, cpf::LayoutPk>(n); }
+
+// The partitioned mesh's instantiations (kRemote): R0 boundary faces, per
+// tets a shard; tab is the shard's slab, [per, 20] or, with _pk, [per, 32].
+#define CPF_RARE_REMOTE(NAME, T, L)                                                      \
+  extern "C" int NAME(const void* tab, void* m, const void* pend, const void* bd_escape, \
+                      long long n, int nbd, int max_hops, int max_bounces,              \
+                      int reflect_wall, int R0, int per, void* stream) {                \
+    return cpf::launch_rare<T, L, true>(tab, m, pend, bd_escape, n, nbd, max_hops,       \
+                                        max_bounces, reflect_wall, stream, R0, per);     \
+  }
+CPF_RARE_REMOTE(cpf_rare_remote_f32, float, cpf::LayoutTet)
+CPF_RARE_REMOTE(cpf_rare_remote_f64, double, cpf::LayoutTet)
+CPF_RARE_REMOTE(cpf_rare_remote_pk_f32, float, cpf::LayoutPk)
+CPF_RARE_REMOTE(cpf_rare_remote_pk_f64, double, cpf::LayoutPk)

@@ -586,6 +586,23 @@ def refresh_geometry(mesh: TetMesh, new_points) -> TetMesh:
     return dataclasses.replace(mesh, host=host, **kw)
 
 
+def to_device(mesh: TetMesh, device) -> TetMesh:
+    """``mesh`` with every tensor on ``device`` (the mesh itself when it is
+    there already); ``tet_row_pk`` stays a view of the moved
+    ``tet_row_pk32``, and the host payload is shared."""
+    device = torch.device(device)
+    if mesh.device == device:
+        return mesh
+    kw = {}
+    for f in dataclasses.fields(mesh):
+        v = getattr(mesh, f.name)
+        if torch.is_tensor(v) and f.name != "tet_row_pk":
+            kw[f.name] = v.to(device)
+    if mesh.tet_row_pk32 is not None:
+        kw["tet_row_pk"] = kw["tet_row_pk32"][:, :PK_ROW_W]
+    return dataclasses.replace(mesh, **kw)
+
+
 def with_convex_rows(mesh: TetMesh) -> TetMesh:
     """Attach the ConvexPoly row tables ``tet_row_cx`` and ``tet_row_cxe``
     (module docstring; JAX ``mesh.with_convex_rows``), built on the host

@@ -18,10 +18,11 @@ Each Eulerian step hands the new cell velocity to the particle tables as
 JAX does: ``FlowSolver.cell_velocity`` copies U to the host and
 ``Case.update_velocity`` rebuilds the host row table and uploads it
 (``mesh.replace_velocity``); the chunks of cycles between frames then run
-the stream and rare kernels on the card (``stepper.run_cycles``).  The
-multi-device strategies are not ported: ``devices > 1`` or a strategy
-other than auto/single raises (item 13a), and so does ``flow_devices > 1``
-(item 13c).
+the stream and rare kernels on the card (``stepper.run_cycles``).  With
+``devices`` or a ``strategy`` other than auto the particles run on a
+``parallel.auto.ParticleEngine`` (data parallelism or the partitioned
+mesh), which takes each new field (``update_from_case``) as JAX's does;
+``flow_devices > 1`` raises: the domain-decomposed flow solve is item 13c.
 """
 
 from __future__ import annotations
@@ -36,21 +37,25 @@ from ..io import vtu
 from ..stepper import n_cycles_for, run_cycles, suggest_tuning
 from ..utils.profiling import PhaseTimer
 from . import case as caselib
-from .uncoupled import _launch_counts, check_single_device
+from .uncoupled import _launch_counts, check_single_device, make_engine
 
 
 def _advance_interval(case, state, cfg, pcfg, delta_t, step0, out_dir, writer, log,
-                      timer=None):
+                      timer=None, engine=None):
     """One Eulerian interval: sub-cycle with VTU writes on the reference's
     step schedule (``advect.H:86-184``) through ``writer`` (an
     :class:`~cudaparticlesfoam_tpu_torch.io.vtu.AsyncVTUWriter`; None
     writes no frame).  Returns (state, next step0).  ``timer`` (a
     :class:`PhaseTimer`), when given, times the chunks of cycles as
-    "Advect" and the frame writes as "IO"."""
+    "Advect" and the frame writes as "IO".  With ``engine`` (a
+    ``ParticleEngine``) the sub-steps run on it, after it takes the case
+    mesh's new field."""
     n_cycles, cycle_dt = n_cycles_for(delta_t, pcfg.dt)
     log(f"dtE:{delta_t} dtL: {pcfg.dt}")
     log(f"nCycles: {n_cycles} cycleDt: {cycle_dt}")
     timer = timer or PhaseTimer()
+    if engine is not None:
+        engine.update_from_case(case)    # the fresh U into the engine's tables
     i = 0
     while i < n_cycles:
         step = step0 + i
@@ -60,12 +65,19 @@ def _advance_interval(case, state, cfg, pcfg, delta_t, step0, out_dir, writer, l
             next_write = ((step // pcfg.save_interval) + 1) * pcfg.save_interval
             chunk = min(next_write - step0, n_cycles) - i
         with timer.phase("Advect"):
-            state = run_cycles(case.tet_mesh, state, cfg, chunk, cycle_dt)
+            if engine is None:
+                state = run_cycles(case.tet_mesh, state, cfg, chunk, cycle_dt)
+            else:
+                engine.advance(chunk, cycle_dt)
         prev = step
         i += chunk
         if writer is not None and prev % pcfg.save_interval == 0:
+            if engine is not None:
+                state = engine.snapshot()
             with timer.phase("IO"):
                 writer.write(prev + 1, state, out_dir=out_dir, verbose=True)
+    if engine is not None:
+        state = engine.snapshot()
     return state, step0 + n_cycles
 
 
@@ -85,7 +97,8 @@ def run_replay(case_dir: str, out_dir: str | None = None, write_output: bool = T
                dtype=None, log=print, devices: int | None = None, strategy: str = "auto",
                device=None):
     """Advance particles over the case's recorded U snapshots on ``device``
-    (default the card).  Returns (case, state, {"cycles", "wall_s"})."""
+    (default the card); ``devices`` / ``strategy`` as in
+    ``uncoupled.run``.  Returns (case, state, {"cycles", "wall_s"})."""
     check_single_device(devices, strategy)
     device = run_device(device)
     case, cfg = _load(case_dir, dtype, log, device)
@@ -94,6 +107,7 @@ def run_replay(case_dir: str, out_dir: str | None = None, write_output: bool = T
     tdirs = caselib.time_dirs(case_dir)
     # start at the first snapshot; advance between consecutive snapshots
     state = caselib.init_particles(case, log=log)
+    engine = make_engine(case.tet_mesh, state, cfg, devices, strategy, log)
     writer = vtu.AsyncVTUWriter() if write_output else None
     if writer is not None:
         writer.write(0, state, out_dir=out_dir, verbose=True)
@@ -111,7 +125,7 @@ def run_replay(case_dir: str, out_dir: str | None = None, write_output: bool = T
             continue
         case.update_velocity(u)  # advect.H:44-83
         state, step0 = _advance_interval(case, state, cfg, pcfg, t_next - t_prev, step0,
-                                         out_dir, writer, log)
+                                         out_dir, writer, log, engine=engine)
         n_total = step0
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -184,8 +198,9 @@ def run_coupled(case_dir: str, out_dir: str | None = None, write_output: bool = 
     is solved in float32 whatever the particles' type, as in the JAX
     package; ``flow_dtype`` overrides that for parity checks in float64.
     ``flow_devices`` / ``devices`` / ``strategy`` are the JAX driver's
-    multi-device knobs; a multi-device request raises
-    (``uncoupled.check_single_device``).
+    multi-device knobs: ``devices`` / ``strategy`` run the particles on a
+    ``ParticleEngine`` (which on a moving mesh takes each refreshed
+    geometry), ``flow_devices > 1`` raises (``uncoupled.check_single_device``).
 
     Logs JAX's lines (``Time = ...``, the solver's ``#flow:`` lines,
     ``dtE``/``nCycles``), and per Eulerian step one ``#coupled:`` line:
@@ -214,6 +229,7 @@ def run_coupled(case_dir: str, out_dir: str | None = None, write_output: bool = 
     h0 = time.perf_counter()
     state = caselib.init_particles(case, log=log)
     seed_s = time.perf_counter() - h0
+    engine = make_engine(case.tet_mesh, state, cfg, devices, strategy, log)
     writer = vtu.AsyncVTUWriter() if write_output else None
     if writer is not None:
         writer.write(0, state, out_dir=out_dir, verbose=True)
@@ -251,6 +267,8 @@ def run_coupled(case_dir: str, out_dir: str | None = None, write_output: bool = 
             with timer.phase("Geometry"):
                 case.tet_mesh = meshlib.refresh_geometry(case.tet_mesh,
                                                          flow.dyn.tet_vertices(flow.m))
+                if engine is not None:
+                    engine.update_from_case(case, geometry=True)
         t += dt_e
         k += 1
         log(f"Time = {t:g}  (deltaT {dt_e:g})")
@@ -281,7 +299,7 @@ def run_coupled(case_dir: str, out_dir: str | None = None, write_output: bool = 
                 case.update_velocity(flow.cell_velocity())
             step_before = step0
             state, step0 = _advance_interval(case, state, cfg, pcfg, dt_e, step0, out_dir,
-                                             writer, log, timer=timer)
+                                             writer, log, timer=timer, engine=engine)
             cycles = step0 - step_before
         dev_s, host_s = timer.resolve(), timer.host
         rec = {"dt_e": dt_e, "cycles": cycles, "cg_iterations": list(res["p_iters"]),

@@ -6,13 +6,16 @@ read the latest converged ``U``, build the tet mesh + particle state, then
 run ``nCycles = ceil(deltaT/dt)`` Lagrangian sub-steps of the frozen field
 in one shot (``advect.H`` included once, no time loop).
 
-The port's copy of ``cudaparticlesfoam_tpu/models/uncoupled.py``, on one
-device (default the card).  Each chunk of cycles between two VTU writes is
-one :func:`~cudaparticlesfoam_tpu_torch.stepper.run_cycles` call, which on
-the card launches the stream and rare kernels of every cycle with no host
+The port's copy of ``cudaparticlesfoam_tpu/models/uncoupled.py`` (default
+on the card).  Each chunk of cycles between two VTU writes is one
+:func:`~cudaparticlesfoam_tpu_torch.stepper.run_cycles` call, which on the
+card launches the stream and rare kernels of every cycle with no host
 synchronisation; the host waits only for the frame copies (every
 ``saveInterval`` cycles) and the single scalar readbacks the JAX driver
-also takes (seeding, injection, the final report).
+also takes (seeding, injection, the final report).  With ``devices`` or a
+``strategy`` other than auto, the chunks run on a
+:class:`~cudaparticlesfoam_tpu_torch.parallel.auto.ParticleEngine`
+(particle data parallelism or the partitioned mesh), as in the JAX driver.
 """
 
 from __future__ import annotations
@@ -35,16 +38,19 @@ _KERNEL_WRAPPERS = ("stream_cycle", "stream_crossers", "hop_admit", "macro_strea
                     "convex_stream_crossers", "convex_rare_resolve")
 
 
+STRATEGIES = ("auto", "single", "dp", "partitioned")
+
+
 def check_single_device(devices=None, strategy="auto", flow_devices=None) -> None:
-    """Raise ``NotImplementedError`` for a multi-device request (never a
-    quiet single-device run): more than one particle device or a strategy
-    other than auto/single (item 13a), more than one flow device (item
-    13c)."""
-    if (devices is not None and devices > 1) or strategy not in ("auto", "single"):
-        raise NotImplementedError(
-            f"devices={devices!r}, strategy={strategy!r}: the multi-device particle strategies "
-            "(particle DP, spatial partitioning) are not ported to PyTorch/CUDA yet "
-            "(ROADMAP.md queue 1 item 13a); run on one device (strategy 'auto' or 'single')")
+    """Check a request's multi-device knobs: ``strategy`` must be one of
+    :data:`STRATEGIES` (``ValueError``), and more than one flow device
+    raises ``NotImplementedError`` (the domain-decomposed flow solve, item
+    13c, is not ported; never a quiet single-device run).  Any particle
+    ``devices`` and strategy run (``parallel.auto.ParticleEngine``)."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}, expected one of {STRATEGIES}")
+    if devices is not None and devices < 1:
+        raise ValueError(f"devices must be >= 1, got {devices}")
     if flow_devices is not None and flow_devices > 1:
         raise NotImplementedError(
             f"flow_devices={flow_devices!r}: the domain-decomposed flow solve is not ported "
@@ -60,10 +66,32 @@ def write_schedule(n_cycles: int, save_interval: int):
     return [(i, i + 1) for i in range(0, n_cycles, save_interval)]
 
 
+def make_engine(tet_mesh, state, cfg, devices, strategy, log):
+    """A :class:`~cudaparticlesfoam_tpu_torch.parallel.auto.ParticleEngine`
+    when the request asks for one (``devices`` given, a strategy other than
+    auto, or more than one visible card), else None: the plain
+    single-device path with no wrapper (JAX ``_make_engine``)."""
+    if devices is not None:
+        n_dev = devices
+    elif state.device.type == "cuda":
+        n_dev = torch.cuda.device_count()
+    else:
+        n_dev = 1
+    if strategy == "auto" and n_dev <= 1 and devices is None:
+        return None
+    from ..parallel.auto import ParticleEngine
+
+    return ParticleEngine(tet_mesh, state, cfg, devices=n_dev, strategy=strategy, log=log)
+
+
 def _launch_counts() -> dict:
+    """Launches by wrapper, and of those of ``rare_resolve`` the remote
+    (partitioned) instantiations' as ``rare_resolve_remote``."""
     from ..ops import fused_cuda
 
-    return {name: getattr(fused_cuda, name).launches for name in _KERNEL_WRAPPERS}
+    counts = {name: getattr(fused_cuda, name).launches for name in _KERNEL_WRAPPERS}
+    counts["rare_resolve_remote"] = fused_cuda.rare_resolve.remote_launches
+    return counts
 
 
 def run(
@@ -88,9 +116,11 @@ def run(
     ``host_phases`` (the host's clock: on the card the time to issue), and
     on the card ``launches`` (kernel launches of the loop, by wrapper) and
     ``peak_bytes`` (peak device memory of the run).  ``devices`` /
-    ``strategy`` are the JAX driver's; more than one device, or a
-    multi-device strategy, raises ``NotImplementedError`` (never a quiet
-    single-device run).
+    ``strategy`` are the JAX driver's: with either, the cycles run on a
+    ``ParticleEngine`` (:func:`make_engine`; on the card S shards share
+    the visible cards in turn), whose launches the counts include; with the
+    partitioned strategy ``stats`` also has ``migration`` (migrated and
+    deferred lanes).
     """
     check_single_device(devices, strategy)
     device = run_device(device)
@@ -156,6 +186,7 @@ def run(
     # clear the warm-up displacement before the real loop (the reference's
     # first cudaAdvect overwrite does this implicitly, particles.cu:362)
     state = dataclasses.replace(state, disp=torch.zeros_like(state.disp))
+    engine = make_engine(case.tet_mesh, state, cfg, devices, strategy, log)
 
     launches0 = _launch_counts() if cuda else None
     wall0 = time.perf_counter()
@@ -178,22 +209,33 @@ def run(
                 inj = pcfg.injection_interval
                 chunk = min(chunk, ((i // inj) + 1) * inj - i)
             with timer.phase("Advect"):
-                # the stepper updates its mega array in place and returns
-                # fresh state tensors (the JAX driver donates the state)
-                state = run_cycles(case.tet_mesh, state, cfg, chunk, cycle_dt)
+                if engine is None:
+                    # the stepper updates its mega array in place and returns
+                    # fresh state tensors (the JAX driver donates the state)
+                    state = run_cycles(case.tet_mesh, state, cfg, chunk, cycle_dt)
+                else:
+                    engine.advance(chunk, cycle_dt)
             prev = i
             i += chunk
             if inj_active and prev % pcfg.injection_interval == 0:
                 from .. import state as statelib
 
+                if engine is not None:
+                    # the host-ordered unpadded view: padding slots must not
+                    # pass for dead, injectable particles
+                    state = engine.snapshot()
                 state, n_inj = statelib.inject(
                     state, case.tet_mesh, case.locator,
                     pcfg.seeding_box_lo, pcfg.seeding_box_hi,
                     pcfg.injection_count, rng_seed=pcfg.rng_seed,
                 )
+                if engine is not None:
+                    engine.set_state(state)
                 if n_inj:
                     log(f"#adv: injected {n_inj} particles at step {prev}")
             if prev % pcfg.save_interval == 0:
+                if engine is not None and (track is not None or write_output):
+                    state = engine.snapshot()
                 if track is not None:
                     track.append(state)
                 if write_output:
@@ -203,6 +245,10 @@ def run(
                             out_dir=out_dir, verbose=True,
                         )
                     stats["frames"].append(path)
+        if engine is not None:
+            engine.block()
+            state = engine.snapshot()
+            stats["migration"] = engine.migration_stats
         with timer.phase("IO"):
             writer.close()
     if cuda:

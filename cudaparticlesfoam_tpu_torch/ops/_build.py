@@ -126,6 +126,9 @@ def library() -> ctypes.CDLL:
             ("stream_pk", [vp] * 5 + [ll, fl, fl, i, i, i, i, i, i, i, i, u, u, u, u, vp]),
             ("rare", [vp, vp, vp, vp, ll, i, i, i, i, vp]),
             ("rare_pk", [vp, vp, vp, vp, ll, i, i, i, i, vp]),
+            # ..., R0 (boundary faces), per (tets a shard), the stream
+            ("rare_remote", [vp, vp, vp, vp, ll, i, i, i, i, i, i, vp]),
+            ("rare_remote_pk", [vp, vp, vp, vp, ll, i, i, i, i, i, i, vp]),
             ("convex_stream", [vp] * 6 + [ll, fl, fl, i, i, i, i, *key, vp]),
             ("convex_rare", [vp] * 11 + [ll, i, i, i, i, i, vp]),
             ("macro_stream", [vp] * 6 + [ll, i, fl, fl, i, i, i, i, i, *key, vp]),

@@ -144,14 +144,16 @@ def _mulhilo(m: int, x):
     return (s >> 32) + (b >> 16), s & _MASK32
 
 
-def philox_bits(key4, n: int, device=None) -> torch.Tensor:
+def philox_bits(key4, n: int, device=None, lanes=None) -> torch.Tensor:
     """uint32 words [n, 4] (held in int64) equal to XLA's Philox4x32-10
     ``lax.rng_bit_generator(key4, (n, 4), uint32)``, the off-TPU JAX "rbg"
     stream: Philox key (key4[0], key4[1]); row l is the block of the
     128-bit counter ``(key4[1], key4[0], key4[3], key4[2]) + l`` (most
-    significant word first), and its 4 output words in order."""
+    significant word first), and its 4 output words in order.  ``lanes``
+    (int64 [n], on ``device``): rows ``lanes`` of that stream instead of
+    rows 0..n-1."""
     k0, k1, k2, k3 = (int(k) & _MASK32 for k in key4)
-    lane = torch.arange(n, dtype=torch.int64, device=device)
+    lane = torch.arange(n, dtype=torch.int64, device=device) if lanes is None else lanes
     c = []
     carry = lane
     for w in (k2, k3, k0, k1):          # counter words, least significant first
@@ -167,11 +169,11 @@ def philox_bits(key4, n: int, device=None) -> torch.Tensor:
     return torch.stack(c, dim=1)
 
 
-def philox_normals(key4, n: int, dtype, device=None) -> torch.Tensor:
+def philox_normals(key4, n: int, dtype, device=None, lanes=None) -> torch.Tensor:
     """Standard normals [n, 3] of the JAX "rbg" stream: u = bits * 2^-32 +
     2^-33 in ``dtype``, then full-pair Box-Muller, 3 normals from 4
-    uniforms (``fused.py:187-201``)."""
-    bits = philox_bits(key4, n, device)
+    uniforms (``fused.py:187-201``).  ``lanes``: as :func:`philox_bits`."""
+    bits = philox_bits(key4, n, device, lanes)
     u = bits.to(dtype) * (1.0 / 4294967296.0) + (0.5 / 4294967296.0)
     two_pi = torch.tensor(2.0 * np.pi, dtype=dtype, device=device)
     r = torch.sqrt(-2.0 * torch.log(u[:, :2]))
@@ -617,16 +619,29 @@ def _walk(tab, rows, tet0, px, py, pz, act, max_hops, ly=LAYOUT_TET, chain=None)
     return rows, tet, slot
 
 
+def _remote_sentinel(code, remote):
+    """The migration sentinel -(per + g + 1) of a lane paused at the remote
+    code ``code`` = -(R0 + 1 + g)."""
+    R0, per = remote
+    return -(per + (-code - R0 - 1) + 1)
+
+
 def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces,
-             ly=LAYOUT_TET, chain=None):
+             ly=LAYOUT_TET, chain=None, remote=None, act=None):
     """``_reflect_mega``: mirror across the exit face of the cached exit-tet
     row, re-walk (default MAX_HOPS, not cfg.max_hops), repeat up to
     ``max_bounces``; absorbing faces (``bd_escape``) deactivate the lane
     with tet = -(tet+1).  A lane out of bounces keeps its non-negative
     exit tet.  ``chain``: adds the re-walks' row loads, as :func:`_walk`
-    (the mirror reads the cached row)."""
+    (the mirror reads the cached row).  ``act``: the lanes that reflect
+    (default every lane with a negative code).  ``remote=(R0, per)``: a
+    partitioned shard's table (``parallel/partition.py``), where a code
+    below -R0 is a tet of another shard; a re-walk that meets one pauses
+    the lane at the mirrored point reached so far, its tet the sentinel
+    -(per + g + 1) (``_reflect_mega``'s remote branch, tested before the
+    escape test)."""
     vx, vy, vz = vel[:, 0], vel[:, 1], vel[:, 2]
-    hit = code < 0
+    hit = code < 0 if act is None else act & (code < 0)
     tet = torch.where(hit, -(code + 1), code)
     settled = ~hit
     s = slot
@@ -636,6 +651,11 @@ def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces,
             break
         refl = ~settled
         code_nbr = _codes(rows, s, ly)
+        if remote is not None:
+            remw = refl & (code_nbr < -remote[0])
+            tet = torch.where(remw, _remote_sentinel(code_nbr, remote), tet)
+            settled = settled | remw
+            refl = refl & ~remw
         if nbd:
             bd = (-code_nbr - 1).clamp(0, nbd - 1)
             esc = refl & (code_nbr < 0) & bd_escape[bd]
@@ -667,40 +687,58 @@ def _reflect(tab, rows, vel, px, py, pz, code, slot, bd_escape, max_bounces,
     return rows, torch.stack([vx, vy, vz], dim=1), px, py, pz, tet
 
 
-def _rare_lanes(tab, m, idx, bd_escape, max_hops, max_bounces, reflect_wall, ly, chain):
-    """The new mega rows of lanes ``idx`` (walk, then reflect)."""
+def _rare_lanes(tab, m, idx, bd_escape, max_hops, max_bounces, reflect_wall, ly, chain,
+                remote=None):
+    """The new mega rows of lanes ``idx`` (walk, then reflect).  With
+    ``remote=(R0, per)`` a walk that exits through a remote code pauses the
+    lane instead of reflecting it (``_make_run_lanes_remote``)."""
     mc = m[idx]
     rw = ly.tab_w
     qx, qy, qz = mc[:, P0], mc[:, P0 + 1], mc[:, P0 + 2]
     act = torch.ones(idx.shape[0], dtype=torch.bool, device=m.device)
     rows, code, slot = _walk(tab, mc[:, ROW : ROW + rw], mc[:, TET].to(torch.int64),
                              qx, qy, qz, act, max_hops, ly, chain)
+    wall = rem = None
+    if remote is not None:
+        exit_code = _codes(rows, slot, ly)
+        rem = (code < 0) & (exit_code < -remote[0])
+        wall = (code < 0) & ~rem
     vel = mc[:, V0 : V0 + 3]
     if reflect_wall:
         rows, vel, qx, qy, qz, code = _reflect(
-            tab, rows, vel, qx, qy, qz, code, slot, bd_escape, max_bounces, ly, chain)
+            tab, rows, vel, qx, qy, qz, code, slot, bd_escape, max_bounces, ly, chain,
+            remote=remote, act=wall)
+    if rem is not None:
+        code = torch.where(rem, _remote_sentinel(exit_code, remote), code)
     return torch.cat([torch.stack([qx, qy, qz], dim=1), vel,
                       code.to(m.dtype)[:, None], mc[:, ACT : ACT + 1], rows,
                       mc[:, ROW + rw :]], dim=1)
 
 
 def rare_plain(tab, m, pending, bd_escape, *, max_hops, max_bounces,
-               reflect_wall, ly=LAYOUT_TET, chain=None):
+               reflect_wall, ly=LAYOUT_TET, chain=None, remote=None):
     """Plain version of ``rare_kernel``: resolve every lane whose
     ``pending`` flag is set (walk, then reflect), updating ``m`` in place:
     pos, vel, tet and the row cache; the active column is left as is (a
     lane that left the domain is killed by the next cycle's advect).
     ``tab`` is :func:`row_table` of ``ly``.  ``chain`` ([n_pending] int64
-    zeros): receives each pending lane's chain (:func:`rare_chain`)."""
+    zeros): receives each pending lane's chain (:func:`rare_chain`).
+
+    ``remote=(R0, per)``: plain version of ``rare_kernel<T, L, kRemote>``,
+    the rare stage of a partitioned shard (``partition._make_run_lanes_remote``
+    with ``_reflect_mega(remote=)``): ``tab`` is the shard's slab of
+    ``per`` rows, whose codes below -R0 are tets g of other shards; a walk
+    that exits through one, or a re-walk after a bounce that meets one,
+    pauses the lane with tet -(per + g + 1)."""
     idx = pending.nonzero()[:, 0]
     if idx.numel() == 0:
         return
     m[idx] = _rare_lanes(tab, m, idx, bd_escape, max_hops, max_bounces, reflect_wall, ly,
-                         chain)
+                         chain, remote)
 
 
 def rare_chain(tab, m, pending, bd_escape, *, max_hops, max_bounces, reflect_wall,
-               ly=LAYOUT_TET):
+               ly=LAYOUT_TET, remote=None):
     """The dependent chain of each pending lane of ``rare_kernel``, in lane
     order: [n_pending] int64 table row loads, one per hop of the walk and of
     each re-walk after a bounce, beyond the flag and the lane's own mega row
@@ -709,7 +747,8 @@ def rare_chain(tab, m, pending, bd_escape, *, max_hops, max_bounces, reflect_wal
     idx = pending.nonzero()[:, 0]
     chain = torch.zeros(idx.shape[0], dtype=torch.int64, device=m.device)
     if idx.numel():
-        _rare_lanes(tab, m, idx, bd_escape, max_hops, max_bounces, reflect_wall, ly, chain)
+        _rare_lanes(tab, m, idx, bd_escape, max_hops, max_bounces, reflect_wall, ly, chain,
+                    remote)
     return chain
 
 
@@ -718,18 +757,19 @@ def rare_chain(tab, m, pending, bd_escape, *, max_hops, max_bounces, reflect_wal
 # ---------------------------------------------------------------------------
 
 
-def cycle_noise(cfg, seed, step, n, dtype, device, noise=None, k=None):
+def cycle_noise(cfg, seed, step, n, dtype, device, noise=None, k=None, lane_offset=0):
     """(xi, noise_key) of a cycle, or with ``k`` of a k-sub-step macro
     cycle: ``noise`` ([n, 3], or [k, n, 3]) when given; under
-    ``brownian_rng`` "rbg"/"rbg_kernel" the Philox key of ``step`` (the
-    kernels draw the stream themselves, sub-step j of a macro cycle with
-    step + j); else the threefry draws of the steps."""
+    ``brownian_rng`` "rbg"/"rbg_kernel" the Philox key of ``step`` and
+    ``lane_offset`` (the kernels draw the stream themselves, sub-step j of
+    a macro cycle with step + j); else the threefry draws of the steps,
+    which take no lane offset (as in the JAX package)."""
     if not cfg.use_brownian:
         return None, None
     if noise is not None:
         return noise, None
     if cfg.brownian_rng in RBG_MODES:
-        return None, philox_key(seed, step)
+        return None, philox_key(seed, step, lane_offset)
     if k is None:
         return _brownian_noise(seed, step, n, dtype, device, cfg.brownian_rng), None
     return torch.stack([_brownian_noise(seed, step + j, n, dtype, device, cfg.brownian_rng)
@@ -756,7 +796,7 @@ def compact_scratch(n, device) -> dict:
 
 
 def mega_cycle(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
-               pending=None, scratch=None) -> torch.Tensor:
+               pending=None, scratch=None, lane_offset=0) -> torch.Tensor:
     """One sub-step over the mega state, in place: stream kernel, then the
     rare kernel over the pending lanes.  The layout is that of
     ``cfg.velocity_interp`` (:func:`layout_for`), the table its
@@ -765,6 +805,8 @@ def mega_cycle(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
     a CUDA mega draws the Philox stream inside the stream kernel.
     ``pending`` is optional [n] uint8 scratch, ``scratch`` the optional
     buffers of :func:`compact_scratch` (used under ``hop_compact=4``).
+    ``lane_offset``: the global index of lane 0 (a data-parallel shard's;
+    it enters the Philox key, :func:`philox_key`).
 
     With ``hop_compact=4`` and one inline hop the stream runs as the
     compacted hop gather: the crossing flags, ``hop_admit`` at capacity
@@ -786,7 +828,7 @@ def mega_cycle(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
     n, dev = m.shape[0], m.device
     if pending is None:
         pending = torch.empty(n, dtype=torch.uint8, device=dev)
-    xi, key = cycle_noise(cfg, seed, step, n, m.dtype, dev, noise)
+    xi, key = cycle_noise(cfg, seed, step, n, m.dtype, dev, noise, lane_offset=lane_offset)
     kw = stream_kwargs(cfg, dt, m.dtype)
     rk4 = cfg.integrator == "rk4"
     admit = None
@@ -815,7 +857,7 @@ def trip_fraction(cfg, trip: int) -> float:
 
 
 def mega_macro(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
-               pending=None, scratch=None) -> torch.Tensor:
+               pending=None, scratch=None, lane_offset=0) -> torch.Tensor:
     """``k = cfg.macro_cycles`` sub-steps (steps step..step+k-1) as one
     macro cycle, in place: k trips, each the macro stream kernel and the
     rare kernel over its pending lanes (``fused_pallas.macro_cycle_packed``).
@@ -824,14 +866,15 @@ def mega_macro(mesh: TetMesh, m, seed, step, cfg, dt, noise=None,
     JAX does.  One inline hop per trip, whatever ``inline_hops`` says.
     ``noise`` [k, n, 3] replaces the noise draw; ``pending`` and
     ``scratch`` (:func:`compact_scratch`) are optional buffers.  Equal to
-    k :func:`mega_cycle` calls; the TetVelocity bary engine only."""
+    k :func:`mega_cycle` calls; the TetVelocity bary engine only.
+    ``lane_offset`` as in :func:`mega_cycle`."""
     from . import fused_cuda
 
     k = cfg.macro_cycles
     n, dev = m.shape[0], m.device
     if pending is None:
         pending = torch.empty(n, dtype=torch.uint8, device=dev)
-    xi, key = cycle_noise(cfg, seed, step, n, m.dtype, dev, noise, k=k)
+    xi, key = cycle_noise(cfg, seed, step, n, m.dtype, dev, noise, k=k, lane_offset=lane_offset)
     kw = dict(stream_kwargs(cfg, dt, m.dtype), k=k, noise_key=key)
     sc = compact_scratch(n, dev) if scratch is None else scratch
     phase, crossers, admit = sc["phase"].zero_(), sc["crossers"], sc["admit"]

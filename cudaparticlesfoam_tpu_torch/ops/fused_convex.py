@@ -235,7 +235,7 @@ def rare_chain(mesh: TetMesh, tab, m, disp, pending, *, max_hops, reflect_wall, 
 
 
 def mega_cycle(mesh: TetMesh, tab, m, seed, step, cfg, dt, noise=None, pending=None,
-               disp=None, scratch=None) -> torch.Tensor:
+               disp=None, scratch=None, lane_offset=0) -> torch.Tensor:
     """One convex sub-step over the mega state, in place: the convex stream
     kernel, then the convex rare kernel over the pending lanes.  ``noise``
     [n, 3] replaces the noise draw (replays); under ``brownian_rng``
@@ -248,7 +248,8 @@ def mega_cycle(mesh: TetMesh, tab, m, seed, step, cfg, dt, noise=None, pending=N
     compacted hop gather (crossing flags, ``hop_admit``, then the stream
     kernel with the admission flags), whatever the lane count: the JAX
     package engages it on its TPU packed path only.  The state after the
-    rare stage is the same either way."""
+    rare stage is the same either way.  ``lane_offset``: as in
+    ``fused.mega_cycle``."""
     from . import fused_cuda
 
     n, dev = m.shape[0], m.device
@@ -256,7 +257,7 @@ def mega_cycle(mesh: TetMesh, tab, m, seed, step, cfg, dt, noise=None, pending=N
         pending = torch.empty(n, dtype=torch.uint8, device=dev)
     if disp is None:
         disp = torch.empty((n, 3), dtype=m.dtype, device=dev)
-    xi, key = cycle_noise(cfg, seed, step, n, m.dtype, dev, noise)
+    xi, key = cycle_noise(cfg, seed, step, n, m.dtype, dev, noise, lane_offset=lane_offset)
     kw = stream_kwargs(cfg, dt, m.dtype)
     admit = None
     if cfg.hop_compact == HOP_GROUP and cfg.inline_hops >= 1:

@@ -14,7 +14,11 @@
   own pending lanes (``csrc/pending.cuh``, as ``convex_rare_kernel``).
   Both take the layout ``ly``: ``LAYOUT_TET`` (TetVelocity) or
   ``LAYOUT_PK`` (VertexVelocity: the TPU kernels' ``ly=LAYOUT_PK``
-  instantiations), each its own instantiation of the kernel.
+  instantiations), each its own instantiation of the kernel.  With
+  ``remote=(R0, per)`` :func:`rare_resolve` launches
+  ``rare_kernel<T, L, kRemote>``, the rare stage of a partitioned shard
+  (``parallel/partition.py``: the XLA rare stage with
+  ``_make_run_lanes_remote``), which pauses lanes at tets of other shards.
 * :func:`convex_stream_cycle` -> ``convex_stream_kernel``
   (``csrc/convex_stream.cu``): the convex stream kernels CA / CB
   (``_kernel_ca_packed``, ``_kernel_ca_packed_k``, ``_kernel_cb_packed``)
@@ -42,7 +46,9 @@ Without it the kernel reads ``xi`` [n, 3] ([k, n, 3] for a macro trip).
 
 A wrapper given CPU tensors runs the plain version from ``ops/fused.py``;
 given CUDA tensors it launches the kernel on the current stream, or
-raises.  Each wrapper counts its kernel launches in ``.launches``.  A
+raises; the launch runs on the tensors' own card, which must be the
+current device (``torch.cuda.device``).  Each wrapper counts its kernel
+launches in ``.launches``.  A
 launch costs the host about as much as a short kernel costs the card, so
 the checks take their passing case first and nothing is looked up twice.
 """
@@ -153,9 +159,16 @@ _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _stream_ptr(dev) -> int:
-    """The current CUDA stream of ``dev`` as an integer handle."""
+    """The current CUDA stream of ``dev`` as an integer handle.  ``dev``
+    must be the current device: the kernels launch on the current device,
+    so tensors on another card would be read from the wrong one (the
+    caller selects it with ``torch.cuda.device(dev)``)."""
+    cur = torch.cuda.current_device()
+    if dev.index is not None and dev.index != cur:
+        raise ValueError(f"tensors on {dev}, but the current device is cuda:{cur}: launch "
+                         f"under torch.cuda.device({dev})")
     if _RAW_STREAM is not None:
-        return _RAW_STREAM(dev.index if dev.index is not None else torch.cuda.current_device())
+        return _RAW_STREAM(cur)
     return torch.cuda.current_stream(dev).cuda_stream
 
 
@@ -367,8 +380,20 @@ def macro_crossers(tab, m, xi, phase, crossers, *, k, dt, sigma, use_adv, use_br
 macro_crossers.launches = 0
 
 
+def _check_remote(remote, nbd, nt):
+    """(R0, per) of a partitioned shard's table: R0 is the boundary face
+    count, ``per`` the slab's rows.  (That the codes and sentinels are
+    exact in float32 is ``partition.partition_mesh``'s check.)"""
+    R0, per = (int(x) for x in remote)
+    if R0 != nbd:
+        raise ValueError(f"remote R0={R0} must be the boundary face count {nbd}")
+    if per != nt:
+        raise ValueError(f"remote per={per} must be the slab's rows {nt}")
+    return R0, per
+
+
 def rare_resolve(tab, m, pending, bd_escape, *, max_hops, max_bounces,
-                 reflect_wall, ly=LAYOUT_TET):
+                 reflect_wall, ly=LAYOUT_TET, remote=None):
     """Rare stage (K7), in place on ``m`` [n, ly.width] with ``tab`` =
     ``fused.row_table`` [nt, ly.tab_w]: every lane with ``pending`` set
     runs the bounded walk (max(2, max_hops) hops) and, with
@@ -376,27 +401,42 @@ def rare_resolve(tab, m, pending, bd_escape, *, max_hops, max_bounces,
     re-walk bounded by the default 50 hops; ``bd_escape`` [nbd] bool marks
     absorbing faces.  The kernel finds the pending lanes itself, in one
     wave of resident blocks (``csrc/pending.cuh``; no host sync); ``pending``
-    may start on any byte."""
+    may start on any byte.
+
+    ``remote=(R0, per)``: ``tab`` is a partitioned shard's slab of ``per``
+    rows (R0 = ``bd_escape``'s length), and the call launches
+    ``rare_kernel<T, L, kRemote>``: a lane whose walk, or re-walk after a
+    bounce, meets a tet g of another shard pauses with tet -(per + g + 1)
+    (``fused.rare_plain(remote=)``).  Its launches are counted in
+    ``.remote_launches`` too."""
     n, dev = _check_tab_m(tab, m, ly.width, ly.tab_w)
     _check("pending", pending, dtype=torch.uint8, shape=(n,), device=dev)
     _check("bd_escape", bd_escape, dtype=torch.bool, shape=(bd_escape.shape[0],),
            device=dev)
     kw = dict(max_hops=int(max_hops), max_bounces=int(max_bounces),
               reflect_wall=bool(reflect_wall))
+    if remote is not None:
+        remote = _check_remote(remote, bd_escape.shape[0], tab.shape[0])
     if dev.type == "cpu":
-        rare_plain(tab, m, pending, bd_escape, ly=ly, **kw)
+        rare_plain(tab, m, pending, bd_escape, ly=ly, remote=remote, **kw)
         return
     if n == 0:
         return
-    err = _entry(_layout_entry("rare", ly), m.dtype)(
-        tab.data_ptr(), m.data_ptr(), pending.data_ptr(),
-        bd_escape.data_ptr(), n, bd_escape.shape[0], kw["max_hops"],
-        kw["max_bounces"], int(kw["reflect_wall"]), _stream_ptr(dev))
+    args = (tab.data_ptr(), m.data_ptr(), pending.data_ptr(), bd_escape.data_ptr(), n,
+            bd_escape.shape[0], kw["max_hops"], kw["max_bounces"], int(kw["reflect_wall"]))
+    if remote is None:
+        err = _entry(_layout_entry("rare", ly), m.dtype)(*args, _stream_ptr(dev))
+    else:
+        err = _entry(_layout_entry("rare_remote", ly), m.dtype)(*args, *remote,
+                                                                _stream_ptr(dev))
     _raise_on(err, "rare_kernel")
     rare_resolve.launches += 1
+    if remote is not None:
+        rare_resolve.remote_launches += 1
 
 
-rare_resolve.launches = 0
+rare_resolve.launches = 0         # of any instantiation
+rare_resolve.remote_launches = 0  # of the kRemote instantiations
 
 
 def _grid(entry, n, what):

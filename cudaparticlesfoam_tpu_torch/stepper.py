@@ -216,8 +216,111 @@ def engine_for(mesh: TetMesh, cfg: StepConfig, device) -> str:
     return "simple"
 
 
+class PackedRun:
+    """The cached engine's state of a run, packed once and carried from
+    call to call of :meth:`advance` (what :func:`run_cycles` does inside
+    one call): the mega array (``[n, 32]`` or ``[n, 40]``, or the convex
+    mega with its ``disp``), ``pending`` and the compacted stages' scratch,
+    the seed and the step.  Under the simple engine it carries the
+    :class:`ParticleState` itself.  The data-parallel shards of
+    ``parallel/sharding.py`` each keep one across the engine's calls.
+
+    The row cache holds the velocities of the table it was packed from:
+    after the mesh's velocities change, :meth:`set_mesh` re-packs it from
+    the unpacked state, as a new :func:`run_cycles` call would."""
+
+    def __init__(self, mesh: TetMesh, state: ParticleState, cfg: StepConfig):
+        check_ported(cfg)
+        self.cfg, self.template = cfg, state
+        self.seed, self.step = state.seed, state.step
+        self.engine = engine_for(mesh, cfg, state.device)
+        self.ly = fused.layout_for(cfg)
+        n = state.n_particles
+        self.macro = (cfg.locate_mode == "bary" and cfg.macro_cycles > 1
+                      and self.ly is fused.LAYOUT_TET and cfg.integrator == "euler")
+        if self.engine == "simple":
+            self.mesh, self.state = mesh, state
+            return
+        self.pending = torch.empty(n, dtype=torch.uint8, device=state.device)
+        # the compacted stages' buffers, once for the run
+        self.scratch = None
+        if (cfg.hop_compact == fused.HOP_GROUP and self.ly is fused.LAYOUT_TET
+                and cfg.integrator == "euler") or self.macro:
+            self.scratch = fused.compact_scratch(n, state.device)
+        self.disp = None
+        if cfg.locate_mode == "convex":
+            self.disp = torch.empty((n, 3), dtype=state.dtype, device=state.device)
+        self._pack(mesh, state.pos, state.vel, state.tet_id, state.active)
+
+    def _pack(self, mesh, pos, vel, tet, act):
+        self.mesh = mesh
+        if self.cfg.locate_mode == "convex":
+            self.tab = fused_convex.cx_table(mesh)
+            self.m = fused_convex.pack_state(mesh, self.tab, pos, vel, tet, act)
+        else:
+            self.m = fused.pack_state(mesh, pos, vel, tet, act, self.ly)
+
+    def _unpack(self):
+        if self.cfg.locate_mode == "convex":
+            return fused_convex.unpack_state(self.m)
+        return fused.unpack_state(self.m)
+
+    def set_mesh(self, mesh: TetMesh) -> None:
+        """Continue on ``mesh`` (new velocities or geometry, same tets):
+        the row cache is gathered again from its tables."""
+        if self.engine == "simple":
+            self.mesh = mesh
+            return
+        pos, vel, tet, act = self._unpack()
+        self._pack(mesh, pos.clone(), vel.clone(), tet, act)
+
+    def advance(self, n_cycles: int, dt, noise=None, lane_offset0: int = 0) -> None:
+        """``n_cycles`` sub-steps from the current step, in place.  ``noise``:
+        anything indexable by the cycle (``noise[i]``, and for a macro cycle
+        ``noise[i : i + k]``), e.g. a [n_cycles, n, 3] tensor; ``lane_offset0``:
+        the global index of lane 0 under "rbg"/"rbg_kernel" (the Philox key,
+        ``fused.philox_key``)."""
+        cfg = self.cfg
+        step = self.step
+        if self.engine == "simple":
+            for i in range(n_cycles):
+                self.state = cycle(self.mesh, self.state, cfg, dt,
+                                   noise=None if noise is None else noise[i])
+        elif cfg.locate_mode == "convex":
+            for i in range(n_cycles):
+                fused_convex.mega_cycle(self.mesh, self.tab, self.m, self.seed, step + i, cfg,
+                                        dt, noise=None if noise is None else noise[i],
+                                        pending=self.pending, disp=self.disp,
+                                        scratch=self.scratch, lane_offset=lane_offset0)
+        else:
+            k = cfg.macro_cycles
+            n_mac = n_cycles // k if self.macro else 0
+            for i in range(0, n_mac * k, k):
+                fused.mega_macro(self.mesh, self.m, self.seed, step + i, cfg, dt,
+                                 noise=None if noise is None else noise[i : i + k],
+                                 pending=self.pending, scratch=self.scratch,
+                                 lane_offset=lane_offset0)
+            for i in range(n_mac * k, n_cycles):
+                fused.mega_cycle(self.mesh, self.m, self.seed, step + i, cfg, dt,
+                                 noise=None if noise is None else noise[i],
+                                 pending=self.pending, scratch=self.scratch,
+                                 lane_offset=lane_offset0)
+        self.step = step + n_cycles
+
+    def result(self) -> ParticleState:
+        """The state after the cycles run so far (fresh tensors)."""
+        if self.engine == "simple":
+            return self.state
+        pos, vel, tet, act = self._unpack()
+        return dataclasses.replace(
+            self.template, pos=pos.clone(), vel=vel.clone(),
+            disp=torch.zeros_like(self.template.disp), tet_id=tet, active=act,
+            step=self.step,
+        )
+
+
 def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
-               n_cycles: int, dt=None, noise=None) -> ParticleState:
+               n_cycles: int, dt=None, noise=None, lane_offset0: int = 0) -> ParticleState:
     """``n_cycles`` sub-steps.  The engine is ``cfg.resolved_engine()``: the
     cached engine (bary under TetVelocity or VertexVelocity, or ConvexPoly
     with ``locate_mode="convex"`` under TetVelocity), or the simple engine
@@ -232,8 +335,11 @@ def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
     ``dt`` defaults to cfg.dt (``advect.H:36-37``: pass the Eulerian
     ``cycleDt`` for sub-cycled runs).  ``noise`` [n_cycles, n, 3], when
     given, replaces the per-step noise draw (replays of a recorded
-    Brownian stream).  On CUDA tensors every cycle of the cached engine
-    runs the stream and rare kernels; on CPU tensors their plain versions.
+    Brownian stream).  ``lane_offset0`` (JAX's): the global index of lane
+    0, which keys the "rbg"/"rbg_kernel" Philox stream of a data-parallel
+    shard (``parallel/sharding.py``); at 0 it changes nothing.  On CUDA
+    tensors every cycle of the cached engine runs the stream and rare
+    kernels; on CPU tensors their plain versions.
     ``macro_cycles`` applies to the bary engine only (the convex engine
     never reads it, as in JAX); a macro cycle takes ``noise`` k steps at a
     time.
@@ -246,52 +352,13 @@ def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,
     it on its jnp path, which has neither): the stream kernel's RK4
     instantiation, whose stage walks run inside the kernel.
     ``cycle_chunks`` has no effect (see :class:`StepConfig`)."""
-    check_ported(cfg)
     dt = cfg.dt if dt is None else dt
     n = state.n_particles
     if noise is not None and tuple(noise.shape) != (n_cycles, n, 3):
         raise ValueError(f"noise must be [{n_cycles}, {n}, 3], got {tuple(noise.shape)}")
-    ly = fused.layout_for(cfg)
-    if engine_for(mesh, cfg, state.device) == "simple":
-        for i in range(n_cycles):
-            state = cycle(mesh, state, cfg, dt, noise=None if noise is None else noise[i])
-        return state
-    pending = torch.empty(n, dtype=torch.uint8, device=state.device)
-    macro = (cfg.locate_mode == "bary" and cfg.macro_cycles > 1 and ly is fused.LAYOUT_TET
-             and cfg.integrator == "euler")
-    # the compacted stages' buffers, once for the run
-    scratch = None
-    if (cfg.hop_compact == fused.HOP_GROUP and ly is fused.LAYOUT_TET
-            and cfg.integrator == "euler") or macro:
-        scratch = fused.compact_scratch(n, state.device)
-    if cfg.locate_mode == "convex":
-        tab = fused_convex.cx_table(mesh)
-        m = fused_convex.pack_state(mesh, tab, state.pos, state.vel, state.tet_id,
-                                    state.active)
-        disp = torch.empty((n, 3), dtype=m.dtype, device=m.device)
-        for i in range(n_cycles):
-            fused_convex.mega_cycle(mesh, tab, m, state.seed, state.step + i, cfg, dt,
-                                    noise=None if noise is None else noise[i],
-                                    pending=pending, disp=disp, scratch=scratch)
-        pos, vel, tet, act = fused_convex.unpack_state(m)
-    else:
-        m = fused.pack_state(mesh, state.pos, state.vel, state.tet_id, state.active, ly)
-        k = cfg.macro_cycles
-        n_mac = n_cycles // k if macro else 0
-        for i in range(0, n_mac * k, k):
-            fused.mega_macro(mesh, m, state.seed, state.step + i, cfg, dt,
-                             noise=None if noise is None else noise[i : i + k],
-                             pending=pending, scratch=scratch)
-        for i in range(n_mac * k, n_cycles):
-            fused.mega_cycle(mesh, m, state.seed, state.step + i, cfg, dt,
-                             noise=None if noise is None else noise[i],
-                             pending=pending, scratch=scratch)
-        pos, vel, tet, act = fused.unpack_state(m)
-    return dataclasses.replace(
-        state, pos=pos.clone(), vel=vel.clone(),
-        disp=torch.zeros_like(state.disp), tet_id=tet, active=act,
-        step=state.step + n_cycles,
-    )
+    run = PackedRun(mesh, state, cfg)
+    run.advance(n_cycles, dt, noise=noise, lane_offset0=lane_offset0)
+    return run.result()
 
 
 def suggest_tuning(mesh: TetMesh, cfg: StepConfig, dt=None,

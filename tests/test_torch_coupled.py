@@ -197,16 +197,27 @@ def test_cli_coupled_and_replay_on_the_cpu(tmp_path, capsys):
     ("coupled", ["--flow-devices", "2"], "13c"), ("replay", ["--devices", "2"], "13a"),
     ("replay", ["--strategy", "partitioned", "--devices", "1"], "13a")])
 def test_multi_device_requests_raise(tmp_path, cmd, args, item):
+    """Only the domain-decomposed flow solve (item 13c) still raises; the
+    particle strategies (item 13a) are ported, so such a request passes
+    the check and fails only on the empty case directory."""
     from cudaparticlesfoam_tpu_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        main([cmd, str(tmp_path), "--device", "cpu", *args])
     kw = {"--devices": ("devices", int), "--strategy": ("strategy", str),
           "--flow-devices": ("flow_devices", int)}
     call = {kw[a][0]: kw[a][1](v) for a, v in zip(args[::2], args[1::2])}
     fn = coupled.run_coupled if cmd == "coupled" else coupled.run_replay
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        fn(str(tmp_path), device=CPU, **call)
+    if item == "13c":
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            main([cmd, str(tmp_path), "--device", "cpu", *args])
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            fn(str(tmp_path), device=CPU, **call)
+        return
+    coupled.check_single_device(call.get("devices"), call.get("strategy", "auto"))
+    for run in (lambda: main([cmd, str(tmp_path), "--device", "cpu", *args]),
+                lambda: fn(str(tmp_path), device=CPU, **call)):
+        with pytest.raises(Exception) as exc:
+            run()
+        assert not isinstance(exc.value, NotImplementedError)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks a torch without CUDA")

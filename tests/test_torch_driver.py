@@ -219,11 +219,18 @@ def test_cli_uncoupled_runs_on_the_cpu_in_float64(tmp_path, capsys):
 
 @pytest.mark.parametrize("args", [["--devices", "2"], ["--strategy", "dp"],
                                   ["--strategy", "partitioned", "--devices", "1"]])
-def test_cli_multi_device_raises(tmp_path, args):
+def test_cli_multi_device_raises(tmp_path, args, capsys):
+    """The multi-device legs are ported (``parallel/``): such a request no
+    longer raises, it runs on a ParticleEngine and says so; only an unknown
+    strategy is refused."""
     from cudaparticlesfoam_tpu_torch.cli import main
 
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main(["uncoupled", str(tmp_path), "--device", "cpu", *args])
+    case_dir = make_pitz_case(tmp_path, num_particles=40, delta_t=0.002)
+    assert main(["uncoupled", case_dir, "--device", "cpu", "--f64", "--no-write", *args]) == 0
+    out = capsys.readouterr().out
+    assert "#adv: engine strategy=" in out and "Out-of-domain particles(-tetID) = 0" in out
+    with pytest.raises(ValueError, match="unknown strategy"):
+        uncoupled.run(case_dir, strategy="scatter", device=CPU, log=QUIET)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks a torch without CUDA")

@@ -131,7 +131,10 @@ def test_import_pulls_in_neither_jax_nor_triton():
             "cudaparticlesfoam_tpu_torch.models.coupled, "
             "cudaparticlesfoam_tpu_torch.models.pimple, "
             "cudaparticlesfoam_tpu_torch.models.dynamicmesh, "
-            "cudaparticlesfoam_tpu_torch.io.checkpoint; "
+            "cudaparticlesfoam_tpu_torch.io.checkpoint, "
+            "cudaparticlesfoam_tpu_torch.parallel.sharding, "
+            "cudaparticlesfoam_tpu_torch.parallel.auto, "
+            "cudaparticlesfoam_tpu_torch.parallel.partition; "
             "print(sorted(m for m in ('jax', 'triton', 'cudaparticlesfoam_tpu') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -5,6 +5,7 @@ the anchors without jax (tests/golden/torch_port_box_inputs.npz)."""
 
 import importlib.util
 import os
+import re
 
 import jax
 import numpy as np
@@ -139,13 +140,15 @@ def test_diagnostics_and_sub_cycling(box):
 def test_chip_smoke_rehearsal_runs_every_phase():
     """``chip_smoke.py --rehearse`` drives every phase at small sizes on the
     CPU through the plain versions: it must exit 2 (no device result), print
-    the table of the sixteen kernel entries (the eight of the north-star
+    the table of the twenty kernel entries (the eight of the north-star
     slice's paths, the two of the uncoupled driver's, phase 8, the four of
-    the rk4-tracers cell, phase 9, and the two of the coupled driver on the
-    TJunction, phase 11) with every key the table carries, and no ``ok``
-    line; phase 10 (the steady-flow solver, no kernel of its own) prints its
-    parity, Allrun and split lines; phase 11 (the coupled solver) its
-    PIMPLE parity, dynamic-mesh, TJunction and split lines."""
+    the rk4-tracers cell, phase 9, the two of the coupled driver on the
+    TJunction, phase 11, and the four of the multi-device paths, phase 12)
+    with every key the table carries, and no ``ok`` line; phase 10 (the
+    steady-flow solver, no kernel of its own) prints its parity, Allrun and
+    split lines; phase 11 (the coupled solver) its PIMPLE parity,
+    dynamic-mesh, TJunction and split lines; phase 12 its remote-kernel
+    parity, data-parallel, partitioned and driver lines."""
     import json
     import subprocess
     import sys
@@ -163,11 +166,15 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                      "convex_rare_kernel", "hop_admit_kernel", "macro_stream_kernel",
                      "stream_kernel<pk>", "rare_kernel<pk>", "stream_kernel", "rare_kernel",
                      "stream_kernel<rk4>", "rare_kernel", "stream_kernel<pk, rk4>",
-                     "rare_kernel<pk>", "stream_kernel", "rare_kernel"]
+                     "rare_kernel<pk>", "stream_kernel", "rare_kernel", "stream_kernel",
+                     "rare_kernel", "rare_kernel<remote>", "rare_kernel<pk, remote>"]
     assert [k["path"].startswith("uncoupled driver") for k in table["kernels"]] == \
-        [False] * 8 + [True] * 2 + [False] * 6
+        [False] * 8 + [True] * 2 + [False] * 10
     assert all(k["path"].startswith("rk4-tracers") for k in table["kernels"][10:14])
-    assert all(k["path"].startswith("coupled driver (TJunction") for k in table["kernels"][14:])
+    assert all(k["path"].startswith("coupled driver (TJunction") for k in table["kernels"][14:16])
+    assert [k["path"] for k in table["kernels"][16:]] == [
+        "north-star, DP 4 shards"] * 2 + ["north-star, partitioned",
+                                          "north-star, partitioned, VertexVelocity"]
     for entry in table["kernels"]:
         assert {"path", "phases", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "share", "copy_ms",
@@ -179,9 +186,11 @@ def test_chip_smoke_rehearsal_runs_every_phase():
             f"max_abs_err {entry['max_abs_err']!r}")
         assert os.path.exists(os.path.join(root, entry["source"]))
     floors = {k["name"] for k in table["kernels"] if "launch_floor_ms" in k}
-    assert floors == {"rare_kernel", "convex_rare_kernel", "hop_admit_kernel", "rare_kernel<pk>"}
+    assert floors == {"rare_kernel", "convex_rare_kernel", "hop_admit_kernel", "rare_kernel<pk>",
+                      "rare_kernel<remote>", "rare_kernel<pk, remote>"}
     # the rare rows' latency bound (phase 6): chains, both latencies, bound and share
-    rare = {"rare_kernel", "convex_rare_kernel", "rare_kernel<pk>"}
+    rare = {"rare_kernel", "convex_rare_kernel", "rare_kernel<pk>", "rare_kernel<remote>",
+            "rare_kernel<pk, remote>"}
     for entry in table["kernels"]:
         keys = {"pending", "chain_mean", "chain_p99", "chain_max", "t_dep_nbr_ms", "t_dep_hbm_ms",
                 "latency_bound_ms", "share_of_latency", "one_call_at_a_time_ms",
@@ -194,9 +203,9 @@ def test_chip_smoke_rehearsal_runs_every_phase():
             assert entry["share_of_latency"] == pytest.approx(
                 entry["latency_bound_ms"] / entry["ms"])
     latency = [line for line in lines if line.startswith("[latency]")]
-    assert len(latency) == 15 and "host loop (cpu rehearsal)" in latency[0]
+    assert len(latency) == 21 and "host loop (cpu rehearsal)" in latency[0]
     for name in ("rare", "convex_rare", "rare_pk", "rare_tutorial", "rare_rk4", "rare_pk_rk4",
-                 "rare_tjunction"):
+                 "rare_tjunction", "rare_dp", "rare_remote", "rare_pk_remote"):
         assert any(f"| {name} lanes=" in line and "share_of_latency=" in line
                    and "pending_first_ms=" in line for line in latency), name
         assert any(f"| {name} by longest chain" in line and "ms_per_chain_step=" in line
@@ -209,7 +218,7 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                 "[rk4-simple]", "[duct]", "[rk4-slice]", "[flow-parity]", "[flow-allrun]",
                 "[flow-split]", "[pimple-parity]", "[dyn-refresh]", "[dyn-kernels]",
                 "[dyn-coupled]", "[tj-step]", "[tj-run]", "[tj-cycle]", "[pimple-split]",
-                "[tj-advect]"):
+                "[tj-advect]", "[remote]", "[dp]", "[part]", "[part-pk]", "[drivers]"):
         assert any(line.startswith(tag) for line in lines), tag
     # phase 9: RK4 kernel = plain in every case, the oracles, the cell
     rk4 = [line for line in lines if line.startswith("[rk4-parity]")]
@@ -272,3 +281,15 @@ def test_chip_smoke_rehearsal_runs_every_phase():
     assert len(advect) == 4 and "step 2 " in advect[0] and "step 3 " in advect[2]
     assert "frames_at_sub_steps=[20]" in advect[0] and "frames_at_sub_steps=[]" in advect[2]
     assert all("chunks(cycles, device_ms, issue_ms)=[(" in advect[i] for i in (0, 2))
+    # phase 12: rare_kernel<remote> = plain (here both the plain version), lanes
+    # paused by the walk and after a bounce; DP and partitioned gates; the drivers
+    remote = [line for line in lines if line.startswith("[remote] layout=")]
+    assert len(remote) == 16 and all("identical=1" in line for line in remote)
+    assert sum(int(re.search(r"paused_after_bounce=(\d+)", line).group(1)) for line in remote) > 0
+    dp = [line for line in lines if line.startswith("[dp] brownian_rng=")]
+    assert len(dp) == 2 and all("bit for bit: 1" in line for line in dp)
+    gate = [line for line in lines if line.startswith("[part] shards=")]
+    assert len(gate) == 2 and all("tet_identical=1 active_identical=1" in line for line in gate)
+    drivers = [line for line in lines if line.startswith("[drivers]")]
+    assert sum("tet_identical=1 active_identical=1" in line for line in drivers) == 2
+    assert any("engine=partitioned placement=[cpu x4]" in line for line in drivers)
