@@ -190,11 +190,12 @@ Phases, one line of numbers each, any failure exits non-zero:
         checked (its V-limiter follows the empty direction's rounding);
    10b. tutorials/.../pitzDaily/Allrun through ``python -m
         cudaparticlesfoam_tpu_torch`` in subprocesses, float32, in a copy of
-        the tutorial: blockmesh, dict deltaT 1.0, simple (500 iterations,
-        stopped by residualControl), dict deltaT 0.1, uncoupled at the
-        tutorial's settings; simple's field finite, max |U| < 50, written
-        inside [282, 382], U, p and phi read back, the streamline file
-        parses; then phase 8b's frame checks, the mean x moved downstream,
+        the tutorial: blockmesh, dict deltaT 1.0, simple (cut to 100 of its
+        500 iterations, which residualControl does not stop; written at
+        282), dict deltaT 0.1, uncoupled at the tutorial's settings;
+        simple's field finite, max |U| < 50, written inside [282, 382], U,
+        p and phi read back, the streamline file parses; then phase 8b's
+        frame checks, the mean x moved downstream,
         one stream and one rare launch a cycle; SIMPLE iterations, ms per
         iteration on the device and the host, CG iterations per solve,
         peak memory, and Advect ms/cycle beside 8b's on the shear field;
@@ -282,6 +283,37 @@ Phases, one line of numbers each, any failure exits non-zero:
    The rehearsal runs 12a at 1,024 lanes with two pending patterns, 12b on
    phase 5's rehearsal slice with 2 warm-up and 4-cycle gates, 12c at 200
    particles.
+13. (runs after phase 11, on 11c's case, before phase 12) the
+   domain-decomposed flow solve (parallel/{flowshard,graphpart}.py: torch
+   ops, no kernel; 4 shards on the visible card in turn, cuda:0 x4):
+   13a. [flowshard-parity], float64: the sharded PIMPLE step of
+        tests/test_flowshard.py's cases (the duct in 4 and 8 slabs, upwind and
+        linearUpwind, the (2,2,2) grid, the graph map on pitzDaily) on the
+        card against the port's single-device step on the card (JAX's
+        tolerances) and against itself on the CPU (1e-9, Jacobi-CG counts
+        within 1%); ShardedFlowSolver on the shrunk TJunction (local AMG-CG,
+        p_tol 1e-11) one step, card against CPU within 1e-9, AMG-CG counts
+        equal, and a second solver's step on the card identical bit for bit;
+   13b. [tj-par], the TJunction's Allrun-parallel at full width: ``coupled
+        <case> --flow-devices 4 --no-write`` through the CLI on 11c's case
+        with 11c's cuts (248,000 cells, 4e6 particles, kEpsilon, float32; 3
+        steps, the window opened at 0) and a fourth, no frames (11c writes
+        them at this width): per step flow ms, CG iterations per corrector,
+        halo refreshes and MB, refresh and Advect ms, the launches (one
+        stream and one rare a cycle), peak memory, every lane in the domain;
+        then in process, on phase 11's loaded case, the single-device and the
+        4-shard flow side by side for 3 steps (gates: U rel-max within 5e-4
+        after step 1, U, p, k, epsilon, nut rel-RMS within 5e-3 after step
+        3, the gathered flux's divergence below 1e-4), their ms and CG
+        counts, decompose and build_local_amg seconds, a fourth sharded step
+        profiled (its kernels, busy ms and span, so its idle share);
+   13c. [tj-par-cycle]: one cycle of stream_kernel and rare_kernel on the
+        particles after step 1's interval on the sharded field, against their
+        plain versions (phase 11c's check), timed for phase 6;
+   13d. [dryrun]: the port's dryrun_multichip(4) (DP, partitioned, sharded
+        PIMPLE) on the card.
+   Phase 13 within 240 s on the card.  The rehearsal runs 13a without
+   pitzDaily and 13b on the shrunk TJunction with 2,000 particles.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -2017,7 +2049,8 @@ def copy_ms(torch, dev, timer, nbytes, reps=20):
 
 # bound by a launch's latency, not by bytes
 SMALL = ("hop_admit", "rare", "convex_rare", "rare_pk", "rare_tutorial", "rare_rk4",
-         "rare_pk_rk4", "rare_tjunction", "rare_dp", "rare_remote", "rare_pk_remote")
+         "rare_pk_rk4", "rare_tjunction", "rare_dp", "rare_remote", "rare_pk_remote",
+         "rare_tjunction_par")
 
 
 def phase_bounds(torch, traffic, dev, counts, times, per_cycle, floor, gpu_line):
@@ -2974,7 +3007,9 @@ FLOW_TOL = 1e-9       # float64, relative to each field's largest magnitude
 # run follows ulps (its line below is printed and not checked)
 FLOW_CARD_CASES = ("linearUpwind-cg", "linearUpwind", "limitedLinear-cg", "limitedLinear",
                    "kOmegaSST")
-SIMPLE_ITERS_CAP = None   # --iters of 10b's simple; None: the tutorial's 500 and residualControl
+# --iters of 10b's simple, a cut of the tutorial's 500 (residualControl never
+# stops it): simple clamps its write into the particle window, to 282
+SIMPLE_ITERS_CAP = 100
 UNCHECKED_2D = ("not checked (2-D limitedLinear: the V-limiter follows the empty direction's "
                 "rounding noise)")
 
@@ -3103,8 +3138,8 @@ def read_vtk_polylines(path):
 def phase_flow_tutorial(torch, dev, tmp, rehearse, gpu_line, shear):
     """Phase 10b: the tutorial's Allrun (tutorials/.../pitzDaily/Allrun)
     through the port's CLI in subprocesses, float32, in a copy of the
-    repo's pitzDaily: blockmesh, dict deltaT 1.0, simple (500 iterations,
-    stopped by residualControl), dict deltaT 0.1, uncoupled at the
+    repo's pitzDaily: blockmesh, dict deltaT 1.0, simple (SIMPLE_ITERS_CAP
+    of its 500 iterations), dict deltaT 0.1, uncoupled at the
     tutorial's settings; the rehearsal runs simple --iters 5 on the CPU and
     the tracker at 2,000 particles, deltaT 0.01.  ``shear``: phase 8b's
     numbers, for Advect on the shear field beside the solved one.  Returns
@@ -3315,6 +3350,7 @@ ERR_PHASES = {
     "rare_pk": "3f, 5d", "stream_tutorial": "8c", "rare_tutorial": "8c",
     "stream_rk4": "9d", "rare_rk4": "9d", "stream_pk_rk4": "9d", "rare_pk_rk4": "9d",
     "stream_tjunction": "11c", "rare_tjunction": "11c", "stream_dp": "12b", "rare_dp": "12b",
+    "stream_tjunction_par": "13c", "rare_tjunction_par": "13c",
     "rare_remote": "12a, 12b", "rare_pk_remote": "12a, 12b"}
 TJUNC = os.path.join(HERE, "tutorials", "incompressible", "cudaParticlesPimpleFoam", "TJunction")
 TJUNC_PATH = "coupled driver (TJunction, 248,000 cells, 4e6 particles, 3 Eulerian steps)"
@@ -3758,12 +3794,14 @@ def phase_tjunction_trace(torch, dev, tcase, flow, st, cfg, step0, tmp, gpu_line
 
 
 def phase_tjunction_cycle(torch, fused, fused_cuda, dev, tcase, st, cfg, errs, counts, rares,
-                          gpu_line):
-    """Phase 11c, the kernels at the TJunction's shape: from the state after
-    step 1, one cycle through stream_kernel and rare_kernel against their
-    plain versions (tet/active/pending identical, pos/vel within 1e-5), the
-    hop and pending shares, each kernel's device time (graph replay) and its
-    plain version's, for phase 6's bounds and latency rows."""
+                          gpu_line, tag="tjunction", label="tj-cycle"):
+    """Phase 11c (and 13c with ``tag="tjunction_par"``), the kernels at the
+    TJunction's shape: from the state after step 1, one cycle through
+    stream_kernel and rare_kernel against their plain versions
+    (tet/active/pending identical, pos/vel within 1e-5), the hop and pending
+    shares, each kernel's device time (graph replay) and its plain
+    version's, for phase 6's bounds and latency rows (keys stream_<tag>,
+    rare_<tag>)."""
     mesh, n, dt = tcase.tet_mesh, st.n_particles, cfg.dt
     m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active)
     xi = fused._brownian_noise(st.seed, st.step, n, m0.dtype, dev)
@@ -3781,17 +3819,18 @@ def phase_tjunction_cycle(torch, fused, fused_cuda, dev, tcase, st, cfg, errs, c
     same, err = compare(torch, mk, mp)
     pending = int(p1.sum())
     n_el = m0.element_size()
-    counts["stream_tjunction"] = ("stream", dict(n=n, elem=n_el, noise="xi", hops=hops,
+    counts[f"stream_{tag}"] = ("stream", dict(n=n, elem=n_el, noise="xi", hops=hops,
                                                  hopped=hops))
-    counts["rare_tjunction"] = ("rare", dict(n=n, elem=n_el, pending=pending,
+    counts[f"rare_{tag}"] = ("rare", dict(n=n, elem=n_el, pending=pending,
                                              moved=moved(torch, m1, mk)))
-    log(f"[tj-cycle] TJunction shape after step 1: lanes={n} tets={mesh.n_tets} "
+    log(f"[{label}] TJunction shape after step 1: lanes={n} tets={mesh.n_tets} "
         f"inline_hops={cfg.inline_hops} inline_bounce={int(cfg.inline_bounce)} "
         f"hop_share={hops / n:.4f} pending={pending} pending_share={pending / n:.5f} "
         f"stream_identical={int(same_s)} stream_max_abs_err={err_s:.3e} "
         f"cycle_identical={int(same)} cycle_max_abs_err={err:.3e}")
-    need(same_s and same and max(err, err_s) <= POS_TOL_F32, "the TJunction cycle: kernel != plain")
-    errs["stream_tjunction"], errs["rare_tjunction"] = err_s, err
+    need(same_s and same and max(err, err_s) <= POS_TOL_F32,
+         f"the TJunction cycle ({tag}): kernel != plain")
+    errs[f"stream_{tag}"], errs[f"rare_{tag}"] = err_s, err
     work, pend = m0.clone(), pk.clone()
 
     def restore_stream():
@@ -3804,19 +3843,19 @@ def phase_tjunction_cycle(torch, fused, fused_cuda, dev, tcase, st, cfg, errs, c
     timer = Timer(torch, dev)
     times = {}
     for key, fn, plain, restore in (
-        ("stream_tjunction", lambda: fused_cuda.stream_cycle(mesh.tet_row, work, xi, pend, **sa),
+        (f"stream_{tag}", lambda: fused_cuda.stream_cycle(mesh.tet_row, work, xi, pend, **sa),
          lambda: fused.stream_plain(mesh.tet_row, work, xi, pend, **sa), restore_stream),
-        ("rare_tjunction",
+        (f"rare_{tag}",
          lambda: fused_cuda.rare_resolve(mesh.tet_row, work, pend, mesh.bd_escape, **ra),
          lambda: fused.rare_plain(mesh.tet_row, work, pend, mesh.bd_escape, **ra),
          restore_rare),
     ):
         times[key] = rare_row(torch, timer, fn, plain, restore)
         t = times[key]
-        log(f"[tj-cycle] {gpu_line} | {key}_kernel_ms={t[0]:.5f} (device: {BATCH} calls "
+        log(f"[{label}] {gpu_line} | {key}_kernel_ms={t[0]:.5f} (device: {BATCH} calls "
             f"replayed from a graph, restore subtracted) one_call_at_a_time_ms=({t[2][1]:.4f}, "
             f"{t[2][2]:.4f}) {key}_plain_ms={t[1]:.4f} ({t[2][0]:.4f}, {t[2][3]:.4f}) lanes={n}")
-    rares.add("rare_tjunction", bary_rare_case(torch, fused, fused_cuda, mesh.tet_row, mesh, m1,
+    rares.add(f"rare_{tag}", bary_rare_case(torch, fused, fused_cuda, mesh.tet_row, mesh, m1,
                                                p1, ra, fused.LAYOUT_TET, "cpf_rare_f32"))
     return times
 
@@ -3851,8 +3890,10 @@ def phase_pimple_split(torch, dev, tcase, flow, gpu_line):
         parts[f"corrector {c + 1}: pressure solve (AMG-CG, {it} iterations)"] = (
             lambda r=rhs, q=p_in: pimple.pressure_solve(m, mo, r, q, flow.p_bcs, cfg, flow.amg))
         parts[f"corrector {c + 1}: correction"] = (
-            lambda h=hbya, f=phi_hbya, q=p, k=corr: pimple.correct(m, mo, h, f, q, k, flow.p_bcs))
-        flux, u_corr, _ = pimple.correct(m, mo, hbya, phi_hbya, p, corr, flow.p_bcs)
+            lambda h=hbya, f=phi_hbya, q=p, k=corr: pimple.correct(m, mo.rau, mo.rau_f, h, f, q, k,
+                                                                    flow.p_bcs))
+        flux, u_corr, _ = pimple.correct(m, mo.rau, mo.rau_f, hbya, phi_hbya, p, corr,
+                                         flow.p_bcs)
     new_u, new_flux = u_corr, flux
     parts[f"{flow.turb_model} step"] = lambda: turbulence.model_step(
         flow.turb_model, m, kes, new_u, flow.u_bcs, new_flux, flow.k_bcs, flow.e_bcs, flow.wi,
@@ -4452,6 +4493,352 @@ def phase_drivers_parallel(torch, dev, tmp, rehearse, gpu_line):
              f"the partitioned CLI run launched {launches}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the domain-decomposed flow solve (parallel/{flowshard,graphpart}.py:
+# torch ops, no kernel) and the TJunction's Allrun-parallel through the kernels
+# ---------------------------------------------------------------------------
+
+FLOW_SHARDS = 4           # the TJunction's decomposeParDict: simple, n (4 1 1)
+TJP_PATH = ("coupled driver (TJunction Allrun-parallel, flow on 4 shards, 248,000 cells, "
+            "4e6 particles, 3 Eulerian steps)")
+TJP_BOUND_S = 240         # phase 13's wall time on the card
+SHARD_TOL = 1e-9          # the sharded step, card against CPU, float64, relative
+TJP_STEP1_TOL = 5e-4      # sharded against single-device U after step 1 (rel-max, float32)
+TJP_RMS_TOL = 5e-3        # per-field rel-RMS after step 3
+TJP_DIV_TOL = 1e-4        # the gathered flux's divergence
+TJP_STEP_RE = re.compile(STEP_RE.pattern + r" flow_shards=(\d+) halo_rounds=(\d+) "
+                         r"halo_refreshes=(\d+) halo_MB=([\d.]+)")
+# 13a: (mesh, decomposition, shards, div scheme, steps); tests/test_flowshard.py's
+# cases, pitzDaily cut to one of its 2 steps (its Jacobi-CG, ~1,000 iterations a
+# solve, took ~13 s a step on the card; phase 13 has 240 s)
+SHARD_CASES = [("duct", {}, 4, "upwind", 3), ("duct", {}, 8, "upwind", 3),
+               ("duct", {}, 4, "linearUpwind", 3), ("duct", {}, 8, "linearUpwind", 3),
+               ("duct6", {"grid": (2, 2, 2)}, 8, "upwind", 3),
+               ("pitz", {"grid": "graph"}, 8, "upwind", 1)]
+
+
+def sharded_duct_run(torch, fs, pm, dev, kw, S, scheme, n_steps, pitz):
+    """The port's single-device PIMPLE on ``dev`` and the sharded one on
+    ``dev`` and (but for pitzDaily, whose Jacobi-CG takes ~1,000 iterations
+    a solve) on the CPU from the same float64 inputs (tests/test_flowshard.py's
+    duct or pitzDaily set-up): (single u, p; [(u, p, CG counts, continuity,
+    placement) on dev, and on the CPU])."""
+    from cudaparticlesfoam_tpu_torch.models import fv, pimple
+    from cudaparticlesfoam_tpu_torch.models.simple import FlowState
+
+    speed, dt = (10.0, 5e-5) if pitz else (1.0, 0.02)
+    cfg = pimple.PimpleConfig(nu=1e-5 if pitz else 1e-3, n_outer=1, n_correctors=2, n_jacobi=8,
+                              p_tol=1e-11 if pitz else 1e-12, p_max_iter=2000 if pitz else 600,
+                              div_scheme=scheme)
+    out, single = [], None
+    for d in (dev,) if pitz else (dev, torch.device("cpu")):
+        m = fv.fv_mesh(pm, dtype=torch.float64, device=d)
+        wall = ("noSlip", 0.0)
+        u_bcs = fv.make_bcs(m, {"inlet": ("fixedValue", [speed, 0.0, 0.0]), "walls": wall,
+                                "upperWall": wall, "lowerWall": wall,
+                                "frontAndBack": ("empty", 0.0)}, 3)
+        p_bcs = fv.make_bcs(m, {"outlet": ("fixedValue", 0.0)}, 1)
+        u0 = np.tile([speed, 0.0, 0.0], (m.n_cells, 1))
+        if single is None:
+            ut = torch.as_tensor(u0, device=d)
+            st = FlowState(u=ut, p=torch.zeros(m.n_cells, dtype=torch.float64, device=d),
+                           flux=fv.flux_of(m, ut, u_bcs))
+            for _ in range(n_steps):
+                st, _ = pimple.pimple_step(m, st, u_bcs, p_bcs, cfg, dt)
+            single = (fv.host(st.u), fv.host(st.p))
+        smesh, bglob = fs.decompose(pm, S, dtype=torch.float64, device=d, **kw)
+        ub, pb = fs.shard_bcs(u_bcs, bglob, smesh), fs.shard_bcs(p_bcs, bglob, smesh)
+        u, p = fs.scatter_cells(smesh, u0), fs.scatter_cells(smesh, np.zeros(m.n_cells))
+        flux = fs.flux_init(smesh, u, ub)
+        step = fs.make_sharded_pimple(smesh, cfg)
+        its = []
+        for _ in range(n_steps):
+            u, p, flux, diag = step(smesh, u, p, flux, ub, pb, dt)
+            its += diag["p_iters"]
+        out.append((fv.host(fs.gather_cells(smesh, u)), fv.host(fs.gather_cells(smesh, p)),
+                    its, float(diag["continuity"]), fs.placement(smesh.devices)))
+    return single, out
+
+
+def rel_max(a, b):
+    return float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-300)
+
+
+def phase_flowshard_parity(torch, dev, tmp, rehearse, gpu_line):
+    """Phase 13a, float64: the sharded PIMPLE step (tests/test_flowshard.py's
+    cases: the duct in 4 and 8 slabs, upwind and linearUpwind, the (2,2,2)
+    grid, the graph map on pitzDaily) on the card against the port's
+    single-device step on the card (JAX's tolerances) and against the same
+    sharded step on the CPU (within 1e-9, Jacobi-CG counts within 1%; not
+    pitzDaily's, on the card only); then
+    ShardedFlowSolver on the shrunk TJunction (kEpsilon, local AMG-CG, 4
+    shards, p_tol 1e-11), one step on the card against the CPU: every
+    field within 1e-9, the AMG-CG counts equal; and a second solver's step
+    on the card identical bit for bit to the first (``fv.index_sum``'s
+    fixed order)."""
+    from cudaparticlesfoam_tpu_torch.io import blockmesh
+    from cudaparticlesfoam_tpu_torch.models import case as caselib
+    from cudaparticlesfoam_tpu_torch.models import fv
+    from cudaparticlesfoam_tpu_torch.parallel import flowshard as fs
+
+    common = flow_common(torch)
+    paths = {"duct": common.flowshard_duct(tmp), "duct6": common.flowshard_duct(tmp, 12, 6, 6),
+             "pitz": common.PITZ_BMD}
+    for mesh, kw, S, scheme, n_steps in SHARD_CASES:
+        if rehearse and mesh == "pitz":
+            continue        # the duct cases cover the rehearsal
+        pm = blockmesh.generate(paths[mesh])
+        t0 = time.perf_counter()
+        (su, sp), out = sharded_duct_run(torch, fs, pm, dev, kw, S, scheme, n_steps,
+                                         mesh == "pitz")
+        u, p, its, cont, where = out[0]
+        cu, cp, cits, _, _ = out[-1]
+        if mesh == "pitz":
+            ok_single = (np.abs(u - su).max() / 10.0 < 1e-6
+                         and np.abs(p - sp).max() / (np.abs(sp).max() + 1e-12) < 1e-5)
+        else:
+            ok_single = (np.abs(u - su).max() < 1e-8 * max(np.abs(su).max(), 1.0)
+                         and np.abs(p - sp).max() < 1e-6 * max(np.abs(sp).max(), 1.0)
+                         and cont < 1e-8)
+        err = max(rel_max(u, cu), rel_max(p, cp))
+        cg_ok = len(its) == len(cits) and all(abs(a - b) <= max(1, 0.01 * b)
+                                              for a, b in zip(its, cits))
+        versus = (f"card_vs_cpu max_rel_err={err:.3e} (bound {SHARD_TOL}) cg_iterations={its} "
+                  f"cpu={cits}" if len(out) > 1 else f"cg_iterations={its} (the card only)")
+        log(f"[flowshard-parity] {gpu_line} | {mesh} {kw or 'slabs'} shards={S} [{where}] "
+            f"{scheme} steps={n_steps} cells={pm.n_cells} float64: vs_single_device "
+            f"u_max_abs={np.abs(u - su).max():.3e} p_max_abs={np.abs(p - sp).max():.3e} "
+            f"continuity={cont:.3e} single_ok={int(ok_single)} | {versus} "
+            f"s={time.perf_counter() - t0:.1f}")
+        need(ok_single and err <= SHARD_TOL and cg_ok,
+             f"13a {mesh} {kw} {S} shards {scheme}: the sharded step disagrees")
+    # the solver on the shrunk TJunction: local AMG-CG, the closure, the p0 ramps
+    case_dir = common.shrink_tjunction(os.path.join(tmp, "tj"), num_particles=10)
+    common.write_polymesh_of(case_dir)
+    res = []
+    for d in (dev, dev, torch.device("cpu")):
+        case = caselib.load_case(case_dir, log=lambda *a: None, device=d)
+        flow = fs.ShardedFlowSolver(case, FLOW_SHARDS, log=lambda *a: None, device=d,
+                                    dtype=torch.float64, p_tol=1e-11)
+        r = flow.advance(1e-3)
+        st, kes = flow.state, flow.kes
+        res.append(({k: fv.host(getattr(st, k)) for k in ("u", "p", "flux")}
+                    | {k: fv.host(getattr(kes, k)) for k in ("k", "eps", "nut")},
+                    r["p_iters"], fs.placement(flow.devices)))
+    (a, ia, where), (a2, _, _), (b, ib, _) = res
+    same = all(np.array_equal(a[k], a2[k]) for k in a)
+    errs = {k: rel_max(a[k], b[k]) for k in a}
+    log(f"[flowshard-parity] {gpu_line} | ShardedFlowSolver, shrunk TJunction (1,984 cells, "
+        f"kEpsilon, local AMG-CG, p_tol 1e-11) shards={FLOW_SHARDS} [{where}] one step, "
+        f"card vs cpu float64: max_rel_err={max(errs.values()):.3e} (bound {SHARD_TOL}; "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())}) amg_cg_iterations={ia} "
+        f"cpu={ib} cg_equal={int(ia == ib)} run_to_run_identical={int(same)}")
+    need(max(errs.values()) <= SHARD_TOL and ia == ib,
+         "13a: ShardedFlowSolver card != CPU on the shrunk TJunction")
+    need(same, "13a: two ShardedFlowSolver steps from the same inputs differ on the card")
+
+
+def phase_tj_parallel_cli(torch, dev, case, tmp, rehearse, gpu_line):
+    """Phase 13b, the Allrun-parallel through the CLI: ``coupled <case>
+    --flow-devices 4 --no-write`` on 11c's case (248,000 cells, 4e6
+    particles, kEpsilon, float32, 11c's cuts: 3 steps, the particle window
+    opened at 0; and no frames, which 11c writes at this width).  Prints
+    each step's line (flow ms, CG iterations per corrector, halo refreshes
+    and MB, refresh and Advect ms) and the run's init, launches and peak
+    memory; checks one stream and one rare launch a cycle and every lane in
+    the domain.  Returns (launches, seconds)."""
+    cmd = ["coupled", case, "--steps", str(TJ_STEPS), "--flow-devices", str(FLOW_SHARDS),
+           "--no-write"]
+    res, secs = cli(cmd + (["--device", "cpu"] if rehearse else []), timeout=1000)
+    need(res.returncode == 0, f"the sharded TJunction run failed: {res.stderr[-3000:]}")
+    text = res.stdout
+    steps = [m.groups() for m in TJP_STEP_RE.finditer(text)]
+    need(len(steps) == TJ_STEPS, f"the sharded run printed {len(steps)} step lines")
+    init = re.search(r"#coupled: init: (.*)", text).group(1)
+    placed = re.search(r"#flow: sharded PIMPLE on (\d+) devices \[([^\]]*)\], (\d+) cells "
+                       r"\((\d+)/shard, (\d+) halo rounds\)", text)
+    grid = re.search(r"#flow: decomposition grid (\([^)]*\))", text)
+    dev_line = re.search(r"#coupled: on (.*): kernel launches (\{.*\}); peak device memory "
+                         r"([\d.]+) GiB", text)
+    domain = re.search(r"#coupled: (\d+) of (\d+) lanes active, every active lane in the "
+                       r"domain: (\d)", text)
+    cycles = sum(int(s[3]) for s in steps)
+    for s in steps:
+        log(f"[tj-par] {gpu_line} | CLI step {s[0]} t={s[1]} dt_e={s[2]} cycles={s[3]} "
+            f"flow_ms={s[4]} (device) flow_host_ms={s[5]} cg_iterations_per_corrector={s[6]} "
+            f"continuity={s[7]} velocity_refresh_ms={s[9]} advect_ms_per_cycle={s[10]} "
+            f"(device) advect_issue_ms_per_cycle={s[11]} flow_shards={s[13]} "
+            f"halo_rounds={s[14]} halo_refreshes={s[15]} halo_MB={s[16]}")
+    launches = json.loads(dev_line.group(2).replace("'", '"')) if dev_line else {}
+    log(f"[tj-par] {gpu_line} | TJunction Allrun-parallel via the CLI (coupled --flow-devices "
+        f"{FLOW_SHARDS} --no-write, 11c's cuts): decomposition {grid.group(1) if grid else None} "
+        f"shards={placed.group(1)} [{placed.group(2)}] cells={placed.group(3)} "
+        f"per_shard={placed.group(4)} halo_rounds={placed.group(5)} init: {init} "
+        f"cycles={cycles} launches={launches} "
+        f"peak_device_GiB={dev_line.group(3) if dev_line else 'n/a (cpu)'} "
+        f"active={domain.group(1)} of {domain.group(2)} all_active_in_domain={domain.group(3)} "
+        f"command_s={secs:.1f}")
+    need(placed is not None and int(placed.group(1)) == FLOW_SHARDS, "no sharded flow solver")
+    need(domain.group(3) == "1" and domain.group(1) == domain.group(2),
+         "the sharded TJunction run lost lanes or left the domain")
+    need(all(int(s[13]) == FLOW_SHARDS and int(s[15]) > 0 for s in steps),
+         "a step ran without the flow's shards or halo exchange")
+    if dev.type == "cuda":
+        need(placed.group(2) == f"cuda:0 x{FLOW_SHARDS}" or torch.cuda.device_count() > 1,
+             f"placement {placed.group(2)!r}")
+        need(launches == {"stream_cycle": cycles, "rare_resolve": cycles},
+             f"the sharded TJunction run launched {launches}, not one stream and one rare "
+             f"kernel a cycle ({cycles} cycles)")
+    return launches, secs
+
+
+def timed(torch, dev, fn):
+    """(result, device ms, host ms) of one call: CUDA events on the card,
+    the host clock on both."""
+    timer = Timer(torch, dev)
+    timer.start()
+    h0 = time.perf_counter()
+    r = fn()
+    host = (time.perf_counter() - h0) * 1e3
+    return r, timer.stop(), host
+
+
+def phase_tj_parallel_fields(torch, fused, fused_cuda, dev, tcase, cfg, errs, counts, rares,
+                             gpu_line):
+    """Phase 13b in process, and 13c: the TJunction at full width (11c's
+    case as phase 11 loaded it, float32) with the single-device flow and the
+    4-shard flow side by
+    side from the same start and the same dt each step (the single solver's
+    stable_dt): after step 1 U within 5e-4 (rel-max), after step 3 U, p, k,
+    epsilon and nut within 5e-3 (rel-RMS) and the gathered flux's divergence
+    below 1e-4; per step both flows' device and host ms and CG iterations,
+    the halo refreshes and MB; ShardedFlowSolver's decompose and
+    build_local_amg seconds; one more sharded step under torch.profiler
+    (CUDA activity only: its kernels, busy ms, span on CUDA events and so
+    its idle share).  13c: the particles seeded
+    and advanced over step 1's interval on the sharded field, then one cycle
+    of stream_kernel and rare_kernel against their plain versions.  Returns
+    the kernels' times."""
+    from cudaparticlesfoam_tpu_torch.models import case as caselib
+    from cudaparticlesfoam_tpu_torch.models import coupled, fv, pimple
+    from cudaparticlesfoam_tpu_torch.parallel import flowshard as fs
+
+    quiet = lambda *a: None  # noqa: E731
+    h0 = time.perf_counter()
+    single = pimple.FlowSolver.from_case(tcase, log=quiet, device=dev)
+    single_s = time.perf_counter() - h0
+    h0 = time.perf_counter()
+    sharded = fs.ShardedFlowSolver(tcase, FLOW_SHARDS, log=quiet, device=dev)
+    sharded_s = time.perf_counter() - h0
+    hs = sharded.smesh.halo_stats()
+    log(f"[tj-par] {gpu_line} | in process: {sharded.m.n_cells} cells, shards={FLOW_SHARDS} "
+        f"[{fs.placement(sharded.devices)}] n_loc={sharded.smesh.n_loc} "
+        f"halo_rounds={hs['rounds']} pairs={hs['pairs']} halo_slots={sharded.smesh.n_halo} "
+        f"local_amg_levels={sharded.lamg.n_levels} decompose_s={sharded.decompose_s:.2f} "
+        f"build_local_amg_s={sharded.amg_s:.2f} sharded_init_s={sharded_s:.2f} "
+        f"single_init_s={single_s:.2f}")
+    times, st = {}, None
+    for k in range(1, TJ_STEPS + 1):
+        dt_e = single.stable_dt(tcase.control)
+        r1, ms1, host1 = timed(torch, dev, lambda: single.advance(dt_e))
+        calls0, bytes0 = fs.halo_refresh.calls, fs.halo_refresh.bytes
+        r2, ms2, host2 = timed(torch, dev, lambda: sharded.advance(dt_e))
+        ua, ub = fv.host(single.state.u), fv.host(sharded.state.u)
+        line = (f"[tj-par] {gpu_line} | step {k} dt_e={dt_e:g} flow_ms single={ms1:.1f} "
+                f"sharded={ms2:.1f} (device) flow_host_ms single={host1:.1f} "
+                f"sharded={host2:.1f} cg_iterations_per_corrector single={r1['p_iters']} "
+                f"sharded={r2['p_iters']} halo_refreshes={fs.halo_refresh.calls - calls0} "
+                f"halo_MB={(fs.halo_refresh.bytes - bytes0) / 1e6:.3f} "
+                f"continuity single={single.last['continuity']:.3e} "
+                f"sharded={sharded.last['continuity']:.3e} "
+                f"u_rel_max={np.abs(ua - ub).max() / (np.abs(ua).max() + 1e-12):.3e}")
+        log(line)
+        if k == 1:
+            need(np.abs(ua - ub).max() / (np.abs(ua).max() + 1e-12) <= TJP_STEP1_TOL,
+                 "13b: the sharded U parts from the single-device U after step 1")
+            # 13c: the particles over step 1's interval on the sharded field
+            st = caselib.init_particles(tcase, log=quiet)
+            _, ref_ms, _ = timed(torch, dev,
+                                 lambda: tcase.update_velocity(sharded.cell_velocity()))
+            st, _ = coupled._advance_interval(tcase, st, cfg, tcase.particles, dt_e, 0, None,
+                                              None, quiet)
+            log(f"[tj-par] {gpu_line} | velocity refresh from the gathered sharded U: "
+                f"{ref_ms:.1f} ms; step 1's interval advanced {st.n_particles} lanes")
+            times = phase_tjunction_cycle(torch, fused, fused_cuda, dev, tcase, st, cfg, errs,
+                                          counts, rares, gpu_line, tag="tjunction_par",
+                                          label="tj-par-cycle")
+            del st
+    rms = {}
+    for name, xa, xb in (("U", single.state.u, sharded.state.u),
+                         ("p", single.state.p, sharded.state.p),
+                         ("k", single.kes.k, sharded.kes.k),
+                         ("epsilon", single.kes.eps, sharded.kes.eps),
+                         ("nut", single.kes.nut, sharded.kes.nut)):
+        a, b = fv.host(xa).astype(np.float64), fv.host(xb).astype(np.float64)
+        rms[name] = float(np.sqrt(((a - b) ** 2).mean()) / (np.sqrt((a ** 2).mean()) + 1e-12))
+    div = float(fv.surface_sum(single.m, sharded.state.flux).abs().max())
+    dt_e = single.stable_dt(tcase.control)
+    h0 = time.perf_counter()
+    (kernels, busy, ms4, its4) = profile_kernels(torch, dev, lambda: sharded.advance(dt_e))
+    prof_s = time.perf_counter() - h0
+    idle = "not measured" if busy is None else f"{1.0 - busy / ms4:.3f}"
+    peak = (torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None)
+    log(f"[tj-par] {gpu_line} | after step {TJ_STEPS}: rel_rms "
+        f"{' '.join(f'{k}={v:.3e}' for k, v in rms.items())} (bound {TJP_RMS_TOL}) "
+        f"gathered_flux_divergence_max={div:.3e} (bound {TJP_DIV_TOL}) | step {TJ_STEPS + 1} "
+        f"profiled (CUDA activity): kernels={unmeasured(kernels)} "
+        f"kernel_busy_ms={unmeasured(busy, '%.1f')} span_ms={unmeasured(ms4, '%.1f')} "
+        f"idle_share={idle} (both of the profiled step) cg_iterations={its4} "
+        f"(profile_s={prof_s:.1f}) | peak_device_GiB={unmeasured(peak, '%.3f')}")
+    need(max(rms.values()) <= TJP_RMS_TOL and div <= TJP_DIV_TOL,
+         "13b: the sharded fields part from the single-device run after step 3")
+    return times
+
+
+def profile_kernels(torch, dev, step):
+    """(kernels, their busy ms, the call's span on CUDA events, the step's
+    CG iterations) of one call of ``step`` (a flow solver's advance) under
+    torch.profiler with only the CUDA activity.  A sharded step launches
+    ~5e5 kernels: the profiler's event tree (``prof.events()``) takes ~80 s
+    to build for them, so the kernels are read from its raw records where
+    this torch has them.  On the CPU (None, None, None, counts)."""
+    if dev.type != "cuda":
+        return None, None, None, step()["p_iters"]
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    skip = ("Memcpy", "Memset")
+    timer = Timer(torch, dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        timer.start()
+        res = step()
+        span = timer.stop()
+    raw = getattr(getattr(prof.profiler, "kineto_results", None), "events", None)
+    raw = raw() if raw is not None else []
+    if raw and all(hasattr(raw[0], k) for k in ("duration_ns", "device_type", "name")):
+        ns = [e.duration_ns() for e in raw
+              if e.device_type() == DeviceType.CUDA and not e.name().startswith(skip)]
+        return len(ns), sum(ns) / 1e6, span, res["p_iters"]
+    kern = [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.name.startswith(skip)]
+    return len(kern), sum(e.time_range.elapsed_us() for e in kern) / 1e3, span, res["p_iters"]
+
+
+def phase_dryrun(torch, dev, gpu_line):
+    """Phase 13d: the port's dryrun_multichip(4): DP and partitioned
+    particles against the single-device run, the sharded PIMPLE step."""
+    from cudaparticlesfoam_tpu_torch import dryrun
+
+    t0 = time.perf_counter()
+    res = dryrun.dryrun_multichip(FLOW_SHARDS, device=dev, log=lambda *a: None)
+    log(f"[dryrun] {gpu_line} | dryrun_multichip({FLOW_SHARDS}) on [{', '.join(res['devices'])}]: "
+        f"dp_max_abs_err={res['dp_max_abs_err']:.3e} active={res['active']} of "
+        f"{res['particles']} partitioned_max_abs_err={res['partitioned_max_abs_err']:.3e} "
+        f"migrated={res['migrated']} deferred={res['deferred']} sharded PIMPLE "
+        f"cells={res['n_cells']} continuity={res['continuity']:.3e} "
+        f"cg_iterations={res['p_iters']} s={time.perf_counter() - t0:.1f}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -4583,7 +4970,31 @@ def main():
                                            counts, rares, gpu_line))
         phase_pimple_split(torch, dev, tcase, tflow, gpu_line)
         phase_tjunction_trace(torch, dev, tcase, tflow, tst, tcfg, tstep, tmp, gpu_line)
-        del tcase, tflow, tst
+        del tflow, tst
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # phase 13, the domain-decomposed flow solve and the Allrun-parallel
+        # (after 11, on 11c's case and phase 11's loaded tet mesh; before 12)
+        errs.update(stream_tjunction_par=0.0, rare_tjunction_par=0.0)
+        t13 = [time.perf_counter()]
+        phase_flowshard_parity(torch, dev, os.path.join(tmp, "shard"), args.rehearse, gpu_line)
+        t13.append(time.perf_counter())
+        tjp_launches, _ = phase_tj_parallel_cli(torch, dev, tj_case, tmp, args.rehearse,
+                                                gpu_line)
+        t13.append(time.perf_counter())
+        times.update(phase_tj_parallel_fields(torch, fused, fused_cuda, dev, tcase, tcfg, errs,
+                                              counts, rares, gpu_line))
+        del tcase
+        t13.append(time.perf_counter())
+        phase_dryrun(torch, dev, gpu_line)
+        t13.append(time.perf_counter())
+        parts = np.diff(t13)
+        log(f"[flowshard] phase 13 took {t13[-1] - t13[0]:.1f} s (bound {TJP_BOUND_S} s on the "
+            f"card): 13a {parts[0]:.1f} s, 13b CLI {parts[1]:.1f} s, 13b in process + 13c "
+            f"{parts[2]:.1f} s, 13d {parts[3]:.1f} s")
+        if dev.type == "cuda":
+            need(t13[-1] - t13[0] <= TJP_BOUND_S, f"phase 13 took {t13[-1] - t13[0]:.0f} s")
+            torch.cuda.empty_cache()
 
     # phase 12, the multi-device particle strategies and rare_kernel<remote>
     from cudaparticlesfoam_tpu_torch.parallel import auto, partition, sharding
@@ -4615,8 +5026,10 @@ def main():
         "stream_pk": pk_launches["stream_pk"] / steps, "rare_pk": pk_launches["rare_pk"] / steps}
     # the tutorial run of phase 8b: one stream and one rare launch a cycle (checked there)
     per_cycle["stream_tutorial"] = per_cycle["rare_tutorial"] = 1.0
-    # the TJunction run of phase 11c: one stream and one rare launch a cycle (checked there)
+    # the TJunction runs of phases 11c and 13b: one stream and one rare launch a
+    # cycle (checked there)
     per_cycle["stream_tjunction"] = per_cycle["rare_tjunction"] = 1.0
+    per_cycle["stream_tjunction_par"] = per_cycle["rare_tjunction_par"] = 1.0
     # the rk4-tracers cell of phase 9d: one RK4 stream and one rare launch a cycle
     for name in rk4_launches:
         per_cycle[name] = rk4_launches[name] / sizes["rk4"]
@@ -4709,6 +5122,12 @@ def main():
         entry("rare_kernel<pk, remote>", "rare_pk_remote", "rare.cu", "fused.py:393",
               part_launches["rare_pk_remote"], errs["rare_pk_remote"],
               path=PART_PATH + ", VertexVelocity"),
+        # phase 13: the coupled driver with the flow on 4 shards (launches from
+        # the CLI run of 13b, times and errors from 13c's cycle after step 1)
+        entry("stream_kernel", "stream_tjunction_par", "stream.cu", "fused_pallas.py:319",
+              tjp_launches.get("stream_cycle", 0), errs["stream_tjunction_par"], path=TJP_PATH),
+        entry("rare_kernel", "rare_tjunction_par", "rare.cu", "fused.py:921",
+              tjp_launches.get("rare_resolve", 0), errs["rare_tjunction_par"], path=TJP_PATH),
     ]}
     log(gpu_line)
     log(json.dumps(table))

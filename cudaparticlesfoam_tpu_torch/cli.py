@@ -16,9 +16,9 @@ torch ops on the CPU); ``--f64`` runs in float64 (``coupled`` solves its
 flow in float32 all the same, as the JAX package does).  ``--devices N``
 and ``--strategy dp|partitioned`` run the particles on N shards
 (``parallel/``; on the card the shards share the visible cards in turn,
-on ``--device cpu`` they all run on the CPU).  ``--flow-devices N>1``
-raises: the domain-decomposed flow solve is not ported yet (ROADMAP.md
-queue 1 item 13c).
+on ``--device cpu`` they all run on the CPU).  ``coupled --flow-devices
+N`` solves the flow domain-decomposed on N shards (``parallel/flowshard.py``,
+the TJunction's ``Allrun-parallel``; placed as the particle shards are).
 """
 
 from __future__ import annotations
@@ -60,7 +60,9 @@ def main(argv=None):
     p = add_case_cmd("coupled", "PIMPLE flow + particle tracking")
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--flow-devices", type=int, default=None,
-                   help="domain-decomposed flow devices; more than one is not ported yet")
+                   help="flow shards: more than one solves the flow domain-decomposed "
+                        "(decomposeParDict's method); more shards than cards "
+                        "share them in turn")
     add_particle_parallel(p)
 
     # --out and --no-write are accepted and unused, as in the JAX CLI

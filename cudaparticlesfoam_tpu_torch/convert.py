@@ -216,3 +216,38 @@ def to_sharded_particles(sp_like, seed=None, device=None):
         resident=split(sp_like.resident), pid=split(sp_like.pid, np.int32), seed=int(seed),
         step=int(np.array(sp_like.step)), n_shards=int(sp_like.n_shards),
         capacity=int(sp_like.capacity))
+
+
+def to_sharded_flow_mesh(smesh_like, devices=None, device=None):
+    """The port's ``parallel.flowshard.ShardedFlowMesh`` of an object with
+    the JAX ``ShardedFlowMesh``'s fields (stacked [D, ...] arrays, its
+    ``n_loc``, ``fv_meta`` and ``halo_perms``), shard s on ``devices[s]``
+    (default ``make_device_mesh(D, device)``: the card unless ``device``
+    says otherwise), so that both packages run one decomposition."""
+    from .parallel import flowshard, sharding
+
+    arrs = {k: np.array(getattr(smesh_like, k)) for k in flowshard.HOST_FIELDS}
+    for k in ("owner", "neighbour", "send", "glob_cell", "fglob"):
+        arrs[k] = arrs[k].astype(np.int64)
+    n_dev = int(smesh_like.n_dev)
+    c_ext, n_faces, n_int, patch_slices = smesh_like.fv_meta
+    halo_perms = tuple(tuple((int(a), int(b)) for a, b in r) for r in smesh_like.halo_perms)
+    if devices is None:
+        devices = sharding.make_device_mesh(n_dev, device)
+    return flowshard.make_sharded_flow_mesh(
+        arrs, n_dev, int(smesh_like.n_loc), (int(c_ext), int(n_faces), int(n_int),
+                                             tuple(patch_slices)), halo_perms, devices)
+
+
+def to_local_amg(lamg_like, smesh):
+    """The port's ``parallel.flowshard.LocalAmg`` of an object with the JAX
+    ``LocalAmg``'s fields, its shard tensors on ``smesh``'s devices."""
+    from .parallel import flowshard
+
+    idx = lambda xs: [np.array(x).astype(np.int64) for x in xs]  # noqa: E731
+    return flowshard.make_local_amg({
+        "aggs": idx(lamg_like.aggs), "owners": idx(lamg_like.owners),
+        "neighs": idx(lamg_like.neighs), "f2cf": idx(lamg_like.f2cf),
+        "off_mask": np.array(lamg_like.off_mask),
+        "sizes": [(int(a), int(b)) for a, b in lamg_like.sizes],
+        "n_levels": int(lamg_like.n_levels)}, smesh)

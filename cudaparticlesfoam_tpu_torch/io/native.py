@@ -113,6 +113,12 @@ def _parse(text: str, dtype, entry):
     return out[:n].copy()
 
 
+def available() -> bool:
+    """Whether the parsing library (``csrc/fastio.cpp``) builds and loads
+    here (JAX ``native.available``)."""
+    return _load("fastio") is not None
+
+
 def parse_doubles(text: str) -> np.ndarray | None:
     lib = _load("fastio")
     return None if lib is None else _parse(text, np.float64, lib.parse_doubles)

@@ -21,8 +21,10 @@ JAX does: ``FlowSolver.cell_velocity`` copies U to the host and
 the stream and rare kernels on the card (``stepper.run_cycles``).  With
 ``devices`` or a ``strategy`` other than auto the particles run on a
 ``parallel.auto.ParticleEngine`` (data parallelism or the partitioned
-mesh), which takes each new field (``update_from_case``) as JAX's does;
-``flow_devices > 1`` raises: the domain-decomposed flow solve is item 13c.
+mesh), which takes each new field (``update_from_case``) as JAX's does.
+With ``flow_devices > 1`` the flow runs domain-decomposed over that many
+shards (``parallel.flowshard.ShardedFlowSolver``, the reference's
+``Allrun-parallel``), as JAX's ``--flow-devices``.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from ..dtypes import run_device
 from ..io import vtu
+from ..parallel.flowshard import ShardedFlowSolver, halo_refresh
 from ..stepper import n_cycles_for, run_cycles, suggest_tuning
 from ..utils.profiling import PhaseTimer
 from . import case as caselib
@@ -200,14 +203,17 @@ def run_coupled(case_dir: str, out_dir: str | None = None, write_output: bool = 
     ``flow_devices`` / ``devices`` / ``strategy`` are the JAX driver's
     multi-device knobs: ``devices`` / ``strategy`` run the particles on a
     ``ParticleEngine`` (which on a moving mesh takes each refreshed
-    geometry), ``flow_devices > 1`` raises (``uncoupled.check_single_device``).
+    geometry), ``flow_devices > 1`` solves the flow on that many shards
+    (``parallel.flowshard.ShardedFlowSolver``, on ``device``'s cards in
+    turn: ``cuda:0 x4`` on one card).
 
     Logs JAX's lines (``Time = ...``, the solver's ``#flow:`` lines,
     ``dtE``/``nCycles``), and per Eulerian step one ``#coupled:`` line:
     dt_e, cycles, the flow step's device and host ms, the CG iterations of
     each pressure solve, continuity, the velocity refresh's ms (copy off
     the device, host row rebuild, upload), Advect ms/cycle on the device and
-    to issue, and the frames' seconds; at the end the init times, kernel
+    to issue, the frames' seconds, and the flow's shards, halo rounds, halo
+    refreshes and MB; at the end the init times, kernel
     launches and peak device memory.  Returns (case, state, stats) with
     ``cycles``, ``time``, ``steps`` (the per-step records), ``init`` and, on
     the card, ``launches`` and ``peak_bytes``."""
@@ -224,7 +230,12 @@ def run_coupled(case_dir: str, out_dir: str | None = None, write_output: bool = 
     ctrl = case.control
     out_dir = out_dir or case_dir
     h0 = time.perf_counter()
-    flow = pimplelib.FlowSolver.from_case(case, log=log, dtype=flow_dtype, device=device)
+    if flow_devices is not None and flow_devices > 1:
+        flow = ShardedFlowSolver(case, flow_devices, log=log, dtype=flow_dtype, device=device)
+        n_shards, halo_rounds = flow_devices, flow.smesh.halo_stats()["rounds"]
+    else:
+        flow = pimplelib.FlowSolver.from_case(case, log=log, dtype=flow_dtype, device=device)
+        n_shards, halo_rounds = 1, 0
     flow_s = time.perf_counter() - h0
     h0 = time.perf_counter()
     state = caselib.init_particles(case, log=log)
@@ -258,8 +269,10 @@ def run_coupled(case_dir: str, out_dir: str | None = None, write_output: bool = 
         if ctrl.write_control in ("adjustableRunTime", "adjustable"):
             dt_e = min(dt_e, max(next_write_t - t, 1e-12))
         timer = PhaseTimer(device)      # this step's spans
+        halo0 = (halo_refresh.calls, halo_refresh.bytes)
         with timer.phase("Flow"):
             res = flow.advance(dt_e)
+        halo = (halo_refresh.calls - halo0[0], halo_refresh.bytes - halo0[1])
         cycles = 0
         if flow.dyn is not None:
             # moved mesh: refresh the particle walk tables on the device
@@ -308,7 +321,9 @@ def run_coupled(case_dir: str, out_dir: str | None = None, write_output: bool = 
                    for k_ in ("Flow", "Geometry", "Refresh", "Advect")},
                "flow_host_ms": host_s.get("Flow", 0.0) * 1e3,
                "advect_host_ms": host_s.get("Advect", 0.0) * 1e3,
-               "frames_s": host_s.get("IO", 0.0)}
+               "frames_s": host_s.get("IO", 0.0), "flow_shards": n_shards,
+               "halo_rounds": halo_rounds, "halo_refreshes": halo[0],
+               "halo_mb": halo[1] / 1e6}
         steps.append(rec)
         cyc = max(cycles, 1)
         log(f"#coupled: step {k} t={t:g} dt_e={dt_e:g} cycles={cycles} "
@@ -317,7 +332,9 @@ def run_coupled(case_dir: str, out_dir: str | None = None, write_output: bool = 
             f"geometry_ms={rec['geometry_ms']:.3f} refresh_ms={rec['refresh_ms']:.3f} "
             f"advect_ms_per_cycle={rec['advect_ms'] / cyc:.4f} "
             f"advect_issue_ms_per_cycle={rec['advect_host_ms'] / cyc:.4f} "
-            f"frames_s={rec['frames_s']:.3f}")
+            f"frames_s={rec['frames_s']:.3f} flow_shards={n_shards} "
+            f"halo_rounds={halo_rounds} halo_refreshes={halo[0]} "
+            f"halo_MB={rec['halo_mb']:.3f}")
         if n_steps is not None and k >= n_steps:
             break
     if writer is not None:

@@ -2,7 +2,7 @@
 
 The port of ``cudaparticlesfoam_tpu/models/fv.py``: collocated FV on the
 case's ``constant/polyMesh``, matrix-free LDU operators assembled per face
-with ``index_add_`` (JAX's ``.at[i].add``), Jacobi-smoothed momentum and
+with :func:`index_sum` (JAX's ``.at[i].add``), Jacobi-smoothed momentum and
 Jacobi- or AMG-preconditioned CG pressure solves.  The same discretization
 (linear interpolation, upwind convection with deferred high-order
 corrections, orthogonal implicit diffusion with explicit non-orthogonal
@@ -11,15 +11,20 @@ same host-side set-up: the geometry tables and the AMG hierarchy are built
 in numpy exactly as in JAX, so they equal JAX's bit for bit.
 
 Every operator is plain torch ops on the tensors' device; there is no
-kernel here.  On CUDA ``index_add_`` sums with atomics, so sums over
-repeated indices are not repeatable bit for bit from run to run.  The CG
-loops test their exit condition on the host once per iteration (JAX's
-``lax.while_loop`` tests it on the device), and nowhere else.
+kernel here.  ``index_add_`` on CUDA sums with atomics, in an order that
+changes from run to run, and a float32 pressure solve carries that
+last-bit noise into the velocity at the 1e-4 level in one step; so on the
+card every face-to-cell sum gathers its terms in a fixed order and sums
+each cell's run of them (:func:`index_sum`), and the same inputs give the
+same fields bit for bit on every run.  The CG loops test their exit
+condition on the host once per iteration (JAX's ``lax.while_loop`` tests
+it on the device), and nowhere else.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
@@ -128,6 +133,71 @@ def host(x) -> np.ndarray:
     """numpy copy of a tensor (the host-side set-up reads the device
     tables back, as JAX's ``np.asarray(m.cf)`` does)."""
     return x.detach().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# sums into indexed rows (JAX's .at[i].add), in a fixed order on the card
+# ---------------------------------------------------------------------------
+
+_FIXED_ORDER_ON_CPU = False     # the tests set it to run the card's path on the CPU
+_PLANS: dict = {}
+
+
+def _sum_plan(n_out: int, idxs):
+    """(order, offsets) on the indices' device: ``order`` lists the
+    positions in the concatenated parts sorted by their index (stable, so
+    in part order within a row), an index outside [0, n_out) left out;
+    row i's positions are ``order[offsets[i]:offsets[i + 1]]``.  Made on
+    the host once per set of index tensors, found again by storage,
+    length and version while the tensors (or the ones they view) live;
+    the plans of dead tensors go when a new plan is made."""
+    key = (n_out, str(idxs[0].device),
+           tuple((i.data_ptr(), i.shape[0], i.stride(0), i._version) for i in idxs))
+    hit = _PLANS.get(key)
+    if hit is not None and all(r() is not None for r in hit[0]):
+        return hit[1]
+    for k in [k for k, (refs, _) in _PLANS.items() if any(r() is None for r in refs)]:
+        del _PLANS[k]
+    tgt = np.concatenate([host(i).reshape(-1) for i in idxs]).astype(np.int64)
+    pos = np.flatnonzero((tgt >= 0) & (tgt < n_out))
+    order = pos[np.argsort(tgt[pos], kind="stable")]
+    offsets = np.concatenate([[0], np.cumsum(np.bincount(tgt[pos], minlength=n_out))])
+    plan = tuple(torch.as_tensor(x, dtype=torch.int64, device=idxs[0].device)
+                 for x in (order, offsets))
+    _PLANS[key] = (tuple(weakref.ref(i if i._base is None else i._base) for i in idxs), plan)
+    return plan
+
+
+def index_sum(n_out: int, parts, out=None, drop: bool = False):
+    """``out`` (default zeros) plus, for each ``(index, values)`` of
+    ``parts`` in turn, each row of ``values`` added to row ``index`` of an
+    ``n_out``-row result, which is returned (``out`` itself is left as it
+    is).  With ``drop`` an index outside [0, n_out) adds nothing (JAX's
+    ``mode="drop"``).
+
+    On the CPU: ``index_add_`` part by part, in order.  On the card: the
+    concatenated values gathered in :func:`_sum_plan`'s order and summed
+    row by row with ``torch.segment_reduce``, so each row sums in the same
+    order on every run (``index_add_``'s atomics do not); the plan is made
+    once per set of index tensors, which are the mesh's and the
+    hierarchies' own.  Rows are segments of any length: a shard mesh's
+    dummy cell takes every padded face, tens of thousands at full width."""
+    vals = [v for _, v in parts]
+    v0 = vals[0]
+    if v0.device.type == "cpu" and not _FIXED_ORDER_ON_CPU:
+        idxs, n = [i for i, _ in parts], n_out
+        if drop:    # out-of-range rows go to one spare row, sliced off
+            idxs, n = [torch.where((i >= 0) & (i < n_out), i, n_out) for i in idxs], n_out + 1
+        res = (v0.new_zeros((n,) + tuple(v0.shape[1:])) if out is None
+               else torch.cat([out, out.new_zeros((1,) + tuple(out.shape[1:]))]) if drop
+               else out.clone())
+        for i, v in zip(idxs, vals):
+            res.index_add_(0, i, v)
+        return res[:n_out]
+    order, offsets = _sum_plan(n_out, [i for i, _ in parts])
+    src = torch.cat(vals) if len(vals) > 1 else v0
+    res = torch.segment_reduce(src.index_select(0, order), "sum", offsets=offsets, unsafe=True)
+    return res if out is None else out + res
 
 
 # ---------------------------------------------------------------------------
@@ -260,20 +330,13 @@ def face_interp(m: FvMesh, phi):
 
 def surface_sum(m: FvMesh, face_vals):
     """Sum of per-face values into cells with owner +, neighbour - signs."""
-    out = torch.zeros((m.n_cells,) + tuple(face_vals.shape[1:]), dtype=face_vals.dtype,
-                      device=face_vals.device)
-    out.index_add_(0, m.owner, face_vals)
-    out.index_add_(0, m.neighbour, -face_vals[: m.n_internal])
-    return out
+    return index_sum(m.n_cells, [(m.owner, face_vals),
+                                 (m.neighbour, -face_vals[: m.n_internal])])
 
 
 def surface_sum_internal(m: FvMesh, face_vals):
     """surface_sum restricted to internal faces."""
-    out = torch.zeros((m.n_cells,) + tuple(face_vals.shape[1:]), dtype=face_vals.dtype,
-                      device=face_vals.device)
-    out.index_add_(0, m.own_i, face_vals)
-    out.index_add_(0, m.neighbour, -face_vals)
-    return out
+    return index_sum(m.n_cells, [(m.own_i, face_vals), (m.neighbour, -face_vals)])
 
 
 def divergence(m: FvMesh, face_flux):
@@ -356,10 +419,7 @@ def convection_correction(m: FvMesh, flux, phi, bc: BoundaryCoeffs, scheme: str,
         raise ValueError(f"unknown convection scheme {scheme!r}")
 
     corr_f = f_i[:, None] * (phi_ho - phi_up)
-    out = torch.zeros((m.n_cells, ph.shape[1]), dtype=m.dtype, device=m.device)
-    out.index_add_(0, own, -corr_f)
-    out.index_add_(0, nei, corr_f)
-    return out
+    return index_sum(m.n_cells, [(own, -corr_f), (nei, corr_f)])
 
 
 def nonortho_flux(m: FvMesh, rau_f, p, p_bcs: BoundaryCoeffs):
@@ -416,9 +476,7 @@ def assemble_transport(
     f_neg = torch.clamp(f_i, max=0.0)
     upper = f_neg - d_i          # coeff of phi_N in owner eq
     lower = -f_pos - d_i         # coeff of phi_P in neighbour eq
-    diag = torch.zeros(m.n_cells, dtype=m.dtype, device=m.device)
-    diag.index_add_(0, m.own_i, f_pos + d_i)
-    diag.index_add_(0, m.neighbour, -f_neg + d_i)
+    diag = index_sum(m.n_cells, [(m.own_i, f_pos + d_i), (m.neighbour, -f_neg + d_i)])
 
     # boundary: phi_f = a phi_P + b
     # convection (outflow: phi_f upwinded to owner when F>0; inflow uses b)
@@ -428,9 +486,8 @@ def assemble_transport(
     # diffusion: flux = d_b (phi_f - phi_P) = d_b ((a-1) phi_P + b)
     diff_diag_b = d_b * (1.0 - bc.a)
     diff_src_b = d_b[:, None] * bc.b
-    diag.index_add_(0, m.own_b, conv_diag_b + diff_diag_b)
-    source = torch.zeros((m.n_cells, n_comp), dtype=m.dtype, device=m.device)
-    source.index_add_(0, m.own_b, conv_src_b + diff_src_b)
+    diag = index_sum(m.n_cells, [(m.own_b, conv_diag_b + diff_diag_b)], out=diag)
+    source = index_sum(m.n_cells, [(m.own_b, conv_src_b + diff_src_b)])
 
     if ddt_coeff is not None:
         diag = diag + ddt_coeff
@@ -447,9 +504,8 @@ def matvec(m: FvMesh, A: FvMatrix, phi):
     else:
         out = A.diag * phi
         upper, lower = A.upper, A.lower
-    out.index_add_(0, m.own_i, upper * phi[m.neighbour])
-    out.index_add_(0, m.neighbour, lower * phi[m.own_i])
-    return out
+    return index_sum(m.n_cells, [(m.own_i, upper * phi[m.neighbour]),
+                                 (m.neighbour, lower * phi[m.own_i])], out=out)
 
 
 def h_operator(m: FvMesh, A: FvMatrix, phi):
@@ -532,37 +588,44 @@ def build_amg(m: FvMesh, min_coarse: int = 200, max_levels: int = 16) -> AmgHier
     )
 
 
+_INTRA_AGG: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _intra_agg(m: FvMesh, h: AmgHierarchy) -> tuple:
+    """Per level of ``h``: each fine internal face's coarse cell where both
+    its cells aggregate into it, else the coarse size (dropped).  Made once
+    per hierarchy, so :func:`index_sum` finds its table again."""
+    out = _INTRA_AGG.get(h)
+    if out is None:
+        out, own = [], m.own_i
+        for li in range(len(h.sizes)):
+            out.append(torch.where(h.f2cf[li] < 0, h.aggs[li][own], h.sizes[li]))
+            own = h.owners[li]
+        out = _INTRA_AGG[h] = tuple(out)
+    return out
+
+
 def amg_coarse_ops(m: FvMesh, h: AmgHierarchy, A: FvMatrix):
     """Galerkin coarse (diag, offdiag) per level for a SYMMETRIC operator
     (off = upper = lower, the pressure Laplacian).
 
     JAX scatters the faces it leaves out to the index one past the end
-    with ``mode="drop"``; here each target has that one spare slot, which
-    is sliced off, so the kept slots sum in JAX's order."""
+    with ``mode="drop"``, and so does :func:`index_sum` here: the kept
+    faces sum in JAX's order."""
     diag, off = A.diag, A.upper
-    own = m.own_i
+    intra = _intra_agg(m, h)
     levels = []
     for li in range(len(h.sizes)):
-        agg, f2cf, ncl = h.aggs[li], h.f2cf[li], h.sizes[li]
-        n_cf = h.owners[li].shape[0]
-        intra = f2cf < 0
-        diag_c = torch.zeros(ncl + 1, dtype=diag.dtype, device=diag.device)
-        diag_c.index_add_(0, agg, diag)
-        diag_c.index_add_(0, torch.where(intra, agg[own], ncl),
-                          2.0 * torch.where(intra, off, 0.0))
-        off_c = torch.zeros(n_cf + 1, dtype=off.dtype, device=off.device)
-        off_c.index_add_(0, torch.where(intra, n_cf, f2cf), torch.where(intra, 0.0, off))
-        diag_c, off_c = diag_c[:ncl], off_c[:n_cf]
+        ncl, n_cf = h.sizes[li], h.owners[li].shape[0]
+        diag_c = index_sum(ncl, [(h.aggs[li], diag), (intra[li], 2.0 * off)], drop=True)
+        off_c = index_sum(n_cf, [(h.f2cf[li], off)], drop=True)
         levels.append((diag_c, off_c))
-        diag, off, own = diag_c, off_c, h.owners[li]
+        diag, off = diag_c, off_c
     return levels
 
 
 def _sym_matvec(diag, off, own, nei, x):
-    out = diag * x
-    out.index_add_(0, own, off * x[nei])
-    out.index_add_(0, nei, off * x[own])
-    return out
+    return index_sum(diag.shape[0], [(own, off * x[nei]), (nei, off * x[own])], out=diag * x)
 
 
 def amg_vcycle(m: FvMesh, h: AmgHierarchy, A: FvMatrix, levels, r):
@@ -582,9 +645,7 @@ def amg_vcycle(m: FvMesh, h: AmgHierarchy, A: FvMatrix, levels, r):
                 x = x + omega * (r - _sym_matvec(diag, off, own, nei, x)) / diag
             return x
         r1 = r - _sym_matvec(diag, off, own, nei, x)
-        rc = torch.zeros(h.sizes[li], dtype=r.dtype, device=r.device)
-        rc.index_add_(0, h.aggs[li], r1)
-        xc = descend(li + 1, rc)
+        xc = descend(li + 1, index_sum(h.sizes[li], [(h.aggs[li], r1)]))
         x = x + xc[h.aggs[li]]
         x = x + omega * (r - _sym_matvec(diag, off, own, nei, x)) / diag
         return x

@@ -143,19 +143,19 @@ def pressure_solve(m: fv.FvMesh, mo: Momentum, rhs, p, p_bcs, cfg: PimpleConfig,
     return p, corr, p_res, its
 
 
-def correct(m: fv.FvMesh, mo: Momentum, hbya, phi_hbya, p, corr, p_bcs, fvo=None):
+def correct(m: fv.FvMesh, rau, rau_f, hbya, phi_hbya, p, corr, p_bcs, fvo=None):
     """Stage 2c: the conservative flux ``phiHbyA - rAUf snGrad(p)`` and the
     velocity ``HbyA - rAU grad(p)``, then fvOptions.correct (``pEqn.H:66``).
     Returns (flux, u, fvo)."""
     n_int = m.n_internal
     dp = p[m.neighbour] - p[m.own_i]
-    flux_i = phi_hbya[:n_int] - mo.rau_f[:n_int] * m.delta * dp - corr
+    flux_i = phi_hbya[:n_int] - rau_f[:n_int] * m.delta * dp - corr
     dp_b = (p_bcs.a - 1.0) * p[m.own_b] + p_bcs.b[:, 0]
-    flux_b = phi_hbya[n_int:] - mo.rau_f[n_int:] * m.bd_delta * dp_b
+    flux_b = phi_hbya[n_int:] - rau_f[n_int:] * m.bd_delta * dp_b
     flux = torch.cat([flux_i, flux_b])
-    u = hbya - mo.rau[:, None] * fv.gradient(m, p, p_bcs)
+    u = hbya - rau[:, None] * fv.gradient(m, p, p_bcs)
     if fvo is not None:
-        u, fvo = fvo_mod.correct(fvo, m, u, mo.rau)
+        u, fvo = fvo_mod.correct(fvo, m, u, rau)
     return flux, u, fvo
 
 
@@ -190,7 +190,8 @@ def pimple_step(m: fv.FvMesh, st: FlowState, u_bcs, p_bcs, cfg: PimpleConfig, dt
             hbya, phi_hbya, rhs = pressure_system(m, mo, u_corr, mrf)
             p, corr, p_res, its = pressure_solve(m, mo, rhs, p, p_bcs, cfg, amg)
             p_iters += its
-            flux, u_corr, fvo = correct(m, mo, hbya, phi_hbya, p, corr, p_bcs, fvo)
+            flux, u_corr, fvo = correct(m, mo.rau, mo.rau_f, hbya, phi_hbya, p, corr,
+                                         p_bcs, fvo)
         st = FlowState(u=u_corr, p=p, flux=flux)
     res = {"u_res": u_res, "p_res": p_res,
            "continuity": torch.sum(torch.abs(fv.surface_sum(m, st.flux))),
@@ -223,12 +224,37 @@ def correct_flux(m: fv.FvMesh, flux, p_bcs, pin: bool):
     return torch.cat([flux_i, flux_b]), res
 
 
+def courant_dt(ctrl, co: float) -> float:
+    """The maxCo-scaled time step (setDeltaT semantics) for the Courant
+    number ``co`` taken at ``ctrl.delta_t``: at most 1.2x growth and at
+    most 100 ``deltaT``."""
+    dt0 = ctrl.delta_t
+    if co <= 0.0:
+        return dt0
+    return min(dt0 * min(ctrl.max_co / max(co, 1e-12), 1.2), dt0 * 100)
+
+
+def p_table_bcs(p_bcs: fv.BoundaryCoeffs, p_tables: dict, patch_slices, t: float):
+    """The pressure BCs with the time tables (uniformTotalPressure p0 ramps)
+    interpolated to ``t`` into their patches' offsets, on the host (numpy
+    interp), as JAX does."""
+    b = p_bcs.b.clone()
+    names = {ps[0]: ps for ps in patch_slices}
+    for patch, tab in p_tables.items():
+        if patch not in names:
+            continue
+        ts = np.array([x[0] for x in tab])
+        vs = np.array([x[1] for x in tab])
+        _, _, start, cnt = names[patch]
+        b[start : start + cnt, 0] = float(np.interp(t, ts, vs))
+    return dataclasses.replace(p_bcs, b=b)
+
+
 def courant_number(m: fv.FvMesh, flux, dt):
     """Max Courant number (OpenFOAM CourantNo.H): 0.5 dt sum|phi| / V, a
     0-dim tensor."""
-    sums = torch.zeros(m.n_cells, dtype=flux.dtype, device=flux.device)
-    sums.index_add_(0, m.owner, torch.abs(flux))
-    sums.index_add_(0, m.neighbour, torch.abs(flux[: m.n_internal]))
+    sums = fv.index_sum(m.n_cells, [(m.owner, torch.abs(flux)),
+                                    (m.neighbour, torch.abs(flux[: m.n_internal]))])
     return 0.5 * torch.as_tensor(dt, dtype=flux.dtype, device=flux.device) * torch.max(
         sums / m.vol)
 
@@ -337,22 +363,8 @@ class FlowSolver:
         return solver
 
     def _apply_p_tables(self, t: float):
-        """Interpolate the time tables (uniformTotalPressure p0 ramps) into
-        the pressure BC offsets for the current time, on the host (numpy
-        interp), as JAX does."""
-        if not self.p_tables:
-            return
-        b = self.p_bcs.b.clone()
-        names = {p[0]: p for p in self.m.patch_slices}
-        for patch, tab in self.p_tables.items():
-            if patch not in names:
-                continue
-            ts = np.array([x[0] for x in tab])
-            vs = np.array([x[1] for x in tab])
-            val = float(np.interp(t, ts, vs))
-            _, _, start, cnt = names[patch]
-            b[start : start + cnt, 0] = val
-        self.p_bcs = dataclasses.replace(self.p_bcs, b=b)
+        if self.p_tables:
+            self.p_bcs = p_table_bcs(self.p_bcs, self.p_tables, self.m.patch_slices, t)
 
     def move_mesh(self, dt_e: float):
         """The dynamic-mesh branch of a step (``mesh.controlledUpdate()`` +
@@ -406,12 +418,7 @@ class FlowSolver:
     def stable_dt(self, ctrl):
         """maxCo-scaled time step (setDeltaT semantics); reads the Courant
         number on the host."""
-        dt0 = ctrl.delta_t
-        co = float(courant_number(self.m, self.state.flux, dt0))
-        if co <= 0.0:
-            return dt0
-        scale = min(ctrl.max_co / max(co, 1e-12), 1.2)
-        return min(dt0 * scale, ctrl.delta_t * 100)
+        return courant_dt(ctrl, float(courant_number(self.m, self.state.flux, ctrl.delta_t)))
 
     def cell_velocity(self) -> np.ndarray:
         return fv.host(self.state.u)

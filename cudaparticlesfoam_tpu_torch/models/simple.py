@@ -170,14 +170,11 @@ def _pressure_matrix(m: fv.FvMesh, rau_f, p_bcs, pin: bool):
     n_int = m.n_internal
     d_i = rau_f[:n_int] * m.delta
     d_b = rau_f[n_int:] * m.bd_delta
-    diag = torch.zeros(m.n_cells, dtype=rau_f.dtype, device=rau_f.device)
-    diag.index_add_(0, m.own_i, d_i)
-    diag.index_add_(0, m.neighbour, d_i)
-    diag.index_add_(0, m.own_b, d_b * (1.0 - p_bcs.a))
+    diag = fv.index_sum(m.n_cells, [(m.own_i, d_i), (m.neighbour, d_i),
+                                    (m.own_b, d_b * (1.0 - p_bcs.a))])
     if pin:
         diag[0] += 1.0
-    src_b = torch.zeros(m.n_cells, dtype=rau_f.dtype, device=rau_f.device)
-    src_b.index_add_(0, m.own_b, d_b * p_bcs.b[:, 0])
+    src_b = fv.index_sum(m.n_cells, [(m.own_b, d_b * p_bcs.b[:, 0])])
     return fv.FvMatrix(diag=diag, lower=-d_i, upper=-d_i, source=src_b[:, None]), src_b
 
 

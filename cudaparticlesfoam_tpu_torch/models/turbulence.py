@@ -241,8 +241,9 @@ def k_epsilon_step(
         KAPPA * torch.clamp(wi.y_wall, min=SMALL)
     )
     big = torch.tensor(1e30, dtype=m.dtype, device=m.device)
-    diag_e = diag_e.index_add(0, wi.wall_cell, big.expand(wi.wall_cell.shape[0]))
-    src_e = src_e.index_add(0, wi.wall_cell, big * ew)
+    diag_e = fv.index_sum(m.n_cells, [(wi.wall_cell, big.expand(wi.wall_cell.shape[0]))],
+                          out=diag_e)
+    src_e = fv.index_sum(m.n_cells, [(wi.wall_cell, big * ew)], out=src_e)
     eps_new = _relaxed_jacobi(m, Ae, diag_e, src_e, eps, dt, relax, n_sweeps)
     eps_new = torch.clamp(eps_new, min=SMALL)
 
@@ -421,8 +422,9 @@ def k_omega_sst_step(
     w_log = torch.sqrt(kw_) / (CMU ** 0.25 * KAPPA * yw)
     w_wall = torch.sqrt(w_vis * w_vis + w_log * w_log)
     big = torch.tensor(1e30, dtype=m.dtype, device=m.device)
-    diag_w = diag_w.index_add(0, wi.wall_cell, big.expand(wi.wall_cell.shape[0]))
-    src_w = src_w.index_add(0, wi.wall_cell, big * w_wall)
+    diag_w = fv.index_sum(m.n_cells, [(wi.wall_cell, big.expand(wi.wall_cell.shape[0]))],
+                          out=diag_w)
+    src_w = fv.index_sum(m.n_cells, [(wi.wall_cell, big * w_wall)], out=src_w)
     w_new = _relaxed_jacobi(m, Aw, diag_w, src_w, w, dt, relax, n_sweeps)
     w_new = torch.clamp(w_new, min=SMALL)
 

@@ -43,18 +43,17 @@ STRATEGIES = ("auto", "single", "dp", "partitioned")
 
 def check_single_device(devices=None, strategy="auto", flow_devices=None) -> None:
     """Check a request's multi-device knobs: ``strategy`` must be one of
-    :data:`STRATEGIES` (``ValueError``), and more than one flow device
-    raises ``NotImplementedError`` (the domain-decomposed flow solve, item
-    13c, is not ported; never a quiet single-device run).  Any particle
-    ``devices`` and strategy run (``parallel.auto.ParticleEngine``)."""
+    :data:`STRATEGIES`, and ``devices`` / ``flow_devices`` at least 1
+    (``ValueError``).  Every particle strategy runs
+    (``parallel.auto.ParticleEngine``), and ``flow_devices > 1`` runs the
+    domain-decomposed flow solve (``parallel.flowshard.ShardedFlowSolver``,
+    in the coupled driver)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}, expected one of {STRATEGIES}")
     if devices is not None and devices < 1:
         raise ValueError(f"devices must be >= 1, got {devices}")
-    if flow_devices is not None and flow_devices > 1:
-        raise NotImplementedError(
-            f"flow_devices={flow_devices!r}: the domain-decomposed flow solve is not ported "
-            "to PyTorch/CUDA yet (ROADMAP.md queue 1 item 13c); run the flow on one device")
+    if flow_devices is not None and flow_devices < 1:
+        raise ValueError(f"flow_devices must be >= 1, got {flow_devices}")
 
 
 def write_schedule(n_cycles: int, save_interval: int):

@@ -196,10 +196,11 @@ def test_cli_coupled_and_replay_on_the_cpu(tmp_path, capsys):
     ("coupled", ["--devices", "2"], "13a"), ("coupled", ["--strategy", "dp"], "13a"),
     ("coupled", ["--flow-devices", "2"], "13c"), ("replay", ["--devices", "2"], "13a"),
     ("replay", ["--strategy", "partitioned", "--devices", "1"], "13a")])
-def test_multi_device_requests_raise(tmp_path, cmd, args, item):
-    """Only the domain-decomposed flow solve (item 13c) still raises; the
-    particle strategies (item 13a) are ported, so such a request passes
-    the check and fails only on the empty case directory."""
+def test_multi_device_requests_raise(tmp_path, monkeypatch, cmd, args, item):
+    """Every multi-device request is ported: the particle strategies (item
+    13a) pass the check and fail only on the empty case directory, and
+    ``--flow-devices 2`` (item 13c) reaches ``ShardedFlowSolver`` with 2
+    shards, from the CLI and from ``run_coupled`` alike."""
     from cudaparticlesfoam_tpu_torch.cli import main
 
     kw = {"--devices": ("devices", int), "--strategy": ("strategy", str),
@@ -207,10 +208,23 @@ def test_multi_device_requests_raise(tmp_path, cmd, args, item):
     call = {kw[a][0]: kw[a][1](v) for a, v in zip(args[::2], args[1::2])}
     fn = coupled.run_coupled if cmd == "coupled" else coupled.run_replay
     if item == "13c":
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            main([cmd, str(tmp_path), "--device", "cpu", *args])
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            fn(str(tmp_path), device=CPU, **call)
+        case = shrink_tjunction(tmp_path, num_particles=10)
+        write_polymesh_of(case)
+        built = []
+
+        class Reached(Exception):
+            pass
+
+        def sharded(case_, n_dev, **k):
+            built.append((n_dev, k["device"]))
+            raise Reached
+
+        monkeypatch.setattr(coupled, "ShardedFlowSolver", sharded)
+        with pytest.raises(Reached):
+            main([cmd, case, "--device", "cpu", *args])
+        with pytest.raises(Reached):
+            fn(case, device=CPU, log=lambda *a: None, **call)
+        assert built == [(2, CPU), (2, CPU)]
         return
     coupled.check_single_device(call.get("devices"), call.get("strategy", "auto"))
     for run in (lambda: main([cmd, str(tmp_path), "--device", "cpu", *args]),

@@ -134,7 +134,11 @@ def test_import_pulls_in_neither_jax_nor_triton():
             "cudaparticlesfoam_tpu_torch.io.checkpoint, "
             "cudaparticlesfoam_tpu_torch.parallel.sharding, "
             "cudaparticlesfoam_tpu_torch.parallel.auto, "
-            "cudaparticlesfoam_tpu_torch.parallel.partition; "
+            "cudaparticlesfoam_tpu_torch.parallel.partition, "
+            "cudaparticlesfoam_tpu_torch.parallel.flowshard, "
+            "cudaparticlesfoam_tpu_torch.parallel.graphpart, "
+            "cudaparticlesfoam_tpu_torch.dryrun, "
+            "cudaparticlesfoam_tpu_torch.ops.geometry; "
             "print(sorted(m for m in ('jax', 'triton', 'cudaparticlesfoam_tpu') "
             "if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

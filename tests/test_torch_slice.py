@@ -140,15 +140,17 @@ def test_diagnostics_and_sub_cycling(box):
 def test_chip_smoke_rehearsal_runs_every_phase():
     """``chip_smoke.py --rehearse`` drives every phase at small sizes on the
     CPU through the plain versions: it must exit 2 (no device result), print
-    the table of the twenty kernel entries (the eight of the north-star
+    the table of the twenty-two kernel entries (the eight of the north-star
     slice's paths, the two of the uncoupled driver's, phase 8, the four of
     the rk4-tracers cell, phase 9, the two of the coupled driver on the
-    TJunction, phase 11, and the four of the multi-device paths, phase 12)
-    with every key the table carries, and no ``ok`` line; phase 10 (the
-    steady-flow solver, no kernel of its own) prints its parity, Allrun and
-    split lines; phase 11 (the coupled solver) its PIMPLE parity,
-    dynamic-mesh, TJunction and split lines; phase 12 its remote-kernel
-    parity, data-parallel, partitioned and driver lines."""
+    TJunction, phase 11, the four of the multi-device paths, phase 12, and
+    the two of the TJunction with its flow on 4 shards, phase 13) with every
+    key the table carries, and no ``ok`` line; phase 10 (the steady-flow
+    solver, no kernel of its own) prints its parity, Allrun and split lines;
+    phase 11 (the coupled solver) its PIMPLE parity, dynamic-mesh,
+    TJunction and split lines; phase 12 its remote-kernel parity,
+    data-parallel, partitioned and driver lines; phase 13 its sharded-step
+    parity, Allrun-parallel, cycle and dry-run lines."""
     import json
     import subprocess
     import sys
@@ -167,14 +169,18 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                      "stream_kernel<pk>", "rare_kernel<pk>", "stream_kernel", "rare_kernel",
                      "stream_kernel<rk4>", "rare_kernel", "stream_kernel<pk, rk4>",
                      "rare_kernel<pk>", "stream_kernel", "rare_kernel", "stream_kernel",
-                     "rare_kernel", "rare_kernel<remote>", "rare_kernel<pk, remote>"]
+                     "rare_kernel", "rare_kernel<remote>", "rare_kernel<pk, remote>",
+                     "stream_kernel", "rare_kernel"]
     assert [k["path"].startswith("uncoupled driver") for k in table["kernels"]] == \
-        [False] * 8 + [True] * 2 + [False] * 10
+        [False] * 8 + [True] * 2 + [False] * 12
     assert all(k["path"].startswith("rk4-tracers") for k in table["kernels"][10:14])
     assert all(k["path"].startswith("coupled driver (TJunction") for k in table["kernels"][14:16])
-    assert [k["path"] for k in table["kernels"][16:]] == [
+    assert [k["path"] for k in table["kernels"][16:20]] == [
         "north-star, DP 4 shards"] * 2 + ["north-star, partitioned",
                                           "north-star, partitioned, VertexVelocity"]
+    assert all(k["path"].startswith("coupled driver (TJunction Allrun-parallel, flow on 4 "
+                                    "shards") and k["phases"] == "13c"
+               for k in table["kernels"][20:])
     for entry in table["kernels"]:
         assert {"path", "phases", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "share", "copy_ms",
@@ -203,9 +209,10 @@ def test_chip_smoke_rehearsal_runs_every_phase():
             assert entry["share_of_latency"] == pytest.approx(
                 entry["latency_bound_ms"] / entry["ms"])
     latency = [line for line in lines if line.startswith("[latency]")]
-    assert len(latency) == 21 and "host loop (cpu rehearsal)" in latency[0]
+    assert len(latency) == 23 and "host loop (cpu rehearsal)" in latency[0]
     for name in ("rare", "convex_rare", "rare_pk", "rare_tutorial", "rare_rk4", "rare_pk_rk4",
-                 "rare_tjunction", "rare_dp", "rare_remote", "rare_pk_remote"):
+                 "rare_tjunction", "rare_dp", "rare_remote", "rare_pk_remote",
+                 "rare_tjunction_par"):
         assert any(f"| {name} lanes=" in line and "share_of_latency=" in line
                    and "pending_first_ms=" in line for line in latency), name
         assert any(f"| {name} by longest chain" in line and "ms_per_chain_step=" in line
@@ -218,7 +225,8 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                 "[rk4-simple]", "[duct]", "[rk4-slice]", "[flow-parity]", "[flow-allrun]",
                 "[flow-split]", "[pimple-parity]", "[dyn-refresh]", "[dyn-kernels]",
                 "[dyn-coupled]", "[tj-step]", "[tj-run]", "[tj-cycle]", "[pimple-split]",
-                "[tj-advect]", "[remote]", "[dp]", "[part]", "[part-pk]", "[drivers]"):
+                "[tj-advect]", "[remote]", "[dp]", "[part]", "[part-pk]", "[drivers]",
+                "[flowshard-parity]", "[tj-par]", "[tj-par-cycle]", "[dryrun]", "[flowshard]"):
         assert any(line.startswith(tag) for line in lines), tag
     # phase 9: RK4 kernel = plain in every case, the oracles, the cell
     rk4 = [line for line in lines if line.startswith("[rk4-parity]")]
@@ -293,3 +301,23 @@ def test_chip_smoke_rehearsal_runs_every_phase():
     drivers = [line for line in lines if line.startswith("[drivers]")]
     assert sum("tet_identical=1 active_identical=1" in line for line in drivers) == 2
     assert any("engine=partitioned placement=[cpu x4]" in line for line in drivers)
+    # phase 13: the sharded step against the single-device one and against
+    # itself on the CPU (here the CPU twice), the Allrun-parallel through the
+    # CLI and in process beside the single-device flow, its cycle, the dry run
+    shard = [line for line in lines if line.startswith("[flowshard-parity]")]
+    assert len(shard) == 6 and all("max_rel_err=0.000e+00" in line for line in shard)
+    assert all("single_ok=1" in line for line in shard[:5]) and "cg_equal=1" in shard[-1]
+    assert "run_to_run_identical=1" in shard[-1]
+    tjp = [line for line in lines if line.startswith("[tj-par]")]
+    assert sum("CLI step " in line and "flow_shards=4 halo_rounds=2" in line
+               for line in tjp) == 3
+    assert any("shards=4 [cpu x4]" in line and "all_active_in_domain=1" in line
+               and "active=2000 of 2000" in line for line in tjp)
+    assert sum("cg_iterations_per_corrector single=[" in line for line in tjp) == 3
+    assert any("rel_rms U=" in line and "gathered_flux_divergence_max=" in line for line in tjp)
+    assert any("stream_identical=1" in line and "cycle_identical=1" in line
+               for line in lines if line.startswith("[tj-par-cycle]"))
+    assert any("| stream_tjunction_par lanes=" in line for line in lines
+               if line.startswith("[bound]"))
+    dry = next(line for line in lines if line.startswith("[dryrun]"))
+    assert "dp_max_abs_err=0.000e+00" in dry and "partitioned_max_abs_err=0.000e+00" in dry

@@ -581,3 +581,57 @@ def refresh_box_case(dst, n) -> str:
     })
     write_polymesh_of(case)
     return case
+
+
+# ---------------------------------------------------------------------------
+# the domain-decomposed flow solve (tests/test_torch_flowshard*.py)
+# ---------------------------------------------------------------------------
+
+PITZ_BMD = os.path.join(PITZ, "system", "blockMeshDict")
+
+
+def flowshard_duct(dst, nx=24, ny=4, nz=4) -> str:
+    """tests/test_flowshard.py's duct (6 x 1 x 1 m; inlet, outlet, walls)
+    as a blockMeshDict under ``dst``; returns its path."""
+    path = os.path.join(str(dst), f"duct_{nx}_{ny}_{nz}", "blockMeshDict")
+    write_files(os.path.dirname(path), {"blockMeshDict": (
+        _HDR % ("dictionary", "blockMeshDict") + "convertToMeters 1;\n"
+        "vertices ( (0 0 0) (6 0 0) (6 1 0) (0 1 0) (0 0 1) (6 0 1) (6 1 1) (0 1 1) );\n"
+        f"blocks ( hex (0 1 2 3 4 5 6 7) ({nx} {ny} {nz}) simpleGrading (1 1 1) );\n"
+        "boundary (\n inlet { type patch; faces ((0 4 7 3)); }\n"
+        " outlet { type patch; faces ((1 2 6 5)); }\n"
+        " walls { type wall; faces ((0 1 5 4) (3 7 6 2) (0 3 2 1) (4 5 6 7)); }\n);\n")})
+    return path
+
+
+def flowshard_meshes(dst) -> dict:
+    """The duct (24 x 4 x 4, and 12 x 6 x 6 for the grids) and pitzDaily,
+    each generated by both packages' blockMesh: {name: (port, JAX)}."""
+    from cudaparticlesfoam_tpu.io import blockmesh as jblockmesh
+    from cudaparticlesfoam_tpu_torch.io import blockmesh
+
+    paths = {"duct": flowshard_duct(dst), "duct6": flowshard_duct(dst, 12, 6, 6),
+             "pitz": PITZ_BMD}
+    return {name: (blockmesh.generate(p), jblockmesh.generate(p)) for name, p in paths.items()}
+
+
+def duct_mrf(m, module, as_array, omega_z=6.0):
+    """A rotor zone in the middle third of the flowshard duct rotating about
+    z through its centre (tests/test_flowshard.py's ``_duct_mrf``), as
+    ``module``'s MRFZones of ``as_array`` fields; ``m`` either package's
+    FvMesh."""
+    def host(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+    nf, n_int = m.n_faces, m.n_internal
+    cc, own, nei = host(m.cc), host(m.owner), host(m.neighbour)
+    in_zone = (cc[:, 0] > 2.0) & (cc[:, 0] < 4.0)
+    origin, omega = np.array([3.0, 0.5, 0.5]), np.array([0.0, 0.0, omega_z])
+    face_om, face_or = np.zeros((nf, 3)), np.zeros((nf, 3))
+    f_int = in_zone[own[:n_int]] & in_zone[nei]
+    face_om[:n_int][f_int], face_or[:n_int][f_int] = omega, origin
+    f_bd = in_zone[own[n_int:]]
+    face_om[n_int:][f_bd], face_or[n_int:][f_bd] = omega, origin
+    return module.MRFZones(cell_omega=as_array(np.where(in_zone[:, None], omega, 0.0)),
+                           cell_origin=as_array(np.where(in_zone[:, None], origin, 0.0)),
+                           face_omega=as_array(face_om), face_origin=as_array(face_or))
