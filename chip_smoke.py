@@ -76,8 +76,8 @@ Phases, one line of numbers each, any failure exits non-zero:
    the apply pass on their own with the trip's working lanes, sub-steps,
    crossers, admitted lanes and hops; hop_admit_kernel one call at a time,
    200 calls back to back, and 200 calls replayed from a CUDA graph (the
-   device's time without the host's launch gap; a measuring device, the
-   port launches no graph; the trips' passes are timed the same way).
+   device's time without the host's launch gap; a measuring device, not
+   the port's path; the trips' passes are timed the same way).
    Then one 200-cycle run each of the bary slice and the convex-default
    with hop_compact=4, with the pending and overflow shares of one more
    cycle, the same checks, the compacted stream's time (flag pass +
@@ -314,6 +314,31 @@ Phases, one line of numbers each, any failure exits non-zero:
         PIMPLE) on the card.
    Phase 13 within 240 s on the card.  The rehearsal runs 13a without
    pitzDaily and 13b on the shrunk TJunction with 2,000 particles.
+
+14. the AMG-CG pressure solve's kernels (csrc/amg.cu: fv_matvec_kernel,
+   amg_down_kernel, amg_up_kernel, amg_coarsest_kernel) and the CG
+   iteration replayed from a CUDA graph (fv._pcg), on 10c's pitzDaily state
+   (after 10c), on two boxes (65,536 and 65,499 cells; after it), on 11d's
+   TJunction state (after 11d) and on 13b's sharded solver (in 13b):
+   14a. [amg-parity] each kernel against its plain version (ops/amg.py)
+        bit for bit at every level of the hierarchy, float32 and float64:
+        the matvec at level 0 (lower and upper apart) and on each coarse
+        level, x [nc] and [nc, 3], down and up above the coarsest, the
+        coarsest sweeps; and the kernels' matvec against PR 13's card path
+        (torch.segment_reduce a row): rows differing, largest gap in ulps.
+        [amg-times] each kernel's device ms (graph replays), its plain
+        version's, bytes, bound and share (ops/traffic.py), and one
+        cuSPARSE CSR torch.mv of the same matrix beside the matvec;
+   14b. [amg-graph] one pressure solve replayed from the graph = the eager
+        loop bit for bit, the same CG count, one replay a CG iteration, and
+        the capture's ms;
+   14c. [amg-modes] per V-cycle, CG iteration and SIMPLE iteration / PIMPLE
+        step: ms, host ms, kernels and launch calls for the graph, the
+        kernels with the loop eager, and PR 13's op-by-op path;
+        [amg-sharded] the same for 13b's 4-shard step (kernels, op by op).
+   The kernel table takes the four kernels on 10b's simple (launches from
+   its CLI run) and on 11c's coupled run; each path must launch every one
+   of them and replay the CG graph.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
@@ -1711,9 +1736,9 @@ def device_ms(torch, timer, fn, restore=None, reps=BATCH):
     reps calls are captured into one CUDA graph and the graph is replayed
     between a pair of events.  With ``restore`` (a device copy that resets
     fn's inputs) the graph holds reps x (restore, fn), and a second graph
-    of reps x restore is subtracted.  A measuring device only: the port
-    launches no graph.  On the CPU (rehearsal) the same loops on the host
-    clock."""
+    of reps x restore is subtracted.  A measuring device only (the port's
+    one graph is the pressure solve's CG iteration, ``fv._pcg``).  On the
+    CPU (rehearsal) the same loops on the host clock."""
     def replay(body):
         body()
         if not timer.cuda:
@@ -2932,8 +2957,10 @@ def register_report(_build, lines):
     rk4 = [line for line in lines if "rk4" in line.split(":")[0]]
     # the partitioned shard's rare_kernel<T, L, kRemote> (phase 12), new too
     remote = [line for line in lines if "remote" in line.split(":")[0]]
-    rest = sorted(line for line in lines if line not in rk4 and line not in remote)
-    for line in rk4 + remote:
+    # the pressure solve's kernels (csrc/amg.cu, phase 14), new as well
+    amg = [line for line in lines if line.split("<")[0] in AMG_KERNEL_NAMES]
+    rest = sorted(line for line in lines if line not in rk4 + remote + amg)
+    for line in rk4 + remote + amg:
         log(f"[registers] {line}")
     if not lines:
         log("[registers] unchanged_against_pinned=skipped: the library was built before "
@@ -2947,11 +2974,11 @@ def register_report(_build, lines):
         return
     changed = sorted(set(PINNED_PTXAS) ^ set(rest))
     log(f"[registers] rk4_instantiations={len(rk4)} remote_instantiations={len(remote)} "
-        f"other_kernels={len(rest)} unchanged_against_pinned={int(not changed)} "
-        f"(nvcc {PINNED_NVCC})")
-    need(len(rk4) == 8 and len(remote) == 4 and not changed,
+        f"amg_instantiations={len(amg)} other_kernels={len(rest)} "
+        f"unchanged_against_pinned={int(not changed)} (nvcc {PINNED_NVCC})")
+    need(len(rk4) == 8 and len(remote) == 4 and len(amg) == 14 and not changed,
          f"ptxas lines differ from the pinned ones: {changed}, or not 8 RK4 lines: {rk4}, "
-         f"or not 4 remote lines: {remote}")
+         f"or not 4 remote lines: {remote}, or not 14 AMG lines: {amg}")
 
 
 def ptxas_lines(report):
@@ -2967,7 +2994,17 @@ def ptxas_lines(report):
             base = rest[len(digits): len(digits) + int(digits)]
             targs = rest[len(digits) + int(digits):]
             name = base
-            if targs.startswith("ILi"):
+            if base in AMG_KERNEL_NAMES:
+                # amg.cu: <T> and fv_matvec's K columns or the coarsest
+                # level's buffers (kShared)
+                args = [{"d": "double", "f": "float"}[targs[1]]]
+                flag = re.search(r"L[bi](\d+)E", targs)
+                if flag and base == "fv_matvec_kernel":
+                    args.append(f"k={flag.group(1)}")
+                elif flag:
+                    args.append("shared" if flag.group(1) == "1" else "global")
+                name = f"{base}<{', '.join(args)}>"
+            elif targs.startswith("ILi"):
                 name = f"{base}<{re.match(r'ILi(-?\d+)E', targs).group(1)}>"
             elif targs.startswith("I"):
                 args = [{"d": "double", "f": "float"}[targs[1]]]
@@ -3143,7 +3180,8 @@ def phase_flow_tutorial(torch, dev, tmp, rehearse, gpu_line, shear):
     tutorial's settings; the rehearsal runs simple --iters 5 on the CPU and
     the tracker at 2,000 particles, deltaT 0.01.  ``shear``: phase 8b's
     numbers, for Advect on the shear field beside the solved one.  Returns
-    (case dir, written time)."""
+    (case dir, written time, the simple run's pressure-solve kernel
+    launches by wrapper: the CLI logs them on the card)."""
     import shutil
 
     from cudaparticlesfoam_tpu_torch.io import foamfile, polymesh
@@ -3175,6 +3213,8 @@ def phase_flow_tutorial(torch, dev, tmp, rehearse, gpu_line, shear):
                      r"(\d+)/([\d.]+)/(\d+)(?:; on (.*), peak device memory ([\d.]+) GiB)?", text)
     need(flow is not None, "simple printed no #flow line")
     n_iter = int(flow.group(1))
+    solver = re.search(r"solver kernel launches (\{.*?\})", text)
+    launches = json.loads(solver.group(1).replace("'", '"')) if solver else {}
     times = sorted(float(d) for d in os.listdir(case)
                    if re.fullmatch(r"[\d.]+", d) and float(d) > 0
                    and os.path.exists(os.path.join(case, d, "U")))
@@ -3201,6 +3241,7 @@ def phase_flow_tutorial(torch, dev, tmp, rehearse, gpu_line, shear):
         f"host_ms_per_iteration={flow.group(3) or flow.group(2)} cg_per_solve_min_mean_max="
         f"{flow.group(4)}/{flow.group(5)}/{flow.group(6)} peak_device_GiB={flow.group(8)} "
         f"phases_s={ {k: v[0] for k, v in phases.items()} } simple_command_s={simple_s:.1f} "
+        f"solver_kernel_launches={launches} "
         f"written_time={t_write} max_U={umax:.3f} finite={int(finite)} "
         f"U_p_phi_read={int(phi is not None)} streamlines={len(lines)} "
         f"streamline_points={len(pts)}")
@@ -3220,7 +3261,7 @@ def phase_flow_tutorial(torch, dev, tmp, rehearse, gpu_line, shear):
                             f"{shear['adv_ms']:.4f}"))
     need(tut["mean_x"][1] > tut["mean_x"][0], f"the particles did not move downstream "
          f"(mean x {tut['mean_x']})")
-    return case, t_write
+    return case, t_write, launches
 
 
 def profile_part(torch, dev, fn):
@@ -3234,11 +3275,20 @@ def profile_part(torch, dev, fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize(dev)
+    raw = getattr(getattr(prof.profiler, "kineto_results", None), "events", None)
+    raw = raw() if raw is not None else []
+    launches = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch")
+    if raw and all(hasattr(raw[0], k) for k in ("duration_ns", "device_type", "name")):
+        # the raw records, as profile_kernels reads them
+        ns = [e.duration_ns() for e in raw if e.device_type() == DeviceType.CUDA
+              and not e.name().startswith(("Memcpy", "Memset"))]
+        calls = sum(e.name() in launches for e in raw)
+        return len(ns), calls, sum(ns) / 1e6
     events = prof.events()
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
-    calls = [e for e in events if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                                             "cuLaunchKernel", "cuLaunchKernelEx")]
+    calls = [e for e in events if e.name in launches]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     return len(kernels), len(calls), busy
 
@@ -3333,6 +3383,8 @@ def phase_flow_split(torch, dev, case, t_write, gpu_line, warm):
         f"device_idle_share={'%.3f' % idle if idle is not None else 'not measured'} "
         f"cg_iterations={its}")
     need(its > 0 and all(np.isfinite(r["ms"]) for r in out.values()), "the split did not run")
+    return dict(m=m, h=amg, A=Ap, b=rhs, x0=st.p, tol=cfg.p_tol, max_iter=cfg.p_max_iter,
+                whole=whole)
 
 
 
@@ -3351,7 +3403,8 @@ ERR_PHASES = {
     "stream_rk4": "9d", "rare_rk4": "9d", "stream_pk_rk4": "9d", "rare_pk_rk4": "9d",
     "stream_tjunction": "11c", "rare_tjunction": "11c", "stream_dp": "12b", "rare_dp": "12b",
     "stream_tjunction_par": "13c", "rare_tjunction_par": "13c",
-    "rare_remote": "12a, 12b", "rare_pk_remote": "12a, 12b"}
+    "rare_remote": "12a, 12b", "rare_pk_remote": "12a, 12b",
+    "fv_matvec": "14a", "amg_down": "14a", "amg_up": "14a", "amg_coarsest": "14a"}
 TJUNC = os.path.join(HERE, "tutorials", "incompressible", "cudaParticlesPimpleFoam", "TJunction")
 TJUNC_PATH = "coupled driver (TJunction, 248,000 cells, 4e6 particles, 3 Eulerian steps)"
 PIMPLE_TOL = 1e-9         # float64 card against CPU, relative to each field's largest magnitude
@@ -3650,8 +3703,9 @@ def phase_tjunction(torch, dev, tmp, rehearse, gpu_line):
         os.remove(os.path.join(out, f))
     if dev.type == "cuda":
         need(dev_line is not None, "the coupled run printed no device line")
-        need(launches == {"stream_cycle": cycles, "rare_resolve": cycles},
-             f"the TJunction run launched {launches}, not one stream and one rare kernel a "
+        particle = {k: v for k, v in launches.items() if k not in AMG_LAUNCH_KEYS}
+        need(particle == {"stream_cycle": cycles, "rare_resolve": cycles},
+             f"the TJunction run launched {particle}, not one stream and one rare kernel a "
              f"cycle ({cycles} cycles)")
         need(phase_s <= TJ_BOUND_S, f"phase 11c took {phase_s:.0f} s")
     return case, launches, {"cycles": cycles, "steps": steps}
@@ -3937,6 +3991,8 @@ def phase_pimple_split(torch, dev, tcase, flow, gpu_line):
         f"device_idle_share={idle} cg_iterations={its}")
     need(all(i > 0 for i in its) and all(np.isfinite(r["ms"]) for r in out.values()),
          "the PIMPLE split did not run")
+    return dict(m=m, h=flow.amg, A=mo.Ap, b=rhs, x0=p_in, tol=cfg.p_tol, max_iter=cfg.p_max_iter,
+                whole=whole)
 
 
 # ---------------------------------------------------------------------------
@@ -4686,9 +4742,12 @@ def phase_tj_parallel_cli(torch, dev, case, tmp, rehearse, gpu_line):
     if dev.type == "cuda":
         need(placed.group(2) == f"cuda:0 x{FLOW_SHARDS}" or torch.cuda.device_count() > 1,
              f"placement {placed.group(2)!r}")
-        need(launches == {"stream_cycle": cycles, "rare_resolve": cycles},
-             f"the sharded TJunction run launched {launches}, not one stream and one rare "
+        particle = {k: v for k, v in launches.items() if k not in AMG_LAUNCH_KEYS}
+        need(particle == {"stream_cycle": cycles, "rare_resolve": cycles},
+             f"the sharded TJunction run launched {particle}, not one stream and one rare "
              f"kernel a cycle ({cycles} cycles)")
+        need(all(launches.get(k, 0) > 0 for k in AMG_KERNELS),
+             f"the sharded flow ran without the pressure-solve kernels: {launches}")
     return launches, secs
 
 
@@ -4792,6 +4851,7 @@ def phase_tj_parallel_fields(torch, fused, fused_cuda, dev, tcase, cfg, errs, co
         f"(profile_s={prof_s:.1f}) | peak_device_GiB={unmeasured(peak, '%.3f')}")
     need(max(rms.values()) <= TJP_RMS_TOL and div <= TJP_DIV_TOL,
          "13b: the sharded fields part from the single-device run after step 3")
+    phase_amg_sharded(torch, dev, sharded, dt_e, (kernels, busy, ms4, its4), gpu_line)
     return times
 
 
@@ -4837,6 +4897,475 @@ def phase_dryrun(torch, dev, gpu_line):
         f"migrated={res['migrated']} deferred={res['deferred']} sharded PIMPLE "
         f"cells={res['n_cells']} continuity={res['continuity']:.3e} "
         f"cg_iterations={res['p_iters']} s={time.perf_counter() - t0:.1f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the AMG-CG pressure solve's kernels (csrc/amg.cu) and the CG
+# iteration replayed from a CUDA graph
+# ---------------------------------------------------------------------------
+
+AMG_KERNELS = ("fv_matvec", "amg_down", "amg_up", "amg_coarsest")
+AMG_LAUNCH_KEYS = AMG_KERNELS + ("cg_graph_replays",)    # fv.solver_launches()
+AMG_KERNEL_NAMES = tuple(f"{k}_kernel" for k in AMG_KERNELS)
+# the XLA code each kernel takes over (the JAX package fuses it in the CG's
+# lax.while_loop; no Pallas body)
+AMG_REPLACES = {"fv_matvec": "cudaparticlesfoam_tpu/models/fv.py:420",
+                "amg_down": "cudaparticlesfoam_tpu/models/fv.py:562",
+                "amg_up": "cudaparticlesfoam_tpu/models/fv.py:565",
+                "amg_coarsest": "cudaparticlesfoam_tpu/models/fv.py:559"}
+AMG_BOXES = {65_536: (64, 32, 32), 65_499: (3119, 7, 3)}     # a ragged last block
+AMG_BOXES_REHEARSAL = {256: (8, 8, 4), 231: (11, 7, 3)}
+AMG_SEED = 14
+AMG_PITZ_PATH = "steady-flow driver (pitzDaily Allrun, simple, 100 SIMPLE iterations)"
+
+
+def amg_box(dst, cells):
+    """A box of nx x ny x nz unit hex cells through the port's blockMesh."""
+    from cudaparticlesfoam_tpu_torch.io import blockmesh
+
+    nx, ny, nz = cells
+    path = os.path.join(dst, f"box_{nx}_{ny}_{nz}", "blockMeshDict")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        fh.write(
+            "FoamFile { version 2.0; format ascii; class dictionary; object blockMeshDict; }\n"
+            "convertToMeters 1;\n"
+            f"vertices ( (0 0 0) ({nx} 0 0) ({nx} {ny} 0) (0 {ny} 0) (0 0 {nz}) ({nx} 0 {nz}) "
+            f"({nx} {ny} {nz}) (0 {ny} {nz}) );\n"
+            f"blocks ( hex (0 1 2 3 4 5 6 7) ({nx} {ny} {nz}) simpleGrading (1 1 1) );\n"
+            "boundary ( walls { type wall; faces ((0 4 7 3) (1 2 6 5) (0 1 5 4) (3 7 6 2) "
+            "(0 3 2 1) (4 5 6 7)); } );\n")
+    return blockmesh.generate(path)
+
+
+def amg_system(torch, fv, m, dtype, seed):
+    """A pressure-like matrix on ``m`` in ``dtype`` from ``seed``: off < 0 on
+    the faces, diag their negated sum plus a positive part, level 0's lower
+    apart from its upper; and a right-hand side."""
+    rng = np.random.default_rng(seed)
+    as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=m.device)  # noqa: E731
+    off = as_t(-rng.uniform(0.5, 2.0, m.n_internal))
+    diag = fv.index_sum(m.n_cells, [(m.own_i, -off), (m.neighbour, -off)],
+                        out=as_t(rng.uniform(0.1, 1.0, m.n_cells)))
+    lower = off * as_t(rng.uniform(0.9, 1.1, m.n_internal))
+    A = fv.FvMatrix(diag=diag, lower=lower, upper=off,
+                    source=torch.zeros(m.n_cells, 1, dtype=dtype, device=m.device))
+    return A, as_t(rng.standard_normal(m.n_cells))
+
+
+def amg_as(fv, A, dtype):
+    return fv.FvMatrix(diag=A.diag.to(dtype), lower=A.lower.to(dtype),
+                       upper=A.upper.to(dtype), source=A.source.to(dtype))
+
+
+def ulp_gap(torch, got, want):
+    """(rows differing, the largest gap in units of the last place of want)."""
+    d = (got - want).abs()
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
+    rows = d.reshape(d.shape[0], -1).amax(dim=1) > 0
+    return int(rows.sum()), float((d / ulp).max()) if d.numel() else 0.0
+
+
+def seg_matvec(fv, m, A, phi):
+    """PR 13's card matvec: fv.index_sum (a gather in plan order and
+    torch.segment_reduce a row) onto diag*x."""
+    if phi.ndim == 2:
+        out, up, lo = A.diag[:, None] * phi, A.upper[:, None], A.lower[:, None]
+    else:
+        out, up, lo = A.diag * phi, A.upper, A.lower
+    return fv.index_sum(m.n_cells, [(m.own_i, up * phi[m.neighbour]),
+                                    (m.neighbour, lo * phi[m.own_i])], out=out)
+
+
+def seg_vcycle(fv, m, h, A, levels, r):
+    """PR 13's card V-cycle, op by op over fv.index_sum."""
+    omega = 0.65
+
+    def descend(li, r):
+        if li == 0:
+            diag, off, own, nei = A.diag, A.upper, m.own_i, m.neighbour
+        else:
+            diag, off = levels[li - 1]
+            own, nei = h.owners[li - 1], h.neighs[li - 1]
+        x = omega * r / diag
+        if li == len(h.sizes):
+            for _ in range(12):
+                x = x + omega * (r - fv._sym_matvec(diag, off, own, nei, x)) / diag
+            return x
+        r1 = r - fv._sym_matvec(diag, off, own, nei, x)
+        xc = descend(li + 1, fv.index_sum(h.sizes[li], [(h.aggs[li], r1)]))
+        x = x + xc[h.aggs[li]]
+        return x + omega * (r - fv._sym_matvec(diag, off, own, nei, x)) / diag
+
+    return descend(0, r)
+
+
+def seg_local_vcycle(fv, lamg, s, m, diag0, off0, levels, r0, omega=0.65):
+    """PR 13's card local V-cycle of a shard, op by op over fv.index_sum."""
+    t, L = lamg.shard[s], lamg.n_levels
+
+    def matvec_l(li, x):
+        if li == 0:
+            return fv._sym_matvec(diag0, off0, m.own_i, m.neighbour, x)
+        d_, o_ = levels[li - 1]
+        return fv._sym_matvec(d_, o_, t["owners"][li - 1], t["neighs"][li - 1], x)
+
+    def descend(li, r):
+        d_ = diag0 if li == 0 else levels[li - 1][0]
+        x = omega * r / d_
+        if li == L:
+            for _ in range(12):
+                x = x + omega * (r - matvec_l(li, x)) / d_
+            return x
+        r1 = r - matvec_l(li, x)
+        xc = descend(li + 1, fv.index_sum(lamg.sizes[li][0], [(t["aggs"][li], r1)],
+                                          drop=True))
+        x = x + xc[t["aggs_c"][li]] * t["agg_valid"][li]
+        return x + omega * (r - matvec_l(li, x)) / d_
+
+    return descend(0, r0)
+
+
+class AmgMode:
+    """The pressure solve as the port runs it ("graph": the kernels and the
+    CG graph), with the CG loop eager ("eager": the kernels alone), or as PR
+    13 ran it on the card ("op-by-op": the matvec and the V-cycles over
+    fv.index_sum, the loop eager), for measuring beside each other; the
+    port itself has no such switch but fv._CG_GRAPH."""
+
+    def __init__(self, fv, fs, mode):
+        self.fv, self.fs, self.mode = fv, fs, mode
+
+    def __enter__(self):
+        fv, fs = self.fv, self.fs
+        self.saved = (fv.matvec, fv.amg_vcycle, fs._local_vcycle, fv._CG_GRAPH)
+        fv._CG_GRAPH = self.mode == "graph"
+        if self.mode == "op-by-op":
+            fv.matvec = lambda m, A, phi: seg_matvec(fv, m, A, phi)
+            fv.amg_vcycle = lambda *a: seg_vcycle(fv, *a)
+            fs._local_vcycle = lambda *a, **k: seg_local_vcycle(fv, *a, **k)
+        return self
+
+    def __exit__(self, *exc):
+        fv, fs = self.fv, self.fs
+        fv.matvec, fv.amg_vcycle, fs._local_vcycle, fv._CG_GRAPH = self.saved
+        return False
+
+
+AMG_MODES = ("graph", "eager", "op-by-op")
+
+
+def amg_level_cases(torch, fv, amg, m, h, A, dtype, seed):
+    """Per level 0..L of h: (n, rows, diag, upper, lower, aggs plan or None,
+    agg, r, x3, xc) with the level's Galerkin operator of A in dtype and
+    random inputs from seed."""
+    A = amg_as(fv, A, dtype)
+    rng = np.random.default_rng(seed)
+    as_t = lambda x: torch.as_tensor(x, dtype=dtype, device=m.device)  # noqa: E731
+    ops = [(m.n_cells, m.own_i, m.neighbour, A.diag, A.upper, A.lower)]
+    for li, (d_, o_) in enumerate(fv.amg_coarse_ops(m, h, A)):
+        ops.append((h.sizes[li], h.owners[li], h.neighs[li], d_, o_, o_))
+    out = []
+    for li, (n, own, nei, d_, up, lo) in enumerate(ops):
+        coarse = li < len(h.sizes)
+        out.append(dict(
+            n=n, rows=amg.row_plan(n, own, nei), own=own, nei=nei, diag=d_, up=up, lo=lo,
+            aggs=amg.agg_plan(h.sizes[li], h.aggs[li]) if coarse else None,
+            agg=h.aggs[li] if coarse else None, r=as_t(rng.standard_normal(n)),
+            x3=as_t(rng.standard_normal((n, 3))),
+            xc=as_t(rng.standard_normal(h.sizes[li])) if coarse else None))
+    return out
+
+
+def phase_amg_parity(torch, dev, tag, m, h, A, errs, gpu_line):
+    """14a: each of the four kernels against its plain version at every
+    level of h (A's Galerkin operators), float32 and float64, bit for bit:
+    fv_matvec on level 0 (lower and upper apart) and on each coarse level
+    (symmetric) with x [nc] and [nc, 3], amg_down and amg_up on each level
+    above the coarsest, amg_coarsest on the coarsest; and the kernels'
+    matvec against PR 13's card path (fv.index_sum: torch.segment_reduce a
+    row) on the same inputs, as rows differing and the largest gap in ulps."""
+    from cudaparticlesfoam_tpu_torch.models import fv
+    from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda
+
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        same, checks, gap = True, 0, {1: [0, 0.0], 3: [0, 0.0]}
+        for lv in amg_level_cases(torch, fv, amg, m, h, A, dtype, AMG_SEED):
+            rows, d_, up, lo = lv["rows"], lv["diag"], lv["up"], lv["lo"]
+            pairs = [("fv_matvec", lambda x=x: amg_cuda.fv_matvec(rows, d_, up, lo, x),
+                      lambda x=x: amg.matvec_plain(rows, d_, up, lo, x))
+                     for x in (lv["r"], lv["x3"])]
+            if lv["aggs"] is not None:
+                pairs += [
+                    ("amg_down", lambda: amg_cuda.amg_down(rows, lv["aggs"], d_, up, lv["r"]),
+                     lambda: amg.down_plain(rows, lv["aggs"], d_, up, lv["r"])),
+                    ("amg_up", lambda: amg_cuda.amg_up(rows, d_, up, lv["r"], lv["agg"], lv["xc"]),
+                     lambda: amg.up_plain(rows, d_, up, lv["r"], lv["agg"], lv["xc"]))]
+            else:
+                pairs.append(("amg_coarsest", lambda: amg_cuda.amg_coarsest(rows, d_, up, lv["r"]),
+                              lambda: amg.coarsest_plain(rows, d_, up, lv["r"])))
+            for key, kern, plain in pairs:
+                got, want = kern(), plain()
+                ok = bitwise_equal(torch, got, want)
+                same &= ok
+                checks += 1
+                errs[key] = max(errs.get(key, 0.0), float((got - want).abs().max()))
+            for x in (lv["r"], lv["x3"]):
+                k = 1 if x.ndim == 1 else 3
+                seg = fv.index_sum(lv["n"], [
+                    (lv["own"], (up if k == 1 else up[:, None]) * x[lv["nei"]]),
+                    (lv["nei"], (lo if k == 1 else lo[:, None]) * x[lv["own"]])],
+                    out=(d_ if k == 1 else d_[:, None]) * x)
+                nrow, g = ulp_gap(torch, amg_cuda.fv_matvec(rows, d_, up, lo, x), seg)
+                gap[k][0] += nrow
+                gap[k][1] = max(gap[k][1], g)
+        log(f"[amg-parity] {gpu_line} | {tag}, {name}: levels={len(h.sizes) + 1} "
+            f"sizes={[m.n_cells] + list(h.sizes)} checks={checks} kernel_eq_plain={int(same)} "
+            f"| the kernels' matvec against PR 13's segment_reduce path: x[nc] rows_differing="
+            f"{gap[1][0]} max_ulp_gap={gap[1][1]:g}, x[nc,3] rows_differing={gap[3][0]} "
+            f"max_ulp_gap={gap[3][1]:g} ({time.perf_counter() - t0:.1f} s)")
+        need(same, f"14a: an AMG kernel differs from its plain version ({tag}, {name})")
+
+
+def amg_csr(torch, lv):
+    """The level's whole matrix (diag, upper, lower) as a torch sparse CSR
+    tensor: the library yardstick's operand."""
+    own, nei, n = lv["own"], lv["nei"], lv["n"]
+    ar = torch.arange(n, device=own.device)
+    idx = torch.stack([torch.cat([own, nei, ar]), torch.cat([nei, own, ar])])
+    vals = torch.cat([lv["up"], lv["lo"], lv["diag"]])
+    return torch.sparse_coo_tensor(idx, vals, (n, n)).coalesce().to_sparse_csr()
+
+
+def phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line):
+    """14a's timings at the path's shapes (A's float32 operators, random
+    inputs): each kernel's device ms (graph replays, device_ms) beside its
+    plain version's ms and, for fv_matvec, one cuSPARSE CSR matvec of the
+    same matrix (torch.mv, back to back beside the kernel's, as
+    library_ms); bytes, bound and share (ops/traffic.py); fv_matvec,
+    amg_down and amg_up at level 0 (the largest), amg_coarsest on the
+    coarsest level, and the down and up kernels of every level summed.
+    Returns {kernel: dict} for the kernel table."""
+    from cudaparticlesfoam_tpu_torch.models import fv
+    from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda
+
+    timer = Timer(torch, dev)
+    lvs = amg_level_cases(torch, fv, amg, m, h, A, A.diag.dtype, AMG_SEED + 1)
+    e, L = A.diag.element_size(), len(h.sizes)
+    nf = lambda lv: lv["up"].shape[0]  # noqa: E731
+    l0, lc = lvs[0], lvs[-1]
+    rows0, d0, up0, lo0, r0 = l0["rows"], l0["diag"], l0["up"], l0["lo"], l0["r"]
+    calls = {
+        "fv_matvec": (lambda: amg_cuda.fv_matvec(rows0, d0, up0, lo0, r0),
+                      lambda: amg.matvec_plain(rows0, d0, up0, lo0, r0),
+                      traffic.amg_matvec(l0["n"], nf(l0), e), 1),
+        "amg_down": (lambda: amg_cuda.amg_down(rows0, l0["aggs"], d0, up0, r0),
+                     lambda: amg.down_plain(rows0, l0["aggs"], d0, up0, r0),
+                     traffic.amg_down(l0["n"], lvs[1]["n"], nf(l0), e), L),
+        "amg_up": (lambda: amg_cuda.amg_up(rows0, d0, up0, r0, l0["agg"], l0["xc"]),
+                   lambda: amg.up_plain(rows0, d0, up0, r0, l0["agg"], l0["xc"]),
+                   traffic.amg_up(l0["n"], lvs[1]["n"], nf(l0), e), L),
+        "amg_coarsest": (lambda: amg_cuda.amg_coarsest(lc["rows"], lc["diag"], lc["up"], lc["r"]),
+                         lambda: amg.coarsest_plain(lc["rows"], lc["diag"], lc["up"], lc["r"]),
+                         traffic.amg_coarsest(lc["n"], nf(lc), e), 1),
+    } if L else {}
+    out = {}
+    csr = amg_csr(torch, l0)
+    for key, (kern, plain, t, per_it) in calls.items():
+        ms = device_ms(torch, timer, kern)
+        plain_ms = time_calls(timer, plain, lambda: None, 3)
+        res = dict(ms=ms, plain_ms=plain_ms, bytes=t.bytes, bound_ms=t.bound_ms,
+                   bound_by=t.bound_by, share=t.bound_ms / ms, library_ms=None,
+                   copy_ms=copy_ms(torch, dev, timer, t.bytes), launches_per_cycle=per_it,
+                   launches_per_cg_iteration=per_it)
+        if key == "fv_matvec":
+            res["batch_ms"] = batch_ms(timer, kern)
+            res["library_ms"] = batch_ms(timer, lambda: torch.mv(csr, r0))
+            lib_err = float((torch.mv(csr, r0) - kern()).abs().max())
+            extra = (f" kernel_back_to_back_ms={res['batch_ms']:.5f} library_ms="
+                     f"{res['library_ms']:.5f} (cuSPARSE CSR torch.mv, back to back; "
+                     f"|library - kernel| max {lib_err:.3e})")
+        else:
+            extra = ""
+        out[key] = res
+        log(f"[amg-times] {gpu_line} | {tag}, float32, {key} at "
+            f"{'the coarsest level' if key == 'amg_coarsest' else 'level 0'} "
+            f"(rows={lc['n'] if key == 'amg_coarsest' else l0['n']}): ms={ms:.5f} "
+            f"plain_ms={plain_ms:.4f} bytes={t.bytes} bound_ms={t.bound_ms:.5f} "
+            f"({t.bound_by}) share={t.bound_ms / ms:.3f} "
+            f"launches_per_cg_iteration={per_it}{extra}")
+    if L:
+        tot, bound = 0.0, 0.0
+        for li in range(L):
+            lv, nxt = lvs[li], lvs[li + 1]
+            for key, kern, t in (
+                    ("amg_down", lambda lv=lv: amg_cuda.amg_down(lv["rows"], lv["aggs"],
+                                                                 lv["diag"], lv["up"], lv["r"]),
+                     traffic.amg_down(lv["n"], nxt["n"], nf(lv), e)),
+                    ("amg_up", lambda lv=lv: amg_cuda.amg_up(lv["rows"], lv["diag"], lv["up"],
+                                                             lv["r"], lv["agg"], lv["xc"]),
+                     traffic.amg_up(lv["n"], nxt["n"], nf(lv), e))):
+                tot += device_ms(torch, timer, kern, reps=50)
+                bound += t.bound_ms
+        co = out["amg_coarsest"]["ms"]
+        log(f"[amg-times] {gpu_line} | {tag}, float32, one V-cycle's kernels: {2 * L + 1} "
+            f"launches, down + up over {L} levels {tot:.5f} ms + coarsest {co:.5f} ms = "
+            f"{tot + co:.5f} ms (device, graph replays); their bounds "
+            f"{bound + out['amg_coarsest']['bound_ms']:.5f} ms")
+    return out
+
+
+def phase_amg_graph(torch, dev, tag, m, h, A, b, x0, tol, max_iter, gpu_line):
+    """14b: one whole pressure solve (amg_cg_solve, the path's tolerance and
+    cap) with the CG loop replayed from a CUDA graph and eagerly: x and
+    |r|/|b| bit for bit, the same CG count, one replay an iteration; the
+    solve's ms both ways and the capture's ms."""
+    from cudaparticlesfoam_tpu_torch.models import fv
+    from cudaparticlesfoam_tpu_torch.parallel import flowshard as fs
+
+    timer = Timer(torch, dev)
+    res = {}
+    for mode in ("graph", "eager"):
+        with AmgMode(fv, fs, mode):
+            fv.amg_cg_solve(m, h, A, b, x0, tol, max_iter)        # warm
+            rep0, cap0 = fv._pcg.graph_replays, fv._pcg.graph_captures
+            timer.start()
+            x, r, it = fv.amg_cg_solve(m, h, A, b, x0, tol, max_iter)
+            ms = timer.stop()
+            res[mode] = (x, r, it, ms, fv._pcg.graph_replays - rep0,
+                         fv._pcg.graph_captures - cap0)
+    (xg, rg, ig, msg, reps, caps), (xe, re_, ie, mse, _, _) = res["graph"], res["eager"]
+    same = bitwise_equal(torch, xg, xe) and bitwise_equal(torch, rg, re_) and ig == ie
+    cap_ms = None
+    if dev.type == "cuda":
+        levels = fv.amg_coarse_ops(m, h, A)
+        r = b - fv.matvec(m, A, x0)
+        p = fv.amg_vcycle(m, h, A, levels, r)
+        rz, nb = fv._dot(r, p), torch.sqrt(fv._dot(b, b)) + 1e-300
+        go = torch.sqrt(fv._dot(r, r)) / nb > tol
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        fv._cg_graph(m, A, x0.clone(), r, p, rz, nb, go,
+                     lambda q: fv.amg_vcycle(m, h, A, levels, q), tol)
+        torch.cuda.synchronize()
+        cap_ms = (time.perf_counter() - h0) * 1e3
+    # one V-cycle through the wrappers: L down, 1 coarsest, L up
+    from cudaparticlesfoam_tpu_torch.ops import amg_cuda
+
+    before = {f.__name__: f.launches for f in amg_cuda.WRAPPERS}
+    fv.amg_vcycle(m, h, A, fv.amg_coarse_ops(m, h, A), b)
+    vc = {f.__name__: f.launches - before[f.__name__] for f in amg_cuda.WRAPPERS}
+    L = len(h.sizes)
+    log(f"[amg-graph] {gpu_line} | {tag}: one pressure solve ({A.diag.dtype}) graph = eager "
+        f"bit for bit: {int(same)} cg_iterations graph={ig} eager={ie} graph_replays={reps} "
+        f"graph_captures={caps} solve_ms graph={msg:.3f} eager={mse:.3f} "
+        f"capture_ms={unmeasured(cap_ms, '%.3f')} (host, capture and instantiate) | one "
+        f"V-cycle's launches {vc} (2L + 1 = {2 * L + 1}, L = {L})")
+    need(dev.type != "cuda" or vc == {"fv_matvec": 0, "amg_down": L, "amg_up": L,
+                                      "amg_coarsest": 1},
+         f"14b: a V-cycle launched {vc}, not 2L + 1 = {2 * L + 1} level kernels ({tag})")
+    need(same and ig == ie, f"14b: graph and eager pressure solves differ ({tag})")
+    need(dev.type != "cuda" or (reps == ig and caps == (1 if ig else 0)),
+         f"14b: {reps} replays and {caps} captures for {ig} CG iterations ({tag})")
+
+
+def phase_amg_modes(torch, dev, tag, m, h, A, b, x0, tol, max_iter, whole, unit, gpu_line):
+    """14c: per V-cycle, per CG iteration (one pressure solve's, over its
+    iterations) and per ``unit`` (``whole``: a SIMPLE iteration or a
+    PIMPLE step), the device ms, the host's ms to issue, the kernels and
+    the launch calls (torch.profiler; a graph replay is one
+    cudaGraphLaunch), for the port's path (graph), the kernels with the CG
+    loop eager (eager), and PR 13's op-by-op path (op-by-op)."""
+    from cudaparticlesfoam_tpu_torch.models import fv
+    from cudaparticlesfoam_tpu_torch.parallel import flowshard as fs
+
+    levels = fv.amg_coarse_ops(m, h, A)
+    out = {}
+    for mode in AMG_MODES:
+        with AmgMode(fv, fs, mode):
+            vc = measure_part(torch, dev, lambda: fv.amg_vcycle(m, h, A, levels, b))
+            its = fv.amg_cg_solve(m, h, A, b, x0, tol, max_iter)[2]
+            cg = measure_part(torch, dev, lambda: fv.amg_cg_solve(m, h, A, b, x0, tol, max_iter))
+            wh = measure_part(torch, dev, whole)
+        per = lambda r, k: None if r[k] is None else r[k] / max(its, 1)  # noqa: E731
+        out[mode] = (vc, cg, wh)
+        log(f"[amg-modes] {gpu_line} | {tag}, {mode}: per V-cycle ms={vc['ms']:.4f} "
+            f"host_issue_ms={vc['host_ms']:.4f} kernels={unmeasured(vc['kernels'])} "
+            f"launch_calls={unmeasured(vc['launch_calls'])} | per CG iteration "
+            f"({its} in the solve) ms={cg['ms'] / max(its, 1):.4f} "
+            f"kernels={unmeasured(per(cg, 'kernels'), '%.1f')} "
+            f"launch_calls={unmeasured(per(cg, 'launch_calls'), '%.1f')} | per {unit} "
+            f"ms={wh['ms']:.3f} host_issue_ms={wh['host_ms']:.3f} "
+            f"kernels={unmeasured(wh['kernels'])} launch_calls={unmeasured(wh['launch_calls'])} "
+            f"kernel_busy_ms={unmeasured(wh['busy_ms'], '%.3f')}")
+    return out
+
+
+def phase_amg_sharded(torch, dev, sharded, dt_e, kernels_step, gpu_line):
+    """14c for 13b: the 4-shard step with the kernels (its lockstep CG loop
+    eager; that loop's graph is later work) beside PR 13's op-by-op path:
+    one local V-cycle of shard 0 (amg_system's matrix on its mesh, masked
+    as the step masks it), and one whole sharded step profiled: ms,
+    kernels, CG iterations and kernels per CG iteration.  The kernels'
+    step is 13b's profiled one (``kernels_step``); the op-by-op step is the
+    step after it."""
+    from cudaparticlesfoam_tpu_torch.models import fv
+    from cudaparticlesfoam_tpu_torch.parallel import flowshard as fs
+
+    lam, sh = sharded.lamg, sharded.smesh.shards[0]
+    m = sh.m
+    A, r = amg_system(torch, fv, m, m.dtype, AMG_SEED + 2)
+    off0 = A.upper * lam.shard[0]["off_mask"]
+    diag0 = torch.where(sh.mask, fv.index_sum(m.n_cells, [(m.own_i, -off0),
+                                                          (m.neighbour, -off0)], out=A.diag), 1.0)
+    levels = fs._local_coarse_ops(lam, 0, m, diag0, off0)
+    r0 = torch.where(sh.mask, r, 0.0)
+    steps = {"eager": kernels_step}
+    for mode in ("eager", "op-by-op"):
+        with AmgMode(fv, fs, mode):
+            vc = measure_part(torch, dev,
+                              lambda: fs._local_vcycle(lam, 0, m, diag0, off0, levels, r0))
+            if mode not in steps:
+                steps[mode] = profile_kernels(torch, dev, lambda: sharded.advance(dt_e))
+        kernels, busy, ms, its = steps[mode]
+        n_it = sum(its)
+        per = None if kernels is None else kernels / max(n_it, 1)
+        log(f"[amg-sharded] {gpu_line} | TJunction, {sharded.m.n_cells} cells on "
+            f"{sharded.smesh.n_dev} shards, float32, {mode}: one local V-cycle of shard 0 "
+            f"({lam.n_levels} levels) ms={vc['ms']:.4f} host_issue_ms={vc['host_ms']:.4f} "
+            f"kernels={unmeasured(vc['kernels'])} | one sharded step "
+            f"ms={unmeasured(ms, '%.1f')} kernels={unmeasured(kernels)} "
+            f"kernel_busy_ms={unmeasured(busy, '%.1f')} cg_iterations={its} "
+            f"kernels_per_cg_iteration={unmeasured(per, '%.1f')}")
+
+
+def phase_amg(torch, dev, traffic, tag, split, errs, unit, gpu_line):
+    """Phase 14 on a flow path's state (10c's or 11d's split: its mesh,
+    hierarchy, pressure matrix and right-hand side): 14a's checks at every
+    level and its timings, 14b, 14c.  Returns 14a's timings."""
+    m, h, A, b, x0 = (split[k] for k in ("m", "h", "A", "b", "x0"))
+    phase_amg_parity(torch, dev, tag, m, h, A, errs, gpu_line)
+    times = phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line)
+    phase_amg_graph(torch, dev, tag, m, h, A, b, x0, split["tol"], split["max_iter"], gpu_line)
+    phase_amg_modes(torch, dev, tag, m, h, A, b, x0, split["tol"], split["max_iter"],
+                    split["whole"], unit, gpu_line)
+    return times
+
+
+def phase_amg_boxes(torch, dev, tmp, rehearse, errs, gpu_line):
+    """14a on boxes of 65,536 and 65,499 cells (the rehearsal: 256 and 231)
+    with amg_system's matrix: every level, both dtypes."""
+    from cudaparticlesfoam_tpu_torch.models import fv
+
+    for n, cells in (AMG_BOXES_REHEARSAL if rehearse else AMG_BOXES).items():
+        m = fv.fv_mesh(amg_box(tmp, cells), dtype=torch.float32, device=dev)
+        need(m.n_cells == n, f"the box has {m.n_cells} cells, not {n}")
+        h = fv.build_amg(m, min_coarse=20 if rehearse else 200)
+        A, _ = amg_system(torch, fv, m, torch.float32, AMG_SEED)
+        phase_amg_parity(torch, dev, f"box {cells[0]}x{cells[1]}x{cells[2]} ({n} cells)", m,
+                         h, A, errs, gpu_line)
 
 
 def main():
@@ -4954,9 +5483,13 @@ def main():
     # phase 10, the steady-flow solver and the tutorial's Allrun on its field
     with tempfile.TemporaryDirectory(prefix="cpf_flow_") as tmp:
         phase_flow_parity(torch, dev, os.path.join(tmp, "parity"), args.rehearse, gpu_line)
-        flow_case, t_write = phase_flow_tutorial(torch, dev, os.path.join(tmp, "allrun"),
-                                                 args.rehearse, gpu_line, tut)
-        phase_flow_split(torch, dev, flow_case, t_write, gpu_line, sizes["flow_warm"])
+        flow_case, t_write, pitz_launches = phase_flow_tutorial(
+            torch, dev, os.path.join(tmp, "allrun"), args.rehearse, gpu_line, tut)
+        split = phase_flow_split(torch, dev, flow_case, t_write, gpu_line, sizes["flow_warm"])
+        # phase 14 on pitzDaily (10c's state) and on the boxes
+        amg_times = {"pitz": phase_amg(torch, dev, traffic, "pitzDaily", split, errs,
+                                       "SIMPLE iteration", gpu_line)}
+        phase_amg_boxes(torch, dev, tmp, args.rehearse, errs, gpu_line)
     # phase 11, the coupled solver and the TJunction through the kernels
     errs.update(stream_tjunction=0.0, rare_tjunction=0.0)
     with tempfile.TemporaryDirectory(prefix="cpf_coupled_") as tmp:
@@ -4968,7 +5501,10 @@ def main():
         tcase, tflow, tst, tcfg, tstep = tjunction_after_step1(torch, dev, tj_case)
         times.update(phase_tjunction_cycle(torch, fused, fused_cuda, dev, tcase, tst, tcfg, errs,
                                            counts, rares, gpu_line))
-        phase_pimple_split(torch, dev, tcase, tflow, gpu_line)
+        split = phase_pimple_split(torch, dev, tcase, tflow, gpu_line)
+        amg_times["tj"] = phase_amg(torch, dev, traffic, "TJunction", split, errs, "PIMPLE step",
+                                    gpu_line)
+        del split
         phase_tjunction_trace(torch, dev, tcase, tflow, tst, tcfg, tstep, tmp, gpu_line)
         del tflow, tst
         if dev.type == "cuda":
@@ -5129,6 +5665,19 @@ def main():
         entry("rare_kernel", "rare_tjunction_par", "rare.cu", "fused.py:921",
               tjp_launches.get("rare_resolve", 0), errs["rare_tjunction_par"], path=TJP_PATH),
     ]}
+    # phase 14: the pressure solve's kernels on the pitzDaily Allrun's simple
+    # (launches from 10b's CLI run) and the TJunction's coupled run (11c's);
+    # times and bounds at each path's shapes (14a), errors from every 14a check
+    for launches, path, tm in ((pitz_launches, AMG_PITZ_PATH, amg_times["pitz"]),
+                               (tj_launches, TJUNC_PATH, amg_times["tj"])):
+        if dev.type == "cuda":
+            need(all(launches.get(k, 0) > 0 for k in AMG_LAUNCH_KEYS),
+                 f"a pressure-solve kernel or the CG graph never ran on {path!r}: {launches}")
+        for k in AMG_KERNELS:
+            table["kernels"].append({
+                "name": f"{k}_kernel", "path": path, "phases": ERR_PHASES[k], "route": "cuda",
+                "source": "cudaparticlesfoam_tpu_torch/csrc/amg.cu", "replaces": AMG_REPLACES[k],
+                "launches": launches.get(k, 0), "max_abs_err": errs[k], **tm[k]})
     log(gpu_line)
     log(json.dumps(table))
     if args.rehearse:

@@ -10,15 +10,19 @@ correction, affine boundary conditions ``phi_f = a * phi_P + b``) and the
 same host-side set-up: the geometry tables and the AMG hierarchy are built
 in numpy exactly as in JAX, so they equal JAX's bit for bit.
 
-Every operator is plain torch ops on the tensors' device; there is no
-kernel here.  ``index_add_`` on CUDA sums with atomics, in an order that
+Every operator but the pressure solve's is plain torch ops on the tensors'
+device.  ``index_add_`` on CUDA sums with atomics, in an order that
 changes from run to run, and a float32 pressure solve carries that
 last-bit noise into the velocity at the 1e-4 level in one step; so on the
 card every face-to-cell sum gathers its terms in a fixed order and sums
 each cell's run of them (:func:`index_sum`), and the same inputs give the
-same fields bit for bit on every run.  The CG loops test their exit
-condition on the host once per iteration (JAX's ``lax.while_loop`` tests
-it on the device), and nowhere else.
+same fields bit for bit on every run.  On the card the matvec and each
+level of the AMG V-cycle are hand-written kernels (``csrc/amg.cu`` through
+``ops/amg_cuda.py``) that sum every row in that fixed order, left to right,
+and the CG iteration is captured once per solve into a CUDA graph and
+replayed.  The CG loops test their exit condition on the host once per
+iteration (JAX's ``lax.while_loop`` tests it on the device), and nowhere
+else.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ import torch
 
 from ..dtypes import canonical_device, canonical_float
 from ..io.polymesh import PolyMesh, cell_centres_volumes, face_centres_areas
+from ..ops import amg as amg_ops
+from ..ops import amg_cuda
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -140,32 +146,13 @@ def host(x) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 _FIXED_ORDER_ON_CPU = False     # the tests set it to run the card's path on the CPU
-_PLANS: dict = {}
+_sum_plan = amg_ops.sum_plan
 
 
-def _sum_plan(n_out: int, idxs):
-    """(order, offsets) on the indices' device: ``order`` lists the
-    positions in the concatenated parts sorted by their index (stable, so
-    in part order within a row), an index outside [0, n_out) left out;
-    row i's positions are ``order[offsets[i]:offsets[i + 1]]``.  Made on
-    the host once per set of index tensors, found again by storage,
-    length and version while the tensors (or the ones they view) live;
-    the plans of dead tensors go when a new plan is made."""
-    key = (n_out, str(idxs[0].device),
-           tuple((i.data_ptr(), i.shape[0], i.stride(0), i._version) for i in idxs))
-    hit = _PLANS.get(key)
-    if hit is not None and all(r() is not None for r in hit[0]):
-        return hit[1]
-    for k in [k for k, (refs, _) in _PLANS.items() if any(r() is None for r in refs)]:
-        del _PLANS[k]
-    tgt = np.concatenate([host(i).reshape(-1) for i in idxs]).astype(np.int64)
-    pos = np.flatnonzero((tgt >= 0) & (tgt < n_out))
-    order = pos[np.argsort(tgt[pos], kind="stable")]
-    offsets = np.concatenate([[0], np.cumsum(np.bincount(tgt[pos], minlength=n_out))])
-    plan = tuple(torch.as_tensor(x, dtype=torch.int64, device=idxs[0].device)
-                 for x in (order, offsets))
-    _PLANS[key] = (tuple(weakref.ref(i if i._base is None else i._base) for i in idxs), plan)
-    return plan
+def _card_path(t) -> bool:
+    """Whether ``t`` takes the card's path: fixed-order sums, the solve's
+    kernels (whose plain versions run on the CPU when the tests ask)."""
+    return t.device.type != "cpu" or _FIXED_ORDER_ON_CPU
 
 
 def index_sum(n_out: int, parts, out=None, drop: bool = False):
@@ -179,12 +166,13 @@ def index_sum(n_out: int, parts, out=None, drop: bool = False):
     concatenated values gathered in :func:`_sum_plan`'s order and summed
     row by row with ``torch.segment_reduce``, so each row sums in the same
     order on every run (``index_add_``'s atomics do not); the plan is made
-    once per set of index tensors, which are the mesh's and the
-    hierarchies' own.  Rows are segments of any length: a shard mesh's
-    dummy cell takes every padded face, tens of thousands at full width."""
+    once per set of index tensors (``ops/amg.sum_plan``), which are the
+    mesh's and the hierarchies' own.  Rows are segments of any length: a
+    shard mesh's dummy cell takes every padded face, tens of thousands at
+    full width."""
     vals = [v for _, v in parts]
     v0 = vals[0]
-    if v0.device.type == "cpu" and not _FIXED_ORDER_ON_CPU:
+    if not _card_path(v0):
         idxs, n = [i for i, _ in parts], n_out
         if drop:    # out-of-range rows go to one spare row, sliced off
             idxs, n = [torch.where((i >= 0) & (i < n_out), i, n_out) for i in idxs], n_out + 1
@@ -497,7 +485,10 @@ def assemble_transport(
 
 
 def matvec(m: FvMesh, A: FvMatrix, phi):
-    """A @ phi (per component)."""
+    """A @ phi (per component).  On the card ``fv_matvec_kernel``."""
+    if _card_path(phi):
+        return amg_cuda.fv_matvec(amg_ops.row_plan(m.n_cells, m.own_i, m.neighbour),
+                                  A.diag, A.upper, A.lower, phi)
     if phi.ndim == 2:
         out = A.diag[:, None] * phi
         upper, lower = A.upper[:, None], A.lower[:, None]
@@ -630,8 +621,15 @@ def _sym_matvec(diag, off, own, nei, x):
 
 def amg_vcycle(m: FvMesh, h: AmgHierarchy, A: FvMatrix, levels, r):
     """One V(1,1) cycle with damped-Jacobi smoothing; coarsest level gets
-    a fixed Jacobi sweep block.  Used as the CG preconditioner."""
-    omega = 0.65
+    a fixed Jacobi sweep block.  Used as the CG preconditioner.  On the
+    card 2L + 1 kernel launches (:func:`vcycle_levels`)."""
+    omega = amg_ops.OMEGA
+    if _card_path(r):
+        rows = [amg_ops.row_plan(m.n_cells, m.own_i, m.neighbour)] + [
+            amg_ops.row_plan(n, o, ne) for n, o, ne in zip(h.sizes, h.owners, h.neighs)]
+        aggs = [amg_ops.agg_plan(n, a) for n, a in zip(h.sizes, h.aggs)]
+        ops = [(A.diag, A.upper)] + list(levels)
+        return vcycle_levels(rows, aggs, ops, [(a, None) for a in h.aggs], r, omega)
 
     def descend(li, r):
         if li == 0:
@@ -641,7 +639,7 @@ def amg_vcycle(m: FvMesh, h: AmgHierarchy, A: FvMatrix, levels, r):
             own, nei = h.owners[li - 1], h.neighs[li - 1]
         x = omega * r / diag
         if li == len(h.sizes):
-            for _ in range(12):
+            for _ in range(amg_ops.COARSEST_SWEEPS):
                 x = x + omega * (r - _sym_matvec(diag, off, own, nei, x)) / diag
             return x
         r1 = r - _sym_matvec(diag, off, own, nei, x)
@@ -653,6 +651,22 @@ def amg_vcycle(m: FvMesh, h: AmgHierarchy, A: FvMatrix, levels, r):
     return descend(0, r)
 
 
+def vcycle_levels(rows, aggs, ops, prolong, r, omega=amg_ops.OMEGA):
+    """One V(1,1) cycle through the level kernels: ``amg_down`` on each of
+    the L levels above the coarsest, ``amg_coarsest``, ``amg_up`` back
+    (2L + 1 launches).  ``rows[l]`` is level l's row plan, ``aggs[l]`` its
+    restriction's, ``ops[l]`` its (diag, off), ``prolong[l]`` the
+    prolongation's (index, valid or None)."""
+    rs = [r]
+    for li, ag in enumerate(aggs):
+        rs.append(amg_cuda.amg_down(rows[li], ag, *ops[li], rs[li], omega))
+    x = amg_cuda.amg_coarsest(rows[-1], *ops[-1], rs[-1], omega)
+    for li in reversed(range(len(aggs))):
+        agg, valid = prolong[li]
+        x = amg_cuda.amg_up(rows[li], *ops[li], rs[li], agg, x, valid, omega)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # linear solvers (residual exit tested on the host once per iteration)
 # ---------------------------------------------------------------------------
@@ -662,17 +676,35 @@ def _dot(a, b):
     return torch.sum(a * b)
 
 
+_CG_GRAPH = True    # chip_smoke.py clears it to time the eager loop beside the graph
+
+
 def _pcg(m: FvMesh, A: FvMatrix, b, x0, precond, tol, max_iter):
     """Preconditioned CG with JAX's ``lax.while_loop`` semantics: the exit
     test ``|r|/|b| > tol and it < max_iter`` runs before every body, its
     comparison in the tensors' dtype on the device and one read of the
-    result on the host.  Returns (x, |r|/|b|, iterations)."""
+    result on the host.  On the card the body runs as one CUDA graph
+    (:func:`_cg_graph`), captured once per solve after the eager set-up
+    (which makes every row plan the body needs) and replayed once an
+    iteration; on the CPU it runs eagerly.  The two give the same bits.
+    Returns (x, |r|/|b|, iterations)."""
     r = b - matvec(m, A, x0)
     z = precond(r)
     x, p, rz = x0, z, _dot(r, z)
     norm_b = torch.sqrt(_dot(b, b)) + 1e-300
+    go = torch.sqrt(_dot(r, r)) / norm_b > tol
     it = 0
-    while it < max_iter and bool(torch.sqrt(_dot(r, r)) / norm_b > tol):
+    if r.device.type == "cuda" and _CG_GRAPH:
+        graph = None
+        while it < max_iter and bool(go):
+            if graph is None:
+                x = x0.clone()
+                graph = _cg_graph(m, A, x, r, p, rz, norm_b, go, precond, tol)
+            graph.replay()
+            _pcg.graph_replays += 1
+            it += 1
+        return x, torch.sqrt(_dot(r, r)) / norm_b, it
+    while it < max_iter and bool(go):
         ap = matvec(m, A, p)
         alpha = rz / (_dot(p, ap) + 1e-300)
         x = x + alpha * p
@@ -683,7 +715,62 @@ def _pcg(m: FvMesh, A: FvMatrix, b, x0, precond, tol, max_iter):
         p = z + beta * p
         rz = rz_new
         it += 1
+        go = torch.sqrt(_dot(r, r)) / norm_b > tol
     return x, torch.sqrt(_dot(r, r)) / norm_b, it
+
+
+_pcg.graph_captures = 0      # CG graphs captured (one a solve that iterates)
+_pcg.graph_replays = 0       # their replays (one a CG iteration)
+
+
+_GRAPH_POOLS: dict = {}     # device -> (memory pool handle, the last CG graph)
+
+
+def _cg_graph(m, A, x, r, p, rz, norm_b, go, precond, tol):
+    """The CG body (the eager loop's, op for op) captured into a CUDA graph
+    on a side stream, updating the static tensors x, r, p, rz and the exit
+    flag ``go`` in place.  Capture errors are the capturing thread's own
+    (the frame writer's thread may use the card meanwhile).  Every CG graph
+    of a device allocates its temporaries from one memory pool, which the
+    last graph keeps alive: a capture into a fresh pool paid for new device
+    memory each solve (about 3x the capture's time).  A graph is replayed
+    only within its own solve, before the next capture reuses the pool."""
+    def body():
+        ap = matvec(m, A, p)
+        alpha = rz / (_dot(p, ap) + 1e-300)
+        x.copy_(x + alpha * p)
+        r.copy_(r - alpha * ap)
+        z = precond(r)
+        rz_new = _dot(r, z)
+        beta = rz_new / (rz + 1e-300)
+        p.copy_(z + beta * p)
+        rz.copy_(rz_new)
+        go.copy_(torch.sqrt(_dot(r, r)) / norm_b > tol)
+
+    graph = torch.cuda.CUDAGraph()
+    dev = r.device
+    pool = _GRAPH_POOLS.get(dev, (None,))[0] or torch.cuda.graph_pool_handle()
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                body()
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+    _GRAPH_POOLS[dev] = (pool, graph)
+    _pcg.graph_captures += 1
+    return graph
+
+
+def solver_launches() -> dict:
+    """Launches of the pressure solve's kernels by wrapper, and the CG
+    graphs' replays (the drivers log them on the card)."""
+    out = {f.__name__: f.launches for f in amg_cuda.WRAPPERS}
+    out["cg_graph_replays"] = _pcg.graph_replays
+    return out
 
 
 def amg_cg_solve(m: FvMesh, h: AmgHierarchy, A: FvMatrix, b, x0,

@@ -569,8 +569,10 @@ def run(case_dir: str, n_iters: int | None = None, log=print, dtype=None, device
                 f"{sum(cg_iters) / len(cg_iters):.1f}/{max(cg_iters)}")
         if cuda:
             stats["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+            stats["launches"] = fv.solver_launches()
             line += (f"; on {torch.cuda.get_device_name(device)}, peak device memory "
-                     f"{stats['peak_bytes'] / 2**30:.3f} GiB")
+                     f"{stats['peak_bytes'] / 2**30:.3f} GiB; solver kernel launches "
+                     f"{stats['launches']}")
         log(line)
     return m, st, stats
 

@@ -85,12 +85,14 @@ def make_engine(tet_mesh, state, cfg, devices, strategy, log):
 
 def _launch_counts() -> dict:
     """Launches by wrapper, and of those of ``rare_resolve`` the remote
-    (partitioned) instantiations' as ``rare_resolve_remote``."""
+    (partitioned) instantiations' as ``rare_resolve_remote``; the flow's
+    pressure-solve kernels and CG graph replays (``fv.solver_launches``)."""
     from ..ops import fused_cuda
+    from . import fv
 
     counts = {name: getattr(fused_cuda, name).launches for name in _KERNEL_WRAPPERS}
     counts["rare_resolve_remote"] = fused_cuda.rare_resolve.remote_launches
-    return counts
+    return {**counts, **fv.solver_launches()}
 
 
 def run(

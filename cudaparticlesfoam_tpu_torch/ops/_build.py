@@ -136,6 +136,17 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"cpf_{name}_{suffix}")
             fn.argtypes = args
             fn.restype = i
+    for suffix, fl in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        # n, the row plan (offsets, pos, col, nf), ..., the stream
+        for name, args in (
+            ("fv_matvec", [i, i, vp, vp, vp, i] + [vp] * 5 + [vp]),
+            ("amg_down", [i, vp, vp, vp, vp, vp, i, vp, vp, vp, fl, vp, vp]),
+            ("amg_up", [i, vp, vp, vp, i, vp, vp, vp, fl, vp, vp, vp, vp, vp]),
+            ("amg_coarsest", [i, vp, vp, vp, i, vp, vp, vp, fl, i, vp, vp, vp]),
+        ):
+            fn = getattr(lib, f"cpf_{name}_{suffix}")
+            fn.argtypes = args
+            fn.restype = i
     for name in ("rare_grid_f32", "rare_grid_f64", "rare_grid_pk_f32", "rare_grid_pk_f64",
                  "convex_rare_grid_f32", "convex_rare_grid_f64"):
         getattr(lib, f"cpf_{name}").argtypes = [ll]

@@ -59,6 +59,10 @@ pad is counted as what the function is given, not as waste:
   chain times the latency of one dependent load (``ops/probe.py``
   measures it on the card).  :func:`share_of_latency` holds the time
   against it.
+* the AMG-CG pressure solve's kernels (``csrc/amg.cu``; :func:`amg_matvec`,
+  :func:`amg_down`, :func:`amg_up`, :func:`amg_coarsest`): each row plan,
+  coefficient and vector a call reads once and each result it writes; the
+  neighbours' values that a row reads again are not counted.
 """
 
 from __future__ import annotations
@@ -284,3 +288,61 @@ def share_of_latency(latency_bound_ms: float, ms: float) -> float:
     if ms <= 0 or latency_bound_ms < 0:
         raise ValueError("times must be positive")
     return latency_bound_ms / ms
+
+
+# the AMG-CG kernels (csrc/amg.cu): a row plan is int32 offsets [n + 1], pos
+# and col [nnz] (nnz = 2 nf, each face in its two rows); operations a term
+# (a matvec's multiply and add; a level's neighbour smoothed as well) and a
+# row (d x + acc, and a level's smoothing arithmetic)
+AMG_OPS = {"term": 2, "row": 2, "level_term": 4, "level_row": 7}
+INDEX = 4
+
+
+def _plan_bytes(n: int, nnz: int) -> int:
+    return INDEX * (n + 1 + 2 * nnz)
+
+
+def _check_amg(elem, *sizes):
+    if elem not in (4, 8):
+        raise ValueError(f"element size must be 4 or 8, got {elem}")
+    if any(s < 0 for s in sizes):
+        raise ValueError(f"sizes {sizes} must be >= 0")
+
+
+def amg_matvec(n: int, nf: int, elem: int, k: int = 1, sym: bool = False) -> Traffic:
+    """``fv_matvec_kernel``: reads diag, x [n, k], upper and lower [nf]
+    (one array when ``sym``) and the row plan (2 nf terms); writes y."""
+    _check_amg(elem, n, nf)
+    nnz = 2 * nf
+    read = elem * (n + n * k + (1 if sym else 2) * nf) + _plan_bytes(n, nnz)
+    return Traffic(read, elem * n * k, k * (AMG_OPS["term"] * nnz + AMG_OPS["row"] * n))
+
+
+def amg_down(n: int, nc: int, nf: int, elem: int, rows_in: int | None = None) -> Traffic:
+    """``amg_down_kernel`` on a level of n rows and nf faces: reads r,
+    diag, off, the row plan and the restriction's plan (nc + 1 offsets,
+    ``rows_in`` fine rows, default n); writes the coarse residual [nc]."""
+    _check_amg(elem, n, nc, nf)
+    rows_in = n if rows_in is None else rows_in
+    read = elem * (2 * n + nf) + _plan_bytes(n, 2 * nf) + INDEX * (nc + 1 + rows_in)
+    return Traffic(read, elem * nc,
+                   AMG_OPS["level_term"] * 2 * nf + AMG_OPS["level_row"] * rows_in)
+
+
+def amg_up(n: int, nc: int, nf: int, elem: int, valid: bool = False) -> Traffic:
+    """``amg_up_kernel``: reads r, diag, off, the row plan, the
+    prolongation index [n] (int32), xc [nc] and, on a shard, valid [n];
+    writes x [n]."""
+    _check_amg(elem, n, nc, nf)
+    read = (elem * (2 * n + nf + nc + (n if valid else 0)) + _plan_bytes(n, 2 * nf)
+            + INDEX * n)
+    return Traffic(read, elem * n, AMG_OPS["level_term"] * 2 * nf + AMG_OPS["level_row"] * n)
+
+
+def amg_coarsest(n: int, nf: int, elem: int, sweeps: int = 12) -> Traffic:
+    """``amg_coarsest_kernel``: reads r, diag, off and the row plan once,
+    writes x; ``sweeps`` + 1 passes of arithmetic over the level."""
+    _check_amg(elem, n, nf, sweeps)
+    read = elem * (2 * n + nf) + _plan_bytes(n, 2 * nf)
+    ops = sweeps * (AMG_OPS["term"] * 2 * nf + AMG_OPS["level_row"] * n) + 2 * n
+    return Traffic(read, elem * n, ops)

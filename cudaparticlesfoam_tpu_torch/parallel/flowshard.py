@@ -65,6 +65,7 @@ from ..models import fv
 from ..models.pimple import correct as pimple_correct
 from ..models.pimple import courant_dt, p_table_bcs
 from ..models.simple import FlowState, _pressure_matrix
+from ..ops import amg as amg_ops
 from .sharding import make_device_mesh, on_device, placement
 
 # the stacked arrays of a ShardedFlowMesh, named as JAX's fields
@@ -1165,9 +1166,19 @@ def _local_coarse_ops(lamg: LocalAmg, s: int, m: fv.FvMesh, diag0, off0):
 
 def _local_vcycle(lamg: LocalAmg, s: int, m: fv.FvMesh, diag0, off0, levels, r0, omega=0.65):
     """One V(1,1) cycle of shard s's hierarchy (JAX ``_local_vcycle``):
-    damped Jacobi on every level, 12 sweeps on the coarsest."""
+    damped Jacobi on every level, 12 sweeps on the coarsest.  On the card
+    the level kernels (``fv.vcycle_levels``: 2L + 1 launches), the
+    prolongation gathering the clipped index times ``agg_valid``."""
     t = lamg.shard[s]
     L = lamg.n_levels
+    if fv._card_path(r0):
+        rows = [amg_ops.row_plan(diag0.shape[0], m.own_i, m.neighbour)] + [
+            amg_ops.row_plan(d_.shape[0], o, ne)
+            for (d_, _), o, ne in zip(levels, t["owners"], t["neighs"])]
+        aggs = [amg_ops.agg_plan(nc, a) for (nc, _), a in zip(lamg.sizes, t["aggs"])]
+        ops = [(diag0, off0)] + list(levels)
+        return fv.vcycle_levels(rows, aggs, ops, list(zip(t["aggs_c"], t["agg_valid"])), r0,
+                                omega)
 
     def matvec_l(li, x):
         if li == 0:

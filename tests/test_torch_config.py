@@ -232,8 +232,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_found():
     names = sorted(p.rsplit("/", 1)[-1] for p in _build.sources())
-    assert names == ["convex_rare.cu", "convex_stream.cu", "hop_admit.cu", "macro.cu", "probe.cu",
-                     "rare.cu", "stream.cu"]
+    assert names == ["amg.cu", "convex_rare.cu", "convex_stream.cu", "hop_admit.cu", "macro.cu",
+                     "probe.cu", "rare.cu", "stream.cu"]
     assert "--fmad=false" in _build.FLAGS and "code=sm_90a" in _build.ARCH
 
 

@@ -140,17 +140,19 @@ def test_diagnostics_and_sub_cycling(box):
 def test_chip_smoke_rehearsal_runs_every_phase():
     """``chip_smoke.py --rehearse`` drives every phase at small sizes on the
     CPU through the plain versions: it must exit 2 (no device result), print
-    the table of the twenty-two kernel entries (the eight of the north-star
+    the table of the thirty kernel entries (the eight of the north-star
     slice's paths, the two of the uncoupled driver's, phase 8, the four of
     the rk4-tracers cell, phase 9, the two of the coupled driver on the
-    TJunction, phase 11, the four of the multi-device paths, phase 12, and
-    the two of the TJunction with its flow on 4 shards, phase 13) with every
-    key the table carries, and no ``ok`` line; phase 10 (the steady-flow
-    solver, no kernel of its own) prints its parity, Allrun and split lines;
+    TJunction, phase 11, the four of the multi-device paths, phase 12, the
+    two of the TJunction with its flow on 4 shards, phase 13, and the four
+    pressure-solve kernels on the Allrun's simple and on the TJunction,
+    phase 14) with every key the table carries, and no ``ok`` line; phase 10
+    (the steady-flow solver) prints its parity, Allrun and split lines;
     phase 11 (the coupled solver) its PIMPLE parity, dynamic-mesh,
     TJunction and split lines; phase 12 its remote-kernel parity,
     data-parallel, partitioned and driver lines; phase 13 its sharded-step
-    parity, Allrun-parallel, cycle and dry-run lines."""
+    parity, Allrun-parallel, cycle and dry-run lines; phase 14 its kernel
+    parity, timing, graph, mode and sharded-step lines."""
     import json
     import subprocess
     import sys
@@ -170,9 +172,11 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                      "stream_kernel<rk4>", "rare_kernel", "stream_kernel<pk, rk4>",
                      "rare_kernel<pk>", "stream_kernel", "rare_kernel", "stream_kernel",
                      "rare_kernel", "rare_kernel<remote>", "rare_kernel<pk, remote>",
-                     "stream_kernel", "rare_kernel"]
+                     "stream_kernel", "rare_kernel"] + [
+                     "fv_matvec_kernel", "amg_down_kernel", "amg_up_kernel",
+                     "amg_coarsest_kernel"] * 2
     assert [k["path"].startswith("uncoupled driver") for k in table["kernels"]] == \
-        [False] * 8 + [True] * 2 + [False] * 12
+        [False] * 8 + [True] * 2 + [False] * 20
     assert all(k["path"].startswith("rk4-tracers") for k in table["kernels"][10:14])
     assert all(k["path"].startswith("coupled driver (TJunction") for k in table["kernels"][14:16])
     assert [k["path"] for k in table["kernels"][16:20]] == [
@@ -180,12 +184,19 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                                           "north-star, partitioned, VertexVelocity"]
     assert all(k["path"].startswith("coupled driver (TJunction Allrun-parallel, flow on 4 "
                                     "shards") and k["phases"] == "13c"
-               for k in table["kernels"][20:])
+               for k in table["kernels"][20:22])
+    # phase 14: the pressure solve's kernels on the Allrun's simple and on the
+    # TJunction's coupled run
+    assert all(k["path"].startswith("steady-flow driver (pitzDaily") and k["phases"] == "14a"
+               for k in table["kernels"][22:26])
+    assert all(k["path"].startswith("coupled driver (TJunction,") and k["phases"] == "14a"
+               for k in table["kernels"][26:])
     for entry in table["kernels"]:
         assert {"path", "phases", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "share", "copy_ms",
                 "launches_per_cycle"} <= set(entry), entry["name"]
-        assert entry["library_ms"] is None
+        # a library call computes the same function only for the matvec
+        assert (entry["library_ms"] is None) == (entry["name"] != "fv_matvec_kernel")
         # both sides are the plain version here: any difference is a fault of the rehearsal
         assert entry["max_abs_err"] == 0.0, (
             f"{entry['name']} on the path {entry['path']!r} (phases {entry['phases']}): "
@@ -226,7 +237,8 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                 "[flow-split]", "[pimple-parity]", "[dyn-refresh]", "[dyn-kernels]",
                 "[dyn-coupled]", "[tj-step]", "[tj-run]", "[tj-cycle]", "[pimple-split]",
                 "[tj-advect]", "[remote]", "[dp]", "[part]", "[part-pk]", "[drivers]",
-                "[flowshard-parity]", "[tj-par]", "[tj-par-cycle]", "[dryrun]", "[flowshard]"):
+                "[flowshard-parity]", "[tj-par]", "[tj-par-cycle]", "[dryrun]", "[flowshard]",
+                "[amg-parity]", "[amg-times]", "[amg-graph]", "[amg-modes]", "[amg-sharded]"):
         assert any(line.startswith(tag) for line in lines), tag
     # phase 9: RK4 kernel = plain in every case, the oracles, the cell
     rk4 = [line for line in lines if line.startswith("[rk4-parity]")]

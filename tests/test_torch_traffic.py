@@ -86,6 +86,17 @@ CASES = [
                     stage_rows=3),
      3200 + 240 + 256 + 3 * 256, 640 + 256 + 10),
     ("stream", dict(elem=4, noise="philox", rk4=True), 1280, 330),
+    # the AMG-CG kernels at 10 rows, 12 faces: a row plan is 11 offsets and
+    # 24 pos and 24 col entries (int32, 236 B)
+    # fv_matvec: diag + x + upper + lower + plan | y
+    ("amg_matvec", dict(nf=12, elem=4), 4 * (10 + 10 + 24) + 236, 40),
+    ("amg_matvec", dict(nf=12, elem=8, k=3, sym=True), 8 * (10 + 30 + 12) + 236, 240),
+    # down: r + diag + off + plan + restriction plan (6 offsets, 10 rows) | rc [5]
+    ("amg_down", dict(nc=5, nf=12, elem=4), 4 * (20 + 12) + 236 + 4 * 16, 20),
+    # up: r + diag + off + xc + valid + plan + the int32 prolongation index | x
+    ("amg_up", dict(nc=5, nf=12, elem=8, valid=True), 8 * (20 + 12 + 5 + 10) + 236 + 40, 80),
+    # coarsest: r + diag + off + plan | x (its sweeps re-read what it holds)
+    ("amg_coarsest", dict(nf=12, elem=4), 4 * (20 + 12) + 236, 40),
 ]
 
 

@@ -5,11 +5,14 @@ the shrunk case of the tests, on the CPU) and runs Eulerian step 1 from the
 case's fields with the single-device ``FlowSolver`` and the 4-shard
 ``ShardedFlowSolver``, each twice from scratch, in float32 and once in
 float64, all with the single solver's dt; then the same float32 runs with
-the face-to-cell sums done by ``index_add_`` (the port's sums before
-``fv.index_sum`` fixed their order on the card).  Prints each run's step
-seconds and CG counts, and for pairs of runs the velocity's rel-max
-difference (max |dU| / max |U|, chip_smoke 13b's step-1 measure) and
-whether they are identical bit for bit.
+the face-to-cell sums outside the pressure solve done by ``index_add_``
+(the port's sums before ``fv.index_sum`` fixed their order on the card),
+and with the pressure solve op by op as before its kernels
+(``chip_smoke.AmgMode("op-by-op")``: ``torch.segment_reduce`` a row, which
+sums a 1-d row as a tree on the card, where ``csrc/amg.cu`` sums it left to
+right).  Prints each run's step seconds and CG counts, and for pairs of
+runs the velocity's rel-max difference (max |dU| / max |U|, chip_smoke
+13b's step-1 measure) and whether they are identical bit for bit.
 
     python tools/tj_flow_spread.py            # on the card
     python tools/tj_flow_spread.py --small    # the shrunk case on the CPU
@@ -66,26 +69,27 @@ def main():
 
     fixed_sums, out, dt = fv.index_sum, {}, []
 
-    def run(name, kind, dtype=None, sums=fixed_sums, steps=1):
+    def run(name, kind, dtype=None, sums=fixed_sums, steps=1, mode="graph"):
         fv.index_sum = sums
         try:
-            flow = (pimple.FlowSolver.from_case(tcase, log=quiet, device=dev, dtype=dtype)
-                    if kind == "single" else
-                    flowshard.ShardedFlowSolver(tcase, chip_smoke.FLOW_SHARDS, log=quiet,
-                                                device=dev, dtype=dtype))
-            if not dt:
-                dt.append(flow.stable_dt(tcase.control))
-            secs, its = [], []
-            for k in range(steps):
-                sync()
-                t0 = time.perf_counter()
-                r = flow.advance(dt[0])
-                sync()
-                secs.append(time.perf_counter() - t0)
-                its.append(r["p_iters"])
-                if k == 0:
-                    out[name] = (fv.host(flow.state.u).astype(np.float64),
-                                 fv.host(flow.state.p).astype(np.float64))
+            with chip_smoke.AmgMode(fv, flowshard, mode):
+                flow = (pimple.FlowSolver.from_case(tcase, log=quiet, device=dev, dtype=dtype)
+                        if kind == "single" else
+                        flowshard.ShardedFlowSolver(tcase, chip_smoke.FLOW_SHARDS, log=quiet,
+                                                    device=dev, dtype=dtype))
+                if not dt:
+                    dt.append(flow.stable_dt(tcase.control))
+                secs, its = [], []
+                for k in range(steps):
+                    sync()
+                    t0 = time.perf_counter()
+                    r = flow.advance(dt[0])
+                    sync()
+                    secs.append(time.perf_counter() - t0)
+                    its.append(r["p_iters"])
+                    if k == 0:
+                        out[name] = (fv.host(flow.state.u).astype(np.float64),
+                                     fv.host(flow.state.p).astype(np.float64))
         finally:
             fv.index_sum = fixed_sums
         print(f"{name}: step_s={[round(s, 3) for s in secs]} cg_iterations={its}", flush=True)
@@ -94,11 +98,13 @@ def main():
     run("single_f32_again", "single")
     run("single_f32_index_add", "single", sums=index_add_sums, steps=3)
     run("single_f32_index_add_again", "single", sums=index_add_sums)
+    run("single_f32_op_by_op", "single", mode="op-by-op")
     run("single_f64", "single", torch.float64)
     run("sharded_f32", "sharded", steps=3)
     run("sharded_f32_again", "sharded")
     run("sharded_f32_index_add", "sharded", sums=index_add_sums, steps=3)
     run("sharded_f32_index_add_again", "sharded", sums=index_add_sums)
+    run("sharded_f32_op_by_op", "sharded", mode="op-by-op")
     run("sharded_f64", "sharded", torch.float64)
     for a, b in [("single_f32", "single_f32_again"), ("sharded_f32", "sharded_f32_again"),
                  ("single_f32_index_add", "single_f32_index_add_again"),
@@ -107,6 +113,8 @@ def main():
                  ("single_f32_index_add", "sharded_f32_index_add"),
                  ("single_f32_index_add_again", "sharded_f32_index_add_again"),
                  ("single_f32", "single_f32_index_add"), ("sharded_f32", "sharded_f32_index_add"),
+                 ("single_f32_op_by_op", "sharded_f32_op_by_op"),
+                 ("single_f32", "single_f32_op_by_op"), ("sharded_f32", "sharded_f32_op_by_op"),
                  ("single_f64", "single_f32"), ("single_f64", "sharded_f32"),
                  ("single_f64", "sharded_f64")]:
         ua, ub = out[a][0], out[b][0]
