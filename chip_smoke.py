@@ -316,26 +316,41 @@ Phases, one line of numbers each, any failure exits non-zero:
    pitzDaily and 13b on the shrunk TJunction with 2,000 particles.
 
 14. the AMG-CG pressure solve's kernels (csrc/amg.cu: fv_matvec_kernel,
-   amg_down_kernel, amg_up_kernel, amg_coarsest_kernel) and the CG
-   iteration replayed from a CUDA graph (fv._pcg), on 10c's pitzDaily state
-   (after 10c), on two boxes (65,536 and 65,499 cells; after it), on 11d's
-   TJunction state (after 11d) and on 13b's sharded solver (in 13b):
+   amg_down_kernel, amg_up_kernel for the levels above the tail, and
+   amg_tail_kernel, one thread-block cluster for the levels of at most
+   amg_cuda.TAIL_ROWS rows and the coarsest) and the CG iteration replayed
+   from a CUDA graph (fv._pcg), on 10c's pitzDaily state (after 10c), on two
+   boxes (65,536 and 65,499 cells; after it), on 11d's TJunction state
+   (after 11d) and on 13b's sharded solver (in 13b):
    14a. [amg-parity] each kernel against its plain version (ops/amg.py)
         bit for bit at every level of the hierarchy, float32 and float64:
         the matvec at level 0 (lower and upper apart) and on each coarse
         level, x [nc] and [nc, 3], down and up above the coarsest, the
-        coarsest sweeps; and the kernels' matvec against PR 13's card path
-        (torch.segment_reduce a row): rows differing, largest gap in ulps.
+        tail at every split (from the coarsest alone to the whole
+        hierarchy; a split whose vectors do not fit in a block's shared
+        memory must raise), and on a TJunction shard's local hierarchy
+        with valid; and the kernels' matvec against
+        the op-by-op card path (torch.segment_reduce a row): rows differing,
+        largest gap in ulps.
         [amg-times] each kernel's device ms (graph replays), its plain
-        version's, bytes, bound and share (ops/traffic.py), and one
-        cuSPARSE CSR torch.mv of the same matrix beside the matvec;
+        version's, bytes, bound and share (ops/traffic.py), each kernel's
+        chain for its latency bound (priced in phase 6) and the tail's
+        units: one cluster barrier (probe.cluster_sync) and one dependent
+        read of a block's own and of another block's shared memory
+        (probe.smem_chase); one cuSPARSE CSR torch.mv of the same matrix
+        replayed from a graph beside the matvec; each level's down + up
+        against the tail's two phases there (the crossover that fixes
+        TAIL_ROWS);
    14b. [amg-graph] one pressure solve replayed from the graph = the eager
-        loop bit for bit, the same CG count, one replay a CG iteration, and
-        the capture's ms;
+        loop bit for bit, the same CG count, one replay a CG iteration, the
+        capture's ms, and a V-cycle's launches {amg_down: t, amg_up: t,
+        amg_tail: 1};
    14c. [amg-modes] per V-cycle, CG iteration and SIMPLE iteration / PIMPLE
-        step: ms, host ms, kernels and launch calls for the graph, the
+        step: ms, host ms, kernels and launch calls for the graph with the
+        tail and with TAIL_ROWS = 0 (the level-by-level 2L + 1 launches) in turns, the
         kernels with the loop eager, and PR 13's op-by-op path;
-        [amg-sharded] the same for 13b's 4-shard step (kernels, op by op).
+        [amg-sharded] the same for 13b's 4-shard step (the tail, 2L + 1,
+        op by op).
    The kernel table takes the four kernels on 10b's simple (launches from
    its CLI run) and on 11c's coupled run; each path must launch every one
    of them and replay the CG graph.
@@ -2947,6 +2962,28 @@ PINNED_PTXAS = (
     "stream_kernel<float, philox>: 56 regs, 32 B stack, 0 B spill",
     "stream_kernel<float, pk>: 61 regs, 0 B stack, 0 B spill",
     "stream_kernel<float>: 48 regs, 0 B stack, 0 B spill",
+    # the measuring cluster barrier (csrc/probe.cu; <1>: relaxed) and shared
+    # memory chase (<1>: another block's)
+    "cluster_sync_kernel<0>: 8 regs, 0 B stack, 0 B spill",
+    "cluster_sync_kernel<1>: 8 regs, 0 B stack, 0 B spill",
+    "smem_chase_kernel<0>: 14 regs, 0 B stack, 0 B spill",
+    "smem_chase_kernel<1>: 23 regs, 0 B stack, 0 B spill",
+)
+# the pressure solve's kernels (csrc/amg.cu): the matvec and level kernels
+# (their lines unchanged by the tail), and the tail's two instantiations
+PINNED_AMG_PTXAS = (
+    "amg_down_kernel<double>: 48 regs, 0 B stack, 0 B spill",
+    "amg_down_kernel<float>: 32 regs, 0 B stack, 0 B spill",
+    "amg_up_kernel<double>: 46 regs, 0 B stack, 0 B spill",
+    "amg_up_kernel<float>: 32 regs, 8 B stack, 8 B spill",
+    "fv_matvec_kernel<double, k=1>: 32 regs, 0 B stack, 0 B spill",
+    "fv_matvec_kernel<double, k=2>: 32 regs, 0 B stack, 0 B spill",
+    "fv_matvec_kernel<double, k=3>: 32 regs, 0 B stack, 0 B spill",
+    "fv_matvec_kernel<float, k=1>: 32 regs, 0 B stack, 0 B spill",
+    "fv_matvec_kernel<float, k=2>: 32 regs, 0 B stack, 0 B spill",
+    "fv_matvec_kernel<float, k=3>: 32 regs, 0 B stack, 0 B spill",
+    "amg_tail_kernel<double>: 128 regs, 0 B stack, 0 B spill",
+    "amg_tail_kernel<float>: 122 regs, 0 B stack, 0 B spill",
 )
 
 
@@ -2973,12 +3010,15 @@ def register_report(_build, lines):
             f"{PINNED_NVCC!r} ({out.strip()!r})")
         return
     changed = sorted(set(PINNED_PTXAS) ^ set(rest))
+    amg_changed = sorted(set(PINNED_AMG_PTXAS) ^ set(amg))
     log(f"[registers] rk4_instantiations={len(rk4)} remote_instantiations={len(remote)} "
         f"amg_instantiations={len(amg)} other_kernels={len(rest)} "
-        f"unchanged_against_pinned={int(not changed)} (nvcc {PINNED_NVCC})")
-    need(len(rk4) == 8 and len(remote) == 4 and len(amg) == 14 and not changed,
-         f"ptxas lines differ from the pinned ones: {changed}, or not 8 RK4 lines: {rk4}, "
-         f"or not 4 remote lines: {remote}, or not 14 AMG lines: {amg}")
+        f"unchanged_against_pinned={int(not changed)} amg_unchanged_against_pinned="
+        f"{int(not amg_changed)} (nvcc {PINNED_NVCC})")
+    need(len(rk4) == 8 and len(remote) == 4 and len(amg) == 12 and not changed
+         and not amg_changed,
+         f"ptxas lines differ from the pinned ones: {changed}, AMG {amg_changed}, or not 8 RK4 "
+         f"lines: {rk4}, or not 4 remote lines: {remote}, or not 12 AMG lines: {amg}")
 
 
 def ptxas_lines(report):
@@ -2995,17 +3035,14 @@ def ptxas_lines(report):
             targs = rest[len(digits) + int(digits):]
             name = base
             if base in AMG_KERNEL_NAMES:
-                # amg.cu: <T> and fv_matvec's K columns or the coarsest
-                # level's buffers (kShared)
+                # amg.cu: <T> and fv_matvec's K columns
                 args = [{"d": "double", "f": "float"}[targs[1]]]
                 flag = re.search(r"L[bi](\d+)E", targs)
-                if flag and base == "fv_matvec_kernel":
+                if flag:
                     args.append(f"k={flag.group(1)}")
-                elif flag:
-                    args.append("shared" if flag.group(1) == "1" else "global")
                 name = f"{base}<{', '.join(args)}>"
-            elif targs.startswith("ILi"):
-                name = f"{base}<{re.match(r'ILi(-?\d+)E', targs).group(1)}>"
+            elif targs.startswith(("ILi", "ILb")):
+                name = f"{base}<{re.match(r'IL[bi](-?\d+)E', targs).group(1)}>"
             elif targs.startswith("I"):
                 args = [{"d": "double", "f": "float"}[targs[1]]]
                 flags = re.findall(r"L[bi](\d+)E", targs.split("EE", 1)[0] + "E")
@@ -3404,7 +3441,7 @@ ERR_PHASES = {
     "stream_tjunction": "11c", "rare_tjunction": "11c", "stream_dp": "12b", "rare_dp": "12b",
     "stream_tjunction_par": "13c", "rare_tjunction_par": "13c",
     "rare_remote": "12a, 12b", "rare_pk_remote": "12a, 12b",
-    "fv_matvec": "14a", "amg_down": "14a", "amg_up": "14a", "amg_coarsest": "14a"}
+    "fv_matvec": "14a", "amg_down": "14a", "amg_up": "14a", "amg_tail": "14a"}
 TJUNC = os.path.join(HERE, "tutorials", "incompressible", "cudaParticlesPimpleFoam", "TJunction")
 TJUNC_PATH = "coupled driver (TJunction, 248,000 cells, 4e6 particles, 3 Eulerian steps)"
 PIMPLE_TOL = 1e-9         # float64 card against CPU, relative to each field's largest magnitude
@@ -4851,7 +4888,7 @@ def phase_tj_parallel_fields(torch, fused, fused_cuda, dev, tcase, cfg, errs, co
         f"(profile_s={prof_s:.1f}) | peak_device_GiB={unmeasured(peak, '%.3f')}")
     need(max(rms.values()) <= TJP_RMS_TOL and div <= TJP_DIV_TOL,
          "13b: the sharded fields part from the single-device run after step 3")
-    phase_amg_sharded(torch, dev, sharded, dt_e, (kernels, busy, ms4, its4), gpu_line)
+    phase_amg_sharded(torch, dev, sharded, dt_e, (kernels, busy, ms4, its4), errs, gpu_line)
     return times
 
 
@@ -4904,7 +4941,7 @@ def phase_dryrun(torch, dev, gpu_line):
 # iteration replayed from a CUDA graph
 # ---------------------------------------------------------------------------
 
-AMG_KERNELS = ("fv_matvec", "amg_down", "amg_up", "amg_coarsest")
+AMG_KERNELS = ("fv_matvec", "amg_down", "amg_up", "amg_tail")
 AMG_LAUNCH_KEYS = AMG_KERNELS + ("cg_graph_replays",)    # fv.solver_launches()
 AMG_KERNEL_NAMES = tuple(f"{k}_kernel" for k in AMG_KERNELS)
 # the XLA code each kernel takes over (the JAX package fuses it in the CG's
@@ -4912,7 +4949,7 @@ AMG_KERNEL_NAMES = tuple(f"{k}_kernel" for k in AMG_KERNELS)
 AMG_REPLACES = {"fv_matvec": "cudaparticlesfoam_tpu/models/fv.py:420",
                 "amg_down": "cudaparticlesfoam_tpu/models/fv.py:562",
                 "amg_up": "cudaparticlesfoam_tpu/models/fv.py:565",
-                "amg_coarsest": "cudaparticlesfoam_tpu/models/fv.py:559"}
+                "amg_tail": "cudaparticlesfoam_tpu/models/fv.py:549"}
 AMG_BOXES = {65_536: (64, 32, 32), 65_499: (3119, 7, 3)}     # a ragged last block
 AMG_BOXES_REHEARSAL = {256: (8, 8, 4), 231: (11, 7, 3)}
 AMG_SEED = 14
@@ -5027,32 +5064,39 @@ def seg_local_vcycle(fv, lamg, s, m, diag0, off0, levels, r0, omega=0.65):
 
 
 class AmgMode:
-    """The pressure solve as the port runs it ("graph": the kernels and the
-    CG graph), with the CG loop eager ("eager": the kernels alone), or as PR
-    13 ran it on the card ("op-by-op": the matvec and the V-cycles over
-    fv.index_sum, the loop eager), for measuring beside each other; the
-    port itself has no such switch but fv._CG_GRAPH."""
+    """The pressure solve as the port runs it ("graph": the kernels, the
+    tail and the CG graph), with the level-by-level split ("graph 2L+1": TAIL_ROWS =
+    0, the coarsest alone in the tail), with the CG loop eager ("eager":
+    the kernels alone; "eager 2L+1"), or op by op on the card
+    ("op-by-op": the matvec and the V-cycles over fv.index_sum, the loop
+    eager), for measuring beside each other; the port itself has no such
+    switch but fv._CG_GRAPH and amg_cuda.TAIL_ROWS."""
 
     def __init__(self, fv, fs, mode):
         self.fv, self.fs, self.mode = fv, fs, mode
+        self.rows = TailRows(0 if mode.endswith("2L+1") else None)
 
     def __enter__(self):
         fv, fs = self.fv, self.fs
         self.saved = (fv.matvec, fv.amg_vcycle, fs._local_vcycle, fv._CG_GRAPH)
-        fv._CG_GRAPH = self.mode == "graph"
+        fv._CG_GRAPH = self.mode.startswith("graph")
         if self.mode == "op-by-op":
             fv.matvec = lambda m, A, phi: seg_matvec(fv, m, A, phi)
             fv.amg_vcycle = lambda *a: seg_vcycle(fv, *a)
             fs._local_vcycle = lambda *a, **k: seg_local_vcycle(fv, *a, **k)
+        self.rows.__enter__()
         return self
 
     def __exit__(self, *exc):
         fv, fs = self.fv, self.fs
+        self.rows.__exit__(*exc)
         fv.matvec, fv.amg_vcycle, fs._local_vcycle, fv._CG_GRAPH = self.saved
         return False
 
 
-AMG_MODES = ("graph", "eager", "op-by-op")
+# 14c's turns: the tail and the level-by-level split in turns, then the eager loop and
+# the op-by-op path
+AMG_TURNS = ("graph", "graph 2L+1", "graph 2L+1", "graph", "eager", "op-by-op")
 
 
 def amg_level_cases(torch, fv, amg, m, h, A, dtype, seed):
@@ -5077,14 +5121,80 @@ def amg_level_cases(torch, fv, amg, m, h, A, dtype, seed):
     return out
 
 
+class TailRows:
+    """amg_cuda.TAIL_ROWS set for a with-block (None: left as it is), and as
+    it was after it: the split is a module constant, not a user setting."""
+
+    def __init__(self, tail_rows=None):
+        from cudaparticlesfoam_tpu_torch.ops import amg_cuda
+
+        self.amg_cuda, self.want = amg_cuda, tail_rows
+
+    def __enter__(self):
+        self.saved = self.amg_cuda.TAIL_ROWS
+        if self.want is not None:
+            self.amg_cuda.TAIL_ROWS = self.want
+        return self
+
+    def __exit__(self, *exc):
+        self.amg_cuda.TAIL_ROWS = self.saved
+        return False
+
+
+def tail_lists(lvs):
+    """(rows, aggs, ops, prolong) of amg_level_cases' levels, the kernels'
+    view of the hierarchy (no valid)."""
+    return ([lv["rows"] for lv in lvs], [lv["aggs"] for lv in lvs[:-1]],
+            [(lv["diag"], lv["up"]) for lv in lvs], [(lv["agg"], None) for lv in lvs[:-1]])
+
+
+def tail_fits(amg_cuda, rows, elem):
+    """Whether a tail of these levels keeps its vectors in a block's shared
+    memory (amg_cuda.tail_layout raises where it does not)."""
+    try:
+        amg_cuda.tail_layout([p.n for p in rows], int(rows[-1].h_offsets[-1]), elem)
+    except ValueError:
+        return False
+    return True
+
+
+def tail_splits(torch, amg, amg_cuda, rows, aggs, ops, prolong, r):
+    """The tail against tail_plain at every split t = L .. 0 (the residual
+    at t from the plain downs above it) whose vectors fit in shared memory;
+    on the card a split that does not fit must raise: (all bit for bit,
+    the largest |difference|, checks, splits that do not fit)."""
+    rs = [r]
+    for li, ag in enumerate(aggs):
+        rs.append(amg.down_plain(rows[li], ag, *ops[li], rs[li]))
+    same, err, checks, too_big = True, 0.0, 0, 0
+    for t in range(len(aggs), -1, -1):
+        args = (rows[t:], aggs[t:], ops[t:], prolong[t:], rs[t])
+        if not tail_fits(amg_cuda, rows[t:], r.element_size()):
+            too_big += 1
+            if r.device.type == "cuda":
+                try:
+                    amg_cuda.amg_tail(*args)
+                    same = False
+                except ValueError:
+                    pass
+                continue
+        want = amg.tail_plain(*args)
+        got = amg_cuda.amg_tail(*args)
+        same &= bitwise_equal(torch, got, want)
+        err = max(err, float((got - want).abs().max()))
+        checks += 1
+    return same, err, checks, too_big
+
+
 def phase_amg_parity(torch, dev, tag, m, h, A, errs, gpu_line):
-    """14a: each of the four kernels against its plain version at every
-    level of h (A's Galerkin operators), float32 and float64, bit for bit:
-    fv_matvec on level 0 (lower and upper apart) and on each coarse level
-    (symmetric) with x [nc] and [nc, 3], amg_down and amg_up on each level
-    above the coarsest, amg_coarsest on the coarsest; and the kernels'
-    matvec against PR 13's card path (fv.index_sum: torch.segment_reduce a
-    row) on the same inputs, as rows differing and the largest gap in ulps."""
+    """14a: each kernel against its plain version at every level of h (A's
+    Galerkin operators), float32 and float64, bit for bit: fv_matvec on
+    level 0 (lower and upper apart) and on each coarse level (symmetric)
+    with x [nc] and [nc, 3], amg_down and amg_up on each level above the
+    coarsest, amg_tail at every split (tail_splits); and the
+    kernels' matvec against the op-by-op card path (fv.index_sum:
+    torch.segment_reduce a row) on the same inputs, as rows differing and
+    the largest gap in ulps."""
     from cudaparticlesfoam_tpu_torch.models import fv
     from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda
 
@@ -5092,7 +5202,8 @@ def phase_amg_parity(torch, dev, tag, m, h, A, errs, gpu_line):
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[1]
         same, checks, gap = True, 0, {1: [0, 0.0], 3: [0, 0.0]}
-        for lv in amg_level_cases(torch, fv, amg, m, h, A, dtype, AMG_SEED):
+        lvs = amg_level_cases(torch, fv, amg, m, h, A, dtype, AMG_SEED)
+        for lv in lvs:
             rows, d_, up, lo = lv["rows"], lv["diag"], lv["up"], lv["lo"]
             pairs = [("fv_matvec", lambda x=x: amg_cuda.fv_matvec(rows, d_, up, lo, x),
                       lambda x=x: amg.matvec_plain(rows, d_, up, lo, x))
@@ -5103,9 +5214,6 @@ def phase_amg_parity(torch, dev, tag, m, h, A, errs, gpu_line):
                      lambda: amg.down_plain(rows, lv["aggs"], d_, up, lv["r"])),
                     ("amg_up", lambda: amg_cuda.amg_up(rows, d_, up, lv["r"], lv["agg"], lv["xc"]),
                      lambda: amg.up_plain(rows, d_, up, lv["r"], lv["agg"], lv["xc"]))]
-            else:
-                pairs.append(("amg_coarsest", lambda: amg_cuda.amg_coarsest(rows, d_, up, lv["r"]),
-                              lambda: amg.coarsest_plain(rows, d_, up, lv["r"])))
             for key, kern, plain in pairs:
                 got, want = kern(), plain()
                 ok = bitwise_equal(torch, got, want)
@@ -5121,12 +5229,19 @@ def phase_amg_parity(torch, dev, tag, m, h, A, errs, gpu_line):
                 nrow, g = ulp_gap(torch, amg_cuda.fv_matvec(rows, d_, up, lo, x), seg)
                 gap[k][0] += nrow
                 gap[k][1] = max(gap[k][1], g)
+        tail_same, tail_err, tail_checks, too_big = tail_splits(torch, amg, amg_cuda,
+                                                                *tail_lists(lvs), lvs[0]["r"])
+        errs["amg_tail"] = max(errs.get("amg_tail", 0.0), tail_err)
         log(f"[amg-parity] {gpu_line} | {tag}, {name}: levels={len(h.sizes) + 1} "
             f"sizes={[m.n_cells] + list(h.sizes)} checks={checks} kernel_eq_plain={int(same)} "
+            f"| amg_tail at every split t={len(h.sizes)}..0: checks={tail_checks} "
+            f"kernel_eq_plain={int(tail_same)} splits_too_big_for_shared_memory={too_big} "
+            f"(raise on the card) "
             f"| the kernels' matvec against PR 13's segment_reduce path: x[nc] rows_differing="
             f"{gap[1][0]} max_ulp_gap={gap[1][1]:g}, x[nc,3] rows_differing={gap[3][0]} "
             f"max_ulp_gap={gap[3][1]:g} ({time.perf_counter() - t0:.1f} s)")
-        need(same, f"14a: an AMG kernel differs from its plain version ({tag}, {name})")
+        need(same and tail_same,
+             f"14a: an AMG kernel differs from its plain version ({tag}, {name})")
 
 
 def amg_csr(torch, lv):
@@ -5139,81 +5254,165 @@ def amg_csr(torch, lv):
     return torch.sparse_coo_tensor(idx, vals, (n, n)).coalesce().to_sparse_csr()
 
 
+def cluster_barrier_ms(torch, probe, timer, dev, threads, relaxed=False, syncs=100):
+    """Device ms of one cluster barrier at the tail's shape (cluster_sync_kernel:
+    a launch with ``syncs`` barriers less one with none, replayed from a
+    graph, over ``syncs``); ``relaxed`` prices it without the fence."""
+    state = torch.zeros(probe.CLUSTER_BLOCKS, dtype=torch.int32, device=dev)
+    ms = [device_ms(torch, timer, lambda n=n: probe.cluster_sync(n, threads, state, relaxed))
+          for n in (syncs, 0)]
+    return max(ms[0] - ms[1], 0.0) / syncs
+
+
+def smem_load_ms(torch, probe, timer, dev, remote, steps=1000):
+    """Device ms of one dependent shared-memory read in the tail's cluster
+    (smem_chase_kernel: a launch of ``steps`` reads less one of none,
+    replayed from a graph, over ``steps``): a block's own, or with
+    ``remote`` another block's."""
+    state = torch.zeros(2, dtype=torch.int32, device=dev)
+    ms = [device_ms(torch, timer, lambda n=n: probe.smem_chase(n, state, remote))
+          for n in (steps, 0)]
+    return max(ms[0] - ms[1], 0.0) / steps
+
+
 def phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line):
     """14a's timings at the path's shapes (A's float32 operators, random
     inputs): each kernel's device ms (graph replays, device_ms) beside its
     plain version's ms and, for fv_matvec, one cuSPARSE CSR matvec of the
-    same matrix (torch.mv, back to back beside the kernel's, as
-    library_ms); bytes, bound and share (ops/traffic.py); fv_matvec,
-    amg_down and amg_up at level 0 (the largest), amg_coarsest on the
-    coarsest level, and the down and up kernels of every level summed.
-    Returns {kernel: dict} for the kernel table."""
+    same matrix (torch.mv, replayed from a graph as the kernel is, as
+    library_ms); bytes, bound and share (ops/traffic.py); each kernel's
+    dependent chain (traffic.AMG_CHAIN, traffic.amg_tail_chain) and the
+    tail's units, one cluster barrier and one dependent read of a block's
+    own and of another block's shared memory, for its latency bound
+    (priced with phase 6's load latency and launch floor in the kernel
+    table); fv_matvec, amg_down and amg_up at level 0 (the largest),
+    amg_tail at the path's split (amg.tail_start); the crossover: each
+    level's down + up against the tail's two phases there (the tail from
+    that level less the tail from the next); one V-cycle with the tail and
+    with TAIL_ROWS = 0.  Returns {kernel: dict} for the kernel table."""
     from cudaparticlesfoam_tpu_torch.models import fv
-    from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda
+    from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda, probe
 
     timer = Timer(torch, dev)
     lvs = amg_level_cases(torch, fv, amg, m, h, A, A.diag.dtype, AMG_SEED + 1)
     e, L = A.diag.element_size(), len(h.sizes)
-    nf = lambda lv: lv["up"].shape[0]  # noqa: E731
-    l0, lc = lvs[0], lvs[-1]
+    sizes, nfs = [lv["n"] for lv in lvs], [lv["up"].shape[0] for lv in lvs]
+    rows, aggs, ops, prolong = tail_lists(lvs)
+    t = amg.tail_start(sizes, amg_cuda.TAIL_ROWS)
+    l0 = lvs[0]
     rows0, d0, up0, lo0, r0 = l0["rows"], l0["diag"], l0["up"], l0["lo"], l0["r"]
+    rs = [r0]
+    for li in range(L):
+        rs.append(amg_cuda.amg_down(rows[li], aggs[li], *ops[li], rs[li]))
+
+    def tail_from(k):
+        return lambda: amg_cuda.amg_tail(rows[k:], aggs[k:], ops[k:], prolong[k:], rs[k])
+
+    lay = amg_cuda.tail_layout(sizes[t:], int(rows[-1].h_offsets[-1]), e)
+    tc = traffic.amg_tail_chain(sizes[t:])
+    # the tail's units: a cluster barrier, a dependent read of another
+    # block's shared memory and of a block's own
+    units = dict(barrier_ms=cluster_barrier_ms(torch, probe, timer, dev, lay.threads),
+                 t_dsmem_ms=smem_load_ms(torch, probe, timer, dev, True),
+                 t_smem_ms=smem_load_ms(torch, probe, timer, dev, False))
+    relaxed = cluster_barrier_ms(torch, probe, timer, dev, lay.threads, True)
+    ch = traffic.AMG_CHAIN
+    level = dict(tail_barriers=0, dsmem_loads=0, smem_loads=0, **units)
     calls = {
         "fv_matvec": (lambda: amg_cuda.fv_matvec(rows0, d0, up0, lo0, r0),
                       lambda: amg.matvec_plain(rows0, d0, up0, lo0, r0),
-                      traffic.amg_matvec(l0["n"], nf(l0), e), 1),
+                      traffic.amg_matvec(sizes[0], nfs[0], e), 1,
+                      dict(level, chain=ch["matvec"]), "level 0"),
         "amg_down": (lambda: amg_cuda.amg_down(rows0, l0["aggs"], d0, up0, r0),
                      lambda: amg.down_plain(rows0, l0["aggs"], d0, up0, r0),
-                     traffic.amg_down(l0["n"], lvs[1]["n"], nf(l0), e), L),
+                     traffic.amg_down(sizes[0], sizes[1], nfs[0], e), t,
+                     dict(level, chain=ch["down"]), "level 0"),
         "amg_up": (lambda: amg_cuda.amg_up(rows0, d0, up0, r0, l0["agg"], l0["xc"]),
                    lambda: amg.up_plain(rows0, d0, up0, r0, l0["agg"], l0["xc"]),
-                   traffic.amg_up(l0["n"], lvs[1]["n"], nf(l0), e), L),
-        "amg_coarsest": (lambda: amg_cuda.amg_coarsest(lc["rows"], lc["diag"], lc["up"], lc["r"]),
-                         lambda: amg.coarsest_plain(lc["rows"], lc["diag"], lc["up"], lc["r"]),
-                         traffic.amg_coarsest(lc["n"], nf(lc), e), 1),
+                   traffic.amg_up(sizes[0], sizes[1], nfs[0], e), t,
+                   dict(level, chain=ch["up"]), "level 0"),
+        "amg_tail": (tail_from(t),
+                     lambda: amg.tail_plain(rows[t:], aggs[t:], ops[t:], prolong[t:], rs[t]),
+                     traffic.amg_tail(sizes[t:], nfs[t:], e), 1,
+                     dict(chain=tc["l2"], tail_barriers=tc["barriers"], dsmem_loads=tc["dsmem"],
+                          smem_loads=tc["smem"], **units),
+                     f"levels {t}..{L} ({amg_cuda.TAIL_BLOCKS} blocks x {lay.threads} threads, "
+                     f"{lay.smem} B of shared memory a block)"),
     } if L else {}
     out = {}
     csr = amg_csr(torch, l0)
-    for key, (kern, plain, t, per_it) in calls.items():
+    for key, (kern, plain, tr, per_it, chain, where) in calls.items():
         ms = device_ms(torch, timer, kern)
         plain_ms = time_calls(timer, plain, lambda: None, 3)
-        res = dict(ms=ms, plain_ms=plain_ms, bytes=t.bytes, bound_ms=t.bound_ms,
-                   bound_by=t.bound_by, share=t.bound_ms / ms, library_ms=None,
-                   copy_ms=copy_ms(torch, dev, timer, t.bytes), launches_per_cycle=per_it,
-                   launches_per_cg_iteration=per_it)
+        res = dict(ms=ms, plain_ms=plain_ms, bytes=tr.bytes, bound_ms=tr.bound_ms,
+                   bound_by=tr.bound_by, share=tr.bound_ms / ms, library_ms=None,
+                   copy_ms=copy_ms(torch, dev, timer, tr.bytes), launches_per_cycle=per_it,
+                   launches_per_cg_iteration=per_it, **chain)
+        extra = f" chain={chain['chain']}"
         if key == "fv_matvec":
             res["batch_ms"] = batch_ms(timer, kern)
-            res["library_ms"] = batch_ms(timer, lambda: torch.mv(csr, r0))
+            res["library_ms"] = device_ms(torch, timer, lambda: torch.mv(csr, r0))
+            res["library_back_to_back_ms"] = batch_ms(timer, lambda: torch.mv(csr, r0))
             lib_err = float((torch.mv(csr, r0) - kern()).abs().max())
-            extra = (f" kernel_back_to_back_ms={res['batch_ms']:.5f} library_ms="
-                     f"{res['library_ms']:.5f} (cuSPARSE CSR torch.mv, back to back; "
-                     f"|library - kernel| max {lib_err:.3e})")
-        else:
-            extra = ""
+            extra += (f" kernel_back_to_back_ms={res['batch_ms']:.5f} library_ms="
+                      f"{res['library_ms']:.5f} (cuSPARSE CSR torch.mv replayed from a graph, "
+                      f"as the kernel; back to back {res['library_back_to_back_ms']:.5f}; "
+                      f"|library - kernel| max {lib_err:.3e}; kernel "
+                      f"{'slower' if ms > res['library_ms'] else 'faster'})")
+        elif key == "amg_tail":
+            extra += (f" barriers={tc['barriers']} dsmem_loads={tc['dsmem']} smem_loads="
+                      f"{tc['smem']} cluster_barrier_ms={units['barrier_ms']:.5f} "
+                      f"(release/acquire; a relaxed arrive {relaxed:.5f}) dsmem_load_ms="
+                      f"{units['t_dsmem_ms']:.3e} smem_load_ms={units['t_smem_ms']:.3e}")
         out[key] = res
-        log(f"[amg-times] {gpu_line} | {tag}, float32, {key} at "
-            f"{'the coarsest level' if key == 'amg_coarsest' else 'level 0'} "
-            f"(rows={lc['n'] if key == 'amg_coarsest' else l0['n']}): ms={ms:.5f} "
-            f"plain_ms={plain_ms:.4f} bytes={t.bytes} bound_ms={t.bound_ms:.5f} "
-            f"({t.bound_by}) share={t.bound_ms / ms:.3f} "
+        log(f"[amg-times] {gpu_line} | {tag}, float32, {key} at {where} "
+            f"(rows={sizes[t] if key == 'amg_tail' else sizes[0]}): ms={ms:.5f} "
+            f"plain_ms={plain_ms:.4f} bytes={tr.bytes} bound_ms={tr.bound_ms:.5f} "
+            f"({tr.bound_by}) share={tr.bound_ms / ms:.3f} "
             f"launches_per_cg_iteration={per_it}{extra}")
-    if L:
-        tot, bound = 0.0, 0.0
-        for li in range(L):
-            lv, nxt = lvs[li], lvs[li + 1]
-            for key, kern, t in (
-                    ("amg_down", lambda lv=lv: amg_cuda.amg_down(lv["rows"], lv["aggs"],
-                                                                 lv["diag"], lv["up"], lv["r"]),
-                     traffic.amg_down(lv["n"], nxt["n"], nf(lv), e)),
-                    ("amg_up", lambda lv=lv: amg_cuda.amg_up(lv["rows"], lv["diag"], lv["up"],
-                                                             lv["r"], lv["agg"], lv["xc"]),
-                     traffic.amg_up(lv["n"], nxt["n"], nf(lv), e))):
-                tot += device_ms(torch, timer, kern, reps=50)
-                bound += t.bound_ms
-        co = out["amg_coarsest"]["ms"]
-        log(f"[amg-times] {gpu_line} | {tag}, float32, one V-cycle's kernels: {2 * L + 1} "
-            f"launches, down + up over {L} levels {tot:.5f} ms + coarsest {co:.5f} ms = "
-            f"{tot + co:.5f} ms (device, graph replays); their bounds "
-            f"{bound + out['amg_coarsest']['bound_ms']:.5f} ms")
+    if not L:
+        return out
+    reps = BATCH if dev.type == "cuda" else 2      # the rehearsal's host loops: few
+    # the crossover: a level's two kernels against the tail's two phases there
+    tail_ms = {k: device_ms(torch, timer, tail_from(k), reps=reps) for k in range(L, -1, -1)}
+    cross, kern_sum, kern_bound = [], 0.0, 0.0
+    for li in range(L):
+        lv = lvs[li]
+        pair = (device_ms(torch, timer, lambda lv=lv: amg_cuda.amg_down(
+                    lv["rows"], lv["aggs"], lv["diag"], lv["up"], lv["r"]), reps=min(reps, 50))
+                + device_ms(torch, timer, lambda lv=lv: amg_cuda.amg_up(
+                    lv["rows"], lv["diag"], lv["up"], lv["r"], lv["agg"], lv["xc"]),
+                    reps=min(reps, 50)))
+        if li < t:
+            kern_sum += pair
+            kern_bound += (traffic.amg_down(sizes[li], sizes[li + 1], nfs[li], e).bound_ms
+                           + traffic.amg_up(sizes[li], sizes[li + 1], nfs[li], e).bound_ms)
+        cross.append((li, sizes[li], pair, tail_ms[li] - tail_ms[li + 1]))
+    sweep0 = device_ms(torch, timer, lambda: amg_cuda.amg_tail([rows[-1]], [], [ops[-1]], [],
+                                                                rs[L], sweeps=0), reps=reps)
+    wins = [n for _, n, pair, ph in cross if ph < pair]
+    # the split a V-cycle is cheapest at: the level kernels above it, the tail below
+    cost = [sum(c[2] for c in cross[:k]) + tail_ms[k] for k in range(L + 1)]
+    best = min(range(L + 1), key=cost.__getitem__)
+    log(f"[amg-times] {gpu_line} | {tag}, float32, crossover (device ms, graph replays): "
+        + " ".join(f"level {li} rows={n}: down+up={pair:.5f} tail_phases={ph:.5f}"
+                   for li, n, pair, ph in cross)
+        + f" | coarsest alone {tail_ms[L]:.5f}, with no sweep {sweep0:.5f}: a sweep "
+        f"{(tail_ms[L] - sweep0) / amg.COARSEST_SWEEPS:.5f} | the tail cheaper at {len(wins)} "
+        f"of {L} levels | the cheapest split t={best} (tail from {sizes[best]} rows): "
+        f"{cost[best]:.5f} ms; TAIL_ROWS={amg_cuda.TAIL_ROWS} splits at t={t}: {cost[t]:.5f} ms")
+    with TailRows(0):
+        split0 = device_ms(torch, timer, lambda: fv.vcycle_levels(rows, aggs, ops, prolong, r0),
+                           reps=reps)
+    vcyc = device_ms(torch, timer, lambda: fv.vcycle_levels(rows, aggs, ops, prolong, r0),
+                     reps=reps)
+    tb = out["amg_tail"]
+    log(f"[amg-times] {gpu_line} | {tag}, float32, one V-cycle: {2 * t + 1} launches, "
+        f"down + up over {t} "
+        f"levels {kern_sum:.5f} ms + tail {tb['ms']:.5f} ms = {kern_sum + tb['ms']:.5f} ms; "
+        f"byte bounds {kern_bound + tb['bound_ms']:.5f} ms | vcycle_levels replayed: "
+        f"tail {vcyc:.5f} ms, TAIL_ROWS=0 ({2 * L + 1} launches) {split0:.5f} ms")
+    out["amg_tail"].update(vcycle_ms=vcyc, vcycle_split0_ms=split0, split=t, best_split=best)
     return out
 
 
@@ -5251,21 +5450,23 @@ def phase_amg_graph(torch, dev, tag, m, h, A, b, x0, tol, max_iter, gpu_line):
                      lambda q: fv.amg_vcycle(m, h, A, levels, q), tol)
         torch.cuda.synchronize()
         cap_ms = (time.perf_counter() - h0) * 1e3
-    # one V-cycle through the wrappers: L down, 1 coarsest, L up
-    from cudaparticlesfoam_tpu_torch.ops import amg_cuda
+    # one V-cycle through the wrappers: t down, the tail, t up
+    from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda
 
     before = {f.__name__: f.launches for f in amg_cuda.WRAPPERS}
     fv.amg_vcycle(m, h, A, fv.amg_coarse_ops(m, h, A), b)
     vc = {f.__name__: f.launches - before[f.__name__] for f in amg_cuda.WRAPPERS}
     L = len(h.sizes)
+    t = amg.tail_start([m.n_cells] + list(h.sizes), amg_cuda.TAIL_ROWS)
     log(f"[amg-graph] {gpu_line} | {tag}: one pressure solve ({A.diag.dtype}) graph = eager "
         f"bit for bit: {int(same)} cg_iterations graph={ig} eager={ie} graph_replays={reps} "
         f"graph_captures={caps} solve_ms graph={msg:.3f} eager={mse:.3f} "
         f"capture_ms={unmeasured(cap_ms, '%.3f')} (host, capture and instantiate) | one "
-        f"V-cycle's launches {vc} (2L + 1 = {2 * L + 1}, L = {L})")
-    need(dev.type != "cuda" or vc == {"fv_matvec": 0, "amg_down": L, "amg_up": L,
-                                      "amg_coarsest": 1},
-         f"14b: a V-cycle launched {vc}, not 2L + 1 = {2 * L + 1} level kernels ({tag})")
+        f"V-cycle's launches {vc} (2t + 1 = {2 * t + 1}, t = {t} of L = {L} levels above "
+        f"the coarsest; level by level 2L + 1 = {2 * L + 1})")
+    need(dev.type != "cuda" or vc == {"fv_matvec": 0, "amg_down": t, "amg_up": t,
+                                      "amg_tail": 1},
+         f"14b: a V-cycle launched {vc}, not t = {t} downs and ups and one tail ({tag})")
     need(same and ig == ie, f"14b: graph and eager pressure solves differ ({tag})")
     need(dev.type != "cuda" or (reps == ig and caps == (1 if ig else 0)),
          f"14b: {reps} replays and {caps} captures for {ig} CG iterations ({tag})")
@@ -5276,21 +5477,22 @@ def phase_amg_modes(torch, dev, tag, m, h, A, b, x0, tol, max_iter, whole, unit,
     iterations) and per ``unit`` (``whole``: a SIMPLE iteration or a
     PIMPLE step), the device ms, the host's ms to issue, the kernels and
     the launch calls (torch.profiler; a graph replay is one
-    cudaGraphLaunch), for the port's path (graph), the kernels with the CG
-    loop eager (eager), and PR 13's op-by-op path (op-by-op)."""
+    cudaGraphLaunch), for the port's path (graph) and the level-by-level split (graph
+    2L+1) in turns, the kernels with the CG loop eager (eager), and the
+    op-by-op path (op-by-op)."""
     from cudaparticlesfoam_tpu_torch.models import fv
     from cudaparticlesfoam_tpu_torch.parallel import flowshard as fs
 
     levels = fv.amg_coarse_ops(m, h, A)
-    out = {}
-    for mode in AMG_MODES:
+    out = []
+    for mode in AMG_TURNS:
         with AmgMode(fv, fs, mode):
             vc = measure_part(torch, dev, lambda: fv.amg_vcycle(m, h, A, levels, b))
             its = fv.amg_cg_solve(m, h, A, b, x0, tol, max_iter)[2]
             cg = measure_part(torch, dev, lambda: fv.amg_cg_solve(m, h, A, b, x0, tol, max_iter))
             wh = measure_part(torch, dev, whole)
         per = lambda r, k: None if r[k] is None else r[k] / max(its, 1)  # noqa: E731
-        out[mode] = (vc, cg, wh)
+        out.append((mode, its, vc, cg, wh))
         log(f"[amg-modes] {gpu_line} | {tag}, {mode}: per V-cycle ms={vc['ms']:.4f} "
             f"host_issue_ms={vc['host_ms']:.4f} kernels={unmeasured(vc['kernels'])} "
             f"launch_calls={unmeasured(vc['launch_calls'])} | per CG iteration "
@@ -5303,15 +5505,42 @@ def phase_amg_modes(torch, dev, tag, m, h, A, b, x0, tol, max_iter, whole, unit,
     return out
 
 
-def phase_amg_sharded(torch, dev, sharded, dt_e, kernels_step, gpu_line):
-    """14c for 13b: the 4-shard step with the kernels (its lockstep CG loop
-    eager; that loop's graph is later work) beside PR 13's op-by-op path:
-    one local V-cycle of shard 0 (amg_system's matrix on its mesh, masked
-    as the step masks it), and one whole sharded step profiled: ms,
-    kernels, CG iterations and kernels per CG iteration.  The kernels'
-    step is 13b's profiled one (``kernels_step``); the op-by-op step is the
-    step after it."""
+def shard_tail_parity(torch, fv, fs, amg, amg_cuda, lam, m, mask, diag0, off0, r, errs,
+                      gpu_line):
+    """14a on shard 0's local hierarchy: the tail with valid (the clipped
+    prolongation times agg_valid) against tail_plain at every split,
+    float32 and float64, bit for bit."""
+    t = lam.shard[0]
+    for dtype in (torch.float32, torch.float64):
+        d0, o0 = diag0.to(dtype), off0.to(dtype)
+        levels = fs._local_coarse_ops(lam, 0, m, d0, o0)
+        rows = [amg.row_plan(m.n_cells, m.own_i, m.neighbour)] + [
+            amg.row_plan(d_.shape[0], o, ne) for (d_, _), o, ne in zip(levels, t["owners"],
+                                                                       t["neighs"])]
+        aggs = [amg.agg_plan(nc, a) for (nc, _), a in zip(lam.sizes, t["aggs"])]
+        prolong = [(a, v.to(dtype)) for a, v in zip(t["aggs_c"], t["agg_valid"])]
+        same, err, checks, too_big = tail_splits(torch, amg, amg_cuda, rows, aggs,
+                                                 [(d0, o0)] + levels, prolong,
+                                                 torch.where(mask, r, 0.0).to(dtype))
+        errs["amg_tail"] = max(errs.get("amg_tail", 0.0), err)
+        log(f"[amg-parity] {gpu_line} | TJunction shard 0's local hierarchy (valid), "
+            f"{str(dtype).split('.')[1]}: sizes={[m.n_cells] + [n for n, _ in lam.sizes]} "
+            f"amg_tail at every split: checks={checks} kernel_eq_plain={int(same)} "
+            f"splits_too_big_for_shared_memory={too_big}")
+        need(same, f"14a: the tail differs from its plain version on a shard ({dtype})")
+
+
+def phase_amg_sharded(torch, dev, sharded, dt_e, kernels_step, errs, gpu_line):
+    """14a's shard check (shard_tail_parity) and 14c for 13b: the 4-shard
+    step with the kernels and the tail (its lockstep CG loop eager; that
+    loop's graph is later work) beside the level-by-level split (2L+1) and the
+    op-by-op path: one local V-cycle of shard 0 (amg_system's matrix on its
+    mesh, masked as the step masks it), and one whole sharded step
+    profiled: ms, kernels, CG iterations and kernels per CG iteration.  The
+    kernels' step is 13b's profiled one (``kernels_step``); the others are
+    the steps after it."""
     from cudaparticlesfoam_tpu_torch.models import fv
+    from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda
     from cudaparticlesfoam_tpu_torch.parallel import flowshard as fs
 
     lam, sh = sharded.lamg, sharded.smesh.shards[0]
@@ -5320,10 +5549,12 @@ def phase_amg_sharded(torch, dev, sharded, dt_e, kernels_step, gpu_line):
     off0 = A.upper * lam.shard[0]["off_mask"]
     diag0 = torch.where(sh.mask, fv.index_sum(m.n_cells, [(m.own_i, -off0),
                                                           (m.neighbour, -off0)], out=A.diag), 1.0)
+    shard_tail_parity(torch, fv, fs, amg, amg_cuda, lam, m, sh.mask, diag0, off0, r, errs,
+                      gpu_line)
     levels = fs._local_coarse_ops(lam, 0, m, diag0, off0)
     r0 = torch.where(sh.mask, r, 0.0)
     steps = {"eager": kernels_step}
-    for mode in ("eager", "op-by-op"):
+    for mode in ("eager", "eager 2L+1", "op-by-op"):
         with AmgMode(fv, fs, mode):
             vc = measure_part(torch, dev,
                               lambda: fs._local_vcycle(lam, 0, m, diag0, off0, levels, r0))
@@ -5668,16 +5899,35 @@ def main():
     # phase 14: the pressure solve's kernels on the pitzDaily Allrun's simple
     # (launches from 10b's CLI run) and the TJunction's coupled run (11c's);
     # times and bounds at each path's shapes (14a), errors from every 14a check
+    # and each flow row's latency bound: the launch floor, its chain of
+    # dependent loads (phase 6's neighbour-walk latency) and, for the tail,
+    # its cluster barriers and the shared-memory reads that wait on the
+    # phase before (traffic.amg_tail_chain; 14a's units)
+    t_dep = latency["rare"]["t_dep_nbr_ms"]
     for launches, path, tm in ((pitz_launches, AMG_PITZ_PATH, amg_times["pitz"]),
                                (tj_launches, TJUNC_PATH, amg_times["tj"])):
         if dev.type == "cuda":
             need(all(launches.get(k, 0) > 0 for k in AMG_LAUNCH_KEYS),
                  f"a pressure-solve kernel or the CG graph never ran on {path!r}: {launches}")
         for k in AMG_KERNELS:
+            row = tm[k]
+            lat = traffic.amg_latency_bound(
+                floor, (row["chain"], t_dep), (row["tail_barriers"], row["barrier_ms"]),
+                (row["dsmem_loads"], row["t_dsmem_ms"]), (row["smem_loads"], row["t_smem_ms"]))
+            row.update(launch_floor_ms=floor, t_dep_ms=t_dep, latency_bound_ms=lat,
+                       share_of_latency=lat / row["ms"])
+            log(f"[amg-bound] {gpu_line} | {path.split(' (')[0]}, {k}_kernel: latency bound "
+                f"{lat:.5f} ms = launch floor {floor:.5f} + chain {row['chain']} x t_dep "
+                f"{t_dep:.3e} + barriers {row['tail_barriers']} x {row['barrier_ms']:.5f} + "
+                f"distributed shared memory reads {row['dsmem_loads']} x "
+                f"{row['t_dsmem_ms']:.3e} + shared memory reads {row['smem_loads']} x "
+                f"{row['t_smem_ms']:.3e}; ms={row['ms']:.5f} share_of_latency="
+                f"{lat / row['ms']:.3f}; byte bound {row['bound_ms']:.5f} "
+                f"(share {row['share']:.3f})")
             table["kernels"].append({
                 "name": f"{k}_kernel", "path": path, "phases": ERR_PHASES[k], "route": "cuda",
                 "source": "cudaparticlesfoam_tpu_torch/csrc/amg.cu", "replaces": AMG_REPLACES[k],
-                "launches": launches.get(k, 0), "max_abs_err": errs[k], **tm[k]})
+                "launches": launches.get(k, 0), "max_abs_err": errs[k], **row})
     log(gpu_line)
     log(json.dumps(table))
     if args.rehearse:

@@ -15,6 +15,21 @@
 // state[0] holds the chain's position and state[1] the hash; a launch
 // starts where the last one stopped, so repeated launches walk on instead
 // of replaying the same addresses.  The plain version is ops/probe.py.
+//
+// The units of amg_tail_kernel's latency bound, measuring too, each in one
+// cluster of 16 blocks (the tail's shape):
+// cluster_sync_kernel passes `syncs` cluster barriers (barrier.cluster
+// arrive and wait, release and acquire at cluster scope, as the tail's;
+// kRelaxed: a relaxed arrive, no memory ordering, only to price the fence);
+// each block's thread 0 then adds the count it passed to state[rank].
+// smem_chase_kernel: every block fills its shared memory with the cycle
+// j -> (389 j + 1) mod CHASE_SLOTS; block 0's thread 0 follows `steps`
+// loads of it from state[0] mod CHASE_SLOTS, each index the value the load before
+// returned, in its own shared memory (kRemote false: a coarsest sweep's
+// read of x) or each in another block's through map_shared_rank (true: a
+// tail phase's read of a neighbour's r or xc), and leaves where it stopped
+// in state[0].
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -43,7 +58,82 @@ __global__ void chase_kernel(const float* __restrict__ tab, const int* __restric
   state[1] = static_cast<int>(h);
 }
 
+constexpr int CLUSTER_BLOCKS = 16;
+constexpr int CHASE_SLOTS = 1024;
+
+template <bool kRelaxed>
+__global__ void cluster_sync_kernel(int syncs, int* state) {
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  for (int s = 0; s < syncs; ++s) {
+    if (kRelaxed)
+      asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+    else
+      asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+  }
+  if (threadIdx.x == 0) state[cl.block_rank()] += syncs;
+}
+
+template <bool kRemote>
+__global__ void smem_chase_kernel(int steps, int* state) {
+  __shared__ int slot[CHASE_SLOTS];
+  cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+  for (int i = threadIdx.x; i < CHASE_SLOTS; i += blockDim.x)
+    slot[i] = (389 * i + 1) % CHASE_SLOTS;
+  cl.sync();
+  if (cl.block_rank() == 0 && threadIdx.x == 0) {
+    int j = state[0] & (CHASE_SLOTS - 1);
+    for (int s = 0; s < steps; ++s) {
+      if (kRemote)
+        j = *cl.map_shared_rank(slot + j, 1u + static_cast<unsigned>(s) % (CLUSTER_BLOCKS - 1));
+      else
+        j = slot[j];
+    }
+    state[0] = j;
+  }
+  cl.sync();    // no block leaves while block 0 still reads its shared memory
+}
+
+// one cluster of 16 blocks of `threads`
+int launch_cluster(const void* fn, int threads, void** args, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER_BLOCKS, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER_BLOCKS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelExC(&cfg, fn, args);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace cpf
+
+extern "C" int cpf_cluster_sync(int syncs, int threads, int relaxed, void* state, void* stream) {
+  const void* fn = relaxed ? reinterpret_cast<const void*>(cpf::cluster_sync_kernel<true>)
+                           : reinterpret_cast<const void*>(cpf::cluster_sync_kernel<false>);
+  int* st = static_cast<int*>(state);
+  void* args[] = {&syncs, &st};
+  return cpf::launch_cluster(fn, threads, args, stream);
+}
+
+extern "C" int cpf_smem_chase(int steps, int remote, void* state, void* stream) {
+  const void* fn = remote ? reinterpret_cast<const void*>(cpf::smem_chase_kernel<true>)
+                          : reinterpret_cast<const void*>(cpf::smem_chase_kernel<false>);
+  int* st = static_cast<int*>(state);
+  void* args[] = {&steps, &st};
+  return cpf::launch_cluster(fn, 32, args, stream);
+}
 
 extern "C" int cpf_chase_nbr(const void* tab, int row_w, int nbr, int steps, void* state,
                              void* stream) {

@@ -622,7 +622,7 @@ def _sym_matvec(diag, off, own, nei, x):
 def amg_vcycle(m: FvMesh, h: AmgHierarchy, A: FvMatrix, levels, r):
     """One V(1,1) cycle with damped-Jacobi smoothing; coarsest level gets
     a fixed Jacobi sweep block.  Used as the CG preconditioner.  On the
-    card 2L + 1 kernel launches (:func:`vcycle_levels`)."""
+    card 2t + 1 kernel launches (:func:`vcycle_levels`)."""
     omega = amg_ops.OMEGA
     if _card_path(r):
         rows = [amg_ops.row_plan(m.n_cells, m.own_i, m.neighbour)] + [
@@ -652,16 +652,18 @@ def amg_vcycle(m: FvMesh, h: AmgHierarchy, A: FvMatrix, levels, r):
 
 
 def vcycle_levels(rows, aggs, ops, prolong, r, omega=amg_ops.OMEGA):
-    """One V(1,1) cycle through the level kernels: ``amg_down`` on each of
-    the L levels above the coarsest, ``amg_coarsest``, ``amg_up`` back
-    (2L + 1 launches).  ``rows[l]`` is level l's row plan, ``aggs[l]`` its
-    restriction's, ``ops[l]`` its (diag, off), ``prolong[l]`` the
+    """One V(1,1) cycle through the kernels: ``amg_down`` on each level
+    above the tail (``amg_ops.tail_start`` at ``amg_cuda.TAIL_ROWS``),
+    one ``amg_tail`` for the small levels and the coarsest, ``amg_up``
+    back (2t + 1 launches).  ``rows[l]`` is level l's row plan, ``aggs[l]``
+    its restriction's, ``ops[l]`` its (diag, off), ``prolong[l]`` the
     prolongation's (index, valid or None)."""
+    t = amg_ops.tail_start([p.n for p in rows], amg_cuda.TAIL_ROWS)
     rs = [r]
-    for li, ag in enumerate(aggs):
-        rs.append(amg_cuda.amg_down(rows[li], ag, *ops[li], rs[li], omega))
-    x = amg_cuda.amg_coarsest(rows[-1], *ops[-1], rs[-1], omega)
-    for li in reversed(range(len(aggs))):
+    for li in range(t):
+        rs.append(amg_cuda.amg_down(rows[li], aggs[li], *ops[li], rs[li], omega))
+    x = amg_cuda.amg_tail(rows[t:], aggs[t:], ops[t:], prolong[t:], rs[t], omega)
+    for li in reversed(range(t)):
         agg, valid = prolong[li]
         x = amg_cuda.amg_up(rows[li], *ops[li], rs[li], agg, x, valid, omega)
     return x

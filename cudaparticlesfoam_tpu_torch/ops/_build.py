@@ -142,7 +142,10 @@ def library() -> ctypes.CDLL:
             ("fv_matvec", [i, i, vp, vp, vp, i] + [vp] * 5 + [vp]),
             ("amg_down", [i, vp, vp, vp, vp, vp, i, vp, vp, vp, fl, vp, vp]),
             ("amg_up", [i, vp, vp, vp, i, vp, vp, vp, fl, vp, vp, vp, vp, vp]),
-            ("amg_coarsest", [i, vp, vp, vp, i, vp, vp, vp, fl, i, vp, vp, vp]),
+            # the tail: its TailParams (by address), threads a block,
+            # shared memory a block (, the stream)
+            ("amg_tail", [vp, i, i, vp]),
+            ("amg_tail_prepare", [i, i, vp]),
         ):
             fn = getattr(lib, f"cpf_{name}_{suffix}")
             fn.argtypes = args
@@ -157,6 +160,10 @@ def library() -> ctypes.CDLL:
     lib.cpf_chase_nbr.restype = i
     lib.cpf_chase_perm.argtypes = [vp, i, vp, vp]
     lib.cpf_chase_perm.restype = i
+    lib.cpf_cluster_sync.argtypes = [i, i, i, vp, vp]
+    lib.cpf_cluster_sync.restype = i
+    lib.cpf_smem_chase.argtypes = [i, i, vp, vp]
+    lib.cpf_smem_chase.restype = i
     lib.cpf_error_string.argtypes = [i]
     lib.cpf_error_string.restype = ctypes.c_char_p
     _LIB["lib"] = lib

@@ -4,15 +4,17 @@ The JAX package leaves the AMG-preconditioned CG to XLA, which fuses the
 matvec (``cudaparticlesfoam_tpu/models/fv.py:420-431``) and each level of
 the V-cycle (``:544-570``) inside one ``lax.while_loop``.  The port's
 kernels (``csrc/amg.cu``, wrappers in :mod:`.amg_cuda`) do that work in
-2L + 2 launches a CG iteration; this module holds what they read and the
-plain PyTorch version of each:
+2t + 2 launches a CG iteration, t the levels above the tail
+(:func:`tail_start`); this module holds what they read and the plain
+PyTorch version of each:
 
 * :func:`matvec_plain` (``fv_matvec_kernel``): ``diag*x + sum_row coef*x[other]``;
 * :func:`down_plain` (``amg_down_kernel``): pre-smooth, residual and
   restriction of one level;
 * :func:`up_plain` (``amg_up_kernel``): prolongation and post-smooth;
-* :func:`coarsest_plain` (``amg_coarsest_kernel``): the coarsest level's
-  damped-Jacobi sweeps.
+* :func:`coarsest_plain`: the coarsest level's damped-Jacobi sweeps;
+* :func:`tail_plain` (``amg_tail_kernel``): the small levels down, the
+  coarsest and the small levels back up, composed of the three above.
 
 A sum into rows follows a :class:`RowPlan`: for each row the terms in the
 order of the concatenated index parts, stably sorted by row (so in part
@@ -35,6 +37,7 @@ import torch
 
 OMEGA = 0.65             # the V-cycle's Jacobi damping (JAX's amg_vcycle)
 COARSEST_SWEEPS = 12     # damped-Jacobi sweeps on the coarsest level
+MAX_TAIL_LEVELS = 16     # levels one tail launch takes (csrc/amg.cu TAIL_MAX_LEVELS)
 
 _PLANS: dict = {}
 
@@ -203,9 +206,41 @@ def up_plain(rows: RowPlan, diag, off, r, agg, xc, valid=None, omega=OMEGA):
 
 
 def coarsest_plain(rows: RowPlan, diag, off, r, omega=OMEGA, sweeps=COARSEST_SWEEPS):
-    """``amg_coarsest_kernel``'s plain version: x = omega r / d, then
+    """The coarsest level (the tail's middle phase): x = omega r / d, then
     ``sweeps`` damped-Jacobi sweeps."""
     x = omega * r / diag
     for _ in range(sweeps):
         x = x + omega * (r - matvec_plain(rows, diag, off, off, x)) / diag
+    return x
+
+
+def tail_start(sizes, tail_rows: int) -> int:
+    """The first level of the tail of a hierarchy whose levels have
+    ``sizes`` rows (level 0 first, the coarsest last): the first level from
+    which every level has at most ``tail_rows`` rows, but never past the
+    coarsest, which is always in the tail, nor more than
+    ``MAX_TAIL_LEVELS`` levels from it."""
+    last = len(sizes) - 1
+    if last < 0:
+        raise ValueError("a hierarchy has at least one level")
+    t = last
+    while t > 0 and sizes[t - 1] <= tail_rows:
+        t -= 1
+    return max(t, last + 1 - MAX_TAIL_LEVELS)
+
+
+def tail_plain(rows, aggs, ops, prolong, r_top, omega=OMEGA, sweeps=COARSEST_SWEEPS):
+    """``amg_tail_kernel``'s plain version on the K levels of a tail:
+    ``rows[k]`` level k's row plan, ``aggs[k]`` its restriction's (k < K -
+    1), ``ops[k]`` its (diag, off), ``prolong[k]`` the prolongation's
+    (index, valid or None); :func:`down_plain` from ``r_top`` to the
+    coarsest, :func:`coarsest_plain`, :func:`up_plain` back.  Returns the
+    top level's x."""
+    rs = [r_top]
+    for k, ag in enumerate(aggs):
+        rs.append(down_plain(rows[k], ag, *ops[k], rs[k], omega))
+    x = coarsest_plain(rows[-1], *ops[-1], rs[-1], omega, sweeps)
+    for k in reversed(range(len(aggs))):
+        agg, valid = prolong[k]
+        x = up_plain(rows[k], *ops[k], rs[k], agg, x, valid, omega)
     return x

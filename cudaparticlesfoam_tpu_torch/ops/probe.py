@@ -1,7 +1,12 @@
 """The latency of one dependent load on the card, the unit of the rare
 kernels' bound (``traffic.latency_bound``): wrappers of the measuring
-kernel ``chase_kernel`` (``csrc/probe.cu``).  The port never calls them;
-``chip_smoke.py`` times them (phase 6) to price the rare kernels' chains.
+kernel ``chase_kernel`` (``csrc/probe.cu``); and the units of the AMG
+tail's bound (``traffic.amg_latency_bound``): the cost of one cluster
+barrier, :func:`cluster_sync` (``cluster_sync_kernel``), and the latency of
+a dependent read of shared memory, a block's own or another block's of the
+cluster, :func:`smem_chase` (``smem_chase_kernel``).  The port never calls
+them; ``chip_smoke.py`` times them (phases 6 and 14) to price the kernels'
+chains and phases.
 
 Each call follows a chain of ``steps`` loads with one thread, each address
 taken from the value the load before returned, and keeps the chain's
@@ -97,3 +102,44 @@ def chase_permutation(nxt, steps, state):
         return
     _launch("cpf_chase_perm", (nxt.data_ptr(), steps, state.data_ptr()), nxt.device,
             "chase_kernel<1>")
+
+
+CLUSTER_BLOCKS = 16      # the AMG tail's cluster (csrc/amg.cu TAIL_BLOCKS)
+CHASE_SLOTS = 1024       # csrc/probe.cu: smem_chase_kernel's cycle
+
+
+def cluster_sync(syncs, threads, state, relaxed=False):
+    """One cluster of 16 blocks (the AMG tail's) of ``threads`` each passes
+    ``syncs`` cluster barriers (release/acquire as the tail's, or with
+    ``relaxed`` an arrive without memory ordering); each block then adds
+    ``syncs`` to ``state[rank]`` (int32 [16]).  On the CPU only the count is
+    added."""
+    if (not torch.is_tensor(state) or state.dtype != torch.int32
+            or state.shape != (CLUSTER_BLOCKS,) or not state.is_contiguous()):
+        raise ValueError(f"state must be a contiguous int32 [{CLUSTER_BLOCKS}] tensor")
+    if syncs < 0 or not 1 <= threads <= 512:
+        raise ValueError(f"bad syncs {syncs} or threads {threads}")
+    if state.device.type == "cpu":
+        state += syncs
+        return
+    _launch("cpf_cluster_sync", (syncs, threads, int(relaxed), state.data_ptr()), state.device,
+            "cluster_sync_kernel")
+
+
+def smem_chase(steps, state, remote=False):
+    """Follow ``steps`` dependent shared-memory loads ``j = (389 j + 1) mod
+    1024`` from ``state[0]`` mod 1024 in one cluster of 16 blocks: in block
+    0's own shared memory, or with ``remote`` each in another block's
+    (distributed shared memory); leaves where it stopped in ``state[0]``
+    (int32 [2])."""
+    _check_state(state, getattr(state, "device", None))
+    if steps < 0:
+        raise ValueError(f"bad steps {steps}")
+    if state.device.type == "cpu":
+        j = int(state[0]) & (CHASE_SLOTS - 1)
+        for _ in range(steps):
+            j = (389 * j + 1) % CHASE_SLOTS
+        state[0] = j
+        return
+    _launch("cpf_smem_chase", (steps, int(remote), state.data_ptr()), state.device,
+            "smem_chase_kernel")

@@ -60,9 +60,16 @@ pad is counted as what the function is given, not as waste:
   measures it on the card).  :func:`share_of_latency` holds the time
   against it.
 * the AMG-CG pressure solve's kernels (``csrc/amg.cu``; :func:`amg_matvec`,
-  :func:`amg_down`, :func:`amg_up`, :func:`amg_coarsest`): each row plan,
-  coefficient and vector a call reads once and each result it writes; the
-  neighbours' values that a row reads again are not counted.
+  :func:`amg_down`, :func:`amg_up`, :func:`amg_tail`, whose coarsest level
+  alone is :func:`amg_coarsest`): each row plan, coefficient and vector a
+  call reads once and each result it writes; the neighbours' values that a
+  row reads again are not counted, nor the tail's inner levels' r and x,
+  which never leave the chip.  At the pitzDaily's sizes these bytes take
+  less than a launch: each kernel also has a latency bound
+  (:func:`amg_latency_bound`), the launch floor plus its longest chain of
+  dependent loads (:data:`AMG_CHAIN`) or, for the tail, its cluster
+  barriers and the loads after each that wait on the phase before
+  (:func:`amg_tail_chain`).
 """
 
 from __future__ import annotations
@@ -340,9 +347,71 @@ def amg_up(n: int, nc: int, nf: int, elem: int, valid: bool = False) -> Traffic:
 
 
 def amg_coarsest(n: int, nf: int, elem: int, sweeps: int = 12) -> Traffic:
-    """``amg_coarsest_kernel``: reads r, diag, off and the row plan once,
-    writes x; ``sweeps`` + 1 passes of arithmetic over the level."""
+    """The coarsest level alone (``amg_tail_kernel`` on one level): reads
+    r, diag, off and the row plan once, writes x; ``sweeps`` + 1 passes of
+    arithmetic over the level."""
     _check_amg(elem, n, nf, sweeps)
     read = elem * (2 * n + nf) + _plan_bytes(n, 2 * nf)
     ops = sweeps * (AMG_OPS["term"] * 2 * nf + AMG_OPS["level_row"] * n) + 2 * n
     return Traffic(read, elem * n, ops)
+
+
+def amg_tail(sizes, nfs, elem: int, valid: bool = False, sweeps: int = 12) -> Traffic:
+    """``amg_tail_kernel`` on levels of ``sizes`` rows and ``nfs`` faces
+    (the coarsest last): reads the top level's r, each level's diag, off
+    and row plan, and above the coarsest its restriction's plan, its int32
+    prolongation index and, on a shard, valid; writes the top level's x.
+    Each level's arithmetic as :func:`amg_down` and :func:`amg_up`, the
+    coarsest's as :func:`amg_coarsest`."""
+    if len(sizes) != len(nfs) or not sizes:
+        raise ValueError("one face count a level, at least one level")
+    _check_amg(elem, *sizes, *nfs, sweeps)
+    K = len(sizes)
+    read, ops = elem * sizes[0], amg_coarsest(sizes[-1], nfs[-1], elem, sweeps).ops
+    for k, (n, nf) in enumerate(zip(sizes, nfs)):
+        read += elem * (n + nf) + _plan_bytes(n, 2 * nf)
+        if k < K - 1:
+            read += INDEX * (sizes[k + 1] + 1 + n) + INDEX * n + (elem * n if valid else 0)
+            ops += 2 * (AMG_OPS["level_term"] * 2 * nf + AMG_OPS["level_row"] * n)
+    return Traffic(read, elem * sizes[0], ops)
+
+
+# the longest chain of dependent loads a row of a level kernel waits for,
+# from the launch: the matvec's off -> pos/col -> coefficient and x; down's
+# aoff -> acell -> off -> pos/col -> the neighbour's r and diag; up's off ->
+# col -> agg -> xc
+AMG_CHAIN = {"matvec": 3, "down": 5, "up": 4}
+
+
+def amg_tail_chain(sizes, sweeps: int = 12) -> dict:
+    """What ``amg_tail_kernel`` on levels of ``sizes`` rows (the coarsest
+    last) must wait for, one after another: ``barriers``, the 2K - 2
+    cluster barriers between its 2K - 1 phases (K - 1 down, the coarsest,
+    K - 1 up); ``l2``, the loads from global memory before its first
+    result (the top level's restriction chain, ``AMG_CHAIN["down"]``, or,
+    with the coarsest alone, its r); ``dsmem``, after each barrier of the
+    levels between the top and the coarsest the one read of another
+    block's shared memory that waits on the phase before (down: a
+    neighbour's r; up: the coarse x); ``smem``, block 0's own reads of the
+    coarsest's r and of x in each sweep.  The index and coefficient loads
+    of a phase wait on nothing a phase writes, so they can be issued before
+    its barrier and are not counted; rows a thread takes in turn are
+    independent, so neither are they.  A lower bound."""
+    if not sizes or sweeps < 0:
+        raise ValueError("at least one level and sweeps >= 0")
+    K = len(sizes)
+    if K == 1:
+        return dict(barriers=0, l2=1, dsmem=0, smem=sweeps)
+    return dict(barriers=2 * K - 2, l2=AMG_CHAIN["down"], dsmem=(K - 2) + (K - 1),
+                smem=1 + sweeps)
+
+
+def amg_latency_bound(launch_floor_ms: float, *terms) -> float:
+    """The least time of a pressure-solve kernel that its launch and what it
+    waits for bind: the launch floor plus each term's ``(count, unit_ms)``:
+    dependent loads of ``t_dep`` (the neighbour walk's latency,
+    ``ops/probe.py``), and for the tail its cluster barriers and shared
+    memory reads (``probe.cluster_sync``, ``probe.smem_chase``)."""
+    if launch_floor_ms < 0 or any(n < 0 or ms < 0 for n, ms in terms):
+        raise ValueError("counts and times must be >= 0")
+    return launch_floor_ms + sum(n * ms for n, ms in terms)

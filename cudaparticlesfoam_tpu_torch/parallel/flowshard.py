@@ -1167,7 +1167,7 @@ def _local_coarse_ops(lamg: LocalAmg, s: int, m: fv.FvMesh, diag0, off0):
 def _local_vcycle(lamg: LocalAmg, s: int, m: fv.FvMesh, diag0, off0, levels, r0, omega=0.65):
     """One V(1,1) cycle of shard s's hierarchy (JAX ``_local_vcycle``):
     damped Jacobi on every level, 12 sweeps on the coarsest.  On the card
-    the level kernels (``fv.vcycle_levels``: 2L + 1 launches), the
+    the level kernels and the tail (``fv.vcycle_levels``: 2t + 1 launches), the
     prolongation gathering the clipped index times ``agg_valid``."""
     t = lamg.shard[s]
     L = lamg.n_levels

@@ -255,15 +255,18 @@ def _wrapper_calls(plan, aggs, t):
         "fv_matvec": lambda: amg_cuda.fv_matvec(plan, t["d"], t["o"], t["o"], t["x"]),
         "amg_down": lambda: amg_cuda.amg_down(plan, aggs, t["d"], t["o"], t["x"]),
         "amg_up": lambda: amg_cuda.amg_up(plan, t["d"], t["o"], t["x"], t["agg"], t["xc"]),
+        "amg_tail": lambda: amg_cuda.amg_tail([plan], [], [(t["d"], t["o"])], [], t["x"]),
         "amg_coarsest": lambda: amg_cuda.amg_coarsest(plan, t["d"], t["o"], t["x"]),
     }
 
 
-@pytest.mark.parametrize("name", [f.__name__ for f in amg_cuda.WRAPPERS])
+@pytest.mark.parametrize("name", [f.__name__ for f in amg_cuda.WRAPPERS] + ["amg_coarsest"])
 def test_wrappers_run_the_plain_version_on_the_cpu_and_raise_elsewhere(polys, name):
     """CPU tensors: the plain version, no launch counted.  Meta tensors (a
     device with no kernel): a ValueError, with the plans on the CPU or on
-    the meta device alike, and no fall-back to the plain version."""
+    the meta device alike, and no fall-back to the plain version.
+    ``amg_coarsest`` is the tail of the coarsest level alone: its launches
+    count in ``amg_tail``'s."""
     m = fv.fv_mesh(polys["duct"][0], dtype=torch.float64, device=CPU)
     h = fv.build_amg(m, min_coarse=20)
     A, _, x, rng = _system(m, 5)
@@ -275,9 +278,10 @@ def test_wrappers_run_the_plain_version_on_the_cpu_and_raise_elsewhere(polys, na
         "fv_matvec": lambda: amg.matvec_plain(plan, A.diag, A.upper, A.upper, x),
         "amg_down": lambda: amg.down_plain(plan, aggs, A.diag, A.upper, x),
         "amg_up": lambda: amg.up_plain(plan, A.diag, A.upper, x, h.aggs[0], t["xc"]),
+        "amg_tail": lambda: amg.coarsest_plain(plan, A.diag, A.upper, x),
         "amg_coarsest": lambda: amg.coarsest_plain(plan, A.diag, A.upper, x),
     }[name]
-    wrapper = getattr(amg_cuda, name)
+    wrapper = amg_cuda.amg_tail if name == "amg_coarsest" else getattr(amg_cuda, name)
     before = wrapper.launches
     assert torch.equal(_wrapper_calls(plan, aggs, t)[name](), plain())
     assert wrapper.launches == before

@@ -174,7 +174,7 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                      "rare_kernel", "rare_kernel<remote>", "rare_kernel<pk, remote>",
                      "stream_kernel", "rare_kernel"] + [
                      "fv_matvec_kernel", "amg_down_kernel", "amg_up_kernel",
-                     "amg_coarsest_kernel"] * 2
+                     "amg_tail_kernel"] * 2
     assert [k["path"].startswith("uncoupled driver") for k in table["kernels"]] == \
         [False] * 8 + [True] * 2 + [False] * 20
     assert all(k["path"].startswith("rk4-tracers") for k in table["kernels"][10:14])
@@ -204,7 +204,17 @@ def test_chip_smoke_rehearsal_runs_every_phase():
         assert os.path.exists(os.path.join(root, entry["source"]))
     floors = {k["name"] for k in table["kernels"] if "launch_floor_ms" in k}
     assert floors == {"rare_kernel", "convex_rare_kernel", "hop_admit_kernel", "rare_kernel<pk>",
-                      "rare_kernel<remote>", "rare_kernel<pk, remote>"}
+                      "rare_kernel<remote>", "rare_kernel<pk, remote>", "fv_matvec_kernel",
+                      "amg_down_kernel", "amg_up_kernel", "amg_tail_kernel"}
+    # the flow rows' latency bound: launch floor + chain x t_dep (+ the tail's
+    # cluster barriers and the shared-memory reads after them), and its share
+    for entry in table["kernels"][22:]:
+        assert entry["latency_bound_ms"] == pytest.approx(
+            entry["launch_floor_ms"] + entry["chain"] * entry["t_dep_ms"]
+            + entry["tail_barriers"] * entry["barrier_ms"]
+            + entry["dsmem_loads"] * entry["t_dsmem_ms"] + entry["smem_loads"] * entry["t_smem_ms"])
+        assert entry["share_of_latency"] == pytest.approx(entry["latency_bound_ms"] / entry["ms"])
+        assert (entry["smem_loads"] > 0) == (entry["name"] == "amg_tail_kernel")
     # the rare rows' latency bound (phase 6): chains, both latencies, bound and share
     rare = {"rare_kernel", "convex_rare_kernel", "rare_kernel<pk>", "rare_kernel<remote>",
             "rare_kernel<pk, remote>"}
@@ -238,7 +248,8 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                 "[dyn-coupled]", "[tj-step]", "[tj-run]", "[tj-cycle]", "[pimple-split]",
                 "[tj-advect]", "[remote]", "[dp]", "[part]", "[part-pk]", "[drivers]",
                 "[flowshard-parity]", "[tj-par]", "[tj-par-cycle]", "[dryrun]", "[flowshard]",
-                "[amg-parity]", "[amg-times]", "[amg-graph]", "[amg-modes]", "[amg-sharded]"):
+                "[amg-parity]", "[amg-times]", "[amg-graph]", "[amg-modes]", "[amg-sharded]",
+                "[amg-bound]"):
         assert any(line.startswith(tag) for line in lines), tag
     # phase 9: RK4 kernel = plain in every case, the oracles, the cell
     rk4 = [line for line in lines if line.startswith("[rk4-parity]")]

@@ -273,3 +273,93 @@ def test_rk4_stream_adds_stage_rows_and_their_operations():
         big = traffic.stream(1_000_000, 4, "none", hops=60_000, hopped=60_000, layout=layout,
                              rk4=True, stage_rows=150_000)
         assert big.bound_by == "bytes"
+
+
+def test_amg_tail_reads_its_levels_and_writes_the_top():
+    """The tail on levels of 10 and 5 rows (12 and 4 faces): the top's r,
+    each level's diag, off and row plan (int32; the coarse one 6 offsets,
+    8 + 8 entries), the restriction's plan and the prolongation index of
+    the top (and valid on a shard); it writes the top's x.  A tail of one
+    level is the coarsest alone."""
+    t = traffic.amg_tail([10, 5], [12, 4], 4)
+    plans = 4 * (11 + 48) + 4 * (6 + 16)
+    assert t.read == 4 * 10 + 4 * (10 + 12 + 5 + 4) + plans + 4 * (5 + 1 + 10) + 4 * 10
+    assert t.written == 40
+    assert traffic.amg_tail([10, 5], [12, 4], 8, valid=True).read \
+        == 8 * 10 + 8 * (31 + 10) + plans + 4 * (16 + 10)
+    assert traffic.amg_tail([10], [12], 4) == traffic.amg_coarsest(10, 12, 4)
+    with pytest.raises(ValueError):
+        traffic.amg_tail([10, 5], [12], 4)
+
+
+@pytest.mark.parametrize("sizes, want", [
+    # the coarsest alone: its r from global memory, then x read back in each sweep
+    ([116], dict(barriers=0, l2=1, dsmem=0, smem=12)),
+    # one level above it: the top's restriction chain, the coarse x read up
+    ([218, 116], dict(barriers=2, l2=5, dsmem=1, smem=13)),
+    ([8192, 4096, 116], dict(barriers=4, l2=5, dsmem=3, smem=13)),
+    # pitzDaily's tail (levels 1-7): 6 phases down, the coarsest, 6 up
+    ([6_116, 3_077, 1_557, 802, 417, 218, 116], dict(barriers=12, l2=5, dsmem=11, smem=13)),
+])
+def test_amg_tail_chain(sizes, want):
+    assert traffic.amg_tail_chain(sizes) == want
+
+
+def test_amg_tail_chain_counts_sweeps_and_refuses_nothing():
+    assert traffic.amg_tail_chain([116], sweeps=0)["smem"] == 0
+    assert traffic.amg_tail_chain([218, 116], sweeps=3)["smem"] == 4
+    with pytest.raises(ValueError):
+        traffic.amg_tail_chain([])
+
+
+def test_amg_latency_bound_adds_floor_chain_and_barriers():
+    assert traffic.amg_latency_bound(2e-3, (5, 2e-4)) == pytest.approx(2e-3 + 5 * 2e-4)
+    assert traffic.amg_latency_bound(2e-3, (5, 2e-4), (12, 7e-4), (11, 1e-4), (13, 2e-5)) \
+        == pytest.approx(2e-3 + 5 * 2e-4 + 12 * 7e-4 + 11 * 1e-4 + 13 * 2e-5)
+    assert traffic.amg_latency_bound(2e-3) == 2e-3
+    with pytest.raises(ValueError):
+        traffic.amg_latency_bound(2e-3, (-1, 2e-4))
+    with pytest.raises(ValueError):
+        traffic.amg_latency_bound(-1.0, (1, 2e-4))
+
+
+def test_cluster_sync_counts_on_the_cpu_and_checks_its_state():
+    import torch
+
+    from cudaparticlesfoam_tpu_torch.ops import probe
+
+    state = torch.zeros(16, dtype=torch.int32)
+    probe.cluster_sync(7, 128, state)
+    probe.cluster_sync(3, 512, state, relaxed=True)
+    assert state.tolist() == [10] * 16
+    for bad in (torch.zeros(8, dtype=torch.int32), torch.zeros(16, dtype=torch.int64)):
+        with pytest.raises(ValueError):
+            probe.cluster_sync(1, 128, bad)
+    with pytest.raises(ValueError):
+        probe.cluster_sync(1, 1024, state)
+
+
+def test_smem_chase_follows_its_cycle_on_the_cpu():
+    """The plain version walks j -> (389 j + 1) mod 1024, a single cycle
+    through all 1,024 slots, from state[0] mod 1024, and leaves where it
+    stopped in state[0]."""
+    import torch
+
+    from cudaparticlesfoam_tpu_torch.ops import probe
+
+    state = torch.tensor([5, 0], dtype=torch.int32)
+    probe.smem_chase(3, state)
+    assert int(state[0]) == (389 * ((389 * ((389 * 5 + 1) % 1024) + 1) % 1024) + 1) % 1024
+    seen = set()
+    state = torch.zeros(2, dtype=torch.int32)
+    for _ in range(probe.CHASE_SLOTS):
+        probe.smem_chase(1, state, remote=True)
+        seen.add(int(state[0]))
+    assert len(seen) == probe.CHASE_SLOTS and int(state[0]) == 0
+    state = torch.tensor([1024 + 5, 0], dtype=torch.int32)     # a start is taken mod 1024
+    probe.smem_chase(1, state)
+    assert int(state[0]) == (389 * 5 + 1) % 1024
+    with pytest.raises(ValueError):
+        probe.smem_chase(-1, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        probe.smem_chase(1, torch.zeros(3, dtype=torch.int32))
