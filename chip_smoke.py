@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py               # the full check on cuda:0
     python3 chip_smoke.py --rehearse    # small sizes on the CPU, plain versions only
-    python3 chip_smoke.py --parent DIR  # also phase 7, against the checkout in DIR
+    python3 chip_smoke.py --parent DIR  # also phase 7 and 14a's tail, against the checkout in DIR
+    python3 chip_smoke.py --phase amg-tail [--parent DIR]  # 14a alone (amg_system matrices)
 
 Phases, one line of numbers each, any failure exits non-zero:
 
@@ -328,8 +329,10 @@ Phases, one line of numbers each, any failure exits non-zero:
         level, x [nc] and [nc, 3], down and up above the coarsest, the
         tail at every split (from the coarsest alone to the whole
         hierarchy; a split whose vectors do not fit in a block's shared
-        memory must raise), and on a TJunction shard's local hierarchy
-        with valid; and the kernels' matvec against
+        memory, or one from at most TAIL_ROWS rows that cannot stage every
+        level, must raise), on a TJunction shard's local hierarchy with
+        valid, and on a 16 x 16 x 8 box with block 0 from 32 rows (up to
+        six cluster levels); and the kernels' matvec against
         the op-by-op card path (torch.segment_reduce a row): rows differing,
         largest gap in ulps.
         [amg-times] each kernel's device ms (graph replays), its plain
@@ -338,9 +341,15 @@ Phases, one line of numbers each, any failure exits non-zero:
         units: one cluster barrier (probe.cluster_sync) and one dependent
         read of a block's own and of another block's shared memory
         (probe.smem_chase); one cuSPARSE CSR torch.mv of the same matrix
-        replayed from a graph beside the matvec; each level's down + up
-        against the tail's two phases there (the crossover that fixes
-        TAIL_ROWS);
+        replayed from a graph beside the matvec; for the tail its plan
+        (cluster levels, staged bytes a block, neighbours in another
+        block), the earlier design's chain and this one's, its phases from block 0's
+        clock (prologue, each level's down and up, the coarsest), the
+        cluster barrier at 2, 4, 8 and 16 blocks (release in every thread,
+        relaxed, warp 0 releasing), block 0 from 512 and 1024 rows and,
+        with --parent, the parent's tail on the same inputs in turns; each
+        level's down + up against the tail's two phases there (the
+        crossover that fixes TAIL_ROWS);
    14b. [amg-graph] one pressure solve replayed from the graph = the eager
         loop bit for bit, the same CG count, one replay a CG iteration, the
         capture's ms, and a V-cycle's launches {amg_down: t, amg_up: t,
@@ -2962,15 +2971,17 @@ PINNED_PTXAS = (
     "stream_kernel<float, philox>: 56 regs, 32 B stack, 0 B spill",
     "stream_kernel<float, pk>: 61 regs, 0 B stack, 0 B spill",
     "stream_kernel<float>: 48 regs, 0 B stack, 0 B spill",
-    # the measuring cluster barrier (csrc/probe.cu; <1>: relaxed) and shared
-    # memory chase (<1>: another block's)
+    # the measuring cluster barrier (csrc/probe.cu; <1>: relaxed, <2>: warp 0
+    # releases, the AMG tail's) and shared memory chase (<1>: another block's)
     "cluster_sync_kernel<0>: 8 regs, 0 B stack, 0 B spill",
     "cluster_sync_kernel<1>: 8 regs, 0 B stack, 0 B spill",
+    "cluster_sync_kernel<2>: 8 regs, 0 B stack, 0 B spill",
     "smem_chase_kernel<0>: 14 regs, 0 B stack, 0 B spill",
     "smem_chase_kernel<1>: 23 regs, 0 B stack, 0 B spill",
 )
 # the pressure solve's kernels (csrc/amg.cu): the matvec and level kernels
 # (their lines unchanged by the tail), and the tail's two instantiations
+# (the tail plan's kernel)
 PINNED_AMG_PTXAS = (
     "amg_down_kernel<double>: 48 regs, 0 B stack, 0 B spill",
     "amg_down_kernel<float>: 32 regs, 0 B stack, 0 B spill",
@@ -2982,8 +2993,8 @@ PINNED_AMG_PTXAS = (
     "fv_matvec_kernel<float, k=1>: 32 regs, 0 B stack, 0 B spill",
     "fv_matvec_kernel<float, k=2>: 32 regs, 0 B stack, 0 B spill",
     "fv_matvec_kernel<float, k=3>: 32 regs, 0 B stack, 0 B spill",
-    "amg_tail_kernel<double>: 128 regs, 0 B stack, 0 B spill",
-    "amg_tail_kernel<float>: 122 regs, 0 B stack, 0 B spill",
+    "amg_tail_kernel<double>: 128 regs, 32 B stack, 116 B spill",
+    "amg_tail_kernel<float>: 128 regs, 0 B stack, 0 B spill",
 )
 
 
@@ -5148,42 +5159,90 @@ def tail_lists(lvs):
             [(lv["diag"], lv["up"]) for lv in lvs], [(lv["agg"], None) for lv in lvs[:-1]])
 
 
-def tail_fits(amg_cuda, rows, elem):
-    """Whether a tail of these levels keeps its vectors in a block's shared
-    memory (amg_cuda.tail_layout raises where it does not)."""
+def tail_fits(amg_cuda, rows, aggs, prolong, elem):
+    """(the shared-memory layout of a tail of these levels (its plan at
+    amg_cuda.TAIL_BLOCK0_ROWS; amg_cuda.tail_layout), None), or (None, the
+    layout's message) where it raises: the vectors do not fit in a block's
+    shared memory, or a tail from at most TAIL_ROWS rows cannot stage
+    every level."""
+    from cudaparticlesfoam_tpu_torch.ops import amg_tail
+
+    plan = amg_tail.tail_plan(rows, aggs, prolong, amg_cuda.TAIL_BLOCK0_ROWS)
     try:
-        amg_cuda.tail_layout([p.n for p in rows], int(rows[-1].h_offsets[-1]), elem)
-    except ValueError:
-        return False
-    return True
+        return amg_cuda.tail_layout(plan, elem, any(v is not None for _, v in prolong)), None
+    except ValueError as exc:
+        return None, str(exc)
 
 
 def tail_splits(torch, amg, amg_cuda, rows, aggs, ops, prolong, r):
     """The tail against tail_plain at every split t = L .. 0 (the residual
-    at t from the plain downs above it) whose vectors fit in shared memory;
-    on the card a split that does not fit must raise: (all bit for bit,
-    the largest |difference|, checks, splits that do not fit)."""
+    at t from the plain downs above it) whose layout fits (tail_fits); on
+    the card a split that does not fit must raise: (all bit for bit, the
+    largest |difference|, checks, splits that do not fit, splits with a
+    level whose segment is read from global memory, not staged, the first
+    raise's message or None)."""
     rs = [r]
     for li, ag in enumerate(aggs):
         rs.append(amg.down_plain(rows[li], ag, *ops[li], rs[li]))
-    same, err, checks, too_big = True, 0.0, 0, 0
+    same, err, checks, too_big, unstaged, why = True, 0.0, 0, 0, 0, None
     for t in range(len(aggs), -1, -1):
         args = (rows[t:], aggs[t:], ops[t:], prolong[t:], rs[t])
-        if not tail_fits(amg_cuda, rows[t:], r.element_size()):
+        lay, msg = tail_fits(amg_cuda, rows[t:], aggs[t:], prolong[t:], r.element_size())
+        if lay is None:
             too_big += 1
             if r.device.type == "cuda":
                 try:
                     amg_cuda.amg_tail(*args)
                     same = False
-                except ValueError:
-                    pass
-                continue
+                except ValueError as exc:
+                    msg = str(exc)
+            why = why or f"t={t}: {msg}"
+            continue
+        unstaged += not all(lay.stage)
         want = amg.tail_plain(*args)
         got = amg_cuda.amg_tail(*args)
         same &= bitwise_equal(torch, got, want)
         err = max(err, float((got - want).abs().max()))
         checks += 1
-    return same, err, checks, too_big
+    return same, err, checks, too_big, unstaged, why
+
+
+def phase_amg_first(torch, dev, tmp, errs, gpu_line):
+    """14a on a 16 x 16 x 8 box (amg_system's matrix) with block 0 from 32
+    rows, so that up to six levels spread over the cluster: the tail at
+    every split against tail_plain, float32 and float64, bit for bit, one
+    launch at a time and synchronised, each split logged before its
+    launch (a fault names its split)."""
+    from cudaparticlesfoam_tpu_torch.models import fv
+    from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda, amg_tail
+
+    m = fv.fv_mesh(amg_box(tmp, (16, 16, 8)), dtype=torch.float32, device=dev)
+    h = fv.build_amg(m, min_coarse=20)
+    A, _ = amg_system(torch, fv, m, torch.float32, AMG_SEED)
+    most = 0
+    for dtype in (torch.float32, torch.float64):
+        lvs = amg_level_cases(torch, fv, amg, m, h, A, dtype, AMG_SEED)
+        rows, aggs, ops, prolong = tail_lists(lvs)
+        rs = [lvs[0]["r"]]
+        for k, ag in enumerate(aggs):
+            rs.append(amg.down_plain(rows[k], ag, *ops[k], rs[k]))
+        for t in range(len(aggs), -1, -1):
+            args = (rows[t:], aggs[t:], ops[t:], prolong[t:], rs[t])
+            C = amg_tail.tail_plan(rows[t:], aggs[t:], prolong[t:], 32).cluster
+            most = max(most, C)
+            log(f"[amg-first] {str(dtype).split('.')[1]} split t={t} (rows {rows[t].n}, "
+                f"cluster levels {C}) ...")
+            got = amg_cuda.amg_tail(*args, block0_rows=32)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            want = amg.tail_plain(*args)
+            errs["amg_tail"] = max(errs.get("amg_tail", 0.0), float((got - want).abs().max()))
+            need(bitwise_equal(torch, got, want),
+                 f"14a: the tail differs from its plain version on the 16x16x8 box at split {t} "
+                 f"({dtype}, block 0 from 32 rows)")
+    log(f"[amg-parity] {gpu_line} | box 16x16x8 ({m.n_cells} cells), block 0 from 32 rows "
+        f"(up to {most} cluster levels): amg_tail at every split = tail_plain bit for bit in "
+        f"float32 and float64")
 
 
 def phase_amg_parity(torch, dev, tag, m, h, A, errs, gpu_line):
@@ -5229,16 +5288,17 @@ def phase_amg_parity(torch, dev, tag, m, h, A, errs, gpu_line):
                 nrow, g = ulp_gap(torch, amg_cuda.fv_matvec(rows, d_, up, lo, x), seg)
                 gap[k][0] += nrow
                 gap[k][1] = max(gap[k][1], g)
-        tail_same, tail_err, tail_checks, too_big = tail_splits(torch, amg, amg_cuda,
-                                                                *tail_lists(lvs), lvs[0]["r"])
+        tail_same, tail_err, tail_checks, too_big, unstaged, why = tail_splits(
+            torch, amg, amg_cuda, *tail_lists(lvs), lvs[0]["r"])
         errs["amg_tail"] = max(errs.get("amg_tail", 0.0), tail_err)
         log(f"[amg-parity] {gpu_line} | {tag}, {name}: levels={len(h.sizes) + 1} "
             f"sizes={[m.n_cells] + list(h.sizes)} checks={checks} kernel_eq_plain={int(same)} "
             f"| amg_tail at every split t={len(h.sizes)}..0: checks={tail_checks} "
             f"kernel_eq_plain={int(tail_same)} splits_too_big_for_shared_memory={too_big} "
-            f"(raise on the card) "
-            f"| the kernels' matvec against PR 13's segment_reduce path: x[nc] rows_differing="
-            f"{gap[1][0]} max_ulp_gap={gap[1][1]:g}, x[nc,3] rows_differing={gap[3][0]} "
+            f"(raise on the card) splits_with_a_level_read_from_global_memory={unstaged} "
+            + (f"(first raise: {why}) " if why else "")
+            + f"| the kernels' matvec against the op-by-op segment_reduce path: x[nc] "
+            f"rows_differing={gap[1][0]} max_ulp_gap={gap[1][1]:g}, x[nc,3] rows_differing={gap[3][0]} "
             f"max_ulp_gap={gap[3][1]:g} ({time.perf_counter() - t0:.1f} s)")
         need(same and tail_same,
              f"14a: an AMG kernel differs from its plain version ({tag}, {name})")
@@ -5254,12 +5314,16 @@ def amg_csr(torch, lv):
     return torch.sparse_coo_tensor(idx, vals, (n, n)).coalesce().to_sparse_csr()
 
 
-def cluster_barrier_ms(torch, probe, timer, dev, threads, relaxed=False, syncs=100):
-    """Device ms of one cluster barrier at the tail's shape (cluster_sync_kernel:
-    a launch with ``syncs`` barriers less one with none, replayed from a
-    graph, over ``syncs``); ``relaxed`` prices it without the fence."""
+def cluster_barrier_ms(torch, probe, timer, dev, threads, mode="release", blocks=16,
+                       syncs=100):
+    """Device ms of one cluster barrier in a cluster of ``blocks`` blocks
+    of ``threads`` (cluster_sync_kernel: a launch with ``syncs`` barriers
+    less one with none, replayed from a graph, over ``syncs``); ``mode``
+    as probe.cluster_sync: "release" (the earlier tail's), "relaxed" (no fence:
+    only its price), "one release" (this tail's barrier)."""
     state = torch.zeros(probe.CLUSTER_BLOCKS, dtype=torch.int32, device=dev)
-    ms = [device_ms(torch, timer, lambda n=n: probe.cluster_sync(n, threads, state, relaxed))
+    ms = [device_ms(torch, timer,
+                    lambda n=n: probe.cluster_sync(n, threads, state, mode, blocks))
           for n in (syncs, 0)]
     return max(ms[0] - ms[1], 0.0) / syncs
 
@@ -5275,23 +5339,92 @@ def smem_load_ms(torch, probe, timer, dev, remote, steps=1000):
     return max(ms[0] - ms[1], 0.0) / steps
 
 
-def phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line):
+def tail_stamps(torch, dev, amg_cuda, amg_tail, args, reps):
+    """{phase: device ms} of one tail launch (amg_tail's stamps: block 0's
+    thread 0 reads its SM clock after each phase; the clocks are turned
+    into ms by the launch's own globaltimer span over its clocks), over
+    ``reps`` launches, and the mean in-kernel span; ({}, None) on the CPU."""
+    rows, aggs, ops, prolong, r = args
+    if dev.type != "cuda":
+        return {}, None
+    plan = amg_tail.tail_plan(rows, aggs, prolong, amg_cuda.TAIL_BLOCK0_ROWS)
+    names = amg_tail.phases(plan)
+    stamps = torch.zeros(len(names) + 2, dtype=torch.int64, device=dev)
+    for _ in range(reps):
+        amg_cuda.amg_tail(rows, aggs, ops, prolong, r, stamps=stamps)
+    s = stamps.tolist()
+    ms_per_clock = s[-2] / max(s[-1], 1) / 1e6
+    return {n: s[i] * ms_per_clock / reps for i, n in enumerate(names)}, s[-2] / reps / 1e6
+
+
+def load_parent_amg(parent):
+    """The parent checkout's ops/amg_cuda.py (its TailParams, tail_layout
+    and tail_params; its relative imports resolve to this tree's amg.py and
+    fused_cuda.py, which the parent shares), as a module of its own."""
+    import importlib.util
+
+    path = os.path.join(parent, "cudaparticlesfoam_tpu_torch", "ops", "amg_cuda.py")
+    spec = importlib.util.spec_from_file_location(
+        "cudaparticlesfoam_tpu_torch.ops._parent_amg_cuda", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod        # its dataclasses look their module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def parent_tail(torch, dev, parent, args):
+    """A call of the parent's amg_tail_kernel (its library, built by
+    load_parent, through its bare C entries and its own TailParams) on the
+    tail ``args``, and its output."""
+    import ctypes
+
+    plib, pdir = parent
+    mod = load_parent_amg(pdir)
+    rows, aggs, ops, prolong, r = args
+    sfx = {torch.float32: "f32", torch.float64: "f64"}[r.dtype]
+    lay = mod.tail_layout([p.n for p in rows], int(rows[-1].h_offsets[-1]), r.element_size())
+    x = torch.empty_like(r)
+    params = mod.tail_params(rows, aggs, ops, prolong, r, x, lay)
+    prep, run = getattr(plib, f"cpf_amg_tail_prepare_{sfx}"), getattr(plib, f"cpf_amg_tail_{sfx}")
+    prep.argtypes, prep.restype = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    run.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    run.restype = ctypes.c_int
+    clusters = ctypes.c_int(0)
+    need(prep(lay.threads, lay.smem, ctypes.addressof(clusters)) == 0 and clusters.value > 0,
+         "the parent's amg_tail_prepare failed")
+
+    def call():
+        need(run(ctypes.addressof(params), lay.threads, lay.smem,
+                 torch.cuda.current_stream(dev).cuda_stream) == 0, "the parent's tail failed")
+        return x
+
+    call.keep = params
+    return call
+
+
+def phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line, parent=None):
     """14a's timings at the path's shapes (A's float32 operators, random
     inputs): each kernel's device ms (graph replays, device_ms) beside its
     plain version's ms and, for fv_matvec, one cuSPARSE CSR matvec of the
     same matrix (torch.mv, replayed from a graph as the kernel is, as
     library_ms); bytes, bound and share (ops/traffic.py); each kernel's
-    dependent chain (traffic.AMG_CHAIN, traffic.amg_tail_chain) and the
-    tail's units, one cluster barrier and one dependent read of a block's
-    own and of another block's shared memory, for its latency bound
-    (priced with phase 6's load latency and launch floor in the kernel
-    table); fv_matvec, amg_down and amg_up at level 0 (the largest),
-    amg_tail at the path's split (amg.tail_start); the crossover: each
-    level's down + up against the tail's two phases there (the tail from
-    that level less the tail from the next); one V-cycle with the tail and
-    with TAIL_ROWS = 0.  Returns {kernel: dict} for the kernel table."""
+    dependent chain (traffic.AMG_CHAIN, traffic.amg_tail_chain: the earlier
+    kernel, the yardstick, and this design's) and the tail's units, one
+    cluster barrier and one dependent read of a block's own and of another
+    block's shared memory, for its latency bound (priced with phase 6's
+    load latency and launch floor in the kernel table); fv_matvec, amg_down
+    and amg_up at level 0 (the largest), amg_tail at the path's split
+    (amg.tail_start); for the tail also its plan (cluster levels, threads,
+    staged bytes, levels staged, neighbours in another block), the cluster
+    barrier at 2, 4, 8 and 16 blocks in its three forms (probe.cluster_sync),
+    its phases (tail_stamps), block 0 from 512 and 1024 rows, and with ``parent``
+    (the parent's library and checkout) the parent's tail on the same
+    inputs in turns; the crossover: each level's down + up against the
+    tail's two phases there (the tail from that level less the tail from
+    the next); one V-cycle with the tail and with TAIL_ROWS = 0.  Returns
+    {kernel: dict} for the kernel table."""
     from cudaparticlesfoam_tpu_torch.models import fv
-    from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda, probe
+    from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda, amg_tail, probe
 
     timer = Timer(torch, dev)
     lvs = amg_level_cases(torch, fv, amg, m, h, A, A.diag.dtype, AMG_SEED + 1)
@@ -5305,17 +5438,23 @@ def phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line):
     for li in range(L):
         rs.append(amg_cuda.amg_down(rows[li], aggs[li], *ops[li], rs[li]))
 
-    def tail_from(k):
-        return lambda: amg_cuda.amg_tail(rows[k:], aggs[k:], ops[k:], prolong[k:], rs[k])
+    def tail_args(k):
+        return rows[k:], aggs[k:], ops[k:], prolong[k:], rs[k]
 
-    lay = amg_cuda.tail_layout(sizes[t:], int(rows[-1].h_offsets[-1]), e)
+    def tail_from(k):
+        return lambda: amg_cuda.amg_tail(*tail_args(k))
+
+    plan = amg_tail.tail_plan(rows[t:], aggs[t:], prolong[t:], amg_cuda.TAIL_BLOCK0_ROWS)
+    lay = amg_cuda.tail_layout(plan, e)
     tc = traffic.amg_tail_chain(sizes[t:])
+    tn = traffic.amg_tail_chain(sizes[t:], block0_rows=amg_cuda.TAIL_BLOCK0_ROWS)
     # the tail's units: a cluster barrier, a dependent read of another
     # block's shared memory and of a block's own
     units = dict(barrier_ms=cluster_barrier_ms(torch, probe, timer, dev, lay.threads),
                  t_dsmem_ms=smem_load_ms(torch, probe, timer, dev, True),
                  t_smem_ms=smem_load_ms(torch, probe, timer, dev, False))
-    relaxed = cluster_barrier_ms(torch, probe, timer, dev, lay.threads, True)
+    relaxed = cluster_barrier_ms(torch, probe, timer, dev, lay.threads, "relaxed")
+    one = cluster_barrier_ms(torch, probe, timer, dev, lay.threads, "one release")
     ch = traffic.AMG_CHAIN
     level = dict(tail_barriers=0, dsmem_loads=0, smem_loads=0, **units)
     calls = {
@@ -5331,11 +5470,13 @@ def phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line):
                    lambda: amg.up_plain(rows0, d0, up0, r0, l0["agg"], l0["xc"]),
                    traffic.amg_up(sizes[0], sizes[1], nfs[0], e), t,
                    dict(level, chain=ch["up"]), "level 0"),
-        "amg_tail": (tail_from(t),
-                     lambda: amg.tail_plain(rows[t:], aggs[t:], ops[t:], prolong[t:], rs[t]),
+        # the earlier design's chain (the yardstick of the same work) and this one's
+        "amg_tail": (tail_from(t), lambda: amg.tail_plain(*tail_args(t)),
                      traffic.amg_tail(sizes[t:], nfs[t:], e), 1,
                      dict(chain=tc["l2"], tail_barriers=tc["barriers"], dsmem_loads=tc["dsmem"],
-                          smem_loads=tc["smem"], **units),
+                          smem_loads=tc["smem"], design_chain=tn["l2"],
+                          design_barriers=tn["barriers"], design_dsmem_loads=tn["dsmem"],
+                          design_smem_loads=tn["smem"], one_release_barrier_ms=one, **units),
                      f"levels {t}..{L} ({amg_cuda.TAIL_BLOCKS} blocks x {lay.threads} threads, "
                      f"{lay.smem} B of shared memory a block)"),
     } if L else {}
@@ -5360,10 +5501,19 @@ def phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line):
                       f"|library - kernel| max {lib_err:.3e}; kernel "
                       f"{'slower' if ms > res['library_ms'] else 'faster'})")
         elif key == "amg_tail":
-            extra += (f" barriers={tc['barriers']} dsmem_loads={tc['dsmem']} smem_loads="
-                      f"{tc['smem']} cluster_barrier_ms={units['barrier_ms']:.5f} "
-                      f"(release/acquire; a relaxed arrive {relaxed:.5f}) dsmem_load_ms="
-                      f"{units['t_dsmem_ms']:.3e} smem_load_ms={units['t_smem_ms']:.3e}")
+            res.update(cluster_levels=plan.cluster, staged_bytes=lay.smem,
+                       vector_bytes=lay.vectors, levels_staged=sum(lay.stage),
+                       remote_terms=plan.remote_terms, cluster_terms=plan.cluster_terms)
+            extra += (f" earlier design: barriers={tc['barriers']} dsmem_loads={tc['dsmem']} "
+                      f"smem_loads={tc['smem']} | this design: cluster_levels={plan.cluster} "
+                      f"(block 0 from {amg_cuda.TAIL_BLOCK0_ROWS} rows) barriers="
+                      f"{tn['barriers']} l2_loads={tn['l2']} dsmem_loads={tn['dsmem']} "
+                      f"smem_loads={tn['smem']} | cluster_barrier_ms={units['barrier_ms']:.5f} "
+                      f"(release/acquire in every thread; a relaxed arrive {relaxed:.5f}; warp 0 "
+                      f"releasing {one:.5f}) dsmem_load_ms={units['t_dsmem_ms']:.3e} "
+                      f"smem_load_ms={units['t_smem_ms']:.3e} | staged_bytes_a_block={lay.smem} "
+                      f"(vectors {lay.vectors}) levels_staged={sum(lay.stage)}/{len(lay.stage)} "
+                      f"neighbours_in_another_block={plan.remote_terms}/{plan.cluster_terms}")
         out[key] = res
         log(f"[amg-times] {gpu_line} | {tag}, float32, {key} at {where} "
             f"(rows={sizes[t] if key == 'amg_tail' else sizes[0]}): ms={ms:.5f} "
@@ -5373,8 +5523,57 @@ def phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line):
     if not L:
         return out
     reps = BATCH if dev.type == "cuda" else 2      # the rehearsal's host loops: few
+    tb = out["amg_tail"]
+    # the tail's phases, from the clocks block 0 reads after each
+    split, span = tail_stamps(torch, dev, amg_cuda, amg_tail, tail_args(t), reps)
+    tb["phase_ms"] = split
+    log(f"[amg-times] {gpu_line} | {tag}, float32, amg_tail phases (block 0's clock after "
+        f"each, {reps} launches): "
+        + (" ".join(f"{n}={v:.5f}" for n, v in split.items()) + f" | in-kernel span "
+           f"{span:.5f} ms of the kernel's {tb['ms']:.5f}" if split else "not measured (cpu)"))
+    # the cluster barrier by cluster size and form, at the tail's threads
+    bars = {(mode, n): cluster_barrier_ms(torch, probe, timer, dev, lay.threads, mode, n)
+            for mode in probe.BARRIER_MODES for n in (2, 4, 8, 16)}
+    tb["barrier_by_blocks_ms"] = {f"{mode}, {n}": v for (mode, n), v in bars.items()}
+    log(f"[amg-times] {gpu_line} | {tag}, cluster barrier ms at {lay.threads} threads a block "
+        f"by cluster size: " + " | ".join(
+            f"{mode}: " + " ".join(f"{n}={bars[(mode, n)]:.5f}" for n in (2, 4, 8, 16))
+            for mode in probe.BARRIER_MODES))
+    # block 0 from 512 and from 1024 rows (the plan's threshold), or the
+    # layout's reason where that tail cannot stage every level
+    b0, said = {}, {}
+    for n in (512, 1024):
+        run = lambda n=n: amg_cuda.amg_tail(*tail_args(t), block0_rows=n)  # noqa: E731
+        try:
+            b0[n] = device_ms(torch, timer, run, reps=reps)
+            said[n] = f"{b0[n]:.5f} ms"
+        except ValueError as exc:
+            b0[n], said[n] = None, f"raises ({exc})"
+    tb["block0_rows_ms"] = b0
+    log(f"[amg-times] {gpu_line} | {tag}, float32, amg_tail with block 0 from: "
+        + " ".join(f"{n} rows (cluster levels {amg_tail.cluster_levels(sizes[t:], n)}) {v}"
+                   for n, v in said.items())
+        + f" | TAIL_BLOCK0_ROWS={amg_cuda.TAIL_BLOCK0_ROWS}")
+    if parent is not None:
+        theirs = parent_tail(torch, dev, parent, tail_args(t))
+        mine_x, their_x = tail_from(t)(), theirs()
+        turns = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            turns[who].append(device_ms(torch, timer, theirs if who == "parent"
+                                        else tail_from(t), reps=reps))
+        same = bitwise_equal(torch, mine_x, their_x)
+        tb["parent_ms"] = sum(turns["parent"]) / 2
+        tb["parent_turns_ms"], tb["this_turns_ms"] = turns["parent"], turns["this"]
+        log(f"[amg-times] {gpu_line} | {tag}, float32, amg_tail against the parent's on the same "
+            f"inputs, in turns (parent, this, this, parent): parent_ms=("
+            + ", ".join(f"{v:.5f}" for v in turns["parent"]) + ") this_ms=("
+            + ", ".join(f"{v:.5f}" for v in turns["this"]) + f") identical={int(same)}")
+        need(same, f"14a: this tree's tail differs from the parent's ({tag})")
     # the crossover: a level's two kernels against the tail's two phases there
-    tail_ms = {k: device_ms(torch, timer, tail_from(k), reps=reps) for k in range(L, -1, -1)}
+    fits = {k: tail_fits(amg_cuda, rows[k:], aggs[k:], prolong[k:], e)[0] is not None
+            for k in range(L, -1, -1)}
+    tail_ms = {k: device_ms(torch, timer, tail_from(k), reps=reps) if fits[k] else None
+               for k in range(L, -1, -1)}
     cross, kern_sum, kern_bound = [], 0.0, 0.0
     for li in range(L):
         lv = lvs[li]
@@ -5387,16 +5586,17 @@ def phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line):
             kern_sum += pair
             kern_bound += (traffic.amg_down(sizes[li], sizes[li + 1], nfs[li], e).bound_ms
                            + traffic.amg_up(sizes[li], sizes[li + 1], nfs[li], e).bound_ms)
-        cross.append((li, sizes[li], pair, tail_ms[li] - tail_ms[li + 1]))
+        ph = None if tail_ms[li] is None else tail_ms[li] - tail_ms[li + 1]
+        cross.append((li, sizes[li], pair, ph))
     sweep0 = device_ms(torch, timer, lambda: amg_cuda.amg_tail([rows[-1]], [], [ops[-1]], [],
                                                                 rs[L], sweeps=0), reps=reps)
-    wins = [n for _, n, pair, ph in cross if ph < pair]
+    wins = [n for _, n, pair, ph in cross if ph is not None and ph < pair]
     # the split a V-cycle is cheapest at: the level kernels above it, the tail below
-    cost = [sum(c[2] for c in cross[:k]) + tail_ms[k] for k in range(L + 1)]
-    best = min(range(L + 1), key=cost.__getitem__)
+    cost = {k: sum(c[2] for c in cross[:k]) + tail_ms[k] for k in range(L + 1) if fits[k]}
+    best = min(cost, key=cost.__getitem__)
     log(f"[amg-times] {gpu_line} | {tag}, float32, crossover (device ms, graph replays): "
-        + " ".join(f"level {li} rows={n}: down+up={pair:.5f} tail_phases={ph:.5f}"
-                   for li, n, pair, ph in cross)
+        + " ".join(f"level {li} rows={n}: down+up={pair:.5f} tail_phases="
+                   + ("n/a" if ph is None else f"{ph:.5f}") for li, n, pair, ph in cross)
         + f" | coarsest alone {tail_ms[L]:.5f}, with no sweep {sweep0:.5f}: a sweep "
         f"{(tail_ms[L] - sweep0) / amg.COARSEST_SWEEPS:.5f} | the tail cheaper at {len(wins)} "
         f"of {L} levels | the cheapest split t={best} (tail from {sizes[best]} rows): "
@@ -5406,13 +5606,12 @@ def phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line):
                            reps=reps)
     vcyc = device_ms(torch, timer, lambda: fv.vcycle_levels(rows, aggs, ops, prolong, r0),
                      reps=reps)
-    tb = out["amg_tail"]
     log(f"[amg-times] {gpu_line} | {tag}, float32, one V-cycle: {2 * t + 1} launches, "
         f"down + up over {t} "
         f"levels {kern_sum:.5f} ms + tail {tb['ms']:.5f} ms = {kern_sum + tb['ms']:.5f} ms; "
         f"byte bounds {kern_bound + tb['bound_ms']:.5f} ms | vcycle_levels replayed: "
         f"tail {vcyc:.5f} ms, TAIL_ROWS=0 ({2 * L + 1} launches) {split0:.5f} ms")
-    out["amg_tail"].update(vcycle_ms=vcyc, vcycle_split0_ms=split0, split=t, best_split=best)
+    tb.update(vcycle_ms=vcyc, vcycle_split0_ms=split0, split=t, best_split=best)
     return out
 
 
@@ -5519,14 +5718,16 @@ def shard_tail_parity(torch, fv, fs, amg, amg_cuda, lam, m, mask, diag0, off0, r
                                                                        t["neighs"])]
         aggs = [amg.agg_plan(nc, a) for (nc, _), a in zip(lam.sizes, t["aggs"])]
         prolong = [(a, v.to(dtype)) for a, v in zip(t["aggs_c"], t["agg_valid"])]
-        same, err, checks, too_big = tail_splits(torch, amg, amg_cuda, rows, aggs,
-                                                 [(d0, o0)] + levels, prolong,
-                                                 torch.where(mask, r, 0.0).to(dtype))
+        same, err, checks, too_big, unstaged, why = tail_splits(
+            torch, amg, amg_cuda, rows, aggs, [(d0, o0)] + levels, prolong,
+            torch.where(mask, r, 0.0).to(dtype))
         errs["amg_tail"] = max(errs.get("amg_tail", 0.0), err)
         log(f"[amg-parity] {gpu_line} | TJunction shard 0's local hierarchy (valid), "
             f"{str(dtype).split('.')[1]}: sizes={[m.n_cells] + [n for n, _ in lam.sizes]} "
             f"amg_tail at every split: checks={checks} kernel_eq_plain={int(same)} "
-            f"splits_too_big_for_shared_memory={too_big}")
+            f"splits_too_big_for_shared_memory={too_big} "
+            f"splits_with_a_level_read_from_global_memory={unstaged}"
+            + (f" (first raise: {why})" if why else ""))
         need(same, f"14a: the tail differs from its plain version on a shard ({dtype})")
 
 
@@ -5572,13 +5773,14 @@ def phase_amg_sharded(torch, dev, sharded, dt_e, kernels_step, errs, gpu_line):
             f"kernels_per_cg_iteration={unmeasured(per, '%.1f')}")
 
 
-def phase_amg(torch, dev, traffic, tag, split, errs, unit, gpu_line):
+def phase_amg(torch, dev, traffic, tag, split, errs, unit, gpu_line, parent=None):
     """Phase 14 on a flow path's state (10c's or 11d's split: its mesh,
     hierarchy, pressure matrix and right-hand side): 14a's checks at every
-    level and its timings, 14b, 14c.  Returns 14a's timings."""
+    level and its timings (with ``parent``, the parent's tail beside this
+    one), 14b, 14c.  Returns 14a's timings."""
     m, h, A, b, x0 = (split[k] for k in ("m", "h", "A", "b", "x0"))
     phase_amg_parity(torch, dev, tag, m, h, A, errs, gpu_line)
-    times = phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line)
+    times = phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line, parent)
     phase_amg_graph(torch, dev, tag, m, h, A, b, x0, split["tol"], split["max_iter"], gpu_line)
     phase_amg_modes(torch, dev, tag, m, h, A, b, x0, split["tol"], split["max_iter"],
                     split["whole"], unit, gpu_line)
@@ -5587,9 +5789,11 @@ def phase_amg(torch, dev, traffic, tag, split, errs, unit, gpu_line):
 
 def phase_amg_boxes(torch, dev, tmp, rehearse, errs, gpu_line):
     """14a on boxes of 65,536 and 65,499 cells (the rehearsal: 256 and 231)
-    with amg_system's matrix: every level, both dtypes."""
+    with amg_system's matrix: every level, both dtypes; and the tail on the
+    16 x 16 x 8 box with block 0 from 32 rows (phase_amg_first)."""
     from cudaparticlesfoam_tpu_torch.models import fv
 
+    phase_amg_first(torch, dev, tmp, errs, gpu_line)
     for n, cells in (AMG_BOXES_REHEARSAL if rehearse else AMG_BOXES).items():
         m = fv.fv_mesh(amg_box(tmp, cells), dtype=torch.float32, device=dev)
         need(m.n_cells == n, f"the box has {m.n_cells} cells, not {n}")
@@ -5599,14 +5803,51 @@ def phase_amg_boxes(torch, dev, tmp, rehearse, errs, gpu_line):
                          h, A, errs, gpu_line)
 
 
+def phase_amg_alone(torch, dev, traffic, rehearse, gpu_line, parent=None):
+    """``--phase amg-tail``: 14a alone, on amg_system's matrices and no flow
+    solve: each kernel at every level and the tail at every split of
+    pitzDaily's and the TJunction's hierarchies (the rehearsal: an 8 x 8 x
+    4 box's) with their [amg-times] lines (with ``parent``, the parent's
+    tail beside this one), then the two boxes and the 16 x 16 x 8 box
+    (phase_amg_boxes).  Returns the largest |kernel - plain| a kernel."""
+    from cudaparticlesfoam_tpu_torch.io import blockmesh
+    from cudaparticlesfoam_tpu_torch.models import fv
+
+    errs = {}
+    with tempfile.TemporaryDirectory(prefix="cpf_amg_") as tmp:
+        if rehearse:
+            cases = [("box 8x8x4 (256 cells)", lambda: amg_box(tmp, (8, 8, 4)), 20)]
+        else:
+            cases = [(f"{name} (amg_system)", lambda d=d: blockmesh.generate(
+                          os.path.join(d, "system", "blockMeshDict")), 200)
+                     for name, d in (("pitzDaily", PITZ), ("TJunction", TJUNC))]
+        for tag, mesh, coarse in cases:
+            t0 = time.perf_counter()
+            m = fv.fv_mesh(mesh(), dtype=torch.float32, device=dev)
+            h = fv.build_amg(m, min_coarse=coarse)
+            A, _ = amg_system(torch, fv, m, torch.float32, AMG_SEED)
+            log(f"[setup] {tag}: {m.n_cells} cells, levels {[m.n_cells] + list(h.sizes)} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            phase_amg_parity(torch, dev, tag, m, h, A, errs, gpu_line)
+            phase_amg_times(torch, dev, tag, traffic, m, h, A, gpu_line, parent)
+            del m, h, A
+        phase_amg_boxes(torch, dev, tmp, rehearse, errs, gpu_line)
+    return errs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run every phase at small sizes on the CPU (plain versions "
                          "only); prints no device result and exits 2")
     ap.add_argument("--parent", metavar="DIR",
-                    help="also build the rare kernels of the checkout in DIR (another commit) "
-                         "and time them against this tree's on the same inputs (phase 7)")
+                    help="also build the kernels of the checkout in DIR (another commit) and "
+                         "time its rare kernels (phase 7) and its AMG tail (phase 14) against "
+                         "this tree's on the same inputs")
+    ap.add_argument("--phase", choices=("amg-tail",),
+                    help="after the build run only this part and print the last line: "
+                         "amg-tail is 14a alone on amg_system matrices (phase_amg_alone); "
+                         "the full run stays the gate")
     args = ap.parse_args()
 
     import torch
@@ -5654,6 +5895,17 @@ def main():
         for line in lines:
             log(f"[build] {line}")
         register_report(_build, lines)
+
+    if args.phase == "amg-tail":
+        parent = (load_parent(_build, args.parent)[0], args.parent) if args.parent else None
+        errs = phase_amg_alone(torch, dev, traffic, args.rehearse, gpu_line, parent)
+        log(f"[amg-alone] {gpu_line} | max_abs_err {errs}")
+        if args.rehearse:
+            log("rehearsal done: plain versions on the CPU, no device result")
+            return 2
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                               "count": torch.cuda.device_count()}}))
+        return 0
 
     errs = {"stream": 0.0, "rare": 0.0, "convex_stream": 0.0, "convex_rare": 0.0, "macro": 0.0,
             "hop_admit": 0.0, "stream_pk": 0.0, "rare_pk": 0.0, "stream_tutorial": 0.0,
@@ -5718,8 +5970,9 @@ def main():
             torch, dev, os.path.join(tmp, "allrun"), args.rehearse, gpu_line, tut)
         split = phase_flow_split(torch, dev, flow_case, t_write, gpu_line, sizes["flow_warm"])
         # phase 14 on pitzDaily (10c's state) and on the boxes
+        parent_amg = (rares.parent[0], args.parent) if args.parent else None
         amg_times = {"pitz": phase_amg(torch, dev, traffic, "pitzDaily", split, errs,
-                                       "SIMPLE iteration", gpu_line)}
+                                       "SIMPLE iteration", gpu_line, parent_amg)}
         phase_amg_boxes(torch, dev, tmp, args.rehearse, errs, gpu_line)
     # phase 11, the coupled solver and the TJunction through the kernels
     errs.update(stream_tjunction=0.0, rare_tjunction=0.0)
@@ -5734,7 +5987,7 @@ def main():
                                            counts, rares, gpu_line))
         split = phase_pimple_split(torch, dev, tcase, tflow, gpu_line)
         amg_times["tj"] = phase_amg(torch, dev, traffic, "TJunction", split, errs, "PIMPLE step",
-                                    gpu_line)
+                                    gpu_line, parent_amg)
         del split
         phase_tjunction_trace(torch, dev, tcase, tflow, tst, tcfg, tstep, tmp, gpu_line)
         del tflow, tst
@@ -5924,6 +6177,22 @@ def main():
                 f"{row['t_smem_ms']:.3e}; ms={row['ms']:.5f} share_of_latency="
                 f"{lat / row['ms']:.3f}; byte bound {row['bound_ms']:.5f} "
                 f"(share {row['share']:.3f})")
+            if "design_barriers" in row:
+                # the tail plan's own floor beside the earlier design's bound (the yardstick)
+                own = traffic.amg_latency_bound(
+                    floor, (row["design_chain"], t_dep),
+                    (row["design_barriers"], row["one_release_barrier_ms"]),
+                    (row["design_dsmem_loads"], row["t_dsmem_ms"]),
+                    (row["design_smem_loads"], row["t_smem_ms"]))
+                row.update(design_floor_ms=own, share_of_design_floor=own / row["ms"])
+                log(f"[amg-bound] {gpu_line} | {path.split(' (')[0]}, {k}_kernel: this "
+                    f"design's floor {own:.5f} ms = launch floor + chain {row['design_chain']} "
+                    f"x t_dep + barriers {row['design_barriers']} x "
+                    f"{row['one_release_barrier_ms']:.5f} (warp 0 releases) + "
+                    f"distributed shared memory reads {row['design_dsmem_loads']} + shared "
+                    f"memory reads {row['design_smem_loads']}; share {own / row['ms']:.3f}"
+                    + (f"; the parent's tail {row['parent_ms']:.5f} ms (share of the "
+                       f"yardstick {lat / row['parent_ms']:.3f})" if "parent_ms" in row else ""))
             table["kernels"].append({
                 "name": f"{k}_kernel", "path": path, "phases": ERR_PHASES[k], "route": "cuda",
                 "source": "cudaparticlesfoam_tpu_torch/csrc/amg.cu", "replaces": AMG_REPLACES[k],

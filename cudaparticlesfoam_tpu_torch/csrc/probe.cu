@@ -18,10 +18,14 @@
 //
 // The units of amg_tail_kernel's latency bound, measuring too, each in one
 // cluster of 16 blocks (the tail's shape):
-// cluster_sync_kernel passes `syncs` cluster barriers (barrier.cluster
-// arrive and wait, release and acquire at cluster scope, as the tail's;
-// kRelaxed: a relaxed arrive, no memory ordering, only to price the fence);
-// each block's thread 0 then adds the count it passed to state[rank].
+// cluster_sync_kernel<MODE> passes `syncs` cluster barriers in one cluster
+// of 2, 4, 8 or 16 blocks: MODE 0 barrier.cluster arrive and wait, release
+// and acquire at cluster scope in every thread (the earlier tail's); 1 a relaxed
+// arrive, no memory ordering, only to price the fence; 2 the tail's
+// barrier (csrc/amg.cu cluster_arrive/wait): __syncthreads, warp 0's
+// arrive with release, the other warps' relaxed, every thread's wait with
+// acquire; each block's thread 0 then adds the count it passed to
+// state[rank].
 // smem_chase_kernel: every block fills its shared memory with the cycle
 // j -> (389 j + 1) mod CHASE_SLOTS; block 0's thread 0 follows `steps`
 // loads of it from state[0] mod CHASE_SLOTS, each index the value the load before
@@ -61,14 +65,21 @@ __global__ void chase_kernel(const float* __restrict__ tab, const int* __restric
 constexpr int CLUSTER_BLOCKS = 16;
 constexpr int CHASE_SLOTS = 1024;
 
-template <bool kRelaxed>
+template <int MODE>
 __global__ void cluster_sync_kernel(int syncs, int* state) {
   cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
   for (int s = 0; s < syncs; ++s) {
-    if (kRelaxed)
+    if (MODE == 1) {
       asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
-    else
+    } else if (MODE == 2) {
+      __syncthreads();
+      if (threadIdx.x < 32)
+        asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+      else
+        asm volatile("barrier.cluster.arrive.relaxed;" ::: "memory");
+    } else {
       asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+    }
     asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
   }
   if (threadIdx.x == 0) state[cl.block_rank()] += syncs;
@@ -94,17 +105,18 @@ __global__ void smem_chase_kernel(int steps, int* state) {
   cl.sync();    // no block leaves while block 0 still reads its shared memory
 }
 
-// one cluster of 16 blocks of `threads`
-int launch_cluster(const void* fn, int threads, void** args, void* stream) {
+// one cluster of `blocks` (at most 16) blocks of `threads`
+int launch_cluster(const void* fn, int blocks, int threads, void** args, void* stream) {
+  if (blocks < 1 || blocks > CLUSTER_BLOCKS) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CLUSTER_BLOCKS, 1, 1);
+  cfg.gridDim = dim3(blocks, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER_BLOCKS;
+  attr[0].val.clusterDim.x = blocks;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -119,12 +131,15 @@ int launch_cluster(const void* fn, int threads, void** args, void* stream) {
 
 }  // namespace cpf
 
-extern "C" int cpf_cluster_sync(int syncs, int threads, int relaxed, void* state, void* stream) {
-  const void* fn = relaxed ? reinterpret_cast<const void*>(cpf::cluster_sync_kernel<true>)
-                           : reinterpret_cast<const void*>(cpf::cluster_sync_kernel<false>);
+extern "C" int cpf_cluster_sync(int syncs, int threads, int mode, int blocks, void* state,
+                                void* stream) {
+  const void* fn = mode == 1   ? reinterpret_cast<const void*>(cpf::cluster_sync_kernel<1>)
+                   : mode == 2 ? reinterpret_cast<const void*>(cpf::cluster_sync_kernel<2>)
+                               : reinterpret_cast<const void*>(cpf::cluster_sync_kernel<0>);
+  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
   int* st = static_cast<int*>(state);
   void* args[] = {&syncs, &st};
-  return cpf::launch_cluster(fn, threads, args, stream);
+  return cpf::launch_cluster(fn, blocks, threads, args, stream);
 }
 
 extern "C" int cpf_smem_chase(int steps, int remote, void* state, void* stream) {
@@ -132,7 +147,7 @@ extern "C" int cpf_smem_chase(int steps, int remote, void* state, void* stream) 
                           : reinterpret_cast<const void*>(cpf::smem_chase_kernel<false>);
   int* st = static_cast<int*>(state);
   void* args[] = {&steps, &st};
-  return cpf::launch_cluster(fn, 32, args, stream);
+  return cpf::launch_cluster(fn, cpf::CLUSTER_BLOCKS, 32, args, stream);
 }
 
 extern "C" int cpf_chase_nbr(const void* tab, int row_w, int nbr, int steps, void* state,

@@ -653,12 +653,13 @@ def amg_vcycle(m: FvMesh, h: AmgHierarchy, A: FvMatrix, levels, r):
 
 def vcycle_levels(rows, aggs, ops, prolong, r, omega=amg_ops.OMEGA):
     """One V(1,1) cycle through the kernels: ``amg_down`` on each level
-    above the tail (``amg_ops.tail_start`` at ``amg_cuda.TAIL_ROWS``),
-    one ``amg_tail`` for the small levels and the coarsest, ``amg_up``
-    back (2t + 1 launches).  ``rows[l]`` is level l's row plan, ``aggs[l]``
-    its restriction's, ``ops[l]`` its (diag, off), ``prolong[l]`` the
-    prolongation's (index, valid or None)."""
-    t = amg_ops.tail_start([p.n for p in rows], amg_cuda.TAIL_ROWS)
+    above the tail (``amg_cuda.tail_split``: ``amg_ops.tail_start`` at
+    ``amg_cuda.TAIL_ROWS``, lower where that tail cannot stage every level
+    in shared memory), one ``amg_tail`` for the small levels and the
+    coarsest, ``amg_up`` back (2t + 1 launches).  ``rows[l]`` is level l's
+    row plan, ``aggs[l]`` its restriction's, ``ops[l]`` its (diag, off),
+    ``prolong[l]`` the prolongation's (index, valid or None)."""
+    t = amg_cuda.tail_split(rows, aggs, prolong, r.element_size())
     rs = [r]
     for li in range(t):
         rs.append(amg_cuda.amg_down(rows[li], aggs[li], *ops[li], rs[li], omega))

@@ -160,7 +160,7 @@ def library() -> ctypes.CDLL:
     lib.cpf_chase_nbr.restype = i
     lib.cpf_chase_perm.argtypes = [vp, i, vp, vp]
     lib.cpf_chase_perm.restype = i
-    lib.cpf_cluster_sync.argtypes = [i, i, i, vp, vp]
+    lib.cpf_cluster_sync.argtypes = [i, i, i, i, vp, vp]
     lib.cpf_cluster_sync.restype = i
     lib.cpf_smem_chase.argtypes = [i, i, vp, vp]
     lib.cpf_smem_chase.restype = i

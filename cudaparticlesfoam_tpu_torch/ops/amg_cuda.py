@@ -9,8 +9,8 @@
   (prolongation, post-smooth), with ``valid`` the shard's form;
 * :func:`amg_tail` -> ``amg_tail_kernel``: the levels of at most
   :data:`TAIL_ROWS` rows and the coarsest, down and back up, in one launch
-  of one cluster of 16 thread blocks; :func:`amg_coarsest` is the tail of the
-  coarsest level alone.
+  of one cluster of 16 thread blocks, from a plan made once per hierarchy
+  (``ops/amg_tail.py``); a tail of one level is the coarsest alone.
 
 None replaces a Pallas kernel: JAX leaves the solve to XLA's fusion
 (``cudaparticlesfoam_tpu/models/fv.py:420-431``, ``:537-570``).  A wrapper
@@ -24,12 +24,12 @@ one launch, however often the graph is replayed.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import torch
 
+from . import amg_tail as plans
 from .amg import (COARSEST_SWEEPS, MAX_TAIL_LEVELS, OMEGA, RowPlan, down_plain, int32_index,
-                  matvec_plain, tail_plain, up_plain)
+                  matvec_plain, tail_plain, tail_start, up_plain)
 from .fused_cuda import _SUFFIX, _check, _entry, _raise_on, _stream_ptr
 
 # A level of at most TAIL_ROWS rows runs in the tail (ops/amg.py:tail_start);
@@ -37,34 +37,37 @@ from .fused_cuda import _SUFFIX, _check, _entry, _raise_on, _stream_ptr
 # amg_down + amg_up against the tail's two phases at that level
 # (chip_smoke.py 14a, PERF.md).
 TAIL_ROWS = 8_192
+# The tail's levels from the first of at most TAIL_BLOCK0_ROWS rows down run
+# in block 0 alone (ops/amg_tail.py); chip_smoke.py 14a times 512 and 1024.
+TAIL_BLOCK0_ROWS = 512
 # must match csrc/amg.cu: the tail's cluster of TAIL_BLOCKS blocks of at
-# most TAIL_THREADS threads, its vectors in their shared memory
-TAIL_BLOCKS = 16
+# most TAIL_THREADS threads, what it keeps in their shared memory
+TAIL_BLOCKS = plans.TAIL_BLOCKS
 TAIL_THREADS = 512
-TAIL_SMEM_BYTES = 230_912       # the opt-in 227 KB less the level table
-_ALL_IN_BLOCK_0 = 31
+TAIL_SMEM_BYTES = 230_912       # the opt-in 227 KB less 1.5 KB for the static part
 
 
 class TailLevel(ctypes.Structure):
     """``csrc/amg.cu:TailLevel``: one level of the tail."""
-    _fields_ = [("off", ctypes.c_void_p), ("pos", ctypes.c_void_p), ("col", ctypes.c_void_p),
-                ("diag", ctypes.c_void_p), ("offc", ctypes.c_void_p),
-                ("aoff", ctypes.c_void_p), ("acell", ctypes.c_void_p),
-                ("agg", ctypes.c_void_p), ("valid", ctypes.c_void_p),
-                ("n", ctypes.c_int32), ("nf", ctypes.c_int32), ("shift", ctypes.c_int32),
-                ("r_at", ctypes.c_int32), ("x_at", ctypes.c_int32), ("pad", ctypes.c_int32)]
+    _fields_ = ([("diag", ctypes.c_void_p), ("off", ctypes.c_void_p),
+                 ("valid", ctypes.c_void_p)]
+                + [(name, ctypes.c_int32) for name in (
+                    "n", "stage", "cap_rows", "cap_terms", "base", "seg", "copy",
+                    "toff", "addr", "moff", "mem", "poff", "pmem", "grow", "ldst", "tslot",
+                    "cpos", "st", "coef", "sdiag", "svalid", "sv", "sr", "ss", "lvalid", "r",
+                    "v", "pad")])
 
 
 class TailParams(ctypes.Structure):
     """``csrc/amg.cu:TailParams``: the kernel's one argument, passed by
     value (a CUDA graph captures it whole)."""
-    _fields_ = [("r_top", ctypes.c_void_p), ("x_out", ctypes.c_void_p),
-                ("omega", ctypes.c_double),
-                ("levels", ctypes.c_int32), ("sweeps", ctypes.c_int32),
-                ("xb_at", ctypes.c_int32), ("stage", ctypes.c_int32),
-                ("st_diag", ctypes.c_int32), ("st_coef", ctypes.c_int32),
-                ("st_col", ctypes.c_int32), ("st_off", ctypes.c_int32),
-                ("lv", TailLevel * MAX_TAIL_LEVELS)]
+    _fields_ = ([("r_top", ctypes.c_void_p), ("x_out", ctypes.c_void_p),
+                 ("xs", ctypes.c_void_p), ("blob", ctypes.c_void_p), ("prog", ctypes.c_void_p),
+                 ("stamps", ctypes.c_void_p), ("omega", ctypes.c_double)]
+                + [(name, ctypes.c_int32) for name in (
+                    "levels", "cluster", "sweeps", "xb", "r1", "sp", "lower", "prog_local",
+                    "prog_stretch")]
+                + [("lv", TailLevel * MAX_TAIL_LEVELS)])
 
 
 def _check_vec(name, t, n, like):
@@ -189,92 +192,83 @@ def amg_up(rows: RowPlan, diag, off, r, agg, xc, valid=None, omega=OMEGA):
 amg_up.launches = 0
 
 
-@dataclasses.dataclass(frozen=True)
-class TailLayout:
-    """Where the tail keeps its vectors in the shared memory of the
-    cluster's blocks: level k's rows split over the blocks by ``shifts[k]``
-    (row i in block i >> shift; 31 puts the coarsest in block 0), its r and
-    x at element ``r_at[k]`` / ``x_at[k]`` of a block's copy (the levels
-    below the top; the top's r and x are the caller's), the coarsest's
-    second sweep buffer at ``xb_at``, ``elements`` in all.  With ``stage``
-    block 0 copies the coarsest's diag, each term's coefficient and column
-    and its row offsets into its shared memory at the byte offsets ``st``
-    (diag, coef, col, off).  ``smem`` bytes of shared memory a block,
-    ``threads`` a block."""
-    shifts: tuple
-    r_at: tuple
-    x_at: tuple
-    xb_at: int
-    elements: int
-    stage: bool
-    st: tuple
-    smem: int
-    threads: int
-
-
-def tail_layout(sizes, nnz: int, elem: int) -> TailLayout:
-    """The layout of a tail of levels with ``sizes`` rows, the coarsest
-    last with ``nnz`` terms in its row plan, ``elem`` bytes a value; the
-    coarsest is staged where it fits beside the vectors.  Raises, with the
-    numbers, where the vectors do not fit in ``TAIL_SMEM_BYTES`` a block."""
-    K = len(sizes)
-    if not 1 <= K <= MAX_TAIL_LEVELS:
-        raise ValueError(f"a tail has 1 to {MAX_TAIL_LEVELS} levels, got {K}")
-    # a block's rows: ceil(n / TAIL_BLOCKS) rounded up to a power of two
-    shifts = [(max(1, -(-n // TAIL_BLOCKS)) - 1).bit_length() for n in sizes[:-1]]
-    shifts.append(_ALL_IN_BLOCK_0)
-    at, r_at, x_at = 0, [0] * K, [0] * K
-    for k in range(1, K):
-        cap = sizes[k] if k == K - 1 else 1 << shifts[k]
-        r_at[k], x_at[k] = at, at + cap
-        at += 2 * cap
-    if K == 1:
-        x_at[0] = at
-        at += sizes[0]
-    xb_at, elements = at, at + sizes[-1]
-    base = elements * elem
-    if base > TAIL_SMEM_BYTES:
+def tail_layout(plan: plans.TailPlan, elem: int, valid: bool = False) -> plans.TailLayout:
+    """Where the tail of ``plan`` keeps its vectors and staged segments in a
+    block's shared memory with ``elem``-byte values (and the
+    prolongation's valid).  Raises, with the numbers, where its vectors do
+    not fit in ``TAIL_SMEM_BYTES``, and where a tail whose top has at most
+    ``TAIL_ROWS`` rows cannot stage every level (:func:`tail_split` then
+    starts a V-cycle's tail lower).  Only a larger tail, which no V-cycle
+    takes, reads the levels that do not fit from global memory
+    (``layout.stage``)."""
+    lay = plans.layout(plan, elem, valid, TAIL_SMEM_BYTES, TAIL_THREADS)
+    if plan.sizes[0] <= TAIL_ROWS and not all(lay.stage):
         raise ValueError(
-            f"the tail of levels {list(sizes)} keeps {elements} values of {elem} B "
-            f"({base} B) in a block's shared memory, more than its {TAIL_SMEM_BYTES} B")
-    n = sizes[-1]
-    st = (base, base + n * elem, base + (n + nnz) * elem, base + (n + nnz) * elem + 4 * nnz)
-    stage = st[3] + 4 * (n + 1) <= TAIL_SMEM_BYTES
-    smem = st[3] + 4 * (n + 1) if stage else base
-    per_block = [min(1 << sh, rows) for sh, rows in zip(shifts[:-1], sizes[:-1])] + [n]
-    threads = min(TAIL_THREADS, max(32, -(-max(per_block) // 32) * 32))
-    return TailLayout(tuple(shifts), tuple(r_at), tuple(x_at), xb_at, elements, stage,
-                      st if stage else (0, 0, 0, 0), smem, threads)
+            f"the tail of levels {list(plan.sizes)} (a top of at most TAIL_ROWS = {TAIL_ROWS} "
+            f"rows) needs {lay.full} B of shared memory a block to stage every level "
+            f"({elem} B values, {lay.vectors} B of them vectors), more than its "
+            f"{TAIL_SMEM_BYTES} B; staged: {list(lay.stage)}")
+    return lay
 
 
-def tail_params(rows, aggs, ops, prolong, r_top, x, layout: TailLayout, omega=OMEGA,
-                sweeps=COARSEST_SWEEPS) -> TailParams:
-    """The kernel's argument for a tail of K levels (``amg_tail``'s
-    arguments, the output ``x`` and the layout); raises past
-    ``MAX_TAIL_LEVELS`` levels."""
-    K = len(rows)
-    if not 1 <= K <= MAX_TAIL_LEVELS:
-        raise ValueError(f"a tail has 1 to {MAX_TAIL_LEVELS} levels, got {K}")
-    p = TailParams(r_top=r_top.data_ptr(), x_out=x.data_ptr(), omega=float(omega), levels=K,
-                   sweeps=int(sweeps), xb_at=layout.xb_at, stage=int(layout.stage))
-    p.st_diag, p.st_coef, p.st_col, p.st_off = layout.st
+def tail_split(rows, aggs, prolong, elem: int) -> int:
+    """The first level of a V-cycle's tail (``fv.vcycle_levels``):
+    ``ops/amg.tail_start`` at ``TAIL_ROWS``, moved down a level at a time
+    while the tail from there cannot stage every level in a block's shared
+    memory with ``elem``-byte values (:func:`tail_layout` raises: float64
+    from 7,750 rows on the TJunction), so that the tail a V-cycle launches
+    is always staged whole; the levels passed run ``amg_down`` /
+    ``amg_up``."""
+    t = tail_start([p.n for p in rows], TAIL_ROWS)
+    valid = any(v is not None for _, v in prolong)
+    while t < len(rows) - 1:
+        try:
+            tail_layout(plans.tail_plan(rows[t:], aggs[t:], prolong[t:], TAIL_BLOCK0_ROWS), elem,
+                        valid)
+            return t
+        except ValueError:
+            t += 1
+    return t
+
+
+def tail_params(plan: plans.TailPlan, lay: plans.TailLayout, ops, prolong, r_top, x, xs=None,
+                omega=OMEGA, sweeps=COARSEST_SWEEPS, stamps=None) -> TailParams:
+    """The kernel's argument: the plan's words and layout, each level's
+    (diag, off) and valid, the top's r, the output x, the top's x' scratch
+    ``xs`` (a cluster top) and the phase clocks ``stamps`` (or None)."""
+    K, C = len(plan.sizes), plan.cluster
+    if len(ops) != K or len(prolong) != K - 1:
+        raise ValueError(f"a plan of {K} levels takes {K} ops and {K - 1} prolongations")
+    if (xs is None) != (C == 0):
+        raise ValueError("a cluster top takes an x' scratch vector, a block-0 top none")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    p = TailParams(r_top=r_top.data_ptr(), x_out=x.data_ptr(), xs=ptr(xs),
+                   blob=plan.blob.data_ptr(), prog=lay.prog.data_ptr(), stamps=ptr(stamps),
+                   omega=float(omega), prog_local=lay.prog_local,
+                   prog_stretch=lay.prog_stretch,
+                   levels=K, cluster=C, sweeps=int(sweeps), xb=lay.xb, r1=lay.r1, sp=lay.sp,
+                   lower=plan.sizes[C - 1] if C else 0)
     for k in range(K):
-        lv, (diag, off) = p.lv[k], ops[k]
-        lv.off, lv.pos, lv.col, lv.nf = _plan_args(rows[k])
-        lv.diag, lv.offc, lv.n = diag.data_ptr(), off.data_ptr(), rows[k].n
-        lv.shift, lv.r_at, lv.x_at = layout.shifts[k], layout.r_at[k], layout.x_at[k]
-        if k < K - 1:
-            agg, valid = prolong[k]
-            lv.aoff, lv.acell = aggs[k].offsets.data_ptr(), aggs[k].col.data_ptr()
-            lv.agg = int32_index(agg).data_ptr()
-            lv.valid = None if valid is None else valid.data_ptr()
+        lv, lp, (diag, off) = p.lv[k], plan.levels[k], ops[k]
+        valid = prolong[k][1] if k < K - 1 else None
+        lv.diag, lv.off, lv.valid = diag.data_ptr(), off.data_ptr(), ptr(valid)
+        lv.n, lv.stage, lv.cap_rows, lv.cap_terms = lp.n, int(lay.stage[k]), lp.cap_rows, \
+            lp.cap_terms
+        lv.base, lv.seg, lv.copy = lp.base, lp.seg, lp.copy
+        for name in plans.FIELDS[1:-1]:
+            setattr(lv, name, lp.at[name])
+        lv.st, lv.coef, lv.sdiag = lay.st[k], lay.coef[k], lay.diag[k]
+        lv.svalid = lay.valid[k] if valid is not None else -1
+        lv.sv, lv.sr, lv.ss = lay.sv[k], lay.sr[k], lay.ss[k]
+        lv.lvalid = lay.lvalid[k] if C and prolong[C - 1][1] is not None else -1
+        lv.r, lv.v = lay.r[k], lay.v[k]
     return p
 
 
 _PREPARED: dict = {}
 
 
-def _prepare(dev, dtype, layout: TailLayout):
+def _prepare(dev, dtype, layout: plans.TailLayout):
     """Allow the opt-in shared memory and the 16-block cluster, and check
     that one such cluster fits on the card, once per device, dtype, threads
     and shared memory; raises with the numbers if none does."""
@@ -293,16 +287,22 @@ def _prepare(dev, dtype, layout: TailLayout):
     _PREPARED[key] = clusters.value
 
 
-def amg_tail(rows, aggs, ops, prolong, r_top, omega=OMEGA, sweeps=COARSEST_SWEEPS):
+def amg_tail(rows, aggs, ops, prolong, r_top, omega=OMEGA, sweeps=COARSEST_SWEEPS,
+             stamps=None, block0_rows=TAIL_BLOCK0_ROWS):
     """The tail of a V-cycle: from the top level's residual ``r_top``, each
     level down (``amg_down``'s expressions), the coarsest's ``sweeps``
     damped-Jacobi sweeps, each level back up (``amg_up``'s, with
     ``valid`` on a shard), in one launch of one cluster of ``TAIL_BLOCKS``
-    blocks, each level's r and x in the blocks' shared memory (raises where
-    they do not fit: :func:`tail_layout`).
+    blocks, from the tail plan (``ops/amg_tail.py``, made at the first call
+    for these index tensors) with its vectors in the blocks' shared memory
+    (raises where they do not fit: :func:`tail_layout`); its levels from
+    the first of at most ``block0_rows`` rows run in block 0 alone.
     ``rows[k]`` is level k's row plan, ``aggs[k]`` its restriction's (k < K
     - 1), ``ops[k]`` its (diag, off), ``prolong[k]`` the prolongation's
-    (index, valid or None), the coarsest last.  Returns the top level's x."""
+    (index, valid or None), the coarsest last.  ``stamps`` (a CUDA int64
+    tensor of ``len(amg_tail.phases(plan)) + 2`` values) adds each phase's
+    clocks in block 0, then the launch's ns and clocks.  Returns the top
+    level's x."""
     K = len(rows)
     if not 1 <= K <= MAX_TAIL_LEVELS:
         raise ValueError(f"a tail has 1 to {MAX_TAIL_LEVELS} levels, got {K}")
@@ -331,12 +331,15 @@ def amg_tail(rows, aggs, ops, prolong, r_top, omega=OMEGA, sweeps=COARSEST_SWEEP
         return tail_plain(rows, aggs, ops, prolong, r_top, omega, sweeps)
     x = torch.empty_like(r_top)
     if rows[0].n:
-        layout = tail_layout([p.n for p in rows], int(rows[-1].h_offsets[-1]),
-                             r_top.element_size())
-        params = tail_params(rows, aggs, ops, prolong, r_top, x, layout, omega, sweeps)
-        _on(dev, lambda: _prepare(dev, r_top.dtype, layout))
-        _launch(dev, "amg_tail", r_top.dtype, ctypes.addressof(params), layout.threads,
-                layout.smem)
+        plan = plans.tail_plan(rows, aggs, prolong, block0_rows)
+        lay = tail_layout(plan, r_top.element_size(), any(v is not None for _, v in prolong))
+        if stamps is not None and not (stamps.dtype == torch.int64 and stamps.device == dev
+                                       and stamps.shape == (len(plans.phases(plan)) + 2,)):
+            raise ValueError("stamps must be an int64 tensor of the phases and two on the device")
+        xs = torch.empty_like(r_top) if plan.cluster else None
+        params = tail_params(plan, lay, ops, prolong, r_top, x, xs, omega, sweeps, stamps)
+        _on(dev, lambda: _prepare(dev, r_top.dtype, lay))
+        _launch(dev, "amg_tail", r_top.dtype, ctypes.addressof(params), lay.threads, lay.smem)
         amg_tail.launches += 1
     return x
 
@@ -344,12 +347,4 @@ def amg_tail(rows, aggs, ops, prolong, r_top, omega=OMEGA, sweeps=COARSEST_SWEEP
 amg_tail.launches = 0
 
 
-def amg_coarsest(rows: RowPlan, diag, off, r, omega=OMEGA, sweeps=COARSEST_SWEEPS):
-    """The coarsest level alone: x = omega r / d, then ``sweeps``
-    damped-Jacobi sweeps; the tail of one level (one ``amg_tail`` launch).
-    Returns x [n]."""
-    return amg_tail([rows], [], [(diag, off)], [], r, omega, sweeps)
-
-
 WRAPPERS = (fv_matvec, amg_down, amg_up, amg_tail)
-

@@ -108,22 +108,28 @@ CLUSTER_BLOCKS = 16      # the AMG tail's cluster (csrc/amg.cu TAIL_BLOCKS)
 CHASE_SLOTS = 1024       # csrc/probe.cu: smem_chase_kernel's cycle
 
 
-def cluster_sync(syncs, threads, state, relaxed=False):
-    """One cluster of 16 blocks (the AMG tail's) of ``threads`` each passes
-    ``syncs`` cluster barriers (release/acquire as the tail's, or with
-    ``relaxed`` an arrive without memory ordering); each block then adds
-    ``syncs`` to ``state[rank]`` (int32 [16]).  On the CPU only the count is
-    added."""
+BARRIER_MODES = ("release", "relaxed", "one release")    # csrc/probe.cu cluster_sync_kernel<MODE>
+
+
+def cluster_sync(syncs, threads, state, mode="release", blocks=CLUSTER_BLOCKS):
+    """One cluster of ``blocks`` (2 to 16; the AMG tail's: 16) blocks of
+    ``threads`` each passes ``syncs`` cluster barriers: ``mode`` "release"
+    (release/acquire in every thread, the earlier tail's), "relaxed" (an arrive
+    without memory ordering: only the fence's price) or "one release" (the
+    tail's: __syncthreads, warp 0's release, every thread's acquire); each
+    block then adds ``syncs`` to ``state[rank]`` (int32 [16]).  On the CPU
+    only the count is added."""
     if (not torch.is_tensor(state) or state.dtype != torch.int32
             or state.shape != (CLUSTER_BLOCKS,) or not state.is_contiguous()):
         raise ValueError(f"state must be a contiguous int32 [{CLUSTER_BLOCKS}] tensor")
-    if syncs < 0 or not 1 <= threads <= 512:
-        raise ValueError(f"bad syncs {syncs} or threads {threads}")
+    if syncs < 0 or not 1 <= threads <= 512 or mode not in BARRIER_MODES \
+            or not 1 <= blocks <= CLUSTER_BLOCKS:
+        raise ValueError(f"bad syncs {syncs}, threads {threads}, mode {mode!r} or blocks {blocks}")
     if state.device.type == "cpu":
-        state += syncs
+        state[:blocks] += syncs
         return
-    _launch("cpf_cluster_sync", (syncs, threads, int(relaxed), state.data_ptr()), state.device,
-            "cluster_sync_kernel")
+    _launch("cpf_cluster_sync", (syncs, threads, BARRIER_MODES.index(mode), blocks,
+                                 state.data_ptr()), state.device, "cluster_sync_kernel")
 
 
 def smem_chase(steps, state, remote=False):

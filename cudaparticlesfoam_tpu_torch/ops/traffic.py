@@ -383,27 +383,52 @@ def amg_tail(sizes, nfs, elem: int, valid: bool = False, sweeps: int = 12) -> Tr
 AMG_CHAIN = {"matvec": 3, "down": 5, "up": 4}
 
 
-def amg_tail_chain(sizes, sweeps: int = 12) -> dict:
+def amg_tail_chain(sizes, sweeps: int = 12, block0_rows: int | None = None) -> dict:
     """What ``amg_tail_kernel`` on levels of ``sizes`` rows (the coarsest
-    last) must wait for, one after another: ``barriers``, the 2K - 2
-    cluster barriers between its 2K - 1 phases (K - 1 down, the coarsest,
-    K - 1 up); ``l2``, the loads from global memory before its first
-    result (the top level's restriction chain, ``AMG_CHAIN["down"]``, or,
-    with the coarsest alone, its r); ``dsmem``, after each barrier of the
-    levels between the top and the coarsest the one read of another
-    block's shared memory that waits on the phase before (down: a
-    neighbour's r; up: the coarse x); ``smem``, block 0's own reads of the
-    coarsest's r and of x in each sweep.  The index and coefficient loads
-    of a phase wait on nothing a phase writes, so they can be issued before
-    its barrier and are not counted; rows a thread takes in turn are
-    independent, so neither are they.  A lower bound."""
+    last) must wait for, one after another: ``barriers``, cluster
+    barriers; ``l2``, dependent loads from global memory; ``dsmem``, reads
+    of another block's shared memory that wait on the phase before;
+    ``smem``, a block's reads of its own shared memory that do.  Rows a
+    thread takes in turn are independent and not counted.  A lower bound.
+
+    ``block0_rows`` None: the earlier kernel (every level's phases over the
+    cluster), kept as the yardstick of the same work: 2K - 2 barriers
+    between its 2K - 1 phases (K - 1 down, the coarsest, K - 1 up); the
+    top level's restriction chain from global
+    memory (``AMG_CHAIN["down"]``, or the coarsest's r alone); after each
+    barrier of the levels between the top and the coarsest one read of
+    another block's shared memory (down: a neighbour's r; up: the coarse
+    x); block 0's reads of the coarsest's r and of x in each sweep.  It
+    assumes a phase's index and coefficient loads are issued before its
+    barrier.
+
+    ``block0_rows`` given: the tail plan's kernel (``ops/amg_tail.py``),
+    whose prologue stages every phase's index data and coefficients, so
+    they wait on nothing after it: C = the cluster levels; 2C barriers (C -
+    1 restrictions, level P's residual into block 0, block 0's stretch, C -
+    1 prolongations); two loads from global memory in the prologue (a plan
+    word, then the value it indexes) and, over a cluster, the top's x' read
+    back from global memory after the last barrier; one read of another
+    block's shared memory after each cluster phase that reads a
+    neighbour's s or x' there (restrictions 1 .. C - 2, level P's residual
+    when P > 0, prolongations P .. 1); in block 0 one read of its own after
+    each phase (level C's entry, each restriction and prolongation of its
+    levels, each sweep)."""
     if not sizes or sweeps < 0:
         raise ValueError("at least one level and sweeps >= 0")
     K = len(sizes)
-    if K == 1:
-        return dict(barriers=0, l2=1, dsmem=0, smem=sweeps)
-    return dict(barriers=2 * K - 2, l2=AMG_CHAIN["down"], dsmem=(K - 2) + (K - 1),
-                smem=1 + sweeps)
+    if block0_rows is None:
+        if K == 1:
+            return dict(barriers=0, l2=1, dsmem=0, smem=sweeps)
+        return dict(barriers=2 * K - 2, l2=AMG_CHAIN["down"], dsmem=(K - 2) + (K - 1),
+                    smem=1 + sweeps)
+    from .amg_tail import cluster_levels
+
+    C = cluster_levels(sizes, block0_rows)
+    if C == 0:
+        return dict(barriers=0, l2=2, dsmem=0, smem=2 * (K - 1) + sweeps)
+    return dict(barriers=2 * C, l2=3, dsmem=max(C - 2, 0) + (C >= 2) + (C - 1),
+                smem=1 + 2 * (K - 1 - C) + sweeps)
 
 
 def amg_latency_bound(launch_floor_ms: float, *terms) -> float:

@@ -130,7 +130,7 @@ def test_plain_matvec_equals_fixed_order_path(polys, fixed, name, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", ["duct", "tjunction"])
 def test_plain_levels_equal_fixed_order_vcycle(polys, fixed, name, dtype):
-    """``amg_down`` / ``amg_up`` / ``amg_coarsest``'s plain versions = the
+    """``amg_down`` / ``amg_up`` / ``amg_tail`` (one level)'s plain versions = the
     V-cycle's expressions over ``fv.index_sum``'s fixed order at every
     level, and ``fv.amg_vcycle`` = the V-cycle as it was, bit for bit."""
     m = fv.fv_mesh(polys[name][0], dtype=DTYPES[dtype], device=CPU)
@@ -144,7 +144,7 @@ def test_plain_levels_equal_fixed_order_vcycle(polys, fixed, name, dtype):
             x = OMEGA * rl / diag
             for _ in range(12):
                 x = x + OMEGA * (rl - _fixed_sym_matvec(diag, off, own, nei, x)) / diag
-            assert torch.equal(amg_cuda.amg_coarsest(rows, diag, off, rl), x), li
+            assert torch.equal(amg_cuda.amg_tail([rows], [], [(diag, off)], [], rl), x), li
             continue
         nc = lv[li + 1][0]
         r1 = rl - _fixed_sym_matvec(diag, off, own, nei, OMEGA * rl / diag)
@@ -256,7 +256,9 @@ def _wrapper_calls(plan, aggs, t):
         "amg_down": lambda: amg_cuda.amg_down(plan, aggs, t["d"], t["o"], t["x"]),
         "amg_up": lambda: amg_cuda.amg_up(plan, t["d"], t["o"], t["x"], t["agg"], t["xc"]),
         "amg_tail": lambda: amg_cuda.amg_tail([plan], [], [(t["d"], t["o"])], [], t["x"]),
-        "amg_coarsest": lambda: amg_cuda.amg_coarsest(plan, t["d"], t["o"], t["x"]),
+        # the coarsest level alone: a tail of one level, here with 3 sweeps
+        "amg_coarsest": lambda: amg_cuda.amg_tail([plan], [], [(t["d"], t["o"])], [], t["x"],
+                                                  sweeps=3),
     }
 
 
@@ -265,8 +267,8 @@ def test_wrappers_run_the_plain_version_on_the_cpu_and_raise_elsewhere(polys, na
     """CPU tensors: the plain version, no launch counted.  Meta tensors (a
     device with no kernel): a ValueError, with the plans on the CPU or on
     the meta device alike, and no fall-back to the plain version.
-    ``amg_coarsest`` is the tail of the coarsest level alone: its launches
-    count in ``amg_tail``'s."""
+    ``amg_coarsest`` is the tail of the coarsest level alone with 3 sweeps
+    (``amg_tail`` of one level): its launches count in ``amg_tail``'s."""
     m = fv.fv_mesh(polys["duct"][0], dtype=torch.float64, device=CPU)
     h = fv.build_amg(m, min_coarse=20)
     A, _, x, rng = _system(m, 5)
@@ -279,7 +281,7 @@ def test_wrappers_run_the_plain_version_on_the_cpu_and_raise_elsewhere(polys, na
         "amg_down": lambda: amg.down_plain(plan, aggs, A.diag, A.upper, x),
         "amg_up": lambda: amg.up_plain(plan, A.diag, A.upper, x, h.aggs[0], t["xc"]),
         "amg_tail": lambda: amg.coarsest_plain(plan, A.diag, A.upper, x),
-        "amg_coarsest": lambda: amg.coarsest_plain(plan, A.diag, A.upper, x),
+        "amg_coarsest": lambda: amg.coarsest_plain(plan, A.diag, A.upper, x, sweeps=3),
     }[name]
     wrapper = amg_cuda.amg_tail if name == "amg_coarsest" else getattr(amg_cuda, name)
     before = wrapper.launches

@@ -16,6 +16,7 @@ from torch_port_common import CPU, FLOW_CASES, PITZ_BMD, make_flow_case, shrink_
 
 import ctypes  # noqa: E402
 import os  # noqa: E402
+import re  # noqa: E402
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -26,7 +27,7 @@ from cudaparticlesfoam_tpu.models import fv as jfv  # noqa: E402
 from cudaparticlesfoam_tpu_torch import convert  # noqa: E402
 from cudaparticlesfoam_tpu_torch.io import blockmesh  # noqa: E402
 from cudaparticlesfoam_tpu_torch.models import fv  # noqa: E402
-from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda  # noqa: E402
+from cudaparticlesfoam_tpu_torch.ops import amg, amg_cuda, amg_tail  # noqa: E402
 from cudaparticlesfoam_tpu_torch.parallel import flowshard  # noqa: E402
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -41,17 +42,34 @@ BOX_SIZES = [65_536 >> k for k in range(10)]
 @pytest.fixture(scope="module")
 def polys(tmp_path_factory):
     """{name: port PolyMesh} of the duct of FLOW_CASES, the shrunk
-    TJunction (2,080 cells) and pitzDaily (12,225 cells)."""
+    TJunction (2,080 cells), pitzDaily (12,225 cells) and a ragged box
+    (23 x 11 x 7 = 1,771 cells)."""
     assert "duct" in FLOW_CASES
     duct = make_flow_case(tmp_path_factory.mktemp("tail"), "duct")
     tj = shrink_tjunction(tmp_path_factory.mktemp("tail_tj"))
     out = {name: blockmesh.generate(os.path.join(case, "system", "blockMeshDict"))
            for name, case in (("duct", duct), ("tjunction", tj))}
     out["pitzDaily"] = blockmesh.generate(PITZ_BMD)
+    out["box"] = blockmesh.generate(_box_dict(tmp_path_factory.mktemp("tail_box"), 23, 11, 7))
     return out
 
 
-MIN_COARSE = {"duct": 20, "tjunction": 200, "pitzDaily": 200}
+def _box_dict(dst, nx, ny, nz):
+    """The blockMeshDict of a box of nx x ny x nz unit hex cells."""
+    path = os.path.join(dst, "blockMeshDict")
+    with open(path, "w") as fh:
+        fh.write(
+            "FoamFile { version 2.0; format ascii; class dictionary; object blockMeshDict; }\n"
+            "convertToMeters 1;\n"
+            f"vertices ( (0 0 0) ({nx} 0 0) ({nx} {ny} 0) (0 {ny} 0) (0 0 {nz}) ({nx} 0 {nz}) "
+            f"({nx} {ny} {nz}) (0 {ny} {nz}) );\n"
+            f"blocks ( hex (0 1 2 3 4 5 6 7) ({nx} {ny} {nz}) simpleGrading (1 1 1) );\n"
+            "boundary ( walls { type wall; faces ((0 4 7 3) (1 2 6 5) (0 1 5 4) (3 7 6 2) "
+            "(0 3 2 1) (4 5 6 7)); } );\n")
+    return path
+
+
+MIN_COARSE = {"duct": 20, "tjunction": 200, "pitzDaily": 200, "box": 20}
 
 
 def _hierarchy(pm, name, dtype, seed):
@@ -96,6 +114,265 @@ def _split_plain(rows, aggs, ops, prolong, r, t):
         agg, valid = prolong[li]
         x = amg.up_plain(rows[li], *ops[li], rs[li], agg, x, valid)
     return x
+
+
+# ---------------------------------------------------------------------------
+# the tail plan (ops/amg_tail.py) walked as amg_tail_kernel walks it
+# ---------------------------------------------------------------------------
+
+def _segment(plan, k, b):
+    """Block b's segment of level k, its fields cut to the block's counts."""
+    lp = plan.levels[k]
+    s = plan.h_blob[lp.base + b * lp.seg: lp.base + (b + 1) * lp.seg].astype(np.int64)
+    rows, terms, nmem, npmem = s[:4]
+    f = lambda name, n: s[lp.at[name]: lp.at[name] + n]  # noqa: E731
+    top = k == 0 and plan.cluster >= 1       # hdr[2] counts the top's distinct neighbours
+    return dict(rows=rows, toff=f("toff", rows + 1), addr=f("addr", terms),
+                moff=f("moff", rows + 1), mem=f("mem", 0 if top else nmem),
+                poff=f("poff", rows + 1), pmem=f("pmem", npmem), grow=f("grow", rows),
+                ldst=f("ldst", lp.lower), cpos=f("cpos", terms),
+                tslot=f("tslot", terms if top else 0), nbr=f("nbr", nmem if top else 0))
+
+
+def _fold(toff, terms, dtype):
+    """sum_row terms from 0, left to right, of the rows of ``toff``."""
+    lens = np.diff(toff)
+    acc = torch.zeros(len(lens), dtype=dtype)
+    for j in range(int(lens.max(initial=0))):
+        at = np.flatnonzero(lens > j)
+        acc[at] = acc[at] + terms[toff[at] + j]
+    return acc
+
+
+def _walk(plan, ops, valids, r_top, omega=amg.OMEGA, sweeps=amg.COARSEST_SWEEPS):
+    """The tail as the kernel runs it from ``plan``: each block's shared
+    memory a dict of vectors indexed by slot, the top's r, s and each
+    term's neighbour s gathered in the prologue, the cluster restrictions
+    over each block's own members with neighbours read by packed address,
+    level P's r1 and s into block 0, block 0's levels, x' of level P into
+    its owners, the cluster levels back up through each row's prolongation
+    members, the top's x' in a global vector.  Returns the top's x."""
+    T = r_top.dtype
+    om = torch.tensor(omega, dtype=T)
+    K, C = len(plan.sizes), plan.cluster
+    P, NB = C - 1, amg_tail.TAIL_BLOCKS
+    seg = {(k, b): _segment(plan, k, b) for k in range(K) for b in range(NB if k < C else 1)}
+    smem = [dict() for _ in range(NB)]
+    for (k, b) in seg:
+        if k or not C:
+            smem[b][k] = [torch.zeros(plan.levels[k].cap_rows, dtype=T) for _ in "rv"]
+    unpack = lambda a: zip(a >> amg_tail.SLOT_BITS, a & ((1 << amg_tail.SLOT_BITS) - 1))  # noqa
+    out, d0 = torch.zeros(plan.sizes[0], dtype=T), ops[0][0]
+    if C:
+        xs, top = torch.zeros(plan.sizes[0], dtype=T), {}
+        for b in range(NB):
+            g, a = seg[(0, b)]["grow"], seg[(0, b)]["addr"]
+            top[b] = (r_top[g], (om * r_top[g]) / d0[g], (om * r_top[a]) / d0[a])
+    else:
+        smem[0][0] = [r_top.clone(), (om * r_top) / d0]
+
+    def nbr(k, b, a, which):
+        """The values of level k's terms ``a`` of block b (s or x')."""
+        if k < C:
+            return torch.stack([smem[o][k][1][s] for o, s in unpack(a)]) if len(a) else \
+                torch.zeros(0, dtype=T)
+        return smem[0][k][1][a]
+
+    def r1_rows(k, b):
+        s, (dg, off) = seg[(k, b)], ops[k]
+        if k == 0 and C:
+            r, sm, nb = top[b]
+        else:
+            r, sm = (v[: s["rows"]] for v in smem[b][k])
+            nb = nbr(k, b, s["addr"], 1)
+        return r - (dg[s["grow"]] * sm + _fold(s["toff"], off[s["cpos"]] * nb, T)), sm
+
+    def restrict(kc, b, vals):
+        s = seg[(kc, b)]
+        acc = _fold(s["moff"], vals[s["mem"]], T)
+        smem[b][kc][0][: s["rows"]] = acc
+        smem[b][kc][1][: s["rows"]] = (om * acc) / ops[kc][0][s["grow"]]
+
+    for k in range(C - 1):
+        r1 = {b: r1_rows(k, b)[0] for b in range(NB)}
+        for b in range(NB):
+            restrict(k + 1, b, r1[b])
+    if C:
+        R1, SP = torch.zeros(plan.sizes[P], dtype=T), torch.zeros(plan.sizes[P], dtype=T)
+        for b in range(NB):
+            g = seg[(P, b)]["grow"]
+            R1[g], SP[g] = r1_rows(P, b)
+        restrict(C, 0, R1)
+    for k in range(C, K - 1):
+        restrict(k + 1, 0, r1_rows(k, 0)[0])
+
+    def expand(k, b, x):
+        s = seg[(k, b)]
+        if k == 0:
+            out[s["grow"]] = x
+            return
+        j = s["pmem"]
+        xp, valid = x[np.repeat(np.arange(s["rows"]), np.diff(s["poff"]))], valids[k - 1]
+        if k == C:
+            xp = SP[j] + (xp * valid[j] if valid is not None else xp)
+            if P == 0:
+                xs[j] = xp
+            for (o, sl), v in zip(unpack(s["ldst"][j]) if P else (), xp):
+                smem[o][P][1][sl] = v
+            return
+        g = seg[(k - 1, b)]["grow"][j]
+        add = xp * valid[g] if valid is not None else xp
+        if k == 1 and C >= 2:
+            xs[g] = top[b][1][j] + add
+        else:
+            v = smem[b][k - 1][1]
+            v[j] = v[j] + add
+
+    def smooth(k, b):
+        s, (dg, off) = seg[(k, b)], ops[k]
+        if k == 0 and C:
+            x, r, nb = xs[s["grow"]], top[b][0], xs[s["addr"]]
+        else:
+            r, x = (v[: s["rows"]] for v in smem[b][k])
+            nb = nbr(k, b, s["addr"], 1)
+        d = dg[s["grow"]]
+        return x + (om * (r - (d * x + _fold(s["toff"], off[s["cpos"]] * nb, T)))) / d
+
+    z, (dg, off) = seg[(K - 1, 0)], ops[K - 1]
+    r, a = smem[0][K - 1][0], smem[0][K - 1][1].clone()
+    for _ in range(sweeps):
+        a = a + (om * (r - (dg * a + _fold(z["toff"], off[z["cpos"]] * a[z["addr"]], T)))) / dg
+    expand(K - 1, 0, a)
+    for k in range(K - 2, C - 1, -1):
+        expand(k, 0, smooth(k, 0))
+    for k in range(C - 1, -1, -1):
+        up = {b: smooth(k, b) for b in range(NB)}
+        for b in range(NB):
+            expand(k, b, up[b])
+    return out
+
+
+def _plan_splits(rows, aggs, ops, prolong, r, block0_rows):
+    """(split, plan, walked, tail_plain) at every split t = L .. 0."""
+    rs = [r]
+    for k, ag in enumerate(aggs):
+        rs.append(amg.down_plain(rows[k], ag, *ops[k], rs[k]))
+    for t in range(len(aggs), -1, -1):
+        plan = amg_tail.tail_plan(rows[t:], aggs[t:], prolong[t:], block0_rows)
+        yield t, plan, _walk(plan, ops[t:], [v for _, v in prolong[t:]], rs[t]), \
+            amg.tail_plain(rows[t:], aggs[t:], ops[t:], prolong[t:], rs[t])
+
+
+@pytest.mark.parametrize("block0_rows", [amg_cuda.TAIL_BLOCK0_ROWS, 32])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["duct", "tjunction", "pitzDaily", "box"])
+def test_tail_plan_walk_equals_tail_plain_at_every_split(polys, name, dtype, block0_rows):
+    """The tail plan walked as the kernel walks it (owner blocks, packed
+    addresses, the staged terms in plan order, the owner's smoothed value)
+    equals ``tail_plain`` bit for bit at every split, from the coarsest
+    alone (all in block 0) to the whole hierarchy, on the duct, the shrunk
+    TJunction, pitzDaily and a ragged box, with block 0 from 512 rows and
+    from 32 (more cluster levels)."""
+    rows, aggs, ops, prolong, r = _hierarchy(polys[name], name, DTYPES[dtype], 11)
+    clusters = set()
+    for t, plan, got, want in _plan_splits(rows, aggs, ops, prolong, r, block0_rows):
+        assert torch.equal(got, want), (t, plan.cluster)
+        clusters.add(plan.cluster)
+    assert 0 in clusters and (max(clusters) > 0) == (rows[0].n > block0_rows)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tail_plan_walk_with_valid_on_a_shard(polys, dtype):
+    """A 4-shard duct's local hierarchies (dropped ghosts: rows in no
+    restriction, the clipped prolongation times ``agg_valid``): the walk
+    equals ``tail_plain`` bit for bit at every split, shard by shard."""
+    dt = DTYPES[dtype]
+    smesh, _ = flowshard.decompose(polys["duct"], 4, dtype=dt, device=CPU)
+    lamg = flowshard.build_local_amg(smesh, min_coarse=5)
+    rng = np.random.default_rng(12)
+    for s, sh in enumerate(smesh.shards):
+        m, t = sh.m, lamg.shard[s]
+        off0 = (-torch.as_tensor(rng.uniform(0.5, 2.0, m.n_internal), dtype=dt)
+                * t["off_mask"])
+        diag0 = fv.index_sum(m.n_cells, [(m.own_i, -off0), (m.neighbour, -off0)],
+                             out=torch.as_tensor(rng.uniform(0.1, 1.0, m.n_cells), dtype=dt))
+        diag0 = torch.where(sh.mask, diag0, 1.0)
+        levels = flowshard._local_coarse_ops(lamg, s, m, diag0, off0)
+        r0 = torch.where(sh.mask, torch.as_tensor(rng.standard_normal(m.n_cells), dtype=dt), 0.0)
+        rows = [amg.row_plan(m.n_cells, m.own_i, m.neighbour)] + [
+            amg.row_plan(d_.shape[0], o, ne)
+            for (d_, _), o, ne in zip(levels, t["owners"], t["neighs"])]
+        aggs = [amg.agg_plan(nc, a) for (nc, _), a in zip(lamg.sizes, t["aggs"])]
+        prolong = list(zip(t["aggs_c"], t["agg_valid"]))
+        assert any(a.h_offsets[-1] < a.n_src for a in aggs)      # dropped rows
+        for block0_rows in (amg_cuda.TAIL_BLOCK0_ROWS, 8):
+            for split, plan, got, want in _plan_splits(rows, aggs, [(diag0, off0)] + levels,
+                                                        prolong, r0, block0_rows):
+                assert torch.equal(got, want), (s, split, block0_rows)
+
+
+def test_tail_plan_keeps_rows_with_their_aggregate(polys):
+    """pitzDaily's tail from level 1: level P split into 16 ranges, each
+    finer row in the block of its aggregate, slots dense in index order,
+    the block-0 levels whole in block 0 by index; a block's rows at most
+    1.1 times the mean on each cluster level above P (the ranges of level P
+    balance the rows that descend to them); a row whose restriction and
+    prolongation indices differ is refused; the top's distinct neighbours
+    list its own rows first, each once, and reach every term's."""
+    rows, aggs, ops, prolong, r = _hierarchy(polys["pitzDaily"], "pitzDaily", torch.float32, 3)
+    plan = amg_tail.tail_plan(rows[1:], aggs[1:], prolong[1:], amg_cuda.TAIL_BLOCK0_ROWS)
+    K, C = len(plan.sizes), plan.cluster
+    assert plan.sizes == tuple(PITZ_SIZES[1:]) and C == 4
+    assert np.all(np.diff(plan.owner[C - 1]) >= 0) and set(plan.owner[C - 1]) == set(range(16))
+    for k in range(K):
+        own, slot = plan.owner[k], plan.slot[k]
+        if k + 1 < C:
+            assert np.array_equal(own, plan.owner[k + 1][prolong[1 + k][0].numpy()])
+        if k >= C:
+            assert not own.any() and np.array_equal(slot, np.arange(plan.sizes[k]))
+            continue
+        counts = np.bincount(own, minlength=16)
+        assert plan.levels[k].cap_rows == counts.max()
+        assert k == C - 1 or counts.max() <= 1.1 * plan.sizes[k] / 16
+        for b in range(16):
+            assert np.array_equal(np.sort(slot[own == b]), np.arange(counts[b]))
+            assert np.all(np.diff(slot[np.flatnonzero(own == b)]) > 0)
+    assert 0 < plan.remote_terms < plan.cluster_terms
+    for b in range(16):       # the top's distinct neighbours: own rows first, each term's
+        seg = _segment(plan, 0, b)
+        assert np.array_equal(seg["nbr"][: seg["rows"]], seg["grow"])
+        assert np.unique(seg["nbr"]).size == seg["nbr"].size
+        assert np.array_equal(seg["nbr"][seg["tslot"]], seg["addr"])
+    bad = prolong[1][0].clone()
+    bad[0] = (bad[0] + 1) % plan.sizes[1]
+    with pytest.raises(ValueError, match="restriction and prolongation indices differ"):
+        amg_tail.tail_plan(rows[1:], aggs[1:], [(bad, None)] + prolong[2:],
+                           amg_cuda.TAIL_BLOCK0_ROWS)
+
+
+@pytest.mark.parametrize("sizes, block0_rows, cluster", [
+    (PITZ_SIZES[1:], 512, 4), (PITZ_SIZES[1:], 1024, 3), (TJ_SIZES[5:], 512, 4),
+    (TJ_SIZES[5:], 1024, 3), ([116], 512, 0), ([417, 218, 116], 512, 0), ([9_000, 20], 512, 1),
+])
+def test_tail_phases_and_barriers(sizes, block0_rows, cluster):
+    """The cluster levels and the kernel's timed phases: the prologue's four
+    parts, a restriction a level, level P's residual and level C's entry, the
+    coarsest, a prolongation a level; 2C cluster barriers
+    (``traffic.amg_tail_chain``)."""
+    from cudaparticlesfoam_tpu_torch.ops import traffic
+
+    assert amg_tail.cluster_levels(sizes, block0_rows) == cluster
+    plan = amg_tail.tail_plan(*_synthetic(sizes, 4), block0_rows)
+    names = amg_tail.phases(plan)
+    K = len(sizes)
+    assert names[:4] == ["prologue: own gathers", "prologue: cluster start",
+                         "prologue: block 0's levels", "prologue: the top's s"]
+    assert names.count("coarsest") == 1 and len(names) == 2 * K + 3 + (1 if cluster else 0)
+    assert [n for n in names if n.startswith("down")] == [f"down {k}" for k in range(K - 1)
+                                                          if k != cluster - 1]
+    assert [n for n in names if n.startswith("up")] == [f"up {k}" for k in range(K - 2, -1, -1)]
+    chain = traffic.amg_tail_chain(sizes, block0_rows=block0_rows)
+    assert chain["barriers"] == 2 * cluster
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -175,25 +452,34 @@ def test_tail_start_refuses_no_levels():
         amg.tail_start([], 16_384)
 
 
+def _struct_fields(src, name):
+    """The field names of ``struct name { ... };`` in a CUDA source."""
+    body = re.search(r"struct " + name + r" \{(.*?)\n\};", src, re.S).group(1)
+    out = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip().rstrip(";")
+        if decl:
+            out += [re.findall(r"\w+", w.split("[")[0])[-1] for w in decl.split(",")]
+    return out
+
+
 def test_descriptor_matches_the_kernel_struct():
-    """``csrc/amg.cu``'s TailLevel and TailParams field for field: nine
-    pointers then six int32 a level (96 B); two pointers, omega, eight
-    int32, then 16 levels (1,592 B, under the 4 KB of kernel parameters)."""
-    assert [f[0] for f in amg_cuda.TailLevel._fields_] == [
-        "off", "pos", "col", "diag", "offc", "aoff", "acell", "agg", "valid",
-        "n", "nf", "shift", "r_at", "x_at", "pad"]
-    assert [f[0] for f in amg_cuda.TailParams._fields_] == [
-        "r_top", "x_out", "omega", "levels", "sweeps", "xb_at", "stage", "st_diag",
-        "st_coef", "st_col", "st_off", "lv"]
-    assert ctypes.sizeof(amg_cuda.TailLevel) == 96
-    assert amg_cuda.TailParams.lv.offset == 56
-    assert ctypes.sizeof(amg_cuda.TailParams) == 56 + 16 * 96 < 4096
+    """``csrc/amg.cu``'s TailLevel and TailParams field for field: three
+    pointers then 28 int32 a level (136 B); six pointers, omega, ten
+    int32, then 16 levels (2,272 B, under the 4 KB of kernel parameters)."""
     with open(os.path.join(os.path.dirname(amg.__file__), "..", "csrc", "amg.cu")) as fh:
         src = fh.read()
+    assert [f[0] for f in amg_cuda.TailLevel._fields_] == _struct_fields(src, "TailLevel")
+    assert [f[0] for f in amg_cuda.TailParams._fields_] == _struct_fields(src, "TailParams")
+    assert [f[0] for f in amg_cuda.TailLevel._fields_][10:20] == list(amg_tail.FIELDS[1:-1])
+    assert ctypes.sizeof(amg_cuda.TailLevel) == 136
+    assert amg_cuda.TailParams.lv.offset == 96
+    assert ctypes.sizeof(amg_cuda.TailParams) == 96 + 16 * 136 < 4096
     assert "constexpr int TAIL_MAX_LEVELS = 16;" in src and amg.MAX_TAIL_LEVELS == 16
     assert f"constexpr int TAIL_SMEM_MAX = {amg_cuda.TAIL_SMEM_BYTES};" in src
     assert f"constexpr int TAIL_THREADS = {amg_cuda.TAIL_THREADS};" in src
     assert f"constexpr int TAIL_BLOCKS = {amg_cuda.TAIL_BLOCKS};" in src
+    assert f"constexpr int TAIL_SLOT_BITS = {amg_tail.SLOT_BITS};" in src
 
 
 def _chain(n_levels, rows=40):
@@ -212,90 +498,233 @@ def test_descriptor_fills_every_level_and_raises_past_16():
     aggs = [amg.agg_plan(40, a) for _, a in levels[:-1]]
     ops = [(torch.ones(40), torch.full((39,), -0.1)) for _ in levels]
     prolong = [(a, None) for _, a in levels[:-1]]
-    r, x = torch.ones(40), torch.empty(40)
-    lay = amg_cuda.tail_layout([40] * 4, 78, 4)
-    p = amg_cuda.tail_params(rows, aggs, ops, prolong, r, x, lay)
-    assert p.levels == 4 and p.sweeps == amg.COARSEST_SWEEPS and p.omega == amg.OMEGA
-    assert p.stage == 1 and (p.st_diag, p.st_coef, p.st_col, p.st_off) == lay.st
-    assert (p.r_top, p.x_out) == (r.data_ptr(), x.data_ptr())
+    r, x, xs = torch.ones(40), torch.empty(40), torch.empty(40)
+    plan = amg_tail.tail_plan(rows, aggs, prolong, 16)
+    assert plan.cluster == 3 and amg_tail.tail_plan(rows, aggs, prolong, 16) is plan
+    lay = amg_cuda.tail_layout(plan, 4)
+    assert all(lay.stage)
+    p = amg_cuda.tail_params(plan, lay, ops, prolong, r, x, xs)
+    assert (p.levels, p.cluster, p.lower) == (4, 3, 40)
+    assert p.sweeps == amg.COARSEST_SWEEPS and p.omega == amg.OMEGA and p.stamps is None
+    assert (p.r_top, p.x_out, p.xs, p.blob) == (r.data_ptr(), x.data_ptr(), xs.data_ptr(),
+                                                plan.blob.data_ptr())
+    assert (p.xb, p.r1, p.sp) == (lay.xb, lay.r1, lay.sp)
     for k in range(4):
-        lv = p.lv[k]
-        assert (lv.off, lv.n, lv.nf, lv.shift) == (rows[k].offsets.data_ptr(), 40, 39,
-                                                  lay.shifts[k])
-        assert (lv.diag, lv.offc) == (ops[k][0].data_ptr(), ops[k][1].data_ptr())
-        assert (lv.aoff is None) == (k == 3) and lv.valid is None
+        lv, lp = p.lv[k], plan.levels[k]
+        assert (lv.diag, lv.off, lv.valid) == (ops[k][0].data_ptr(), ops[k][1].data_ptr(), None)
+        assert (lv.n, lv.stage, lv.cap_rows, lv.cap_terms) == (40, 1, lp.cap_rows, lp.cap_terms)
+        assert (lv.base, lv.seg, lv.copy) == (lp.base, lp.seg, lp.copy)
+        assert [getattr(lv, f) for f in amg_tail.FIELDS[1:-1]] == [lp.at[f] for f in
+                                                                   amg_tail.FIELDS[1:-1]]
+        assert (lv.st, lv.coef, lv.sdiag, lv.r, lv.v) == (lay.st[k], lay.coef[k], lay.diag[k],
+                                                          lay.r[k], lay.v[k])
+        assert lv.svalid == -1 and lv.lvalid == -1
     assert p.lv[4].off is None and p.lv[4].n == 0
+    with pytest.raises(ValueError, match="x' scratch"):
+        amg_cuda.tail_params(plan, lay, ops, prolong, r, x)
     many = _chain(17)
     args = ([q for q, _ in many], [amg.agg_plan(40, a) for _, a in many[:-1]],
             [(torch.ones(40), torch.full((39,), -0.1))] * 17, [(a, None) for _, a in many[:-1]])
     with pytest.raises(ValueError, match="1 to 16 levels"):
-        amg_cuda.tail_params(*args, r, x, lay)
+        amg_tail.tail_plan(args[0], args[1], args[3], 16)
     with pytest.raises(ValueError, match="1 to 16 levels"):
         amg_cuda.amg_tail(*args, r)
-    with pytest.raises(ValueError, match="1 to 16 levels"):
-        amg_cuda.tail_layout([40] * 17, 78, 4)
+    with pytest.raises(ValueError, match="takes 4 ops"):
+        amg_cuda.tail_params(plan, lay, ops[:3], prolong, r, x, xs)
+
+
+def _synthetic(sizes, terms):
+    """A hierarchy of 1-d levels of ``sizes`` rows, each row joined to
+    its ``terms // 2`` nearest on either side, level k's row i aggregated
+    into i * n_{k+1} // n_k: (rows, aggs, prolong), on the CPU."""
+    w = max(1, terms // 2)
+    rows, aggs, prolong = [], [], []
+    for k, n in enumerate(sizes):
+        own = torch.cat([torch.arange(max(n - d, 0)) for d in range(1, w + 1)])
+        nei = torch.cat([torch.arange(d, max(n, d)) for d in range(1, w + 1)])
+        rows.append(amg.row_plan(n, own, nei))
+        if k + 1 < len(sizes):
+            a = torch.arange(n) * sizes[k + 1] // n
+            aggs.append(amg.agg_plan(sizes[k + 1], a))
+            prolong.append((a, None))
+    return rows, aggs, prolong
+
+
+def _spans(plan, lay):
+    """(start, bytes, what) of everything the layout places in a block's
+    shared memory."""
+    K, e = len(plan.sizes), lay.elem
+    out = [(lay.xb, plan.sizes[-1] * e, "xb")]
+    if plan.cluster:
+        nP = plan.sizes[plan.cluster - 1]
+        out += [(lay.r1, nP * e, "r1"), (lay.sp, nP * e, "sp")]
+    for k, lp in enumerate(plan.levels):
+        if lay.r[k] >= 0:
+            out += [(lay.r[k], lp.cap_rows * e, f"r{k}"), (lay.v[k], lp.cap_rows * e, f"v{k}")]
+        if not lay.stage[k]:
+            continue
+        top = k == 0 and plan.cluster >= 1
+        out += [(lay.st[k], 4 * lp.copy, f"st{k}"), (lay.coef[k], lp.cap_terms * e, f"coef{k}"),
+                (lay.diag[k], (lp.cap_nbrs if top else lp.cap_rows) * e, f"diag{k}")]
+        if lay.valid[k] >= 0:
+            out.append((lay.valid[k], lp.cap_rows * e, f"valid{k}"))
+        if lay.sv[k] >= 0:
+            assert lay.ss[k] == lay.sv[k]
+            out += [(lay.sr[k], lp.cap_nbrs * e, "sr"), (lay.sv[k], lp.cap_nbrs * e, "sv")]
+        if lay.lvalid[k] >= 0:
+            out.append((lay.lvalid[k], lp.lower * e, "lvalid"))
+    assert len(out) >= K
+    return sorted(out)
 
 
 @pytest.mark.parametrize("sizes, elem", [(PITZ_SIZES, 8), (TJ_SIZES[4:], 8), (BOX_SIZES[2:], 8),
                                          (PITZ_SIZES, 4), ([116], 8), ([3, 2, 1], 4)])
 def test_layout_places_every_vector_apart(sizes, elem):
-    """Each level's rows fit its blocks (16 of them, the coarsest all in
-    block 0), r and x of the levels below the top, the coarsest's two
-    sweep buffers and its staged plan do not overlap, and the tails of the
-    pitzDaily, the TJunction and the box fit in a block's shared memory."""
-    nnz = 6 * sizes[-1]
-    lay = amg_cuda.tail_layout(sizes, nnz, elem)
-    assert lay.stage
-    K = len(sizes)
-    spans = []
-    for k, (n, s) in enumerate(zip(sizes, lay.shifts)):
-        if k == K - 1:
-            assert s == 31
-        else:
-            # the least power of two that spreads the rows over 16 blocks
-            assert (n - 1) >> s < amg_cuda.TAIL_BLOCKS
-            assert s == 0 or 1 << (s - 1) < -(-n // amg_cuda.TAIL_BLOCKS)
-        cap = n if k == K - 1 else 1 << s
-        if k > 0:
-            spans += [(lay.r_at[k], cap), (lay.x_at[k], cap)]
-    if K == 1:
-        spans.append((lay.x_at[0], sizes[0]))
-    spans.append((lay.xb_at, sizes[-1]))
-    spans = [(a * elem, n * elem) for a, n in spans]
-    n = sizes[-1]
-    if lay.stage:
-        spans += [(lay.st[0], n * elem), (lay.st[1], nnz * elem), (lay.st[2], 4 * nnz),
-                  (lay.st[3], 4 * (n + 1))]
-        assert lay.elements * elem == lay.st[0]
-        assert all(a % 4 == 0 for a in lay.st) and lay.st[1] % elem == 0
-    else:
-        assert lay.st == (0, 0, 0, 0)
-    spans.sort()
-    assert spans[0][0] == 0 and all(a + n <= b for (a, n), (b, _) in zip(spans, spans[1:]))
-    assert lay.smem == spans[-1][0] + spans[-1][1] <= amg_cuda.TAIL_SMEM_BYTES
-    assert 32 <= lay.threads <= amg_cuda.TAIL_THREADS and lay.threads % 32 == 0
+    """Every vector and staged segment of the layout lies apart from the
+    others, 16 B aligned, within a block's shared memory; the vectors come
+    first; the plan's segments lie apart in its words, the copied part of
+    each a multiple of 16 B; a tail from at most TAIL_ROWS rows (7 terms a
+    row) fits with every level staged in float32."""
+    plan = amg_tail.tail_plan(*_synthetic(sizes, 7), amg_cuda.TAIL_BLOCK0_ROWS)
+    for valid in (False, True):
+        lay = amg_cuda.tail_layout(plan, elem, valid)
+        spans = _spans(plan, lay)
+        assert spans[0][0] == 0 and all(a % 16 == 0 for a, _, _ in spans)
+        assert all(a + n <= b for (a, n, _), (b, _, _) in zip(spans, spans[1:])), spans
+        end = max(a + n for a, n, _ in spans)
+        assert end <= lay.smem < end + 16 and lay.smem <= amg_cuda.TAIL_SMEM_BYTES
+        assert lay.vectors <= min(lay.st[k] for k in range(len(sizes)) if lay.stage[k]) \
+            if any(lay.stage) else True
+        assert 32 <= lay.threads <= amg_cuda.TAIL_THREADS and lay.threads % 32 == 0
+        if elem == 4 and sizes[0] <= amg_cuda.TAIL_ROWS:
+            assert all(lay.stage)
+    base = 0
+    for lp in plan.levels:
+        assert lp.base == base and lp.seg % 4 == 0 and lp.copy % 4 == 0 and lp.copy <= lp.seg
+        at = [lp.at[f] for f in amg_tail.FIELDS]
+        assert at == sorted(at) and at[0] == 0 and all(a % 4 == 0 for a in at)
+        base += lp.nseg * lp.seg
+    assert plan.h_blob.size == base
+
+
+def _run_programs(plan, lay, ops, valids, r_top):
+    """The prologue's gather programs run on the host: each block's shared
+    memory as an array of ``lay.smem / elem`` values, its own program
+    first, then block 0's levels' program into block 0's."""
+    srcs = {3 * k + j: t for k, (d, o) in enumerate(ops)
+            for j, t in enumerate((o, d, valids[k] if k < len(valids) else None))}
+    srcs[amg_tail.SRC_RTOP] = r_top
+    n = lay.smem // lay.elem
+    mem = [torch.full((n,), float("nan"), dtype=r_top.dtype) for _ in range(16)]
+    h = lay.prog.numpy().astype(np.int64).reshape(-1, 2)
+    nloc = lay.prog_local
+    for b in range(16):
+        progs = [h[b * nloc: (b + 1) * nloc]] + ([h[16 * nloc:]] if b == 0 else [])
+        for items in progs:
+            src = (items[:, 0] & 0xFFFFFFFF) >> amg_tail.IDX_BITS
+            idx = items[:, 0] & ((1 << amg_tail.IDX_BITS) - 1)
+            for s in np.unique(src):
+                if s == amg_tail.NO_SOURCE or srcs.get(int(s)) is None:
+                    continue
+                at = src == s
+                mem[b][items[at, 1]] = srcs[int(s)][idx[at]]
+    return mem
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block0_rows", [amg_cuda.TAIL_BLOCK0_ROWS, 32])
+def test_gather_programs_stage_what_the_phases_read(polys, dtype, block0_rows):
+    """pitzDaily's tail from level 1 (and from level 5, all in block 0):
+    the prologue's gather programs, run on the host, fill each staged
+    level's coefficients (off at the plan's positions) and diag, and on
+    the cluster top the r and diag of each distinct neighbour, every slot a
+    block's rows and terms use exactly as the segment indexes them, and
+    nothing else."""
+    dt = DTYPES[dtype]
+    rows, aggs, ops, prolong, r = _hierarchy(polys["pitzDaily"], "pitzDaily", dt, 5)
+    for t in (1, 5):
+        plan = amg_tail.tail_plan(rows[t:], aggs[t:], prolong[t:], block0_rows)
+        lay = amg_cuda.tail_layout(plan, r.element_size())
+        assert all(lay.stage)
+        K, C = len(plan.sizes), plan.cluster
+        mem = _run_programs(plan, lay, ops[t:], [None] * (K - 1), r)
+        e = lay.elem
+        filled = [torch.zeros(lay.smem // e, dtype=torch.bool) for _ in range(16)]
+        for k in range(K):
+            (d, o), lp = ops[t + k], plan.levels[k]
+            for b in range(16 if k < C else 1):
+                seg = _segment(plan, k, b)
+                want = {lay.coef[k]: o[seg["cpos"]], lay.diag[k]: d[seg["grow"]]}
+                if k == 0 and C:      # every distinct neighbour's diag and r
+                    want.update({lay.diag[k]: d[seg["nbr"]], lay.sr[k]: r[seg["nbr"]]})
+                for at, vals in want.items():
+                    got = mem[b][at // e: at // e + vals.shape[0]]
+                    assert torch.equal(got, vals), (t, k, b, at)
+                    filled[b][at // e: at // e + vals.shape[0]] = True
+        for b in range(16):
+            assert torch.isnan(mem[b][~filled[b]]).all(), b    # nothing else written
+        words = lay.prog.numpy().reshape(-1, 2)
+        assert words.shape[0] == 16 * lay.prog_local + lay.prog_stretch
 
 
 @pytest.mark.parametrize("sizes, nnz, elem, fits", [
     (TJ_SIZES, 744, 8, False),        # the whole TJunction hierarchy in float64: 264,864 B
     (TJ_SIZES, 744, 4, True),         # in float32: 132,432 B
     (TJ_SIZES[1:], 744, 8, True),
-    ([40_000], 240_000, 8, False),    # a coarsest of 40,000 rows: x, its second buffer
+    ([40_000], 240_000, 8, False),    # a coarsest of 40,000 rows: r, x, its second buffer
     ([9_000], 54_000, 8, True),       # 9,000 rows fit, but not the staged plan beside them
+    (TJ_SIZES[5:], 868, 8, "staged"),  # from 7,750 rows in float64: 247,120 B to stage all
+    (TJ_SIZES[5:], 868, 4, True),     # in float32: 175,344 B
 ])
 def test_layout_raises_with_the_numbers_where_shared_memory_is_short(sizes, nnz, elem, fits):
     """Where a tail's vectors do not fit in a block's shared memory the
-    layout raises and names the bytes; the coarsest's plan is staged only
-    where it fits beside them."""
+    layout raises and names the bytes, and so does it where a tail from at
+    most TAIL_ROWS rows cannot stage every level; a larger tail's levels
+    are staged only where they fit beside the vectors, from the coarsest
+    up."""
+    plan = amg_tail.tail_plan(*_synthetic(sizes, max(1, nnz // sizes[-1])),
+                              amg_cuda.TAIL_BLOCK0_ROWS)
     if not fits:
         with pytest.raises(ValueError, match=f"more than its {amg_cuda.TAIL_SMEM_BYTES} B"):
-            amg_cuda.tail_layout(sizes, nnz, elem)
+            amg_cuda.tail_layout(plan, elem)
         return
-    lay = amg_cuda.tail_layout(sizes, nnz, elem)
-    assert lay.elements * elem <= amg_cuda.TAIL_SMEM_BYTES
-    assert lay.stage == (lay.smem > lay.elements * elem)
-    if not lay.stage:
-        assert lay.smem == lay.elements * elem and lay.st == (0, 0, 0, 0)
+    if fits == "staged":
+        assert sizes[0] <= amg_cuda.TAIL_ROWS
+        full = amg_tail.layout(plan, elem, False, amg_cuda.TAIL_SMEM_BYTES, 512).full
+        assert full > amg_cuda.TAIL_SMEM_BYTES
+        with pytest.raises(ValueError, match=f"needs {full} B of shared memory a block to stage "
+                                             f"every level .* more than its "
+                                             f"{amg_cuda.TAIL_SMEM_BYTES} B"):
+            amg_cuda.tail_layout(plan, elem)
+        return
+    lay = amg_cuda.tail_layout(plan, elem)
+    assert lay.vectors <= lay.smem <= amg_cuda.TAIL_SMEM_BYTES
+    K, C = len(sizes), plan.cluster
+    order = list(range(K - 1, C - 1, -1)) + list(range(C - 1, -1, -1))
+    staged = [lay.stage[k] for k in order]
+    assert staged == sorted(staged, reverse=True)       # a prefix of the coarsest-first order
+    assert lay.stage[-1] == (sizes != [9_000])
+    if not all(lay.stage):
+        k = order[staged.index(False)]
+        assert lay.smem + amg_tail.layout(plan, elem, False, 10**9, 512).smem \
+            - amg_tail.layout(plan, elem, False, 10**9, 512).vectors > amg_cuda.TAIL_SMEM_BYTES
+        assert lay.st[k] == -1
+
+
+@pytest.mark.parametrize("elem, want", [(4, 5), (8, 6)])
+def test_tail_split_starts_where_every_level_stages(elem, want):
+    """A V-cycle's tail starts at tail_start's level at TAIL_ROWS (the
+    TJunction's 7,750 rows, 7 terms a row) where that tail stages every
+    level (float32), and a level lower where it cannot (float64: 247,120 B
+    to stage): the tail it launches never reads a level from global
+    memory."""
+    rows, aggs, prolong = _synthetic(TJ_SIZES, 7)
+    assert amg.tail_start(TJ_SIZES, amg_cuda.TAIL_ROWS) == 5
+    t = amg_cuda.tail_split(rows, aggs, prolong, elem)
+    assert t == want
+    lay = amg_cuda.tail_layout(amg_tail.tail_plan(rows[t:], aggs[t:], prolong[t:],
+                                                  amg_cuda.TAIL_BLOCK0_ROWS), elem)
+    assert all(lay.stage)
 
 
 def test_amg_tail_raises_elsewhere(polys):

@@ -305,6 +305,24 @@ def test_amg_tail_chain(sizes, want):
     assert traffic.amg_tail_chain(sizes) == want
 
 
+@pytest.mark.parametrize("sizes, want", [
+    # all in block 0: no cluster barrier; the prologue's two loads
+    ([116], dict(barriers=0, l2=2, dsmem=0, smem=12)),
+    ([417, 218, 116], dict(barriers=0, l2=2, dsmem=0, smem=4 + 12)),
+    # one cluster level: its residual into block 0, block 0's x' back
+    ([802, 417, 218, 116], dict(barriers=2, l2=3, dsmem=0, smem=1 + 4 + 12)),
+    # pitzDaily's tail (levels 1-7): 4 cluster levels, 8 barriers
+    ([6_116, 3_077, 1_557, 802, 417, 218, 116], dict(barriers=8, l2=3, dsmem=6, smem=17)),
+])
+def test_amg_tail_chain_of_the_tail_plan(sizes, want):
+    """The tail plan's kernel (block 0 from 512 rows): 2C barriers, the
+    prologue's loads and the top's x' from global memory, a read of
+    another block's shared memory after each cluster phase that reads a
+    neighbour there, block 0's own reads; the earlier count stays the default."""
+    assert traffic.amg_tail_chain(sizes, block0_rows=512) == want
+    assert traffic.amg_tail_chain(sizes)["barriers"] == 2 * len(sizes) - 2
+
+
 def test_amg_tail_chain_counts_sweeps_and_refuses_nothing():
     assert traffic.amg_tail_chain([116], sweeps=0)["smem"] == 0
     assert traffic.amg_tail_chain([218, 116], sweeps=3)["smem"] == 4
@@ -330,13 +348,17 @@ def test_cluster_sync_counts_on_the_cpu_and_checks_its_state():
 
     state = torch.zeros(16, dtype=torch.int32)
     probe.cluster_sync(7, 128, state)
-    probe.cluster_sync(3, 512, state, relaxed=True)
+    probe.cluster_sync(3, 512, state, mode="relaxed")
     assert state.tolist() == [10] * 16
+    # a smaller cluster counts in its own blocks only; the tail's barrier
+    probe.cluster_sync(2, 256, state, mode="one release", blocks=4)
+    assert state.tolist() == [12] * 4 + [10] * 12
     for bad in (torch.zeros(8, dtype=torch.int32), torch.zeros(16, dtype=torch.int64)):
         with pytest.raises(ValueError):
             probe.cluster_sync(1, 128, bad)
-    with pytest.raises(ValueError):
-        probe.cluster_sync(1, 1024, state)
+    for kw in (dict(threads=1024), dict(mode="fence"), dict(blocks=17), dict(blocks=0)):
+        with pytest.raises(ValueError):
+            probe.cluster_sync(1, kw.pop("threads", 128), state, **kw)
 
 
 def test_smem_chase_follows_its_cycle_on_the_cpu():
