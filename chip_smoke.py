@@ -62,6 +62,24 @@ Phases, one line of numbers each, any failure exits non-zero:
    through kernel and plain, and each kernel's time against its plain
    version at this shape (stream_kernel with xi and with its Philox
    noise); then one 200-cycle run under "rbg_kernel";
+5e. (runs after phase 5, before 5b) [pack]: pack_kernel and
+   unpack_kernel (csrc/pack.cu, the per-call pack and unpack of
+   run_cycles) against their plain versions (fused.pack_state and the
+   clones of fused.unpack_state) on phase 3's box, float32 and float64,
+   65,536 and 65,499 lanes, the three layouts (TET [n, 32] of 20-column
+   rows, PK [n, 40] of the padded 32-column rows, convex [n, 32] of
+   24-column rows), about one tet in eight negative, pos contiguous, a
+   row-strided view and a column-strided copy: the mega, the five unpacked
+   tensors and the mega packed again from its own head, bit for bit; then
+   at phase 5's slice (1,000,000 lanes, float32) the same comparison on
+   the state after 10 chained cycles and on that state four times over
+   (4,000,000 lanes, the coupled driver's scale), and each kernel's device
+   ms against its plain chain's (torch ops on the card), its bytes (each
+   input read once, one table row per distinct tet; each output written
+   once), its bound at 3.35 TB/s and the share bound / time, and the
+   launches.  Phases 5b and 5d compare both kernels with their plain
+   versions on the convex and VertexVelocity slices' states, and phase 5
+   counts one pack and one unpack launch a run_cycles call;
 5b. the convex slice (the bench's convex-default): the same mesh and
    seeds with locate_mode "convex" and brownian_rng "rbg_kernel", timed
    the same way, with the pending share, the domain checks, one extra
@@ -547,7 +565,7 @@ def phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, e
                                                  (n, n - RAGGED)):
         dt = 0.2 if hops == 1 else 0.9
         mesh = tmesh.set_boundary_escape(base, [1] if esc else [])
-        m0 = fused.pack_state(mesh, pos[:nn], vel[:nn], tet[:nn], act[:nn])
+        m0 = fused.pack_state(fused.row_table(mesh), pos[:nn], vel[:nn], tet[:nn], act[:nn])
         cfg = cpt.StepConfig(dt=dt, diffusion_coeff=5e-3, inline_hops=hops,
                              escape_faces=esc, reflect_wall=refl)
         sa = stream_args(cfg, dt, torch.float32, fused)
@@ -587,7 +605,8 @@ def phase_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, e
                          reflect_wall=True)
     sa, ra = stream_args(cfg, cfg.dt, torch.float64, fused), rare_args(cfg)
     for nn in (n, n - RAGGED):
-        m = fused.pack_state(mesh, pos[:nn].double(), vel[:nn].double(), tet[:nn], act[:nn])
+        m = fused.pack_state(fused.row_table(mesh), pos[:nn].double(), vel[:nn].double(),
+                             tet[:nn], act[:nn])
         pp = torch.empty(nn, dtype=torch.uint8, device=dev)
         fused.stream_plain(mesh.tet_row, m, xi[:nn].double(), pp, **sa)
         need(int(pp.sum()) > 0, f"float64 parity case has no pending lanes (lanes={nn})")
@@ -631,7 +650,8 @@ def phase_pk_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n
                                  escape_faces=esc, velocity_interp="VertexVelocity")
             sa = stream_args(cfg, dt, dtype, fused)
             for philox, nn in itertools.product((False, True), (n, n - RAGGED)):
-                m0 = fused.pack_state(mesh, pos[:nn], vel[:nn], tet[:nn], act[:nn], ly)
+                m0 = fused.pack_state(fused.row_table(mesh, ly), pos[:nn], vel[:nn], tet[:nn],
+                                      act[:nn], ly.width)
                 key = fused.philox_key(11, hops) if philox else None
                 xi_p = fused.philox_normals(key, nn, dtype, dev) if philox else xi[:nn]
                 mk, mp = m0.clone(), m0.clone()
@@ -722,7 +742,7 @@ def phase_convex_parity(torch, cpt, fused, fused_convex, fused_cuda, tmesh, conv
     for hops, esc in itertools.product((0, 1), (False, True)):
         mesh = cpt.with_convex_rows(tmesh.set_boundary_escape(base, [1] if esc else []))
         tab = fused_convex.cx_table(mesh)
-        m0 = fused_convex.pack_state(mesh, tab, pos, vel, tet, act)
+        m0 = fused.pack_state(tab, pos, vel, tet, act, fused_convex.WIDTH)
         for refl, nn in itertools.product((True, False), (n, n - RAGGED)):
             cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3, inline_hops=hops,
                                  escape_faces=esc, reflect_wall=refl, convex_bary_fix=refl,
@@ -755,8 +775,8 @@ def phase_convex_parity(torch, cpt, fused, fused_convex, fused_cuda, tmesh, conv
                          reflect_wall=True, convex_bary_fix=True, locate_mode="convex")
     sa, ra = convex_stream_args(cfg, cfg.dt, torch.float64, fused), convex_rare_args(cfg)
     for nn in (n, n - RAGGED):
-        m = fused_convex.pack_state(mesh, tab, pos[:nn].double(), vel[:nn].double(), tet[:nn],
-                                    act[:nn])
+        m = fused.pack_state(tab, pos[:nn].double(), vel[:nn].double(), tet[:nn], act[:nn],
+                             fused_convex.WIDTH)
         pp = torch.empty(nn, dtype=torch.uint8, device=dev)
         d = torch.empty((nn, 3), dtype=torch.float64, device=dev)
         fused_convex.convex_stream_plain(tab, m, xi[:nn].double(), pp, d, **sa)
@@ -786,7 +806,7 @@ def phase_noise(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev
     xi = fused.philox_normals(key, n, torch.float32, dev)
     cfg = cpt.StepConfig(dt=0.2, diffusion_coeff=5e-3, brownian_rng="rbg_kernel")
     # bary: the kernel cycle (mega_cycle draws in the kernel) vs plain
-    m0 = fused.pack_state(mesh, pos, vel, tet, act)
+    m0 = fused.pack_state(fused.row_table(mesh), pos, vel, tet, act)
     mk = fused.mega_cycle(mesh, m0.clone(), seed, step, cfg, cfg.dt)
     mp, pp = m0.clone(), torch.empty(n, dtype=torch.uint8, device=dev)
     fused.stream_plain(mesh.tet_row, mp, xi, pp, **stream_args(cfg, cfg.dt, mp.dtype, fused))
@@ -795,7 +815,7 @@ def phase_noise(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev
     # convex, the same way
     ccfg = dataclasses.replace(cfg, locate_mode="convex")
     tab = fused_convex.cx_table(mesh)
-    c0 = fused_convex.pack_state(mesh, tab, pos, vel, tet, act)
+    c0 = fused.pack_state(tab, pos, vel, tet, act, fused_convex.WIDTH)
     ck = fused_convex.mega_cycle(mesh, tab, c0.clone(), seed, step, ccfg, ccfg.dt)
     cp = c0.clone()
     dp = torch.empty((n, 3), dtype=torch.float32, device=dev)
@@ -820,13 +840,13 @@ def phase_noise(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, dev
     on = torch.ones(n_stats, dtype=torch.bool, device=dev)
     scfg = cpt.StepConfig(dt=0.05, diffusion_coeff=1e-3, use_advection=False)
     dt_t, sigma = fused.scalars(scfg, scfg.dt, torch.float32)
-    cm = fused_convex.pack_state(mesh, tab, p, torch.zeros_like(p), t, on)
+    cm = fused.pack_state(tab, p, torch.zeros_like(p), t, on, fused_convex.WIDTH)
     pend = torch.empty(n_stats, dtype=torch.uint8, device=dev)
     disp = torch.empty((n_stats, 3), dtype=torch.float32, device=dev)
     fused_cuda.convex_stream_cycle(tab, cm, None, pend, disp, dt=dt_t, sigma=sigma,
                                    use_adv=False, use_brown=True, n_hops=0,
                                    noise_key=fused.philox_key(7, 3))
-    bm = fused.pack_state(mesh, p, torch.zeros_like(p), t, on)
+    bm = fused.pack_state(fused.row_table(mesh), p, torch.zeros_like(p), t, on)
     fused_cuda.stream_cycle(mesh.tet_row, bm, None, pend, dt=dt_t, sigma=sigma,
                             use_adv=False, use_brown=True, bounce_on=False, esc_on=False,
                             n_hops=0, noise_key=fused.philox_key(7, 4))
@@ -988,15 +1008,17 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    fused_cuda.stream_cycle.launches = 0
-    fused_cuda.rare_resolve.launches = 0
+    for w in (fused_cuda.stream_cycle, fused_cuda.rare_resolve, fused_cuda.pack_rows,
+              fused_cuda.unpack_rows):
+        w.launches = 0
     runs = []
     for _ in range(3):
         timer.start()
         st = cpt.run_cycles(mesh, st, cfg, n_cycles)
         runs.append(timer.stop())
     launches = {"stream": fused_cuda.stream_cycle.launches,
-                "rare": fused_cuda.rare_resolve.launches}
+                "rare": fused_cuda.rare_resolve.launches,
+                "pack": fused_cuda.pack_rows.launches, "unpack": fused_cuda.unpack_rows.launches}
     ms_cycle = [r / n_cycles for r in runs]
     med = float(np.median(ms_cycle))
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
@@ -1004,8 +1026,9 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
         f"median={med:.4f} particle_steps_per_s={n_particles / (med * 1e-3):.4e} "
         f"max_memory_allocated={peak} launches={launches}")
     if dev.type == "cuda":
-        need(launches == {"stream": 3 * n_cycles, "rare": 3 * n_cycles},
-             f"launch counts {launches} != {3 * n_cycles} per kernel")
+        need(launches == {"stream": 3 * n_cycles, "rare": 3 * n_cycles, "pack": 3, "unpack": 3},
+             f"launch counts {launches} != {3 * n_cycles} per cycle kernel and 3 per pack "
+             f"kernel")
 
     d = cpt.diagnostics(st)
     active = int(d["active"])
@@ -1019,7 +1042,7 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
 
     # one extra cycle through kernel and plain on the same inputs, and each
     # kernel's time against its plain version at this shape
-    m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active)
+    m0 = fused.pack_state(fused.row_table(mesh), st.pos, st.vel, st.tet_id, st.active)
     xi = fused._brownian_noise(st.seed, st.step, n_particles, m0.dtype, dev)
     sa = stream_args(cfg, cfg.dt, m0.dtype, fused)
     mk, mp = m0.clone(), m0.clone()
@@ -1107,6 +1130,153 @@ def phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, n_particles,
     return launches, times, med, (mesh, st0, n_in, cfg)
 
 
+PACK_LAYOUTS = ("tet", "pk", "convex")
+
+
+def pack_tables(fused, fused_convex, mesh):
+    """(layout, row table, mega width) of the three layouts the port packs."""
+    return (("tet", mesh.tet_row, fused.LAYOUT_TET.width),
+            ("pk", fused.row_table(mesh, fused.LAYOUT_PK), fused.LAYOUT_PK.width),
+            ("convex", fused_convex.cx_table(mesh), fused_convex.WIDTH))
+
+
+def pack_lanes(torch, n, nt, dtype, dev, seed):
+    """Random lanes for the pack: pos, vel, tet int32 with about one in
+    eight negative (escaped, absorbed, remote codes), active bool."""
+    rng = np.random.default_rng(seed)
+    pos = torch.as_tensor(rng.uniform(-1.0, 17.0, size=(n, 3)), dtype=dtype, device=dev)
+    vel = torch.as_tensor(rng.normal(size=(n, 3)), dtype=dtype, device=dev)
+    tet = rng.integers(0, nt, size=n)
+    neg = rng.uniform(size=n) < 0.125
+    tet[neg] = -rng.integers(1, 3 * nt, size=int(neg.sum()))
+    act = torch.as_tensor(rng.uniform(size=n) > 0.1, device=dev)
+    return pos, vel, torch.as_tensor(tet, dtype=torch.int32, device=dev), act
+
+
+def unpack_plain(torch, fused, m):
+    """The torch chain unpack_kernel replaces (PackedRun.result's before it):
+    fresh pos, vel, tet, active and a zero disp of the mega ``m``."""
+    pos, vel, tet, act = fused.unpack_state(m)
+    return (pos.clone(), vel.clone(), tet, act,
+            torch.zeros((m.shape[0], 3), dtype=m.dtype, device=m.device))
+
+
+def same_outputs(torch, got, want):
+    """Each tensor of ``got`` holds the bits of its twin in ``want``."""
+    return all(bitwise_equal(torch, a, b) if a.is_floating_point() else
+               a.shape == b.shape and bool(torch.equal(a, b)) for a, b in zip(got, want))
+
+
+def pack_check(torch, fused, fused_cuda, tab, lanes, width, tag):
+    """pack_kernel and unpack_kernel against their plain versions, bit for
+    bit, on the lanes (pos, vel, tet, active) of a slice's state: what
+    run_cycles hands them on that path.  Fails the phase where they differ."""
+    m = fused_cuda.pack_rows(tab, *lanes, width)
+    same = bitwise_equal(torch, m, fused.pack_state(tab, *lanes, width))
+    same_u = same_outputs(torch, fused_cuda.unpack_rows(m), unpack_plain(torch, fused, m))
+    log(f"[pack] {tag}: lanes={lanes[0].shape[0]} width={width} "
+        f"negative_tets={int((lanes[2] < 0).sum())} pack_identical={int(same)} "
+        f"unpack_identical={int(same_u)}")
+    need(same and same_u, f"pack/unpack kernel != plain on {tag}")
+
+
+def phase_pack(torch, cpt, fused, fused_convex, fused_cuda, dev, nside, n, slice_setup,
+               gpu_line):
+    """Phase 5e: pack_kernel and unpack_kernel (csrc/pack.cu) against their
+    plain versions bit for bit on phase 3's box and on the north-star
+    slice's state (and that state four times over), then their device ms
+    there against the plain chain's and the byte bound.  Returns, by
+    kernel, the row of the kernel table."""
+    for dtype in (torch.float32, torch.float64):
+        mesh = cpt.with_convex_rows(cpt.with_pk_rows(
+            cpt.box_mesh(nside, nside, nside, dtype=dtype, device=dev)))
+        for layout, tab, width in pack_tables(fused, fused_convex, mesh):
+            for nn in (n, n - RAGGED):
+                pos, vel, tet, act = pack_lanes(torch, nn, mesh.n_tets, dtype, dev, nn + width)
+                wide = torch.zeros((nn, 9), dtype=dtype, device=dev)
+                wide[:, 2:5] = pos
+                before = (fused_cuda.pack_rows.launches, fused_cuda.unpack_rows.launches)
+                same = True
+                for p in (pos, wide[:, 2:5], pos.t().contiguous().t()):
+                    m = fused_cuda.pack_rows(tab, p, vel, tet, act, width)
+                    same &= bitwise_equal(torch, m, fused.pack_state(tab, p, vel, tet, act, width))
+                outs = fused_cuda.unpack_rows(m)
+                same_u = same_outputs(torch, outs, unpack_plain(torch, fused, m))
+                # the mega's own head as pos and vel, as set_mesh hands it over
+                m2 = fused_cuda.pack_rows(tab, m[:, 0:3], m[:, 3:6], outs[2], outs[3], width)
+                same_r = bitwise_equal(torch, m2, m)
+                launched = (fused_cuda.pack_rows.launches - before[0],
+                            fused_cuda.unpack_rows.launches - before[1])
+                log(f"[pack] parity {str(dtype)[6:]} {layout} lanes={nn} "
+                    f"negative_tets={int((tet < 0).sum())} pack_identical={int(same)} "
+                    f"unpack_identical={int(same_u)} repack_identical={int(same_r)} "
+                    f"launches={launched}")
+                need(same and same_u and same_r,
+                     f"pack/unpack kernel != plain ({dtype}, {layout}, lanes={nn})")
+                if dev.type == "cuda":
+                    need(launched == (4, 1), f"pack parity launched {launched}, not (4, 1)")
+
+    # the north-star slice: phase 5's mesh and seeds, the tets of a chained
+    # state; then that state four times over, the coupled driver's 4e6 lanes
+    mesh, st0, _, cfg = slice_setup
+    st = cpt.run_cycles(mesh, st0, cfg, 10)
+    tab, n_lanes, el = mesh.tet_row, st.n_particles, st.pos.element_size()
+    lanes = (st.pos, st.vel, st.tet_id, st.active)
+    pack_check(torch, fused, fused_cuda, tab, lanes, 32, "north-star slice, TetVelocity, "
+               "after 10 cycles")
+    pack_check(torch, fused, fused_cuda, tab, tuple(torch.cat([t] * 4) for t in lanes), 32,
+               "north-star slice's state four times over")
+    timer = Timer(torch, dev)
+    m = fused_cuda.pack_rows(tab, *lanes, 32)
+
+    def pack():
+        fused_cuda.pack_rows(tab, *lanes, 32)
+
+    def pack_torch():
+        fused.pack_state(tab, *lanes, 32)
+
+    before = (fused_cuda.pack_rows.launches, fused_cuda.unpack_rows.launches)
+    times = {}
+    for key, fn, plain in (("pack", pack, pack_torch),
+                           ("unpack", lambda: fused_cuda.unpack_rows(m),
+                            lambda: unpack_plain(torch, fused, m))):
+        fn(), plain()    # warm-up
+        # in turns plain, kernel, kernel, plain; each reading a graph of the
+        # calls replayed, so the wrappers' host time (checks, the outputs'
+        # allocation, about as long as the unpack kernel) is not read
+        p_a = device_ms(torch, timer, plain, reps=10)
+        k_a = device_ms(torch, timer, fn, reps=50)
+        k_b = device_ms(torch, timer, fn, reps=50)
+        p_b = device_ms(torch, timer, plain, reps=10)
+        times[key] = ((k_a + k_b) / 2, (p_a + p_b) / 2, (p_a, k_a, k_b, p_b))
+    rows = int(torch.unique(st.tet_id.clamp(min=0)).numel())
+    # each input byte read once (one table row per distinct tet), each output
+    # byte written once
+    nbytes = {"pack": n_lanes * (6 * el + 4 + 1) + rows * 20 * el + n_lanes * 32 * el,
+              "unpack": n_lanes * 8 * el + n_lanes * (9 * el + 4 + 1)}
+    launched = (fused_cuda.pack_rows.launches - before[0],
+                fused_cuda.unpack_rows.launches - before[1])
+    table = {}
+    for key, (k, pl, four) in times.items():
+        bound = nbytes[key] / 3.35e12 * 1e3
+        table[key] = dict(ms=k, plain_ms=pl, bytes=nbytes[key], bound_ms=bound, bound_by="bytes",
+                          share=bound / k, copy_ms=copy_ms(torch, dev, timer, nbytes[key]))
+        log(f"[pack] {gpu_line} | {key}_kernel_ms={k:.5f} ({four[1]:.5f}, {four[2]:.5f}) "
+            f"{key}_plain_ms={pl:.5f} ({four[0]:.5f}, {four[3]:.5f}) MB={nbytes[key] / 1e6:.1f} "
+            f"bound_ms={bound:.5f} share={bound / k:.3f} lanes={n_lanes} "
+            f"distinct_rows={rows} (per-lane rows: {n_lanes * 20 * el / 1e6:.1f} MB)")
+    both = times["pack"][0] + times["unpack"][0]
+    bound = (nbytes["pack"] + nbytes["unpack"]) / 3.35e12 * 1e3
+    log(f"[pack] {gpu_line} | call_kernels_ms={both:.5f} call_plain_ms="
+        f"{times['pack'][1] + times['unpack'][1]:.5f} bound_ms={bound:.5f} "
+        f"share={bound / both:.3f} launches={launched}")
+    if dev.type == "cuda":
+        # each kernel: one warm-up, then two readings of one warm-up + 50
+        # captured calls
+        need(launched == (103, 103), f"timed pack launches {launched}, not (103, 103)")
+    return table
+
+
 def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_setup,
                        n_cycles, errs, counts, rares, gpu_line):
     """Phase 5b: the convex slice (the bench's convex-default) through
@@ -1143,6 +1313,9 @@ def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_s
     if dev.type == "cuda":
         need(launches == {"convex_stream": 3 * n_cycles, "convex_rare": 3 * n_cycles},
              f"convex launch counts {launches} != {3 * n_cycles} per kernel")
+    pack_check(torch, fused, fused_cuda, fused_convex.cx_table(mesh),
+               (st.pos, st.vel, st.tet_id, st.active), fused_convex.WIDTH,
+               "north-star slice, convex, after the timed runs")
 
     d = cpt.diagnostics(st)
     active = int(d["active"])
@@ -1157,7 +1330,7 @@ def phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_s
     # one extra cycle through kernels and plain versions (Philox in the
     # kernel against philox_normals), and each kernel's time at this shape
     tab = fused_convex.cx_table(mesh)
-    m0 = fused_convex.pack_state(mesh, tab, st.pos, st.vel, st.tet_id, st.active)
+    m0 = fused.pack_state(tab, st.pos, st.vel, st.tet_id, st.active, fused_convex.WIDTH)
     key = fused.philox_key(st.seed, st.step)
     same_s, err_s, same_r, err_r, npend, m1, d1, p1 = convex_cycle_pair(
         torch, fused_convex, fused_cuda, mesh, tab, m0, None, key,
@@ -1302,9 +1475,11 @@ def phase_pk_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, slice_setup
         need(launches == {"stream_pk": 3 * n_cycles, "rare_pk": 3 * n_cycles},
              f"pk slice launch counts {launches} != {3 * n_cycles} per kernel")
     domain_check(torch, cpt, mesh, st, n_in, "pk-slice")
+    pack_check(torch, fused, fused_cuda, tab, (st.pos, st.vel, st.tet_id, st.active), ly.width,
+               "north-star slice, VertexVelocity, after the timed runs")
 
     # one extra cycle through kernel and plain on the same inputs
-    m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active, ly)
+    m0 = fused.pack_state(fused.row_table(mesh, ly), st.pos, st.vel, st.tet_id, st.active, ly.width)
     xi = fused._brownian_noise(st.seed, st.step, n, m0.dtype, dev)
     nkey = fused.philox_key(st.seed, st.step)
     sa = dict(stream_args(cfg, cfg.dt, m0.dtype, fused), ly=ly)
@@ -1507,12 +1682,12 @@ def phase_compact(torch, cpt, fused, fused_convex, fused_cuda, tmesh, convert, d
             if convex:
                 mesh = cpt.with_convex_rows(mesh)
                 tab = fused_convex.cx_table(mesh)
-                m0 = fused_convex.pack_state(mesh, tab, pos, vel, tet, act)
+                m0 = fused.pack_state(tab, pos, vel, tet, act, fused_convex.WIDTH)
                 cycle = fused_convex.mega_cycle
                 args = (mesh, tab)
             else:
                 tab = mesh.tet_row
-                m0 = fused.pack_state(mesh, pos, vel, tet, act)
+                m0 = fused.pack_state(fused.row_table(mesh), pos, vel, tet, act)
                 cycle = fused.mega_cycle
                 args = (mesh,)
             for frac in (1.0, 0.02):
@@ -1661,7 +1836,7 @@ def phase_macro(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, er
             if dtype == torch.float64 and not (k == 4 and esc):
                 continue
             mesh = tmesh.set_boundary_escape(base, [1] if esc else [])
-            m0 = fused.pack_state(mesh, pos[:nn], vel[:nn], tet[:nn], act[:nn])
+            m0 = fused.pack_state(fused.row_table(mesh), pos[:nn], vel[:nn], tet[:nn], act[:nn])
             cfg = cpt.StepConfig(dt=0.2, diffusion_coeff=5e-3, escape_faces=esc,
                                  macro_cycles=k, brownian_rng=rng_mode)
             xi, xi_plain = macro_noise(torch, fused, cfg, seed, step, nn, dev, dtype)
@@ -1694,7 +1869,7 @@ def phase_macro(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, n, er
 
 COUNTED = ("stream_cycle", "stream_crossers", "rare_resolve", "convex_stream_cycle",
            "convex_stream_crossers", "convex_rare_resolve", "hop_admit", "macro_stream",
-           "macro_crossers")
+           "macro_crossers", "pack_rows", "unpack_rows")
 
 
 def counted_run(torch, cpt, fused_cuda, timer, mesh, st, cfg, n_cycles):
@@ -1826,8 +2001,8 @@ def phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_se
         f"{ {a: v for a, v in launches.items() if v} }")
     macs = 3 * (n_cycles // k)
     need_launches(dev, launches, {"macro_stream": k * macs, "macro_crossers": (k - 1) * macs,
-                                  "hop_admit": (k - 1) * macs, "rare_resolve": k * macs},
-                  "macro slice")
+                                  "hop_admit": (k - 1) * macs, "rare_resolve": k * macs,
+                                  "pack_rows": 3, "unpack_rows": 3}, "macro slice")
     domain_check(torch, cpt, mesh, st, n_in, "macro-slice")
     rcfg = dataclasses.replace(cfg, brownian_rng="rbg_kernel")
     st_r = cpt.run_cycles(mesh, st, rcfg, 2 * k)       # warm-up
@@ -1840,7 +2015,7 @@ def phase_macro_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_se
     domain_check(torch, cpt, mesh, st_r, n_in, "macro-slice rbg_kernel")
 
     # one macro cycle through kernels and plain versions on the same inputs
-    m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active)
+    m0 = fused.pack_state(fused.row_table(mesh), st.pos, st.vel, st.tet_id, st.active)
     xi, _ = macro_noise(torch, fused, cfg, st.seed, st.step, n, dev)
     mk = fused.mega_macro(mesh, m0.clone(), st.seed, st.step, cfg, cfg.dt, noise=xi)
     mp = macro_plain(torch, fused, mesh, m0.clone(), xi, cfg, cfg.dt)
@@ -2007,18 +2182,18 @@ def phase_compact_slice(torch, cpt, fused, fused_convex, fused_cuda, dev, slice_
         f"launches={ {a: v for a, v in got.items() if v} }")
     pre = "convex_" if convex else ""
     need_launches(dev, got, {f"{pre}stream_crossers": n_cycles, "hop_admit": n_cycles,
-                             f"{pre}stream_cycle": n_cycles,
-                             f"{pre}rare_resolve": n_cycles}, tag)
+                             f"{pre}stream_cycle": n_cycles, f"{pre}rare_resolve": n_cycles,
+                             "pack_rows": 1, "unpack_rows": 1}, tag)
     domain_check(torch, cpt, cmesh, st_c, n_in, tag)
 
     # one more cycle's stages, and the compacted stream's time against plain
     if convex:
         tab = fused_convex.cx_table(cmesh)
-        m0 = fused_convex.pack_state(cmesh, tab, st_c.pos, st_c.vel, st_c.tet_id,
-                                     st_c.active)
+        m0 = fused.pack_state(tab, st_c.pos, st_c.vel, st_c.tet_id, st_c.active,
+                              fused_convex.WIDTH)
     else:
         tab = cmesh.tet_row
-        m0 = fused.pack_state(cmesh, st_c.pos, st_c.vel, st_c.tet_id, st_c.active)
+        m0 = fused.pack_state(tab, st_c.pos, st_c.vel, st_c.tet_id, st_c.active)
     xi = fused._brownian_noise(st_c.seed, st_c.step, n, m0.dtype, dev)
     flags_k, flags_p, apply_k, apply_p = compact_stages(
         fused, fused_convex, fused_cuda, convex, tab, xi,
@@ -2430,7 +2605,9 @@ def phase_driver_anchor(torch, fused, fused_cuda, dev, tmp, gpu_line):
         f"active_exact={int(act_ok)} launches={ran} run_s={secs:.2f}")
     need(stats["cycles"] == 100 and tet_ok and act_ok and err <= POS_TOL_GOLDEN,
          "the pitzDaily driver anchor failed")
-    need_launches(dev, got, {"stream_cycle": 100, "rare_resolve": 100}, "driver anchor")
+    # one pack and one unpack a run_cycles call: 20 calls of 5 cycles
+    need_launches(dev, got, {"stream_cycle": 100, "rare_resolve": 100, "pack_rows": 20,
+                             "unpack_rows": 20}, "driver anchor")
 
 
 def _frame_summary(path):
@@ -2601,7 +2778,7 @@ def phase_driver_cycle(torch, cpt, fused, fused_cuda, dev, case_dir, warm, errs,
     held.close()
     log(f"[driver-cycle] {gpu_line} | one frame of {n} lanes: copy off the card "
         f"{copy_s * 1e3:.2f} ms, copy + write {(time.perf_counter() - h0):.3f} s")
-    m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active)
+    m0 = fused.pack_state(fused.row_table(mesh), st.pos, st.vel, st.tet_id, st.active)
     xi = fused._brownian_noise(st.seed, st.step, n, m0.dtype, dev)
     sa = stream_args(cfg, dt, m0.dtype, fused)
     ra = rare_args(cfg)
@@ -2686,7 +2863,8 @@ def phase_rk4_parity(torch, cpt, fused, fused_cuda, tmesh, convert, dev, nside, 
             sa = dict(stream_args(cfg, dt, dtype, fused), ly=ly)
             ra = dict(rare_args(cfg), ly=ly)
             for philox, nn in itertools.product((False, True), (n, n - RAGGED)):
-                m0 = fused.pack_state(mesh, pos[:nn], vel[:nn], tet[:nn], act[:nn], ly)
+                m0 = fused.pack_state(fused.row_table(mesh, ly), pos[:nn], vel[:nn], tet[:nn],
+                                      act[:nn], ly.width)
                 key = fused.philox_key(13, hops) if philox else None
                 xi_p = fused.philox_normals(key, nn, dtype, dev) if philox else xi[:nn]
                 mk, mp = m0.clone(), m0.clone()
@@ -2850,14 +3028,15 @@ def phase_rk4_slice(torch, cpt, fused, fused_cuda, tmesh, dev, nside, slice_setu
             f"particle_steps_per_s={n / (ms / n_cycles * 1e-3):.4e} "
             f"host_issue_ms_per_cycle={host_ms / n_cycles:.4f} max_memory_allocated={peak} "
             f"launches={ {k: v for k, v in got.items() if v} } rk4_launches={launches[skey]}")
-        need_launches(dev, got, {"stream_cycle": n_cycles, "rare_resolve": n_cycles},
-                      f"rk4 slice ({vi})")
+        need_launches(dev, got, {"stream_cycle": n_cycles, "rare_resolve": n_cycles,
+                                 "pack_rows": 1, "unpack_rows": 1}, f"rk4 slice ({vi})")
         if dev.type == "cuda":
             need(launches[skey] == n_cycles, f"rk4 slice ran {launches[skey]} RK4 launches")
         domain_check(torch, cpt, mesh, st, n_in, "rk4-slice")
 
         # one more cycle through kernel and plain, with the plain's stage walks
-        m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active, ly)
+        m0 = fused.pack_state(fused.row_table(mesh, ly), st.pos, st.vel, st.tet_id, st.active,
+                              ly.width)
         sa = dict(stream_args(cfg, cfg.dt, m0.dtype, fused), ly=ly, rk4=True)
         ra = dict(rare_args(cfg), ly=ly)
         mk, mp = m0.clone(), m0.clone()
@@ -3007,8 +3186,10 @@ def register_report(_build, lines):
     remote = [line for line in lines if "remote" in line.split(":")[0]]
     # the pressure solve's kernels (csrc/amg.cu, phase 14), new as well
     amg = [line for line in lines if line.split("<")[0] in AMG_KERNEL_NAMES]
-    rest = sorted(line for line in lines if line not in rk4 + remote + amg)
-    for line in rk4 + remote + amg:
+    # the pack and unpack of run_cycles (csrc/pack.cu, phase 5e), new too
+    pack = [line for line in lines if line.split("<")[0] in PACK_KERNEL_NAMES]
+    rest = sorted(line for line in lines if line not in rk4 + remote + amg + pack)
+    for line in rk4 + remote + amg + pack:
         log(f"[registers] {line}")
     if not lines:
         log("[registers] unchanged_against_pinned=skipped: the library was built before "
@@ -3023,13 +3204,15 @@ def register_report(_build, lines):
     changed = sorted(set(PINNED_PTXAS) ^ set(rest))
     amg_changed = sorted(set(PINNED_AMG_PTXAS) ^ set(amg))
     log(f"[registers] rk4_instantiations={len(rk4)} remote_instantiations={len(remote)} "
-        f"amg_instantiations={len(amg)} other_kernels={len(rest)} "
+        f"amg_instantiations={len(amg)} pack_instantiations={len(pack)} "
+        f"other_kernels={len(rest)} "
         f"unchanged_against_pinned={int(not changed)} amg_unchanged_against_pinned="
         f"{int(not amg_changed)} (nvcc {PINNED_NVCC})")
-    need(len(rk4) == 8 and len(remote) == 4 and len(amg) == 12 and not changed
-         and not amg_changed,
+    need(len(rk4) == 8 and len(remote) == 4 and len(amg) == 12 and len(pack) == 8
+         and not changed and not amg_changed,
          f"ptxas lines differ from the pinned ones: {changed}, AMG {amg_changed}, or not 8 RK4 "
-         f"lines: {rk4}, or not 4 remote lines: {remote}, or not 12 AMG lines: {amg}")
+         f"lines: {rk4}, or not 4 remote lines: {remote}, or not 12 AMG lines: {amg}, or not "
+         f"8 pack lines: {pack}")
 
 
 def ptxas_lines(report):
@@ -3045,7 +3228,12 @@ def ptxas_lines(report):
             base = rest[len(digits): len(digits) + int(digits)]
             targs = rest[len(digits) + int(digits):]
             name = base
-            if base in AMG_KERNEL_NAMES:
+            if base in PACK_KERNEL_NAMES:
+                # pack.cu: <T> and pack_kernel's (W, TW)
+                args = [{"d": "double", "f": "float"}[targs[1]]] + re.findall(
+                    r"Li(\d+)E", targs.split("EE", 1)[0] + "E")
+                name = f"{base}<{', '.join(args)}>"
+            elif base in AMG_KERNEL_NAMES:
                 # amg.cu: <T> and fv_matvec's K columns
                 args = [{"d": "double", "f": "float"}[targs[1]]]
                 flag = re.search(r"L[bi](\d+)E", targs)
@@ -3609,7 +3797,7 @@ def phase_dynamic_mesh(torch, cpt, fused, fused_cuda, tmesh, dev, tmp, nside, n,
     cfg = cpt.StepConfig(dt=0.02, diffusion_coeff=5e-3, inline_hops=1)
     sa, ra = stream_args(cfg, cfg.dt, torch.float32, fused), rare_args(cfg)
     for nn in (n, n - RAGGED):
-        m0 = fused.pack_state(mesh, pos[:nn], vel[:nn], tet[:nn], act[:nn])
+        m0 = fused.pack_state(fused.row_table(mesh), pos[:nn], vel[:nn], tet[:nn], act[:nn])
         mk, mp = m0.clone(), m0.clone()
         pk = torch.empty(nn, dtype=torch.uint8, device=dev)
         pp = torch.empty_like(pk)
@@ -3666,8 +3854,10 @@ def phase_dynamic_mesh(torch, cpt, fused, fused_cuda, tmesh, dev, tmp, nside, n,
         f"run_s={secs:.1f}")
     need(tet_ok and act_ok and err <= POS_TOL_GOLDEN and kstats["active_in_domain"],
          "the oscillating box on the card differs from the CPU run")
-    need_launches(dev, got, {"stream_cycle": kstats["cycles"], "rare_resolve": kstats["cycles"]},
-                  "oscillating box")
+    # one pack and one unpack a run_cycles call: the 10 cycles go in 6 calls
+    # (a call of 1 cycle at each saveInterval's first step)
+    need_launches(dev, got, {"stream_cycle": kstats["cycles"], "rare_resolve": kstats["cycles"],
+                             "pack_rows": 6, "unpack_rows": 6}, "oscillating box")
 
 
 def tjunction_case(torch, dst, rehearse):
@@ -3905,7 +4095,7 @@ def phase_tjunction_cycle(torch, fused, fused_cuda, dev, tcase, st, cfg, errs, c
     version's, for phase 6's bounds and latency rows (keys stream_<tag>,
     rare_<tag>)."""
     mesh, n, dt = tcase.tet_mesh, st.n_particles, cfg.dt
-    m0 = fused.pack_state(mesh, st.pos, st.vel, st.tet_id, st.active)
+    m0 = fused.pack_state(fused.row_table(mesh), st.pos, st.vel, st.tet_id, st.active)
     xi = fused._brownian_noise(st.seed, st.step, n, m0.dtype, dev)
     sa, ra = stream_args(cfg, dt, m0.dtype, fused), rare_args(cfg)
     mk, mp = m0.clone(), m0.clone()
@@ -4955,6 +5145,7 @@ def phase_dryrun(torch, dev, gpu_line):
 AMG_KERNELS = ("fv_matvec", "amg_down", "amg_up", "amg_tail")
 AMG_LAUNCH_KEYS = AMG_KERNELS + ("cg_graph_replays",)    # fv.solver_launches()
 AMG_KERNEL_NAMES = tuple(f"{k}_kernel" for k in AMG_KERNELS)
+PACK_KERNEL_NAMES = ("pack_kernel", "unpack_kernel")   # csrc/pack.cu
 # the XLA code each kernel takes over (the JAX package fuses it in the CG's
 # lax.while_loop; no Pallas body)
 AMG_REPLACES = {"fv_matvec": "cudaparticlesfoam_tpu/models/fv.py:420",
@@ -5927,6 +6118,10 @@ def main():
     launches, times, med, slice_setup = phase_slice(torch, cpt, fused, fused_cuda, tmesh, dev,
                                                     *sizes["slice"], errs, counts, rares,
                                                     gpu_line)
+    pack_table = phase_pack(torch, cpt, fused, fused_convex, fused_cuda, dev, nside, n,
+                            slice_setup, gpu_line)
+    for k in pack_table:     # the main path's launches: phase 5's three calls
+        pack_table[k]["launches"] = launches[k]
     c_launches, c_times, _ = phase_convex_slice(torch, cpt, fused, fused_convex, fused_cuda,
                                                 dev, slice_setup, sizes["slice"][2], errs,
                                                 counts, rares, gpu_line)
@@ -6197,6 +6392,15 @@ def main():
                 "name": f"{k}_kernel", "path": path, "phases": ERR_PHASES[k], "route": "cuda",
                 "source": "cudaparticlesfoam_tpu_torch/csrc/amg.cu", "replaces": AMG_REPLACES[k],
                 "launches": launches.get(k, 0), "max_abs_err": errs[k], **row})
+    # the per-call pack and unpack of run_cycles (launches from phase 5's three
+    # calls, times and bounds from 5e at the same slice; bit for bit there)
+    for k, line in (("pack", 108), ("unpack", 122)):
+        table["kernels"].append({
+            "name": f"{k}_kernel", "path": "north-star slice", "phases": "5, 5b, 5d, 5e",
+            "route": "cuda", "source": "cudaparticlesfoam_tpu_torch/csrc/pack.cu",
+            "replaces": f"cudaparticlesfoam_tpu/ops/fused.py:{line} ({k}_state, XLA ops)",
+            "launches_per_cycle": pack_table[k]["launches"] / steps, "max_abs_err": 0.0,
+            "library_ms": None, **pack_table[k]})
     log(gpu_line)
     log(json.dumps(table))
     if args.rehearse:

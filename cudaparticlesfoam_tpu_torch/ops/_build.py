@@ -132,6 +132,11 @@ def library() -> ctypes.CDLL:
             ("convex_stream", [vp] * 6 + [ll, fl, fl, i, i, i, i, *key, vp]),
             ("convex_rare", [vp] * 11 + [ll, i, i, i, i, i, vp]),
             ("macro_stream", [vp] * 6 + [ll, i, fl, fl, i, i, i, i, i, *key, vp]),
+            # tab, pos, its row stride, vel, its row stride, tet, active, m, n,
+            # the mega's and the table's widths, the stream
+            ("pack", [vp, vp, ll, vp, ll, vp, vp, vp, ll, i, i, vp]),
+            # m, its width, pos, vel, tet, active, disp, n, the stream
+            ("unpack", [vp, i, vp, vp, vp, vp, vp, ll, vp]),
         ):
             fn = getattr(lib, f"cpf_{name}_{suffix}")
             fn.argtypes = args

@@ -101,16 +101,21 @@ def row_table(mesh: TetMesh, ly: Layout = LAYOUT_TET) -> torch.Tensor:
     return mesh.tet_row_pk32
 
 
-def pack_state(mesh: TetMesh, pos, vel, tet_id, active, ly: Layout = LAYOUT_TET) -> torch.Tensor:
-    """Build the [n, ly.width] mega array (one row-table gather for the cache)."""
+def pack_state(tab, pos, vel, tet_id, active, width: int = LAYOUT_TET.width) -> torch.Tensor:
+    """Build the [n, width] mega array (one ``tab`` gather for the cache):
+    pos, vel, tet (as a float) and active (0 or 1) at columns 0:8, the
+    lane's row of ``tab`` [nt, tw] at 8:8+tw (row 0 for a negative tet) and
+    zeros after it.  ``tab`` is :func:`row_table`'s (width ``ly.width``) or
+    the convex ``cx_table`` (width 32).  The plain version of
+    ``pack_kernel`` (``csrc/pack.cu``): ``fused_cuda.pack_rows`` runs this
+    on CPU tensors and the kernel on CUDA tensors."""
     n = pos.shape[0]
-    tab = row_table(mesh, ly)
-    m = torch.zeros((n, ly.width), dtype=pos.dtype, device=pos.device)
+    m = torch.zeros((n, width), dtype=pos.dtype, device=pos.device)
     m[:, P0 : P0 + 3] = pos
     m[:, V0 : V0 + 3] = vel
     m[:, TET] = tet_id.to(pos.dtype)
     m[:, ACT] = active.to(pos.dtype)
-    m[:, ROW : ROW + ly.tab_w] = tab[tet_id.long().clamp(min=0)]
+    m[:, ROW : ROW + tab.shape[1]] = tab[tet_id.long().clamp(min=0)]
     return m
 
 

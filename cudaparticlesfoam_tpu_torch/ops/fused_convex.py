@@ -53,23 +53,6 @@ def cx_table(mesh: TetMesh) -> torch.Tensor:
     return mesh.tet_row_cxe
 
 
-def pack_state(mesh: TetMesh, tab, pos, vel, tet_id, active) -> torch.Tensor:
-    """Build the [n, 32] convex mega (one ``tab`` gather for the cache)."""
-    n = pos.shape[0]
-    m = torch.zeros((n, WIDTH), dtype=pos.dtype, device=pos.device)
-    m[:, P0 : P0 + 3] = pos
-    m[:, V0 : V0 + 3] = vel
-    m[:, TET] = tet_id.to(pos.dtype)
-    m[:, ACT] = active.to(pos.dtype)
-    m[:, ROW : ROW + ROW_W] = tab[tet_id.long().clamp(min=0)]
-    return m
-
-
-def unpack_state(m: torch.Tensor):
-    """(pos, vel, tet_id int32, active bool) of the convex mega."""
-    return m[:, P0 : P0 + 3], m[:, V0 : V0 + 3], m[:, TET].to(torch.int32), m[:, ACT] > 0.5
-
-
 def _row_tables(rows):
     """(normals [c,4,3], offsets [c,4], nbr [c,4] int64) of [c, 24] rows."""
     return rows[:, 0:12].reshape(-1, 4, 3), rows[:, 12:16], rows[:, 16:20].to(torch.int64)

@@ -37,6 +37,10 @@
   trip of a macro cycle (``macro_cycles`` = k), the TPU's macro kernels
   ``_kernel_ak_packed(_k)``, ``_kernel_bk_packed`` and
   ``_kernel_bk_packed_c``.
+* :func:`pack_rows` -> ``pack_kernel`` and :func:`unpack_rows` ->
+  ``unpack_kernel`` (``csrc/pack.cu``): the mega of a ``run_cycles`` call
+  built from the state and the state read back out of it, in every layout
+  (the JAX package's XLA ``pack_state`` / ``unpack_state``; no TPU kernel).
 
 Brownian noise: with ``noise_key`` (the 4 words of ``fused.philox_key``)
 a stream kernel on CUDA draws the JAX "rbg" Philox stream itself
@@ -62,8 +66,8 @@ import torch
 from ..utils.profiling import RECORDER
 from . import _build
 from . import fused_convex
-from .fused import (LAYOUT_PK, LAYOUT_TET, hop_admit_plain, macro_stream_plain,
-                    philox_normals, rare_plain, stream_plain)
+from .fused import (LAYOUT_PK, LAYOUT_TET, ROW, hop_admit_plain, macro_stream_plain,
+                    pack_state, philox_normals, rare_plain, stream_plain, unpack_state)
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -571,6 +575,110 @@ def convex_rare_resolve(mesh, tab, m, disp, pending, *, max_hops, reflect_wall,
 
 convex_rare_resolve.launches = 0
 
+# (mega width, table width) of pack_kernel's instantiations: TetVelocity,
+# VertexVelocity (the padded table) and the convex engine
+PACK_SHAPES = ((LAYOUT_TET.width, LAYOUT_TET.tab_w), (LAYOUT_PK.width, LAYOUT_PK.tab_w),
+               (fused_convex.WIDTH, fused_convex.ROW_W))
+
+
+def _lane_rows(name, t, n, dtype, dev):
+    """A [n, 3] input of the pack kernel as it reads it: (tensor, row stride
+    in elements).  A view whose columns are adjacent (a shard's row slice,
+    a mega's ``m[:, 0:3]``) goes as it is; any other is copied."""
+    if not torch.is_tensor(t) or t.dtype != dtype or t.device != dev or tuple(t.shape) != (n, 3):
+        _check(name, t, dtype=dtype, shape=(n, 3), device=dev)   # raises, naming the fault
+    if t.stride(1) != 1:
+        t = t.contiguous()
+    return t, t.stride(0)
+
+
+def pack_rows(tab, pos, vel, tet, active, width):
+    """The mega [n, width] of the lanes (pos [n, 3], vel [n, 3], tet [n],
+    active [n]): 0:3 pos | 3:6 vel | 6 tet as a float | 7 active, 0 or 1 |
+    8:8+tw the lane's row of ``tab`` [nt, tw], row 0 for a negative tet |
+    zeros up to ``width``.  On CPU tensors the plain version
+    (``fused.pack_state``, which takes any integer tet and any width); on
+    CUDA tensors ``pack_kernel``, one launch that writes every mega row
+    once and whole, for ``(width, tw)`` in :data:`PACK_SHAPES`, the same
+    float dtype throughout, tet int32 (each below nt) and active bool.
+    pos and vel may be views with adjacent columns (a row slice,
+    ``m[:, 0:3]``): the kernel takes their row stride."""
+    dev = pos.device
+    if dev.type == "cpu":
+        return pack_state(tab, pos, vel, tet, active, width)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if pos.dtype not in _SUFFIX:
+        raise TypeError(f"pos must be float32 or float64, got {pos.dtype}")
+    if pos.dim() != 2:
+        raise ValueError(f"pos must be [n, 3], got {tuple(pos.shape)}")
+    n, T = pos.shape[0], pos.dtype
+    pos, ps = _lane_rows("pos", pos, n, T, dev)
+    vel, vs = _lane_rows("vel", vel, n, T, dev)
+    _check("tet", tet, dtype=torch.int32, shape=(n,), device=dev)
+    _check("active", active, dtype=torch.bool, shape=(n,), device=dev)
+    if not torch.is_tensor(tab) or tab.dim() != 2:
+        raise ValueError("tab must be a 2-d tensor [nt, tw]")
+    _check("tab", tab, dtype=T, shape=tuple(tab.shape), device=dev)
+    if (int(width), tab.shape[1]) not in PACK_SHAPES:
+        raise ValueError(f"no pack_kernel for a [n, {width}] mega of [nt, {tab.shape[1]}] "
+                         f"rows; (width, tw) must be one of {PACK_SHAPES}")
+    if tab.shape[0] == 0:
+        raise ValueError("tab has no rows")
+    if tab.data_ptr() % 16:
+        raise ValueError("tab must start on a 16-byte boundary")   # 16 B row loads
+    m = torch.empty((n, int(width)), dtype=T, device=dev)
+    if n == 0:
+        return m
+    err = _entry("pack", T)(tab.data_ptr(), pos.data_ptr(), ps, vel.data_ptr(), vs,
+                            tet.data_ptr(), active.data_ptr(), m.data_ptr(), n, int(width),
+                            tab.shape[1], _stream_ptr(dev))
+    _raise_on(err, "pack_kernel")
+    pack_rows.launches += 1
+    return m
+
+
+pack_rows.launches = 0
+
+
+def unpack_rows(m):
+    """Fresh (pos [n, 3], vel [n, 3], tet [n] int32, active [n] bool, disp
+    [n, 3] zeros) of the mega ``m`` [n, width] of any layout: tet is the
+    float column converted as ``.to(torch.int32)`` converts it, active is
+    the column > 0.5.  On CPU tensors the plain version (clones of
+    ``fused.unpack_state``'s views); on CUDA tensors ``unpack_kernel``, one
+    launch that writes all five."""
+    if not torch.is_tensor(m) or m.dim() != 2 or m.shape[1] < ROW:
+        raise ValueError("m must be a mega array [n, width >= 8]")
+    dev = m.device
+    if dev.type == "cpu":
+        pos, vel, tet, act = unpack_state(m)
+        return pos.clone(), vel.clone(), tet, act, torch.zeros((m.shape[0], 3), dtype=m.dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if m.dtype not in _SUFFIX:
+        raise TypeError(f"m must be float32 or float64, got {m.dtype}")
+    n, w, T = m.shape[0], m.shape[1], m.dtype
+    _check("m", m, dtype=T, shape=(n, w), device=dev)
+    if (w * m.element_size()) % 16 or m.data_ptr() % 16:
+        raise ValueError("m's rows must start on 16-byte boundaries")   # 16 B head loads
+    pos = torch.empty((n, 3), dtype=T, device=dev)
+    vel = torch.empty((n, 3), dtype=T, device=dev)
+    tet = torch.empty(n, dtype=torch.int32, device=dev)
+    act = torch.empty(n, dtype=torch.bool, device=dev)
+    disp = torch.empty((n, 3), dtype=T, device=dev)
+    if n:
+        err = _entry("unpack", T)(m.data_ptr(), w, pos.data_ptr(), vel.data_ptr(),
+                                  tet.data_ptr(), act.data_ptr(), disp.data_ptr(), n,
+                                  _stream_ptr(dev))
+        _raise_on(err, "unpack_kernel")
+        unpack_rows.launches += 1
+    return pos, vel, tet, act, disp
+
+
+unpack_rows.launches = 0
+
 for _f in (stream_cycle, stream_crossers, hop_admit, macro_stream, macro_crossers, rare_resolve,
-           convex_stream_cycle, convex_stream_crossers, convex_rare_resolve):
+           convex_stream_cycle, convex_stream_crossers, convex_rare_resolve, pack_rows,
+           unpack_rows):
     RECORDER.counter(f"launches.{_f.__name__}", lambda f=_f: f.launches)

@@ -5,7 +5,8 @@ simple engine (:func:`cycle`: ``ops.advect`` + ``ops.locate`` /
 what its kernels do not cover (``StepConfig.resolved_engine``).
 
 ``run_cycles`` packs the state into the mega array once ([n, 32] under
-TetVelocity, [n, 40] under VertexVelocity), runs
+TetVelocity, [n, 40] under VertexVelocity; on the card one
+``pack_kernel`` launch, ``ops/fused_cuda.pack_rows``), runs
 ``n_cycles`` sub-steps of :func:`ops.fused.mega_cycle` (or, with
 ``locate_mode="convex"``, :func:`ops.fused_convex.mega_cycle`; two
 kernels each on CUDA: stream + rare, with ``hop_compact=4`` four: the
@@ -14,8 +15,9 @@ crossing flags, ``hop_admit``, stream, rare), and unpacks.  With
 one macro cycle (:func:`ops.fused.mega_macro`: k trips of the macro
 stream and rare kernels) and the remaining ``n_cycles % k`` one at a
 time.  ``integrator="rk4"`` runs the stream kernel's RK4 instantiation
-(per cycle, uncompacted).  PyTorch runs eagerly, so the loop is a Python loop of
-asynchronous launches with no host sync inside.
+(per cycle, uncompacted).  The unpack is one ``unpack_kernel`` launch on
+the card (``fused_cuda.unpack_rows``).  PyTorch runs eagerly, so the loop
+is a Python loop of asynchronous launches with no host sync inside.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from .dtypes import numpy_float
 from .mesh import TetMesh
 from .ops import advect as advect_ops
 from .ops import convex as convex_ops
-from .ops import fused, fused_convex
+from .ops import fused, fused_convex, fused_cuda
 from .ops import locate as locate_ops
 from .state import ParticleState
 from .utils.profiling import span
@@ -261,14 +263,10 @@ class PackedRun:
         self.mesh = mesh
         if self.cfg.locate_mode == "convex":
             self.tab = fused_convex.cx_table(mesh)
-            self.m = fused_convex.pack_state(mesh, self.tab, pos, vel, tet, act)
+            self.m = fused_cuda.pack_rows(self.tab, pos, vel, tet, act, fused_convex.WIDTH)
         else:
-            self.m = fused.pack_state(mesh, pos, vel, tet, act, self.ly)
-
-    def _unpack(self):
-        if self.cfg.locate_mode == "convex":
-            return fused_convex.unpack_state(self.m)
-        return fused.unpack_state(self.m)
+            self.m = fused_cuda.pack_rows(fused.row_table(mesh, self.ly), pos, vel, tet, act,
+                                          self.ly.width)
 
     def set_mesh(self, mesh: TetMesh) -> None:
         """Continue on ``mesh`` (new velocities or geometry, same tets):
@@ -277,8 +275,8 @@ class PackedRun:
             if self.engine == "simple":
                 self.mesh = mesh
                 return
-            pos, vel, tet, act = self._unpack()
-            self._pack(mesh, pos.clone(), vel.clone(), tet, act)
+            pos, vel, tet, act, _ = fused_cuda.unpack_rows(self.m)
+            self._pack(mesh, pos, vel, tet, act)
 
     def advance(self, n_cycles: int, dt, noise=None, lane_offset0: int = 0) -> None:
         """``n_cycles`` sub-steps from the current step, in place.  ``noise``:
@@ -318,16 +316,14 @@ class PackedRun:
         self.step = step + n_cycles
 
     def result(self) -> ParticleState:
-        """The state after the cycles run so far (fresh tensors)."""
+        """The state after the cycles run so far (fresh tensors: on the
+        card one ``unpack_kernel`` launch writes all of them)."""
         with span("PackedRun.result", device=self.template.device):
             if self.engine == "simple":
                 return self.state
-            pos, vel, tet, act = self._unpack()
-            return dataclasses.replace(
-                self.template, pos=pos.clone(), vel=vel.clone(),
-                disp=torch.zeros_like(self.template.disp), tet_id=tet, active=act,
-                step=self.step,
-            )
+            pos, vel, tet, act, disp = fused_cuda.unpack_rows(self.m)
+            return dataclasses.replace(self.template, pos=pos, vel=vel, disp=disp, tet_id=tet,
+                                       active=act, step=self.step)
 
 
 def run_cycles(mesh: TetMesh, state: ParticleState, cfg: StepConfig,

@@ -189,7 +189,7 @@ def test_compacted_stream_matches_pallas_interpret(frac, escape):
     0.02 also by capacity (1024 of the 2048 groups)."""
     jm, tm = _meshes(_payload(np.float32, seed=1), escape)
     pos, vel, tet, act, xi = _lanes(tm, seed=3 + escape)
-    m0 = fused.pack_state(tm, pos, vel, tet, act)
+    m0 = fused.pack_state(fused.row_table(tm), pos, vel, tet, act)
     kw = dict(dt=0.15, diffusion_coeff=5e-3, hop_compact=4, hop_compact_frac=frac,
               escape_faces=escape)
     m, pend, crossers, admit = _port_bary(tm, m0, xi, cpt.StepConfig(**kw))
@@ -230,7 +230,7 @@ def test_convex_compacted_stream_matches_pallas_interpret(frac, escape):
     jm, tm = _meshes(_payload(np.float32, seed=2), escape, convex=True)
     tab = fused_convex.cx_table(tm)
     pos, vel, tet, act, xi = _lanes(tm, seed=7 + escape)
-    m0 = fused_convex.pack_state(tm, tab, pos, vel, tet, act)
+    m0 = fused.pack_state(tab, pos, vel, tet, act, fused_convex.WIDTH)
     kw = dict(dt=0.4, diffusion_coeff=3e-3, locate_mode="convex", hop_compact=4,
               hop_compact_frac=frac, escape_faces=escape)
     cfg = cpt.StepConfig(**kw)

@@ -186,8 +186,8 @@ def _lanes(tm, tab, n, nside, seed):
     rng = np.random.default_rng(seed)
     pos = rng.uniform(0.5, nside - 0.5, (n, 3)).astype(np.float32)
     tet = _located(tm, pos)
-    return fused_convex.pack_state(tm, tab, torch.as_tensor(pos), torch.zeros((n, 3)),
-                                   tet, torch.ones(n, dtype=torch.bool))
+    return fused.pack_state(tab, torch.as_tensor(pos), torch.zeros((n, 3)),
+                            tet, torch.ones(n, dtype=torch.bool), fused_convex.WIDTH)
 
 
 @pytest.mark.parametrize("escape", [False, True])
@@ -273,8 +273,8 @@ def test_convex_rare_plain_matches_jax_rare_stage(case):
     jm, tm = _meshes(_payload(nside, np.float64), escape=escape)
     tab = fused_convex.cx_table(tm)
     start, disp, tet, vel, act = _segments(n, nside, 20 + case, tm)
-    m0 = fused_convex.pack_state(tm, tab, torch.as_tensor(start), torch.as_tensor(vel),
-                                 tet, torch.as_tensor(act))
+    m0 = fused.pack_state(tab, torch.as_tensor(start), torch.as_tensor(vel),
+                          tet, torch.as_tensor(act), fused_convex.WIDTH)
     rng = np.random.default_rng(case)
     pend = torch.as_tensor((rng.uniform(size=n) < 0.7) & act & (tet.numpy() >= 0))
     cfg = cpt.StepConfig(**kw)
@@ -318,8 +318,8 @@ def test_convex_rare_plain_with_nothing_pending_is_a_no_op():
     _, tm = _meshes(_payload(4, np.float64))
     tab = fused_convex.cx_table(tm)
     start, disp, tet, vel, act = _segments(256, 4, 0, tm)
-    m0 = fused_convex.pack_state(tm, tab, torch.as_tensor(start), torch.as_tensor(vel),
-                                 tet, torch.as_tensor(act))
+    m0 = fused.pack_state(tab, torch.as_tensor(start), torch.as_tensor(vel),
+                          tet, torch.as_tensor(act), fused_convex.WIDTH)
     m = m0.clone()
     fused_convex.convex_rare_plain(tm, tab, m, torch.as_tensor(disp),
                                    torch.zeros(256, dtype=torch.uint8), max_hops=50,
@@ -354,9 +354,9 @@ def test_convex_cycle_plain_matches_jnp_engine_f64(case):
     tab = fused_convex.cx_table(tm)
     rng = np.random.default_rng(30 + case)
     pos = rng.uniform(0.05, nside - 0.05, (n, 3))
-    m0 = fused_convex.pack_state(tm, tab, torch.as_tensor(pos),
-                                 torch.as_tensor(rng.normal(size=(n, 3))), _located(tm, pos),
-                                 torch.as_tensor(rng.uniform(size=n) > 0.05))
+    m0 = fused.pack_state(tab, torch.as_tensor(pos),
+                          torch.as_tensor(rng.normal(size=(n, 3))), _located(tm, pos),
+                          torch.as_tensor(rng.uniform(size=n) > 0.05), fused_convex.WIDTH)
     cfg = cpt.StepConfig(**kw)
     m = fused_convex.mega_cycle(tm, tab, m0.clone(), seed, step, cfg, cfg.dt)
     mj = np.asarray(jfused_convex._cycle_aligned(

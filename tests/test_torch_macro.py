@@ -54,7 +54,7 @@ def test_macro_matches_pallas_macro_cycle_interpret(k):
     tm = convert.to_mesh(_payload(np.float32, seed=1), device=CPU)
     jm = jmesh.host_to_device(_payload(np.float32, seed=1))
     st = _state(tm, N, seed=2 + k)
-    m0 = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+    m0 = fused.pack_state(fused.row_table(tm), st.pos, st.vel, st.tet_id, st.active)
     xi = torch.as_tensor(np.random.default_rng(k).standard_normal((k, N, 3)),
                          dtype=torch.float32)
     kw = dict(dt=0.25, diffusion_coeff=5e-3, macro_cycles=k, walk_capacity_frac=0.25)
@@ -107,7 +107,7 @@ def test_macro_equals_per_cycle_steps(dtype, case):
     tm = tmesh.set_boundary_escape(tm, [1] if kw.get("escape_faces") else [])
     st = _state(tm, 4096, seed=20 + case)
     cfg = cpt.StepConfig(macro_cycles=k, **kw)
-    m0 = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+    m0 = fused.pack_state(fused.row_table(tm), st.pos, st.vel, st.tet_id, st.active)
     ref = m0.clone()
     for j in range(k):
         fused.mega_cycle(tm, ref, st.seed, st.step + j, cfg, cfg.dt)
@@ -127,7 +127,7 @@ def test_macro_trip_phases_and_launch_counts():
     nothing pending.  The CPU runs the plain versions (no launches)."""
     tm = convert.to_mesh(_payload(np.float32), device=CPU)
     st = _state(tm, 2048, seed=9)
-    m = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+    m = fused.pack_state(fused.row_table(tm), st.pos, st.vel, st.tet_id, st.active)
     k = 4
     cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3, macro_cycles=k)
     xi = torch.randn((k, 2048, 3), generator=torch.Generator().manual_seed(1))
@@ -225,7 +225,7 @@ def test_macro_trip_with_whole_runs_of_lanes_finished(k, n):
     pending and keep phase k.  With and without admission flags."""
     tm = tmesh.set_boundary_escape(convert.to_mesh(_payload(np.float32, seed=k), device=CPU), [1])
     st = _state(tm, n, seed=30 + k)
-    m0 = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+    m0 = fused.pack_state(fused.row_table(tm), st.pos, st.vel, st.tet_id, st.active)
     rng = np.random.default_rng(n + k)
     xi = torch.as_tensor(rng.standard_normal((k, n, 3)), dtype=torch.float32)
     phase = torch.as_tensor(rng.integers(0, k + 1, n).astype(np.uint8))
@@ -255,7 +255,7 @@ def test_macro_trip_with_no_lane_working(k):
     n = 4099
     tm = convert.to_mesh(_payload(np.float32), device=CPU)
     st = _state(tm, n, seed=3)
-    m0 = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+    m0 = fused.pack_state(fused.row_table(tm), st.pos, st.vel, st.tet_id, st.active)
     xi = torch.zeros((k, n, 3))
     phase = torch.full((n,), k, dtype=torch.uint8)
     m, ph, pend = _lanes_at_phase(tm, m0, xi, phase, k)
@@ -276,7 +276,7 @@ def test_macro_equals_per_cycle_steps_at_a_ragged_lane_count(k, dtype):
     st = _state(tm, 4099, seed=40 + k)
     cfg = cpt.StepConfig(dt=0.3, diffusion_coeff=5e-3, macro_cycles=k, escape_faces=True,
                          brownian_rng="rbg")
-    m0 = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+    m0 = fused.pack_state(fused.row_table(tm), st.pos, st.vel, st.tet_id, st.active)
     ref = m0.clone()
     for j in range(k):
         fused.mega_cycle(tm, ref, st.seed, st.step + j, cfg, cfg.dt)
@@ -310,17 +310,17 @@ def test_run_cycles_hoisted_scratch_equals_per_call_buffers(case):
         from cudaparticlesfoam_tpu_torch.ops import fused_convex
         tab = fused_convex.cx_table(tm)
         for scratch in (None, dirty):
-            m = fused_convex.pack_state(tm, tab, st.pos, st.vel, st.tet_id, st.active)
+            m = fused.pack_state(tab, st.pos, st.vel, st.tet_id, st.active, fused_convex.WIDTH)
             for i in range(n_cycles):
                 fused_convex.mega_cycle(tm, tab, m, st.seed, st.step + i, cfg, cfg.dt,
                                         scratch=scratch)
-            pos, vel, tet, act = fused_convex.unpack_state(m)
+            pos, vel, tet, act = fused.unpack_state(m)
             assert torch.equal(pos, got.pos) and torch.equal(tet, got.tet_id)
             assert torch.equal(vel, got.vel) and torch.equal(act, got.active)
         return
     k = cfg.macro_cycles
     for scratch in (None, dirty):
-        m = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+        m = fused.pack_state(fused.row_table(tm), st.pos, st.vel, st.tet_id, st.active)
         n_mac = n_cycles // k if k > 1 else 0
         for i in range(0, n_mac * k, k):
             fused.mega_macro(tm, m, st.seed, st.step + i, cfg, cfg.dt, scratch=scratch)

@@ -129,7 +129,8 @@ def test_stream_wrapper_draws_philox_on_the_cpu():
     rng = np.random.default_rng(1)
     pos = torch.as_tensor(rng.uniform(0.1, 2.9, (300, 3)), dtype=torch.float32)
     tet = cpt.locate_seeds(mesh, cpt.build_grid_locator(mesh), pos)
-    m0 = fused.pack_state(mesh, pos, torch.zeros_like(pos), tet, torch.ones(300, dtype=torch.bool))
+    m0 = fused.pack_state(fused.row_table(mesh), pos, torch.zeros_like(pos), tet,
+                          torch.ones(300, dtype=torch.bool))
     kw = dict(dt=0.1, sigma=0.3, use_adv=True, use_brown=True, bounce_on=True, esc_on=False,
               n_hops=1)
     key = fused.philox_key(3, 9)

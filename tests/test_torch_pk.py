@@ -191,7 +191,7 @@ def _packed_logic(hops):
     jm, tm = _both(_payload(nside, np.float32))
     jm, tm = jmesh.with_pk_rows(jm), tmesh.with_pk_rows(tm)
     st = _seeds(tm, n, nside, seed=17)
-    m0 = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active, PK)
+    m0 = fused.pack_state(fused.row_table(tm, PK), st.pos, st.vel, st.tet_id, st.active, PK.width)
     np.testing.assert_array_equal(
         m0.numpy(), np.asarray(jfused.pack_state(
             jm, jnp.asarray(st.pos.numpy()), jnp.zeros((n, 3), jnp.float32),
@@ -224,7 +224,7 @@ def _escape_logic():
     jm = jmesh.with_pk_rows(jmesh.set_boundary_escape(jm, [1]))
     tm = tmesh.with_pk_rows(tmesh.set_boundary_escape(tm, [1]))
     st = _seeds(tm, n, nside, seed=47)
-    m0 = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active, PK)
+    m0 = fused.pack_state(fused.row_table(tm, PK), st.pos, st.vel, st.tet_id, st.active, PK.width)
     kw = dict(dt=dt, diffusion_coeff=2e-3, inline_hops=1, brownian_rng="rbg",
               velocity_interp=VV, escape_faces=True)
     a = _port_cycles(tm, m0, 9, 3, 6, dt, kw)

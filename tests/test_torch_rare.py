@@ -50,7 +50,7 @@ def _rare_inputs(tm, kind, seed):
         target = corner + np.where(corner > 0, 1.0, -1.0) * rng.uniform(0.01, 1.5, (N, 3))
     vel = torch.as_tensor(rng.normal(size=(N, 3)))
     act = torch.as_tensor(rng.uniform(size=N) > 0.02)
-    m = fused.pack_state(tm, torch.as_tensor(target), vel, tet, act)
+    m = fused.pack_state(fused.row_table(tm), torch.as_tensor(target), vel, tet, act)
     pend = torch.as_tensor(rng.uniform(size=N) < 0.7).to(torch.uint8)
     return m, pend
 
@@ -200,8 +200,8 @@ def _chain_inputs(tm, ly, kind, seed):
         corner = rng.integers(0, 2, (N, 3)) * NSIDE
         target = corner + np.where(corner > 0, 1.0, -1.0) * rng.uniform(0.01, 1.5, (N, 3))
     vel = torch.as_tensor(rng.normal(size=(N, 3)))
-    m = fused.pack_state(tm, torch.as_tensor(target), vel, tet, torch.ones(N, dtype=torch.bool),
-                         ly)
+    m = fused.pack_state(fused.row_table(tm, ly), torch.as_tensor(target), vel, tet,
+                         torch.ones(N, dtype=torch.bool), ly.width)
     return m, torch.as_tensor(rng.uniform(size=N) < 0.4).to(torch.uint8)
 
 
@@ -428,7 +428,7 @@ def test_convex_rare_chain_matches_a_scalar_walk(escape, reflect_wall, bary_fix)
     st = convert.to_state(start, np.zeros(N, np.int32), dtype=torch.float64, device=CPU)
     tet = locate_seeds(tm, build_grid_locator(tm), st.pos)
     vel = torch.as_tensor(rng.normal(size=(N, 3)))
-    m = fused_convex.pack_state(tm, tab, st.pos, vel, tet, torch.ones(N, dtype=torch.bool))
+    m = fused.pack_state(tab, st.pos, vel, tet, torch.ones(N, dtype=torch.bool), fused_convex.WIDTH)
     disp = torch.as_tensor(rng.normal(scale=2.0, size=(N, 3)))
     pend = torch.as_tensor(rng.uniform(size=N) < 0.4).to(torch.uint8)
     kw = dict(max_hops=50, reflect_wall=reflect_wall, bary_fix=bary_fix, max_bounces=10)
@@ -456,8 +456,8 @@ def test_convex_rare_plain_same_m_with_and_without_counting():
     rng = np.random.default_rng(2)
     start = torch.as_tensor(rng.uniform(0.2, NSIDE - 0.2, (N, 3)))
     tet = locate_seeds(tm, build_grid_locator(tm), start)
-    m0 = fused_convex.pack_state(tm, tab, start, torch.as_tensor(rng.normal(size=(N, 3))), tet,
-                                 torch.ones(N, dtype=torch.bool))
+    m0 = fused.pack_state(tab, start, torch.as_tensor(rng.normal(size=(N, 3))), tet,
+                          torch.ones(N, dtype=torch.bool), fused_convex.WIDTH)
     disp = torch.as_tensor(rng.normal(scale=2.0, size=(N, 3)))
     pend = torch.as_tensor(rng.uniform(size=N) < 0.5).to(torch.uint8)
     kw = dict(max_hops=50, reflect_wall=True, bary_fix=True, max_bounces=10)

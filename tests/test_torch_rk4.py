@@ -77,7 +77,7 @@ def test_stage_velocity_matches_jax(box6, layout):
     jm, tm, st = box6
     ly, jly = LAYOUTS[layout], jfused.LAYOUT_PK if layout == "pk" else jfused.LAYOUT_TET
     n = st.n_particles
-    m = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active, ly)
+    m = fused.pack_state(fused.row_table(tm, ly), st.pos, st.vel, st.tet_id, st.active, ly.width)
     jmega = jfused.pack_state(jm, jnp.asarray(st.pos.numpy()), jnp.zeros((n, 3)),
                               jnp.asarray(st.tet_id.numpy()), jnp.asarray(st.active.numpy()),
                               jly)
@@ -299,7 +299,7 @@ def test_rk4_stream_calls_the_whole_rk4_pass(outward6, monkeypatch):
     cpt.run_cycles(tm, st, cpt.StepConfig(dt=0.08, integrator="rk4"), 2)
     cpt.run_cycles(tm, st, cpt.StepConfig(dt=0.08), 1)
     assert seen == [True, True, False]
-    m = fused.pack_state(tm, st.pos, st.vel, st.tet_id, st.active)
+    m = fused.pack_state(fused.row_table(tm), st.pos, st.vel, st.tet_id, st.active)
     flags = torch.zeros(st.n_particles, dtype=torch.uint8)
     with pytest.raises(ValueError, match="whole pass only"):
         real(tm.tet_row, m, None, flags, dt=0.1, sigma=0.0, use_adv=True, use_brown=False,

@@ -174,9 +174,9 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                      "rare_kernel", "rare_kernel<remote>", "rare_kernel<pk, remote>",
                      "stream_kernel", "rare_kernel"] + [
                      "fv_matvec_kernel", "amg_down_kernel", "amg_up_kernel",
-                     "amg_tail_kernel"] * 2
+                     "amg_tail_kernel"] * 2 + ["pack_kernel", "unpack_kernel"]
     assert [k["path"].startswith("uncoupled driver") for k in table["kernels"]] == \
-        [False] * 8 + [True] * 2 + [False] * 20
+        [False] * 8 + [True] * 2 + [False] * 22
     assert all(k["path"].startswith("rk4-tracers") for k in table["kernels"][10:14])
     assert all(k["path"].startswith("coupled driver (TJunction") for k in table["kernels"][14:16])
     assert [k["path"] for k in table["kernels"][16:20]] == [
@@ -190,7 +190,10 @@ def test_chip_smoke_rehearsal_runs_every_phase():
     assert all(k["path"].startswith("steady-flow driver (pitzDaily") and k["phases"] == "14a"
                for k in table["kernels"][22:26])
     assert all(k["path"].startswith("coupled driver (TJunction,") and k["phases"] == "14a"
-               for k in table["kernels"][26:])
+               for k in table["kernels"][26:30])
+    # the per-call pack and unpack of run_cycles at the north-star slice
+    assert all(k["path"] == "north-star slice" and k["phases"] == "5, 5b, 5d, 5e"
+               and k["source"].endswith("csrc/pack.cu") for k in table["kernels"][30:])
     for entry in table["kernels"]:
         assert {"path", "phases", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "bytes", "share", "copy_ms",
@@ -208,7 +211,7 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                       "amg_down_kernel", "amg_up_kernel", "amg_tail_kernel"}
     # the flow rows' latency bound: launch floor + chain x t_dep (+ the tail's
     # cluster barriers and the shared-memory reads after them), and its share
-    for entry in table["kernels"][22:]:
+    for entry in table["kernels"][22:30]:
         assert entry["latency_bound_ms"] == pytest.approx(
             entry["launch_floor_ms"] + entry["chain"] * entry["t_dep_ms"]
             + entry["tail_barriers"] * entry["barrier_ms"]
@@ -240,8 +243,8 @@ def test_chip_smoke_rehearsal_runs_every_phase():
                    for line in latency), name
     assert any("rare_patterns_identical=1" in line for line in lines if line.startswith("[parity]"))
     for tag in ("[parity]", "[convex-parity]", "[noise]", "[admit]", "[compact]", "[macro]",
-                "[golden]", "[slice]", "[convex-slice]", "[macro-slice]", "[compact-slice]",
-                "[convex-compact-slice]", "[pk-parity]", "[pk-slice]", "[simple]", "[bound]",
+                "[golden]", "[slice]", "[pack]", "[convex-slice]", "[macro-slice]",
+                "[compact-slice]", "[convex-compact-slice]", "[pk-parity]", "[pk-slice]", "[simple]", "[bound]",
                 "[driver-anchor]", "[driver-tutorial]", "[driver-cycle]", "[rk4-parity]",
                 "[rk4-simple]", "[duct]", "[rk4-slice]", "[flow-parity]", "[flow-allrun]",
                 "[flow-split]", "[pimple-parity]", "[dyn-refresh]", "[dyn-kernels]",

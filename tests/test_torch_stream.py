@@ -48,7 +48,7 @@ def _lanes(tm, n, nside, seed):
     tet = locate_seeds(tm, build_grid_locator(tm), st.pos)
     vel = torch.as_tensor(rng.normal(size=(n, 3)), dtype=tm.dtype)
     act = torch.as_tensor(rng.uniform(size=n) > 0.05)
-    m0 = fused.pack_state(tm, st.pos, vel, tet, act)
+    m0 = fused.pack_state(fused.row_table(tm), st.pos, vel, tet, act)
     xi = torch.as_tensor(rng.standard_normal((n, 3)), dtype=tm.dtype)
     return m0, xi
 
