@@ -3951,22 +3951,15 @@ def phase_tjunction(torch, dev, tmp, rehearse, gpu_line):
 
 def tjunction_after_step1(torch, dev, case):
     """The TJunction loaded in process (the tet mesh from the CLI run's
-    cache), float32, its flow solver and particles after Eulerian step 1
-    (flow step, velocity refresh, the interval's cycles): (case, flow,
-    state, step config, the next sub-step's number)."""
-    from cudaparticlesfoam_tpu_torch.models import case as caselib
-    from cudaparticlesfoam_tpu_torch.models import coupled, pimple
+    cache), float32, as a ``coupled.CoupledRun`` after Eulerian step 1
+    (flow step, function objects, velocity refresh, the interval's cycles):
+    its ``case``, ``flow``, ``state``, ``cfg`` (the step config) and
+    ``step0`` (the next sub-step's number)."""
+    from cudaparticlesfoam_tpu_torch.models import coupled
 
-    quiet = lambda *a: None  # noqa: E731
-    tcase, cfg = coupled._load(case, None, quiet, dev)
-    flow = pimple.FlowSolver.from_case(tcase, log=quiet, device=dev)
-    st = caselib.init_particles(tcase, log=quiet)
-    dt_e = flow.stable_dt(tcase.control)
-    flow.advance(dt_e)
-    tcase.update_velocity(flow.cell_velocity())
-    st, step0 = coupled._advance_interval(tcase, st, cfg, tcase.particles, dt_e, 0, None, None,
-                                          quiet)
-    return tcase, flow, st, cfg, step0
+    run = coupled.CoupledRun(case, write_output=False, log=lambda *a: None, device=dev)
+    run.step()
+    return run
 
 
 def short_kernel_name(name):
@@ -3987,10 +3980,10 @@ def device_kernels(torch, prof):
     return dict(sorted(agg.items(), key=lambda kv: -kv[1][1]))
 
 
-def phase_tjunction_trace(torch, dev, tcase, flow, st, cfg, step0, tmp, gpu_line):
+def phase_tjunction_trace(torch, dev, run, tmp, gpu_line):
     """Phase 11c, the run's Advect traced: Eulerian steps 2 and 3 of the
     TJunction in process as run_coupled takes them (flow step, velocity
-    refresh, the interval through coupled._advance_interval with frames
+    refresh, the interval through ``CoupledRun.advance_interval`` with frames
     through the async writer on the run's saveInterval schedule).  For each
     chunk of cycles (one run_cycles call) its cycles, device ms (CUDA
     events) and host ms to issue; for each step's interval, under
@@ -4005,10 +3998,10 @@ def phase_tjunction_trace(torch, dev, tcase, flow, st, cfg, step0, tmp, gpu_line
     from cudaparticlesfoam_tpu_torch.ops import fused_cuda
 
     cuda = dev.type == "cuda"
-    quiet = lambda *a: None  # noqa: E731
     out = os.path.join(tmp, "tj_trace_frames")
     chunks = []
     inner = coupled.run_cycles
+    tcase, flow = run.case, run.flow
 
     def traced(mesh, state, cfg_, n_cycles, dt):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] if cuda else None
@@ -4023,6 +4016,7 @@ def phase_tjunction_trace(torch, dev, tcase, flow, st, cfg, step0, tmp, gpu_line
         return res
 
     writer = vtu.AsyncVTUWriter()
+    run.writer, run.out_dir = writer, out
     coupled.run_cycles = traced
     # the lines are printed once the writer's thread, which prints each
     # frame it writes, has finished: a line printed beside it can be split
@@ -4033,7 +4027,7 @@ def phase_tjunction_trace(torch, dev, tcase, flow, st, cfg, step0, tmp, gpu_line
             flow.advance(dt_e)
             tcase.update_velocity(flow.cell_velocity())
             chunks.clear()
-            first = step0
+            first = run.step0
             acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
             launched = fused_cuda.stream_cycle.launches
             with profile(activities=acts) as prof:
@@ -4044,8 +4038,8 @@ def phase_tjunction_trace(torch, dev, tcase, flow, st, cfg, step0, tmp, gpu_line
                     for _ in range(WARM_FILLS):
                         warm.fill_(0)
                     torch.cuda.synchronize(dev)
-                st, step0 = coupled._advance_interval(tcase, st, cfg, tcase.particles, dt_e,
-                                                      step0, out, writer, quiet)
+                run.advance_interval(dt_e)
+                step0 = run.step0
                 if cuda:
                     torch.cuda.synchronize(dev)
             launched = fused_cuda.stream_cycle.launches - launched
@@ -4078,6 +4072,7 @@ def phase_tjunction_trace(torch, dev, tcase, flow, st, cfg, step0, tmp, gpu_line
                 f"other_kernels_ms={busy - ours_ms - copies:.3f} kinds={len(kern)} | {top}")
     finally:
         coupled.run_cycles = inner
+        run.writer = None
         writer.close()
     for line in held:
         log(line)
@@ -5000,8 +4995,7 @@ def timed(torch, dev, fn):
     return r, timer.stop(), host
 
 
-def phase_tj_parallel_fields(torch, fused, fused_cuda, dev, tcase, cfg, errs, counts, rares,
-                             gpu_line):
+def phase_tj_parallel_fields(torch, fused, fused_cuda, dev, run, errs, counts, rares, gpu_line):
     """Phase 13b in process, and 13c: the TJunction at full width (11c's
     case as phase 11 loaded it, float32) with the single-device flow and the
     4-shard flow side by
@@ -5017,10 +5011,11 @@ def phase_tj_parallel_fields(torch, fused, fused_cuda, dev, tcase, cfg, errs, co
     of stream_kernel and rare_kernel against their plain versions.  Returns
     the kernels' times."""
     from cudaparticlesfoam_tpu_torch.models import case as caselib
-    from cudaparticlesfoam_tpu_torch.models import coupled, fv, pimple
+    from cudaparticlesfoam_tpu_torch.models import fv, pimple
     from cudaparticlesfoam_tpu_torch.parallel import flowshard as fs
 
     quiet = lambda *a: None  # noqa: E731
+    tcase, cfg = run.case, run.cfg
     h0 = time.perf_counter()
     single = pimple.FlowSolver.from_case(tcase, log=quiet, device=dev)
     single_s = time.perf_counter() - h0
@@ -5054,11 +5049,11 @@ def phase_tj_parallel_fields(torch, fused, fused_cuda, dev, tcase, cfg, errs, co
             need(np.abs(ua - ub).max() / (np.abs(ua).max() + 1e-12) <= TJP_STEP1_TOL,
                  "13b: the sharded U parts from the single-device U after step 1")
             # 13c: the particles over step 1's interval on the sharded field
-            st = caselib.init_particles(tcase, log=quiet)
+            run.state, run.step0 = caselib.init_particles(tcase, log=quiet), 0
             _, ref_ms, _ = timed(torch, dev,
                                  lambda: tcase.update_velocity(sharded.cell_velocity()))
-            st, _ = coupled._advance_interval(tcase, st, cfg, tcase.particles, dt_e, 0, None,
-                                              None, quiet)
+            run.advance_interval(dt_e)
+            st = run.state
             log(f"[tj-par] {gpu_line} | velocity refresh from the gathered sharded U: "
                 f"{ref_ms:.1f} ms; step 1's interval advanced {st.n_particles} lanes")
             times = phase_tjunction_cycle(torch, fused, fused_cuda, dev, tcase, st, cfg, errs,
@@ -6177,15 +6172,17 @@ def main():
                            *sizes["dyn"], errs, gpu_line)
         tj_case, tj_launches, tj = phase_tjunction(torch, dev, os.path.join(tmp, "tj"),
                                                    args.rehearse, gpu_line)
-        tcase, tflow, tst, tcfg, tstep = tjunction_after_step1(torch, dev, tj_case)
+        trun = tjunction_after_step1(torch, dev, tj_case)
+        tcase, tflow, tst, tcfg = trun.case, trun.flow, trun.state, trun.cfg
         times.update(phase_tjunction_cycle(torch, fused, fused_cuda, dev, tcase, tst, tcfg, errs,
                                            counts, rares, gpu_line))
         split = phase_pimple_split(torch, dev, tcase, tflow, gpu_line)
         amg_times["tj"] = phase_amg(torch, dev, traffic, "TJunction", split, errs, "PIMPLE step",
                                     gpu_line, parent_amg)
         del split
-        phase_tjunction_trace(torch, dev, tcase, tflow, tst, tcfg, tstep, tmp, gpu_line)
+        phase_tjunction_trace(torch, dev, trun, tmp, gpu_line)
         del tflow, tst
+        trun.flow = trun.state = trun.probes = trun.scalar = None
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         # phase 13, the domain-decomposed flow solve and the Allrun-parallel
@@ -6197,9 +6194,9 @@ def main():
         tjp_launches, _ = phase_tj_parallel_cli(torch, dev, tj_case, tmp, args.rehearse,
                                                 gpu_line)
         t13.append(time.perf_counter())
-        times.update(phase_tj_parallel_fields(torch, fused, fused_cuda, dev, tcase, tcfg, errs,
+        times.update(phase_tj_parallel_fields(torch, fused, fused_cuda, dev, trun, errs,
                                               counts, rares, gpu_line))
-        del tcase
+        del tcase, trun
         t13.append(time.perf_counter())
         phase_dryrun(torch, dev, gpu_line)
         t13.append(time.perf_counter())

@@ -232,12 +232,15 @@ def load_case(case_dir: str, dtype=None, log=print, write_mesh: bool = False,
     )
 
 
-def init_particles(case: Case, log=print) -> statelib.ParticleState:
+def init_particles(case: Case, log=print, positions=None) -> statelib.ParticleState:
     """Seed + first locate + report (``initCuda.H:141-202``), on the case
-    mesh's device and dtype."""
+    mesh's device and dtype.  ``positions`` ([n, 3]), when given, are the
+    start positions in place of the dict's seeding."""
     p = case.particles
     dev, dt = case.tet_mesh.device, case.tet_mesh.dtype
-    if p.seeding_file:
+    if positions is not None:
+        st = statelib.make_state(positions, rng_seed=p.rng_seed, dtype=dt, device=dev)
+    elif p.seeding_file:
         st = statelib.seed_from_file(
             os.path.join(case.case_dir, p.seeding_file),
             n=p.num_particles, rng_seed=p.rng_seed, dtype=dt, device=dev,
@@ -254,7 +257,7 @@ def init_particles(case: Case, log=print) -> statelib.ParticleState:
     # decide the path from at most ONE scalar readback, never the full id
     # array; box seeding never carries tet ids, so it needs none here
     n = st.pos.shape[0]
-    if not p.seeding_file or not n:
+    if positions is not None or not p.seeding_file or not n:
         n_pre = 0
     else:
         n_pre = int((st.tet_id >= 0).sum())

@@ -62,7 +62,7 @@ def main():
     res, _ = chip_smoke.cli(["blockmesh", case])
     if res.returncode:
         sys.exit(f"blockmesh failed: {res.stderr[-2000:]}")
-    tcase, _ = coupled._load(case, None, quiet, dev)
+    tcase = coupled.CoupledRun(case, write_output=False, log=quiet, device=dev).case
     if dev.type == "cuda":
         print(os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader")
               .read().strip())
